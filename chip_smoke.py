@@ -2,30 +2,40 @@
 
     python3 chip_smoke.py [--sf 10] [--seed 42] [--out DIR]
 
-Drives the port's main path — TPC-H Q1/Q2/Q3/Q9 as SQL text through
-`starrocks_tpu_torch` `Session.sql`, with the hash-join and top-N kernels
-selected (`SET join_probe_strategy = 'pallas'`, `SET topn_strategy =
-'pallas'`) — and holds every hand-written CUDA kernel against its plain
-torch version. Phases, each of which must pass:
+Drives the port's paths through `starrocks_tpu_torch` `Session.sql` and
+holds every hand-written CUDA kernel against its plain torch version.
+Phases, each of which must pass:
 
 1. device: the card's name, count, and `nvidia-smi` name + power limit;
    fails without a CUDA device.
 2. build: compile every kernel source with nvcc (sm_90a), in parallel.
-3. main path: generate TPC-H at --sf (the data is the engine's "weights",
-   made from --seed), then run the four queries cold and warm, and Q2
-   again at SF 1, where its ORDER BY key packs for the top-N kernel (at
-   SF 10 it does not, in the reference too). Every kernel's launch count
-   is set to 0 just before and read just after; Q9 must launch hash_build
-   and hash_probe, Q2 at SF 1 topn_select. A traced warm run of each
-   query then reads the device's busy time from torch.profiler.
-4. kernels: each kernel on the card, at the shapes the main path gave it
-   and on edge cases (sentinels, INT64_MIN/MAX, heavy slot collisions,
-   all-equal top-N keys), against its plain version — exact, tolerance 0
-   — and timed with CUDA events beside its bound, its plain version and a
+3. tpch (the main path): generate TPC-H at --sf (the data is the engine's
+   "weights", made from --seed) and run all 22 TPC-H queries and the
+   statistical queries S1/S2 cold and warm under the kernel strategies
+   (`SET segment_strategy = 'pallas'`, `join_probe_strategy =
+   'pallas_sorted'`, `topn_strategy = 'pallas'`). Every kernel's launch
+   count is set to 0 just before and read just after; Q9 and Q20 must
+   launch probe_searchsorted, S1 and S2 segment_sum. The peak device
+   memory of the path is kept. Then the same queries under `auto`, in a
+   fresh session, for the times beside them. A traced warm run of each
+   query under both reads the device's busy time from torch.profiler.
+4. hash_topn (the first slice's path, counts set to 0 before it and read
+   after it): Q9 at --sf with the hash-join kernels (`join_probe_strategy
+   = 'pallas'`), and Q2 at SF 1, where its ORDER BY key packs for the
+   top-N kernel (at SF 10 it does not, in the reference too).
+5. kernels: each kernel on the card, at the shapes its path gave it and on
+   edge cases (sentinels, duplicates, INT64_MIN/MAX, heavy slot
+   collisions, all-equal top-N keys, dead rows, small blocks), against its
+   plain version — the integer kernels exactly, the f32 segment sum to a
+   relative 1e-6 (the two add inside a row block in different orders) —
+   and timed with CUDA events beside its bound, its plain version and a
    library yardstick.
-5. card vs CPU: the four queries at SF 0.1 on the card and on the CPU
-   (`device="cpu"`, plain kernel versions); rows must agree, in order:
-   exactly, except floats to 6 significant digits.
+6. card vs CPU: the 22 queries and S1/S2 at SF 0.1 on the card under the
+   kernel strategies, and Q1/Q2/Q3/Q9 under the hash kernels, against the
+   CPU (`device="cpu"`) under `auto`; rows must agree, in order: exactly,
+   except floats to 6 significant digits — and S1/S2's floats to a
+   relative 1e-4, since `pallas` sums their moments in f32 blocks (the
+   reference's contract) while `auto` sums in f64.
 
 The last lines of output are the `kernels` JSON line and then
 {"ok": true, "device": {...}}; the full record goes to DIR/chip_smoke.json.
@@ -42,59 +52,21 @@ import time
 import traceback
 from pathlib import Path
 
-QIDS = (1, 2, 3, 9)
+HASH_KNOBS = {"join_probe_strategy": "pallas", "topn_strategy": "pallas"}
+STAT_REL = 1e-4  # S1/S2 floats, f32 block sums vs f64 (see phase 6)
 
-# The port's own copy of the four TPC-H query texts (validation parameters)
-QUERIES = {
-    1: """
-select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty,
-  sum(l_extendedprice) as sum_base_price,
-  sum(l_extendedprice * (1 - l_discount)) as sum_disc_price,
-  sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) as sum_charge,
-  avg(l_quantity) as avg_qty, avg(l_extendedprice) as avg_price,
-  avg(l_discount) as avg_disc, count(*) as count_order
-from lineitem
-where l_shipdate <= date '1998-12-01' - interval '90' day
-group by l_returnflag, l_linestatus
-order by l_returnflag, l_linestatus
-""",
-    2: """
-select s_acctbal, s_name, n_name, p_partkey, p_mfgr, s_address, s_phone, s_comment
-from part, supplier, partsupp, nation, region
-where p_partkey = ps_partkey and s_suppkey = ps_suppkey and p_size = 15
-  and p_type like '%BRASS' and s_nationkey = n_nationkey and n_regionkey = r_regionkey
-  and r_name = 'EUROPE'
-  and ps_supplycost = (
-    select min(ps_supplycost) from partsupp, supplier, nation, region
-    where p_partkey = ps_partkey and s_suppkey = ps_suppkey
-      and s_nationkey = n_nationkey and n_regionkey = r_regionkey and r_name = 'EUROPE')
-order by s_acctbal desc, n_name, s_name, p_partkey
-limit 100
-""",
-    3: """
-select l_orderkey, sum(l_extendedprice * (1 - l_discount)) as revenue,
-  o_orderdate, o_shippriority
-from customer, orders, lineitem
-where c_mktsegment = 'BUILDING' and c_custkey = o_custkey and l_orderkey = o_orderkey
-  and o_orderdate < date '1995-03-15' and l_shipdate > date '1995-03-15'
-group by l_orderkey, o_orderdate, o_shippriority
-order by revenue desc, o_orderdate
-limit 10
-""",
-    9: """
-select nation, o_year, sum(amount) as sum_profit
-from (
-  select n_name as nation, extract(year from o_orderdate) as o_year,
-    l_extendedprice * (1 - l_discount) - ps_supplycost * l_quantity as amount
-  from part, supplier, lineitem, partsupp, orders, nation
-  where s_suppkey = l_suppkey and ps_suppkey = l_suppkey and ps_partkey = l_partkey
-    and p_partkey = l_partkey and o_orderkey = l_orderkey and s_nationkey = n_nationkey
-    and p_name like '%green%'
-) profit
-group by nation, o_year
-order by nation, o_year desc
-""",
-}
+
+def qname(q: str) -> str:
+    """"9" -> "Q9"; "S1" stays "S1"."""
+    return q if q.startswith("S") else f"Q{q}"
+
+
+def query_texts() -> dict:
+    """{"1": .., "22": .., "S1": .., "S2": ..} from the port's own copy."""
+    from starrocks_tpu_torch.storage.tpch_queries import QUERIES, STAT_QUERIES
+
+    return {**{str(q): t for q, t in QUERIES.items()}, **STAT_QUERIES}
+
 
 # H100 SXM published peaks (NVIDIA data sheet) used for the bounds: HBM3
 # bandwidth, and the non-tensor-core FP32 rate as the ceiling on scalar ALU
@@ -102,19 +74,24 @@ order by nation, o_year desc
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 
+# name: (source, the TPU kernel it replaces, the path that launches it)
 KERNEL_META = {
     "hash_build": ("starrocks_tpu_torch/csrc/hash_table.cu",
-                   "starrocks_tpu/ops/pallas_kernels.py:206"),
+                   "starrocks_tpu/ops/pallas_kernels.py:206", "hash_topn"),
     "hash_probe": ("starrocks_tpu_torch/csrc/hash_table.cu",
-                   "starrocks_tpu/ops/pallas_kernels.py:266"),
+                   "starrocks_tpu/ops/pallas_kernels.py:266", "hash_topn"),
     "topn_select": ("starrocks_tpu_torch/csrc/topn_select.cu",
-                    "starrocks_tpu/ops/pallas_kernels.py:112"),
+                    "starrocks_tpu/ops/pallas_kernels.py:112", "hash_topn"),
+    "probe_searchsorted": ("starrocks_tpu_torch/csrc/probe_searchsorted.cu",
+                           "starrocks_tpu/ops/pallas_kernels.py:316", "tpch"),
+    "segment_sum": ("starrocks_tpu_torch/csrc/segment_sum.cu",
+                    "starrocks_tpu/ops/pallas_kernels.py:60", "tpch"),
 }
 
 I64MAX = (1 << 63) - 1
 I64MIN = -(1 << 63)
 CARD = "cuda"  # the device every phase runs the port on
-TOPN_SF = 1.0  # Q2's top-N scale (see phase_main_path)
+TOPN_SF = 1.0  # Q2's top-N scale (see phase_hash_topn)
 CPU_SF = 0.1   # the card-vs-CPU phase's scale (the CPU runs it too)
 
 
@@ -145,18 +122,19 @@ def _norm_val(v):
     return str(v).split(" 00:00:00")[0]
 
 
-def _floats_agree(x: float, y: float) -> bool:
+def _floats_agree(x: float, y: float, rel: float = 1e-6) -> bool:
     """6 significant digits: bench._rows_match's %.6g rule, with a relative
-    1e-6 guard for values that straddle a rounding boundary."""
+    `rel` guard for values that straddle a rounding boundary."""
     if _norm_val(x) == _norm_val(y):
         return True
-    return abs(x - y) <= 1e-6 * max(abs(x), abs(y))
+    return abs(x - y) <= rel * max(abs(x), abs(y))
 
 
-def tables_agree(a, b) -> bool:
+def tables_agree(a, b, rel: float = 1e-6) -> bool:
     """Two result tables, in row order: same columns, types and NULLs;
-    DOUBLE/FLOAT values to 6 significant digits; everything else exact —
-    decimals as their scaled integers, dates as days, strings decoded."""
+    DOUBLE/FLOAT values to 6 significant digits (or a relative `rel`);
+    everything else exact — decimals as their scaled integers, dates as
+    days, strings decoded."""
     import numpy as np
 
     if [f.name for f in a.schema] != [f.name for f in b.schema]:
@@ -176,7 +154,7 @@ def tables_agree(a, b) -> bool:
         if fa.type.is_string:
             xa, xb = fa.dict.decode(xa), fb.dict.decode(xb)
         if fa.type.is_float:
-            if not all(_floats_agree(float(x), float(y))
+            if not all(_floats_agree(float(x), float(y), rel)
                        for x, y in zip(xa, xb)):
                 return False
         elif not (np.asarray(xa) == np.asarray(xb)).all():
@@ -255,17 +233,32 @@ def _snapshot(kernels):
     return {n: c["launches"] for n, c in kernels.counts().items()}
 
 
-def _run_queries(s, label, qids, out, shapes, kernels):
+def set_knobs(knobs: dict):
+    from starrocks_tpu_torch.runtime.config import config
+
+    for k, v in knobs.items():
+        config.set(k, v)
+
+
+def strategies(name: str) -> dict:
+    """The knob values of the "kernels" or the "auto" strategy set."""
+    from starrocks_tpu_torch.runtime import config
+
+    return {"kernels": config.KERNEL_STRATEGIES,
+            "auto": config.AUTO_STRATEGIES}[name]
+
+
+def _run_queries(s, label, texts, out, shapes, kernels):
     """Cold then warm run of each query; per-run wall time, rows, kernel
     launches (delta of the counters) and executor step times."""
     import torch
 
     for run in ("cold", "warm"):
-        for q in qids:
+        for q, text in texts.items():
             before = _snapshot(kernels)
             torch.cuda.synchronize()
             t = time.perf_counter()
-            res = s.sql(QUERIES[q])
+            res = s.sql(text)
             got = res.rows()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
@@ -275,8 +268,9 @@ def _run_queries(s, label, qids, out, shapes, kernels):
                 if delta[n] and w.last_shape is not None:
                     shapes[n].append(w.last_shape)
             prof = res.profile
-            out.setdefault(f"Q{q}@{label}", {})[run] = {
-                "wall_s": wall, "rows": len(got), "launches": delta,
+            out.setdefault(f"{qname(q)}@{label}", {})[run] = {
+                "wall_s": wall, "rows": len(got),
+                "launches": {n: v for n, v in delta.items() if v},
                 "recompiles": prof.get("recompiles"),
                 "attempts": len(prof.get("attempts", ())),
                 # host clock per executor step (scan = host->device column
@@ -288,69 +282,112 @@ def _run_queries(s, label, qids, out, shapes, kernels):
                 "fetch_s": prof.get("fetch_s"),
                 "head": [[str(v) for v in r] for r in got[:3]],
             }
-            log(f"  Q{q}@{label} {run}: {wall * 1e3:.1f} ms, {len(got)} rows, "
-                f"launches {delta}, recompiles {prof.get('recompiles')}")
-            if not got:
-                raise PhaseError(f"Q{q} returned no rows")
+            log(f"  {qname(q)}@{label} {run}: {wall * 1e3:.1f} ms, "
+                f"{len(got)} rows, "
+                f"launches {out[f'{qname(q)}@{label}'][run]['launches']}, "
+                f"recompiles {prof.get('recompiles')}")
 
 
-def phase_main_path(rec, sf, seed):
-    """TPC-H Q1/Q2/Q3/Q9 at `sf`, then Q2 at TOPN_SF.
+def _launched(queries, key, kernel) -> int:
+    return queries[key]["cold"]["launches"].get(kernel, 0)
 
-    Q2 reaches the top-N kernel only where its ORDER BY key (s_acctbal,
-    n_name, s_name, p_partkey) packs into 62 bits: 58 bits at SF 1, 64 at
-    SF 10, where the reference and the port both take the lexsort. So the
-    main path also runs Q2 at TOPN_SF, the scale the reference's top-N
-    kernel serves; launches are counted over both catalogs."""
+
+def phase_tpch(rec, cat, sf):
+    """The 22 TPC-H queries and S1/S2 at `sf`: under the kernel strategies
+    (the main path: launch counts from 0, peak memory), then under `auto`
+    in a fresh session; a traced warm run of each under both."""
+    import torch
+
+    from starrocks_tpu_torch.ops import kernels
+    from starrocks_tpu_torch.runtime.session import Session
+
+    texts = query_texts()
+    label = f"SF{sf:g}"
+    out = {"sf": sf}
+    for name in ("kernels", "auto"):
+        knobs = strategies(name)
+        s = Session(cat, device=CARD)
+        set_knobs(knobs)
+        shapes = {n: [] for n in kernels.WRAPPERS}
+        queries: dict = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        _run_queries(s, label, texts, queries, shapes, kernels)
+        total = _snapshot(kernels)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"tpch under {name}: launches {total}, peak device memory "
+            f"{peak:.2f} GB")
+        out[name] = {"knobs": knobs, "queries": queries, "launches": total,
+                     "shapes": {n: sorted(set(v)) for n, v in shapes.items()},
+                     "peak_mem_gb": peak}
+        out[name]["trace"] = trace_queries(s, texts)
+        del s
+        torch.cuda.empty_cache()
+    # the main path's counts and shapes
+    out["launches"] = out["kernels"]["launches"]
+    out["shapes"] = out["kernels"]["shapes"]
+    rec["tpch"] = out
+    main = out["kernels"]["queries"]
+    for q, kern in (("9", "probe_searchsorted"), ("20", "probe_searchsorted"),
+                    ("S1", "segment_sum"), ("S2", "segment_sum")):
+        if _launched(main, f"{qname(q)}@{label}", kern) < 1:
+            raise PhaseError(f"{qname(q)} did not launch {kern}")
+    empty = [q for q in ("1", "9", "20", "S1", "S2")
+             if main[f"{qname(q)}@{label}"]["cold"]["rows"] == 0]
+    if empty:
+        raise PhaseError(f"queries returned no rows: {empty}")
+    for q in texts:
+        key = f"{qname(q)}@{label}"
+        if (main[key]["warm"]["rows"]
+                != out["auto"]["queries"][key]["warm"]["rows"]):
+            raise PhaseError(f"{key}: row counts differ between strategies")
+
+
+def phase_hash_topn(rec, cat, sf, seed):
+    """The first slice's path: Q9 at `sf` with the hash-join kernels, then
+    Q2 at TOPN_SF. Q2 reaches the top-N kernel only where its ORDER BY key
+    (s_acctbal, n_name, s_name, p_partkey) packs into 62 bits: 58 bits at
+    SF 1, 64 at SF 10, where the reference and the port both take the
+    lexsort. Launches are counted over both catalogs."""
     import torch
 
     from starrocks_tpu_torch.ops import kernels
     from starrocks_tpu_torch.runtime.session import Session
     from starrocks_tpu_torch.storage.catalog import tpch_catalog
 
-    t0 = time.perf_counter()
-    cat = tpch_catalog(sf=sf, seed=seed)
-    gen_s = time.perf_counter() - t0
-    rows = {n: h.row_count for n, h in cat.tables.items()}
-    log(f"main path: TPC-H SF {sf} generated in {gen_s:.1f} s: {rows}")
+    texts = query_texts()
     t0 = time.perf_counter()
     small = tpch_catalog(sf=TOPN_SF, seed=seed)
     gen_small_s = time.perf_counter() - t0
     s = Session(cat, device=CARD)
     s2 = Session(small, device=CARD)
-    s.sql("SET join_probe_strategy = 'pallas'")
-    s.sql("SET topn_strategy = 'pallas'")
+    set_knobs(HASH_KNOBS)
     shapes = {n: [] for n in kernels.WRAPPERS}
     queries: dict = {}
-    out = {"sf": sf, "gen_s": gen_s, "topn_sf": TOPN_SF,
-           "gen_topn_sf_s": gen_small_s, "queries": queries}
-    torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
-    _run_queries(s, f"SF{sf:g}", QIDS, queries, shapes, kernels)
-    _run_queries(s2, f"SF{TOPN_SF:g}", (2,), queries, shapes, kernels)
+    _run_queries(s, f"SF{sf:g}", {"9": texts["9"]}, queries, shapes, kernels)
+    _run_queries(s2, f"SF{TOPN_SF:g}", {"2": texts["2"]}, queries, shapes,
+                 kernels)
     total = _snapshot(kernels)
-    log(f"main path launches: {total}")
-    out["launches"] = total
-    out["shapes"] = {n: sorted(set(v)) for n, v in shapes.items()}
-    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    rec["main_path"] = out
+    log(f"hash_topn launches: {total}")
+    rec["hash_topn"] = {"sf": sf, "topn_sf": TOPN_SF,
+                        "gen_topn_sf_s": gen_small_s, "queries": queries,
+                        "launches": total,
+                        "shapes": {n: sorted(set(v)) for n, v in shapes.items()}}
     # the kernel routes, required of the cold runs (a warm run may plan a
     # tighter capacity: the reference's post-success tightening can leave
     # Q2's sort one top-N block wide, and then it takes the plain sort)
     q9 = queries[f"Q9@SF{sf:g}"]["cold"]["launches"]
-    if q9["hash_build"] < 1 or q9["hash_probe"] < 1:
+    if q9.get("hash_build", 0) < 1 or q9.get("hash_probe", 0) < 1:
         raise PhaseError("Q9 did not launch the hash kernels")
-    if queries[f"Q2@SF{TOPN_SF:g}"]["cold"]["launches"]["topn_select"] < 1:
+    if _launched(queries, f"Q2@SF{TOPN_SF:g}", "topn_select") < 1:
         raise PhaseError("Q2 did not launch the top-N kernel")
-    missing = [n for n, v in total.items() if v < 1]
-    if missing:
-        raise PhaseError(f"kernels never launched on the main path: {missing}")
-    out["trace"] = trace_queries(s)
-    del s, s2, cat, small
+    del s, s2, small
     torch.cuda.empty_cache()
 
 
-def trace_queries(s) -> dict:
+def trace_queries(s, texts) -> dict:
     """One more warm run of each query under torch.profiler: the device's
     busy time (sum of kernel durations on the card), its idle share of the
     traced wall time, and the kernels that took the most device time. The
@@ -361,12 +398,12 @@ def trace_queries(s) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     res = {}
-    for q in QIDS:
+    for q, text in texts.items():
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
-            s.sql(QUERIES[q]).rows()
+            s.sql(text).rows()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -375,17 +412,17 @@ def trace_queries(s) -> dict:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
         busy = sum(by_name.values()) / 1e6
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        res[str(q)] = {
+        res[q] = {
             "traced_wall_s": wall, "device_kernels": len(kern),
             "device_busy_s": busy if kern else None,
             "idle_share": (1 - busy / wall) if kern else None,
             "top": [[n[:80], us / 1e3] for n, us in top],
         }
-        log(f"  trace Q{q}: traced wall {wall * 1e3:.1f} ms, "
+        log(f"  trace {qname(q)}: traced wall {wall * 1e3:.1f} ms, "
             f"{len(kern)} device kernels, busy "
             + (f"{busy * 1e3:.1f} ms, idle share {1 - busy / wall:.3f}"
                if kern else "not measured (no device events)"))
-        for n, us in top[:3]:
+        for n, us in top[:2]:
             log(f"      {us / 1e3:8.2f} ms  {n[:90]}")
     return res
 
@@ -476,13 +513,19 @@ def phase_kernels(rec, seed):
     from starrocks_tpu_torch.ops import kernels
 
     dev = torch.device(CARD)
-    mp = rec.get("main_path") or {}
-    shapes = mp.get("shapes") or {}
-    build_shape = max(shapes.get("hash_build") or [(8_000_512, 1 << 24)])
-    probe_shape = max(shapes.get("hash_probe") or [(1 << 24, 9_000_448)])
-    topn_shape = max(shapes.get("topn_select") or [(16_384, 1024)])
+    shapes = {n: [] for n in kernels.WRAPPERS}
+    for path in ("hash_topn", "tpch"):
+        for n, v in (rec.get(path) or {}).get("shapes", {}).items():
+            shapes[n] += [tuple(x) for x in v]
+    build_shape = max(shapes["hash_build"] or [(8_000_512, 1 << 24)])
+    probe_shape = max(shapes["hash_probe"] or [(1 << 24, 9_000_448)])
+    topn_shape = max(shapes["topn_select"] or [(16_384, 1024)])
+    sorted_shape = max(shapes["probe_searchsorted"] or [(8_000_512, 9_000_448)],
+                       key=lambda kn: kn[0] * kn[1])
+    segsum_shape = max(shapes["segment_sum"] or [(60_006_400, 1, 1024, 1024)])
     log(f"kernels: shapes build {build_shape} probe {probe_shape} "
-        f"topn {topn_shape}")
+        f"topn {topn_shape} sorted probe {sorted_shape} segment sum "
+        f"{segsum_shape}")
     results = {}
     failures = []
 
@@ -577,6 +620,11 @@ def phase_kernels(rec, seed):
                                       "library_ms": lib, "bound_ms": tb[0],
                                       "bound_by": tb[1], "shape": [n, kk]}
     results["topn_select"]["max_abs_err"] = err_topn
+
+    results["probe_searchsorted"] = _check_probe_searchsorted(
+        dev, sorted_shape, seed, failures)
+    results["segment_sum"] = _check_segment_sum(dev, segsum_shape, seed,
+                                                failures)
     for nm, r in results.items():
         log(f"  {nm}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']}), plain {r['plain_ms']:.4f} ms, library "
@@ -586,29 +634,177 @@ def phase_kernels(rec, seed):
         raise PhaseError(f"kernel/plain mismatches: {failures}")
 
 
+def _probe_cases(dev, shape, seed):
+    """(name, sorted build [K], probe [N]) on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    k, n = shape
+    # the main path's shape: unique packed keys with a sentinel (NULL/dead)
+    # tail, sorted; probes hit ~90% and miss the rest, a few dead
+    live = int(k * 0.9995)
+    build = np.full(k, I64MAX, np.int64)
+    build[:live] = np.sort((rng.permutation(live).astype(np.int64) << 20)
+                           | rng.integers(0, 1 << 20, live))
+    hits = build[rng.integers(0, live, n)]
+    probe = np.where(rng.random(n) < 0.9, hits, rng.integers(0, 1 << 60, n))
+    probe[rng.random(n) < 0.01] = I64MAX
+    cases = [("main_path_shape", build, probe)]
+    dup = np.sort(rng.integers(-50, 50, 5000))
+    cases.append(("duplicates_sentinels",
+                  np.concatenate([dup, np.full(300, I64MAX)]),
+                  rng.integers(-60, 60, 10_001)))
+    cases.append(("k1", np.array([7]), np.array([6, 7, 8, I64MIN, I64MAX])))
+    cases.append(("k0", np.zeros(0, np.int64), np.array([1, 2, 3])))
+    ext = np.sort(np.array([I64MIN, I64MIN, -1, 0, 0, 1, I64MAX - 1, I64MAX,
+                            I64MAX]))
+    cases.append(("int64_extremes", ext,
+                  np.array([I64MIN, I64MIN + 1, -2, -1, 0, 1, 2, I64MAX - 1,
+                            I64MAX] * 333)))
+    return [(nm, torch.from_numpy(np.ascontiguousarray(b, np.int64)).to(dev),
+             torch.from_numpy(np.ascontiguousarray(p, np.int64)).to(dev))
+            for nm, b, p in cases]
+
+
+def _check_probe_searchsorted(dev, shape, seed, failures) -> dict:
+    import torch
+
+    from starrocks_tpu_torch.ops import kernels
+
+    res = {"max_abs_err": 0}
+    for name, build, probe in _probe_cases(dev, shape, seed):
+        got = kernels.probe_searchsorted(build, probe)
+        torch.cuda.synchronize()
+        want = kernels.probe_searchsorted_plain(build, probe)
+        lib = torch.searchsorted(build, probe, out_int32=True)
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        same = bool(torch.equal(got, want)) and bool(torch.equal(got, lib))
+        log(f"  probe_searchsorted {name}: K={build.shape[0]} "
+            f"N={probe.shape[0]} equal to plain and library {same}, "
+            f"err {err}")
+        if not same:
+            failures.append(f"probe_searchsorted {name}")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        if name == "main_path_shape":
+            k, n = build.shape[0], probe.shape[0]
+            iters = max(k, 1).bit_length()
+            # bytes: build once, probe keys in, int32 positions out; ops:
+            # per probe and search step a load, a compare and an update
+            b = bound_ms(k * 8 + n * 8 + n * 4, n * iters * 3)
+            res.update({
+                "ms": cuda_ms(lambda: kernels.probe_searchsorted(build, probe)),
+                "plain_ms": cuda_ms(
+                    lambda: kernels.probe_searchsorted_plain(build, probe),
+                    reps=2),
+                "library_ms": cuda_ms(lambda: torch.searchsorted(
+                    build, probe, out_int32=True)),
+                "bound_ms": b[0], "bound_by": b[1], "shape": [k, n]})
+    return res
+
+
+def _segment_cases(dev, shape, seed):
+    """(name, gid [N] int32, vals [N, M] f32, G, block) on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n, m, g, block = shape
+    # the main path's shape: S1's l_returnflag groups (3 live codes), the
+    # capacity's padding rows dead (id G), discount-like values in [0, 0.1]
+    live = int(n * 0.9999)
+    gid = np.full(n, g, np.int32)
+    gid[:live] = rng.integers(0, 3, live)
+    vals = (rng.integers(0, 11, (n, m)) / 100.0).astype(np.float32)
+    cases = [("main_path_shape", gid, vals, g, block)]
+    gid8 = rng.integers(0, 9, 8192).astype(np.int32)
+    cases.append(("g8_m4_block2048", gid8,
+                  (rng.random((8192, 4)) * 100).astype(np.float32), 8, 2048))
+    cases.append(("g8_m4_block8", gid8,
+                  (rng.standard_normal((8192, 4)) * 1e3).astype(np.float32),
+                  8, 8))
+    g1k = rng.integers(0, 1025, 60_416).astype(np.int32)
+    cases.append(("g1024_m1_block1024", g1k,
+                  (rng.random((60_416, 1)) * 50).astype(np.float32), 1024,
+                  1024))
+    dead = np.full(4096, 5, np.int32)
+    dead[:7] = rng.integers(0, 5, 7)
+    cases.append(("mostly_dead_rows", dead,
+                  rng.random((4096, 2)).astype(np.float32), 5, 512))
+    return [(nm, torch.from_numpy(ids).to(dev), torch.from_numpy(v).to(dev),
+             groups, bl) for nm, ids, v, groups, bl in cases]
+
+
+def _check_segment_sum(dev, shape, seed, failures) -> dict:
+    import torch
+
+    from starrocks_tpu_torch.ops import kernels
+
+    res = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    for name, gid, vals, g, block in _segment_cases(dev, shape, seed):
+        got = kernels.segment_sum(gid, vals, g, block)
+        torch.cuda.synchronize()
+        want = kernels.segment_sum_plain(gid, vals, g, block)
+        diff = (got.double() - want.double()).abs()
+        abs_err = float(diff.max())
+        rel_err = float((diff / want.double().abs().clamp(min=1e-30)).max())
+        log(f"  segment_sum {name}: N={gid.shape[0]} M={vals.shape[1]} G={g} "
+            f"block={block} abs err {abs_err:.3g} rel err {rel_err:.3g}")
+        if not rel_err <= 1e-6:
+            failures.append(f"segment_sum {name}")
+        res["max_abs_err"] = max(res["max_abs_err"], abs_err)
+        res["max_rel_err"] = max(res["max_rel_err"], rel_err)
+        if name == "main_path_shape":
+            n, m = vals.shape
+            # bytes: group ids and values in once, [G, M] sums out; ops:
+            # one add per value
+            b = bound_ms(n * 4 + n * m * 4 + g * m * 4, n * m)
+
+            def library():
+                acc = torch.zeros((g + 1, m), dtype=torch.float32, device=dev)
+                return acc.index_add_(0, gid, vals)
+
+            res.update({
+                "ms": cuda_ms(lambda: kernels.segment_sum(gid, vals, g, block)),
+                "plain_ms": cuda_ms(
+                    lambda: kernels.segment_sum_plain(gid, vals, g, block),
+                    reps=2),
+                "library_ms": cuda_ms(library),
+                "bound_ms": b[0], "bound_by": b[1],
+                "shape": [n, m, g, block]})
+    return res
+
+
 def phase_card_vs_cpu(rec, sf, seed):
     import torch
 
     from starrocks_tpu_torch.runtime.session import Session
     from starrocks_tpu_torch.storage.catalog import tpch_catalog
 
+    texts = query_texts()
     cat = tpch_catalog(sf=sf, seed=seed)
     card = Session(cat, device=CARD)
     cpu = Session(cat, device="cpu")
-    card.sql("SET join_probe_strategy = 'pallas'")
-    card.sql("SET topn_strategy = 'pallas'")
+    runs = [("kernels", strategies("kernels"), q) for q in texts]
+    runs += [("hash_topn", HASH_KNOBS, q) for q in ("1", "2", "3", "9")]
+    want = {}
     bad = []
     out = {}
-    for q in QIDS:
-        got = card.sql(QUERIES[q]).table
+    for label, knobs, q in runs:
+        if q not in want:
+            set_knobs(strategies("auto"))
+            want[q] = cpu.sql(texts[q]).table
+        set_knobs(knobs)
+        got = card.sql(texts[q]).table
         torch.cuda.synchronize()
-        want = cpu.sql(QUERIES[q]).table
-        ok = got.num_rows > 0 and tables_agree(got, want)
-        out[str(q)] = {"rows": got.num_rows, "agree": ok}
-        log(f"  card vs cpu SF {sf} Q{q}: {got.num_rows} rows, "
-            f"agree {ok}")
+        rel = STAT_REL if q.startswith("S") else 1e-6
+        ok = tables_agree(got, want[q], rel=rel)
+        out[f"{q}@{label}"] = {"rows": got.num_rows, "agree": ok}
+        log(f"  card ({label}) vs cpu (auto) SF {sf} {qname(q)}: {got.num_rows} "
+            f"rows, agree {ok}")
         if not ok:
-            bad.append(q)
+            bad.append(f"{q}@{label}")
+    set_knobs(strategies("auto"))
     rec["card_vs_cpu"] = {"sf": sf, "queries": out}
     if bad:
         raise PhaseError(f"card and CPU rows differ for {bad}")
@@ -630,15 +826,29 @@ def main(argv=None) -> int:
         return 2
     import starrocks_tpu_torch  # noqa: F401  (fails outside the repo)
     from starrocks_tpu_torch.ops import kernels
-    from starrocks_tpu_torch.runtime.config import config
+    from starrocks_tpu_torch.storage.catalog import tpch_catalog
 
     rec = {"args": vars(args), "phases": {}}
     t_start = time.perf_counter()
     failed = []
+    data = {}
+
+    def generate():
+        t0 = time.perf_counter()
+        data["cat"] = tpch_catalog(sf=args.sf, seed=args.seed)
+        dt = time.perf_counter() - t0
+        rows = {n: h.row_count for n, h in data["cat"].tables.items()}
+        log(f"TPC-H SF {args.sf:g} generated in {dt:.1f} s: {rows}")
+        rec["data"] = {"sf": args.sf, "seed": args.seed, "gen_s": dt,
+                       "rows": rows}
+
     phases = [
         ("device", lambda: phase_device(rec)),
         ("build", lambda: phase_build(rec)),
-        ("main_path", lambda: phase_main_path(rec, args.sf, args.seed)),
+        ("generate", generate),
+        ("tpch", lambda: phase_tpch(rec, data["cat"], args.sf)),
+        ("hash_topn", lambda: phase_hash_topn(rec, data["cat"], args.sf,
+                                              args.seed)),
         ("kernels", lambda: phase_kernels(rec, args.seed)),
         ("card_vs_cpu", lambda: phase_card_vs_cpu(rec, CPU_SF, args.seed)),
     ]
@@ -653,13 +863,13 @@ def main(argv=None) -> int:
             status = f"FAILED: {type(e).__name__}: {e}"
             failed.append(name)
         finally:
-            config.set("join_probe_strategy", "auto")
-            config.set("topn_strategy", "auto")
+            set_knobs(strategies("auto"))
         dt = time.perf_counter() - t0
         rec["phases"][name] = {"status": status, "s": dt}
         log(f"== phase {name}: {status} ({dt:.1f} s)")
-        if name == "device" and failed:
+        if name in ("device", "generate") and failed:
             break
+    data.clear()
     rec["total_s"] = time.perf_counter() - t_start
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -667,13 +877,12 @@ def main(argv=None) -> int:
     if failed:
         log(f"chip_smoke FAILED phases: {failed}")
         return 1
-    launches = rec["main_path"]["launches"]
     line = []
-    for name, (source, replaces) in KERNEL_META.items():
+    for name, (source, replaces, path) in KERNEL_META.items():
         r = rec["kernels"][name]
         line.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": rec[path]["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -13,14 +13,16 @@ Evaluation value: EVal(data, valid, type, dict, bounds)
 - type: LogicalType
 - dict: StringDict | None for VARCHAR values
 
-The port covers what TPC-H Q1/Q2/Q3/Q9 need: columns, literals (dates
-included), scaled-decimal add/subtract/multiply, comparisons (dictionary
-codes for strings), AND/OR/NOT with 3-valued NULLs, LIKE as a dictionary
-LUT, extract(year), date +/- interval days, and CAST between numeric and
-temporal types. Anything else raises: the parser builds a registry call
-only for names registered in `_FUNCTIONS`, the compiler raises KeyError
-for any other call, and NotImplementedError for CASE, IN lists,
-DECIMAL(>18) and string casts.
+The port covers what the 22 TPC-H queries need: columns, literals (dates
+included), scaled-decimal add/subtract/multiply, DOUBLE division (x/0 is
+NULL), comparisons (dictionary codes for strings), AND/OR/NOT with
+3-valued NULLs, searched CASE, IN lists, LIKE / NOT LIKE and substr as
+dictionary LUTs and remaps, extract(year), date +/- interval days and
+months, and CAST between numeric and temporal types. Anything else raises:
+the parser builds a registry call only for names registered in
+`_FUNCTIONS`, the compiler raises KeyError for any other call, and
+NotImplementedError for DECIMAL(>18), string-valued CASE and string
+casts.
 """
 
 from __future__ import annotations
@@ -239,6 +241,10 @@ class ExprCompiler:
             return EVal(hv, None, lt)
         if isinstance(e, Cast):
             return self._cast(self.eval(e.arg), e.to)
+        if isinstance(e, Case):
+            return self._case(e)
+        if isinstance(e, InList):
+            return self._in_list(e)
         if isinstance(e, Call):
             fn = _FUNCTIONS.get(e.fn)
             if fn is None:
@@ -248,9 +254,6 @@ class ExprCompiler:
             return e  # pre-evaluated argument (cc.call composition)
         if isinstance(e, AggExpr):
             raise TypeError("aggregate expression in scalar context")
-        if isinstance(e, (Case, InList)):
-            raise NotImplementedError(
-                f"{type(e).__name__} expressions are not in the port yet")
         raise TypeError(f"cannot evaluate {e!r}")
 
     def call(self, name: str, *vals):
@@ -281,6 +284,79 @@ class ExprCompiler:
             raise NotImplementedError("x->string casts not supported on device")
         # DATE<->DATETIME conversion is handled inside _to_numeric
         return EVal(_to_numeric(v, to, self.device), v.valid, to)
+
+    # --- CASE ---------------------------------------------------------------
+    def _case(self, e: Case) -> EVal:
+        branches = [(self.eval(c), self.eval(v)) for c, v in e.whens]
+        orelse = self.eval(e.orelse) if e.orelse is not None else None
+        # result type = common type of all branch values
+        vals = [bv for _, bv in branches] + ([orelse] if orelse else [])
+        out_t = vals[0].type
+        for v in vals[1:]:
+            out_t = _common_valued(out_t, v.type)
+        if out_t.is_string:
+            raise NotImplementedError(
+                "string-valued CASE is not in the port yet")
+        cap, dev = self.chunk.capacity, self.device
+        if orelse is not None:
+            acc = _to_numeric(orelse, out_t, dev).expand(cap)
+            acc_valid = (torch.ones((cap,), dtype=torch.bool, device=dev)
+                         if orelse.valid is None else orelse.valid)
+        else:
+            acc = torch.zeros((cap,), dtype=out_t.dtype, device=dev)
+            acc_valid = torch.zeros((cap,), dtype=torch.bool, device=dev)
+        # apply WHENs last-to-first so the first true condition wins
+        for cond, val in reversed(branches):
+            c = as_tensor(cond.data, torch.bool, dev).expand(cap)
+            if cond.valid is not None:
+                c = c & cond.valid
+            acc = torch.where(c, _to_numeric(val, out_t, dev).expand(cap), acc)
+            bv = (torch.ones((cap,), dtype=torch.bool, device=dev)
+                  if val.valid is None else val.valid.expand(cap))
+            acc_valid = torch.where(c, bv, acc_valid)
+        return EVal(acc, acc_valid, out_t)
+
+    # --- IN list ------------------------------------------------------------
+    def _in_list(self, e: InList) -> EVal:
+        v = self.eval(e.arg)
+        _no_dec128(v)
+        cap, dev = self.chunk.capacity, self.device
+        has_null = any(x is None for x in e.values)
+        values = [x for x in e.values if x is not None]
+        if v.type.is_string:
+            if v.dict is None:
+                raise TypeError("IN over strings needs a dict column")
+            codes = {v.dict.encode_one(str(x)) for x in values}
+            codes.discard(-1)
+            if not codes:
+                m = torch.zeros((cap,), dtype=torch.bool, device=dev)
+            else:
+                lut = np.zeros((max(len(v.dict), 1),), dtype=np.bool_)
+                lut[sorted(codes)] = True
+                m = torch.from_numpy(lut).to(dev)[
+                    as_tensor(v.data, torch.int64, dev).clamp(0, len(lut) - 1)]
+        else:
+            m = torch.zeros((cap,), dtype=torch.bool, device=dev)
+            d = as_tensor(v.data, v.type.dtype, dev).expand(cap)
+            for x in values:
+                hv, _ = _infer_lit(x, v.type if not v.type.is_float else None)
+                m = m | (d == as_tensor(hv, v.type.dtype, dev))
+        # SQL: 'x IN (a, NULL)' is TRUE on match, NULL otherwise (never FALSE);
+        # NOT IN flips the value, validity is unchanged.
+        valid = v.valid
+        if has_null:
+            valid = m if valid is None else (valid & m)
+        return EVal(~m if e.negated else m, valid, T.BOOLEAN)
+
+
+def _common_valued(a: T.LogicalType, b: T.LogicalType) -> T.LogicalType:
+    if a.kind is T.TypeKind.NULL:
+        return b
+    if b.kind is T.TypeKind.NULL:
+        return a
+    if a == b:
+        return a
+    return T.common_numeric_type(a, b)
 
 
 # --- function registry ------------------------------------------------------
@@ -336,6 +412,16 @@ def _f_mul(cc, a, b):
         return EVal(da * db, _and_valid(a.valid, b.valid), T.DECIMAL(18, out_s))
     da, db = _to_numeric(a, ct, cc.device), _to_numeric(b, ct, cc.device)
     return EVal(da * db, _and_valid(a.valid, b.valid), ct)
+
+
+@function("divide")
+def _f_div(cc, a, b):
+    # SQL semantics: x/0 -> NULL. Result computed in DOUBLE.
+    da = _to_numeric(a, T.DOUBLE, cc.device)
+    db = _to_numeric(b, T.DOUBLE, cc.device)
+    zero = db == 0.0
+    d = da / torch.where(zero, 1.0, db)
+    return EVal(d, _and_valid(a.valid, b.valid, ~zero), T.DOUBLE)
 
 
 _FLIPPED = {
@@ -482,6 +568,26 @@ def _f_not(cc, a):
     return EVal(~as_tensor(a.data, torch.bool, cc.device), a.valid, T.BOOLEAN)
 
 
+@function("coalesce")
+def _f_coalesce(cc, *args):
+    cap, dev = cc.chunk.capacity, cc.device
+    out = args[-1]
+    for v in reversed(args[:-1]):
+        if v.valid is None:
+            out = v
+            continue
+        ct = _common_valued(v.type, out.type)
+        if ct.is_string:
+            raise NotImplementedError(
+                "coalesce over strings is not in the port yet")
+        dv = _to_numeric(v, ct, dev).expand(cap)
+        do = _to_numeric(out, ct, dev).expand(cap)
+        ov = (torch.ones((cap,), dtype=torch.bool, device=dev)
+              if out.valid is None else out.valid)
+        out = EVal(torch.where(v.valid, dv, do), v.valid | ov, ct)
+    return out
+
+
 # --- dates ------------------------------------------------------------------
 # civil-from-days (Howard Hinnant's algorithm), vectorized over int32 days.
 # Integer `//` on torch tensors floors, as jnp's does.
@@ -549,6 +655,38 @@ def _f_date_add_days(cc, a, n):
     )
 
 
+def _days_from_civil(y, m, d):
+    yy = y.to(torch.int64) - (m <= 2).to(torch.int64)
+    era = torch.where(yy >= 0, yy, yy - 399) // 400
+    yoe = yy - era * 400
+    mp = torch.where(m > 2, m - 3, m + 9)
+    doy = (153 * mp + 2) // 5 + d - 1
+    doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
+    return (era * 146_097 + doe - 719_468).to(torch.int32)
+
+
+_DAYS_IN_MONTH = (31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31)
+
+
+@function("date_add_months")
+def _f_date_add_months(cc, a, n):
+    """date + n months; the day clamps to the target month's end (Jan 31 +
+    1 month = Feb 28, or Feb 29 in a leap year)."""
+    a = _lit_as_date_if_str(a)
+    dev = cc.device
+    y, m, d = _civil_from_days(_as_days(a, dev))
+    months = (y.to(torch.int64) * 12 + (m - 1)
+              + as_tensor(n.data, torch.int64, dev))
+    y2 = months // 12
+    m2 = months % 12 + 1
+    leap = ((y2 % 4 == 0) & ((y2 % 100 != 0) | (y2 % 400 == 0))).to(torch.int64)
+    dim = torch.tensor(_DAYS_IN_MONTH, dtype=torch.int64, device=dev)[m2 - 1]
+    dim = dim + torch.where(m2 == 2, leap, 0)
+    d2 = torch.minimum(d.to(torch.int64), dim)
+    return EVal(_days_from_civil(y2, m2, d2), _and_valid(a.valid, n.valid),
+                T.DATE)
+
+
 # --- strings (dict LUT machinery) -------------------------------------------
 
 
@@ -589,6 +727,48 @@ def _f_like(cc, a, pat):
         raise TypeError("LIKE pattern must be a literal")
     rx = re.compile(like_to_regex(pat.data), re.S)
     return _string_bool_fn(cc, a, lambda s: rx.match(str(s)) is not None)
+
+
+@function("not_like")
+def _f_not_like(cc, a, pat):
+    v = _f_like(cc, a, pat)
+    return EVal(~as_tensor(v.data, torch.bool, cc.device), v.valid, T.BOOLEAN)
+
+
+def _string_map_fn(cc, a: EVal, f) -> EVal:
+    """string->string function via a constant remap into a fresh dict."""
+    if a.dict is None and isinstance(a.data, str):
+        return EVal(str(f(a.data)), a.valid, T.VARCHAR)
+    if a.dict is None:
+        raise TypeError("string function needs a dict column")
+    mapped = [str(f(str(s))) for s in a.dict.values]
+    if mapped:
+        new_dict, codes = StringDict.from_strings(mapped)
+    else:
+        new_dict, codes = StringDict.from_values([]), np.zeros(1, np.int32)
+    remap = torch.from_numpy(codes).to(cc.device)
+    n = max(len(a.dict), 1)
+    out = remap[as_tensor(a.data, torch.int64, cc.device).clamp(0, n - 1)]
+    return EVal(out, a.valid, T.VARCHAR, new_dict)
+
+
+@function("substr")
+def _f_substr(cc, a, start, length=None):
+    st = int(start.data)
+    ln = None if length is None else int(length.data)
+
+    def sub(s: str) -> str:
+        # SQL semantics: 1-based; negative start counts from the end;
+        # start 0 or |start| > len(s) yields ''
+        if st == 0:
+            return ""
+        idx = st - 1 if st > 0 else len(s) + st
+        if idx < 0 or idx >= len(s):
+            return ""
+        end = len(s) if ln is None else idx + max(ln, 0)
+        return s[idx:end]
+
+    return _string_map_fn(cc, a, sub)
 
 
 

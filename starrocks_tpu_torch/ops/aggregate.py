@@ -12,9 +12,11 @@ executor can retry at a larger capacity. Two paths:
 - sort path: a stable sort on one packed key (or a lexsort when a key is
   unbounded), segment boundaries, segment reductions.
 
-The port covers COMPLETE mode with count / sum / min / max / avg, which is
-what the single-device plans of the slice emit; PARTIAL/FINAL two-phase
-aggregation and the variance, percentile, sketch and array aggregates raise.
+The port covers COMPLETE mode with count / sum / min / max / avg and the
+variance and covariance families (var_pop/var_samp/stddev_pop/stddev_samp,
+covar_pop/covar_samp/corr, summed as float64 moments), which is what the
+single-device plans emit; PARTIAL/FINAL two-phase aggregation and the
+percentile, sketch and array aggregates raise.
 """
 
 from __future__ import annotations
@@ -33,7 +35,19 @@ COMPLETE = "complete"
 PARTIAL = "partial"
 FINAL = "final"
 
-_SUPPORTED = {"count", "count_star", "sum", "min", "max", "avg"}
+# moment families: sums of powers / products of the float64 values
+_VAR_FNS = {"var_pop", "var_samp", "stddev_pop", "stddev_samp"}
+_COVAR_FNS = {"covar_pop", "covar_samp", "corr"}
+_SUPPORTED = {"count", "count_star", "sum", "min", "max", "avg"} | _VAR_FNS \
+    | _COVAR_FNS
+
+
+def _as_f64(a: EVal, device):
+    """Arg data as float64 (decimals unscale)."""
+    d = as_tensor(a.data, torch.float64, device)
+    if a.type.is_decimal:
+        return d / (10 ** a.type.scale)
+    return d
 
 
 def _sum_out_type(t: T.LogicalType) -> T.LogicalType:
@@ -164,6 +178,11 @@ def _lowcard_key_columns(infos, total: int, num_groups: int, device):
     return cols
 
 
+def _no_wide(a: EVal):
+    if a.type.is_wide:
+        raise NotImplementedError(f"{a.type!r} values are not in the port yet")
+
+
 def _to_rep(a: EVal, out_t: T.LogicalType, device):
     """Cast an arg EVal's data to the aggregation accumulator representation."""
     if a.type.is_decimal and out_t.is_decimal:
@@ -177,14 +196,15 @@ def _to_rep(a: EVal, out_t: T.LogicalType, device):
 
 
 def _emit_agg_columns(cc, aggs, mode, cap, live_rows, reorder, gid,
-                      num_groups):
+                      num_groups, indices_sorted):
     """Emit aggregate output columns — shared by the sort path (reorder
     permutes rows into group order) and the low-cardinality packed-gid path
     (reorder is identity). live_rows is the row-liveness mask AFTER reorder."""
     dev = cc.device
 
-    def _seg_sum(vals):
-        return seg_sum(vals, gid, num_groups)
+    def _seg_sum(vals, nbits=64):
+        return seg_sum(vals, gid, num_groups, sorted_gid=indices_sorted,
+                       nbits=nbits)
 
     def _full(x):
         return x.expand(cap) if x.ndim == 0 else x
@@ -196,13 +216,68 @@ def _emit_agg_columns(cc, aggs, mode, cap, live_rows, reorder, gid,
                 f"aggregate {agg.fn} ({mode}) is not in the port yet")
         if agg.fn == "count_star" or (agg.fn == "count" and agg.arg is None):
             out_fields.append(Field(name, T.BIGINT, False))
-            out_data.append(_seg_sum(live_rows))
+            out_data.append(_seg_sum(live_rows, nbits=1))
             out_valid.append(None)
             continue
 
+        if agg.fn in _VAR_FNS:
+            a = cc.eval(agg.arg)
+            _no_wide(a)
+            d = reorder(_full(_as_f64(a, dev)))
+            m = live_rows if a.valid is None else (
+                live_rows & reorder(_full(a.valid)))
+            gs1 = _seg_sum(torch.where(m, d, 0.0))
+            gs2 = _seg_sum(torch.where(m, d * d, 0.0))
+            gn = _seg_sum(m.to(torch.int64), nbits=1)
+            samp = agg.fn.endswith("_samp")
+            denom = torch.clamp(gn - (1 if samp else 0), min=1)
+            var = torch.clamp(
+                (gs2 - gs1 * gs1 / torch.clamp(gn, min=1)) / denom, min=0.0)
+            res = torch.sqrt(var) if agg.fn.startswith("stddev") else var
+            out_fields.append(Field(name, T.DOUBLE, True))
+            out_data.append(res)
+            out_valid.append(gn > (1 if samp else 0))
+            continue
+
+        if agg.fn in _COVAR_FNS:
+            ax = cc.eval(agg.arg)
+            ay = cc.eval(agg.extra[0])
+            _no_wide(ax)
+            _no_wide(ay)
+            dx = reorder(_full(_as_f64(ax, dev)))
+            dy = reorder(_full(_as_f64(ay, dev)))
+            m = live_rows
+            for v in (ax.valid, ay.valid):
+                if v is not None:
+                    m = m & reorder(_full(v))
+            gx = _seg_sum(torch.where(m, dx, 0.0))
+            gy = _seg_sum(torch.where(m, dy, 0.0))
+            gxy = _seg_sum(torch.where(m, dx * dy, 0.0))
+            gxx = _seg_sum(torch.where(m, dx * dx, 0.0))
+            gyy = _seg_sum(torch.where(m, dy * dy, 0.0))
+            gn = _seg_sum(m.to(torch.int64), nbits=1)
+            nf = torch.clamp(gn, min=1)
+            if agg.fn == "corr":
+                num = gn * gxy - gx * gy
+                den2 = (gn * gxx - gx * gx) * (gn * gyy - gy * gy)
+                den = torch.sqrt(torch.clamp(den2, min=0.0))
+                res = num / torch.where(den > 0, den, 1.0)
+                ok = (gn > 0) & (den > 0)
+            else:
+                cov = gxy - gx * gy / nf
+                if agg.fn == "covar_samp":
+                    res = cov / torch.clamp(gn - 1, min=1)
+                    ok = gn > 1
+                else:
+                    res = cov / nf
+                    ok = gn > 0
+            out_fields.append(Field(name, T.DOUBLE, True))
+            out_data.append(res)
+            out_valid.append(ok)
+            continue
+
         a = cc.eval(agg.arg)
-        if a.type.is_wide:
-            raise NotImplementedError(f"{a.type!r} values are not in the port yet")
+        _no_wide(a)
         m = live_rows if a.valid is None else (
             live_rows & reorder(_full(a.valid)))
 
@@ -210,7 +285,7 @@ def _emit_agg_columns(cc, aggs, mode, cap, live_rows, reorder, gid,
             sum_t = _sum_out_type(a.type)
             d = reorder(_full(_to_rep(a, sum_t, dev)))
             gsum = _seg_sum(torch.where(m, d, 0))
-            gcnt = _seg_sum(m.to(torch.int64))
+            gcnt = _seg_sum(m.to(torch.int64), nbits=1)
             denom = torch.clamp(gcnt, min=1)
             if sum_t.is_decimal:
                 res = gsum.to(torch.float64) / (10 ** sum_t.scale) / denom
@@ -221,13 +296,13 @@ def _emit_agg_columns(cc, aggs, mode, cap, live_rows, reorder, gid,
             out_valid.append(gcnt > 0)
         elif agg.fn == "count":
             out_fields.append(Field(name, T.BIGINT, False))
-            out_data.append(_seg_sum(m))
+            out_data.append(_seg_sum(m, nbits=1))
             out_valid.append(None)
         elif agg.fn == "sum":
             out_t = _sum_out_type(a.type)
             d = reorder(_full(_to_rep(a, out_t, dev)))
             res = _seg_sum(torch.where(m, d, 0))
-            nonempty = _seg_sum(m) > 0
+            nonempty = _seg_sum(m, nbits=1) > 0
             out_fields.append(Field(name, out_t, True))
             out_data.append(res)
             out_valid.append(nonempty)
@@ -238,8 +313,9 @@ def _emit_agg_columns(cc, aggs, mode, cap, live_rows, reorder, gid,
             fill = torch.full((), ident, dtype=a.type.dtype, device=dev)
             dd = torch.where(m, d, fill)
             segfn = seg_min if is_min else seg_max
-            res = segfn(dd, gid, num_groups, identity=ident)
-            nonempty = _seg_sum(m) > 0
+            res = segfn(dd, gid, num_groups, identity=ident,
+                        sorted_gid=indices_sorted)
+            nonempty = _seg_sum(m, nbits=1) > 0
             out_fields.append(Field(name, a.type, True, a.dict))
             out_data.append(res)
             out_valid.append(nonempty)
@@ -311,7 +387,8 @@ def hash_aggregate(
             return x
 
     agg_fields, agg_data, agg_valid = _emit_agg_columns(
-        cc, aggs, mode, cap, live_s, reorder, gid, num_groups)
+        cc, aggs, mode, cap, live_s, reorder, gid, num_groups,
+        indices_sorted=True)
     out_fields += agg_fields
     out_data += agg_data
     out_valid += agg_valid
@@ -339,7 +416,8 @@ def _aggregate_with_gid(chunk, cc, group_by, aggs, num_groups, mode,
 
     group_count = seg_count(live, gid, num_groups)
     agg_fields, agg_data, agg_valid = _emit_agg_columns(
-        cc, aggs, mode, cap, live, lambda x: x, gid, num_groups)
+        cc, aggs, mode, cap, live, lambda x: x, gid, num_groups,
+        indices_sorted=False)
     out_fields += agg_fields
     out_data += agg_data
     out_valid += agg_valid

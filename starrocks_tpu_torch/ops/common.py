@@ -12,6 +12,8 @@ Sort semantics are the reference's: `argsort_stable` is jnp.argsort
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ..column.column import Chunk
@@ -162,3 +164,27 @@ def mix64(x: torch.Tensor) -> torch.Tensor:
     z = (z ^ shr64(z, 30)) * MIX_MUL1
     z = (z ^ shr64(z, 27)) * MIX_MUL2
     return z ^ shr64(z, 31)
+
+
+@contextlib.contextmanager
+def exact_f32_matmul():
+    """Full-f32 matrix products: TF32 keeps 10 mantissa bits and would round
+    the segment sums' block partials silently. Pins both torch switches for
+    the duration and restores them after."""
+    prec = torch.get_float32_matmul_precision()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prec)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def onehot_blocked(gid, num_groups: int, block: int):
+    """[nb, block, G+1] f32 one-hot of gid clipped to [0, G]; id G is the
+    spill column that callers discard."""
+    g = gid.to(torch.int32).clamp(0, num_groups).reshape(-1, block, 1)
+    cols = torch.arange(num_groups + 1, dtype=torch.int32, device=g.device)
+    return (g == cols).to(torch.float32)

@@ -7,9 +7,11 @@ filters. The JAX package's design, carried over operator for operator:
 - multi-column keys pack into one int64 by the planner's bit widths
   (pack_keys), or into a splitmix64 fingerprint ("hash" mode);
 - unique build keys (PK-FK joins): output rows = probe rows, pure gather —
-  through a sorted build + searchsorted (`join_probe_strategy = auto`), the
-  open-addressing table of ops/kernels.py (`pallas`), or a direct-address
-  row LUT for stats-bounded single keys (hash_join_lut);
+  through a sorted build + torch.searchsorted (`join_probe_strategy =
+  auto`), the sorted build + the lower-bound kernel of ops/kernels.py
+  (`pallas_sorted`), the open-addressing table of ops/kernels.py
+  (`pallas`), or a direct-address row LUT for stats-bounded single keys
+  (hash_join_lut);
 - duplicate build keys: run-length expansion with a static output capacity
   and a true-size return for the executor's overflow retry.
 
@@ -216,8 +218,6 @@ def hash_probe_rows(bk, pk, bcap: int, p_ok):
     of ops/kernels.py. NULL/dead rows on both sides carry the int64-max
     sentinel, which doubles as the table's empty-slot marker, so they never
     insert and never match. Returns (match [P] bool, build_row [P] clipped)."""
-    from . import kernels
-
     table_size = 1 << (max(2 * bcap, 16) - 1).bit_length()
     tkey, trow = kernels.hash_build(bk.contiguous(), table_size)
     row = kernels.hash_probe(tkey, trow, pk.contiguous())
@@ -229,10 +229,20 @@ def _probe_strategy() -> str:
     from ..runtime.config import config as _cfg
 
     s = _cfg.get("join_probe_strategy")
-    if s not in ("auto", "pallas"):
-        raise NotImplementedError(
-            f"join_probe_strategy={s!r} is not ported yet (auto | pallas)")
+    if s not in ("auto", "pallas", "pallas_sorted"):
+        raise ValueError(f"join_probe_strategy={s!r}: expected auto | "
+                         "pallas | pallas_sorted")
     return s
+
+
+def _probe_searchsorted(bk_sorted, pk, strategy: str):
+    """The unique-join probe's lower bound: the hand-written kernel under
+    `join_probe_strategy = 'pallas_sorted'` (ops/kernels.probe_searchsorted;
+    its plain torch ladder on CPU tensors), torch.searchsorted otherwise."""
+    if strategy == "pallas_sorted":
+        return kernels.probe_searchsorted(bk_sorted.contiguous(),
+                                          pk.contiguous())
+    return torch.searchsorted(bk_sorted, pk)
 
 
 def hash_join_unique(probe: Chunk, build: Chunk, probe_keys, build_keys,
@@ -248,7 +258,8 @@ def hash_join_unique(probe: Chunk, build: Chunk, probe_keys, build_keys,
     )  # build NULL/dead rows pack to the sentinel
     bcap = build.capacity
 
-    if _probe_strategy() == "pallas":
+    strategy = _probe_strategy()
+    if strategy == "pallas":
         # sort-free path: the open-addressing table (the cached build_order,
         # a sort artifact, is simply unused here)
         match, build_row = hash_probe_rows(bk, pk, bcap, p_ok)
@@ -257,8 +268,8 @@ def hash_join_unique(probe: Chunk, build: Chunk, probe_keys, build_keys,
 
     order = build_order if build_order is not None else argsort_stable(bk)
     bk_sorted = bk[order]
-    pos = torch.searchsorted(bk_sorted, pk)
-    pos_c = pos.clamp(0, bcap - 1)
+    pos = _probe_searchsorted(bk_sorted, pk, strategy)
+    pos_c = pos.to(torch.int64).clamp(0, bcap - 1)
     match = (bk_sorted[pos_c] == pk) & p_ok & (pk != _I64MAX)
     build_row = order[pos_c]
     return _unique_join_epilogue(

@@ -1,14 +1,16 @@
 """Hand-written CUDA kernels of the port, their plain torch versions, and
 their launch counters.
 
-Each TPU kernel of `starrocks_tpu/ops/pallas_kernels.py` that the port's
-main path runs has a counterpart here:
+Every TPU kernel of `starrocks_tpu/ops/pallas_kernels.py` has a
+counterpart here:
 
-| wrapper       | CUDA source           | replaces (pallas_kernels.py) |
-|---------------|-----------------------|------------------------------|
-| `hash_build`  | csrc/hash_table.cu    | hash_build_pallas  :206      |
-| `hash_probe`  | csrc/hash_table.cu    | hash_probe_pallas  :266      |
-| `topn_select` | csrc/topn_select.cu   | topn_select_pallas :112      |
+| wrapper              | CUDA source                 | replaces (pallas_kernels.py)    |
+|----------------------|-----------------------------|---------------------------------|
+| `segment_sum`        | csrc/segment_sum.cu         | segment_sum_pallas        :60   |
+| `topn_select`        | csrc/topn_select.cu         | topn_select_pallas        :112  |
+| `hash_build`         | csrc/hash_table.cu          | hash_build_pallas         :206  |
+| `hash_probe`         | csrc/hash_table.cu          | hash_probe_pallas         :266  |
+| `probe_searchsorted` | csrc/probe_searchsorted.cu  | probe_searchsorted_pallas :316  |
 
 A wrapper takes its plain version only for a tensor that lies on the CPU;
 for a CUDA tensor it launches the kernel or raises — there is no fallback.
@@ -35,7 +37,8 @@ from pathlib import Path
 
 import torch
 
-from .common import mix64
+from .common import exact_f32_matmul, mix64, onehot_blocked
+from .segment import SLAB_BYTES
 
 I64MAX = (1 << 63) - 1
 I64MIN = -(1 << 63)
@@ -44,7 +47,9 @@ TOPN_BLOCK = 1024
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("hash_table", "topn_select")
+SOURCES = ("hash_table", "topn_select", "probe_searchsorted", "segment_sum")
+# dynamic shared memory one CTA may use on an H100 (227 KB)
+SMEM_MAX_BYTES = 232_448
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -57,6 +62,13 @@ _SIGNATURES = {
     },
     "topn_select": {
         "sr_topn_select": [_P, _I64, ctypes.c_int, _P, _P, _P],
+    },
+    "probe_searchsorted": {
+        "sr_probe_searchsorted": [_P, _I64, _P, _I64, _P, _P],
+    },
+    "segment_sum": {
+        "sr_segment_sum": [_P, _P, _I64, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, _P, _P, _P],
     },
 }
 
@@ -339,5 +351,120 @@ def topn_select(neg: torch.Tensor, k: int):
     return vals, idx
 
 
+# --- sorted-build probe -----------------------------------------------------
+
+
+def probe_searchsorted_plain(sorted_build: torch.Tensor, probe: torch.Tensor):
+    """The TPU kernel's branch-free ladder, in torch: bit_length(K) masked
+    halving steps over all probes in lockstep; converged lanes stop
+    moving."""
+    k = sorted_build.shape[0]
+    dev = probe.device
+    if k == 0:
+        return torch.zeros(probe.shape, dtype=torch.int32, device=dev)
+    lo = torch.zeros(probe.shape, dtype=torch.int64, device=dev)
+    hi = torch.full(probe.shape, k, dtype=torch.int64, device=dev)
+    for _ in range(k.bit_length()):
+        mid = (lo + hi) // 2
+        mv = sorted_build[mid.clamp(0, k - 1)]
+        active = lo < hi
+        go_right = (mv < probe) & active
+        lo = torch.where(go_right, mid + 1, lo)
+        hi = torch.where(active & ~go_right, mid, hi)
+    return lo.to(torch.int32)
+
+
+@_counted
+def probe_searchsorted(sorted_build: torch.Tensor, probe: torch.Tensor):
+    """searchsorted(sorted_build, probe, side='left') as [N] int32:
+    `sorted_build` [K] int64 ascending (sentinels last), `probe` [N]
+    int64."""
+    _check_vector(sorted_build, torch.int64, "probe_searchsorted build")
+    _check_vector(probe, torch.int64, "probe_searchsorted probe")
+    if sorted_build.device != probe.device:
+        raise ValueError("probe_searchsorted: build and probe on different "
+                         "devices")
+    k, n = sorted_build.shape[0], probe.shape[0]
+    probe_searchsorted.calls += 1
+    probe_searchsorted.last_shape = (k, n)
+    if not _route(probe, "probe_searchsorted"):
+        return probe_searchsorted_plain(sorted_build, probe)
+    lib = _lib("probe_searchsorted")
+    out = torch.empty((n,), dtype=torch.int32, device=probe.device)
+    rc = lib.sr_probe_searchsorted(sorted_build.data_ptr(), k,
+                                   probe.data_ptr(), n, out.data_ptr(),
+                                   _stream(probe))
+    _check_launch(lib, rc, "probe_searchsorted")
+    probe_searchsorted.launches += 1
+    return out
+
+
+# --- grouped float sums -----------------------------------------------------
+
+
+def segment_sum_plain(gid: torch.Tensor, vals: torch.Tensor,
+                      num_groups: int, block: int):
+    """Each row block's [G+1, M] partial from a one-hot product in f32,
+    then the partials added in block order in f32, as the TPU grid does.
+    The one-hot is built a slab of whole blocks at a time (SLAB_BYTES)."""
+    n, m = vals.shape
+    nb = n // block
+    acc = torch.zeros((num_groups + 1, m), dtype=torch.float32,
+                      device=vals.device)
+    step = max(1, SLAB_BYTES // (block * (num_groups + 1) * 4))
+    with exact_f32_matmul():
+        for b0 in range(0, nb, step):
+            r0, r1 = b0 * block, min(nb, b0 + step) * block
+            oh = onehot_blocked(gid[r0:r1], num_groups, block)
+            v = vals[r0:r1].reshape(-1, block, m)
+            for part in torch.bmm(oh.transpose(1, 2), v):
+                acc += part
+    return acc[:num_groups]
+
+
+@_counted
+def segment_sum(gid: torch.Tensor, vals: torch.Tensor, num_groups: int,
+                block: int):
+    """Per-group column sums in f32: `gid` [N] int32 in [0, G] (G takes
+    dead rows), `vals` [N, M] float32, N a multiple of `block` -> [G, M]
+    float32, block partials added in block order."""
+    _check_vector(gid, torch.int32, "segment_sum gid")
+    if vals.dtype != torch.float32 or vals.ndim != 2:
+        raise TypeError(f"segment_sum vals: expected [N, M] float32, got "
+                        f"{vals.dtype} {tuple(vals.shape)}")
+    if not vals.is_contiguous():
+        raise ValueError("segment_sum vals: expected a contiguous tensor")
+    n, m = vals.shape
+    if gid.shape[0] != n or gid.device != vals.device:
+        raise ValueError("segment_sum: gid and vals differ in rows or device")
+    if block <= 0 or n % block:
+        raise ValueError(f"segment_sum: {n} rows is not a multiple of "
+                         f"block {block}")
+    if num_groups < 1 or m < 1:
+        raise ValueError(f"segment_sum: {num_groups} groups x {m} columns")
+    smem = (num_groups + 1) * m * 4
+    if smem > SMEM_MAX_BYTES:
+        raise ValueError(f"segment_sum: a [{num_groups + 1}, {m}] f32 "
+                         f"accumulator needs {smem} B of shared memory, "
+                         f"more than {SMEM_MAX_BYTES}")
+    segment_sum.calls += 1
+    segment_sum.last_shape = (n, m, num_groups, block)
+    if not _route(vals, "segment_sum"):
+        return segment_sum_plain(gid, vals, num_groups, block)
+    lib = _lib("segment_sum")
+    partial = torch.empty((n // block, num_groups + 1, m),
+                          dtype=torch.float32, device=vals.device)
+    out = torch.empty((num_groups, m), dtype=torch.float32,
+                      device=vals.device)
+    rc = lib.sr_segment_sum(gid.data_ptr(), vals.data_ptr(), n, m,
+                            num_groups, block, partial.data_ptr(),
+                            out.data_ptr(), _stream(vals))
+    _check_launch(lib, rc, "segment_sum")
+    segment_sum.launches += 1
+    return out
+
+
 WRAPPERS = {"hash_build": hash_build, "hash_probe": hash_probe,
-            "topn_select": topn_select}
+            "topn_select": topn_select,
+            "probe_searchsorted": probe_searchsorted,
+            "segment_sum": segment_sum}

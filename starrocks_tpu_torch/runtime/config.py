@@ -176,8 +176,14 @@ config.define("dense_agg_domain_max", 0, True,
 config.define("segment_strategy", "auto", True,
               "auto | mxu | scatter | pallas | native: auto and scatter "
               "run plain scatter reductions on every device (the "
-              "reference's CPU choice); mxu, pallas and native are not "
-              "ported yet and raise",
+              "reference's CPU choice); mxu runs the scatter-free "
+              "strategies (one-hot limb matmul for integer sums, "
+              "broadcast-reduce and segmented scans for float sums and "
+              "min/max); pallas is mxu with float sums over <= 1024 "
+              "groups routed through the segment-sum kernel "
+              "(csrc/segment_sum.cu; its plain torch version on CPU "
+              "tensors); native (a C++ host kernel) is not ported and "
+              "raises",
               trace=True)
 config.define("enable_packed_sort_keys", True, True,
               "pack bounded ORDER BY / window sort keys (dict codes, "
@@ -205,7 +211,9 @@ config.define("join_probe_strategy", "auto", True,
               "pallas = open-addressing hash-table build+probe kernels "
               "(csrc/hash_table.cu; their plain torch versions on CPU "
               "tensors — replaces sort+searchsorted entirely); "
-              "pallas_sorted is not ported yet and raises; auto = "
+              "pallas_sorted = the sorted build probed by the "
+              "lower-bound kernel (csrc/probe_searchsorted.cu; its "
+              "plain torch ladder on CPU tensors); auto = "
               "torch.searchsorted over the sorted build",
               trace=True)
 config.define("join_multiway_strategy", "auto", True,
@@ -220,3 +228,11 @@ config.define("join_multiway_strategy", "auto", True,
               "rematerialization. off = chained binary joins (A/B anchor)",
               trace=True)
 config.load_env()
+
+# The knob values that route the main path through the hand kernels: the
+# segment-sum kernel for float sums, the sorted-build probe kernel for
+# unique joins, the top-N kernel for packable ORDER BY .. LIMIT.
+KERNEL_STRATEGIES = {"segment_strategy": "pallas",
+                     "join_probe_strategy": "pallas_sorted",
+                     "topn_strategy": "pallas"}
+AUTO_STRATEGIES = {k: "auto" for k in KERNEL_STRATEGIES}

@@ -263,7 +263,7 @@ def test_unported_statements_raise():
     with pytest.raises(Exception, match="unknown function"):
         s.sql("select sqrt(l_quantity) from lineitem")
     with pytest.raises(NotImplementedError):
-        s.sql("SET segment_strategy = 'mxu'")
+        s.sql("SET segment_strategy = 'native'")
         s.sql(QUERIES[1])
 
 

@@ -64,11 +64,13 @@ _SIGNATURES = {
         "sr_topn_select": [_P, _I64, ctypes.c_int, _P, _P, _P],
     },
     "probe_searchsorted": {
-        "sr_probe_searchsorted": [_P, _I64, _P, _I64, _P, _P],
+        "sr_probe_searchsorted": [_P, _I64, _P, _I64, _P, _P,
+                                  ctypes.POINTER(_I64), ctypes.c_int,
+                                  ctypes.c_int, _P],
     },
     "segment_sum": {
-        "sr_segment_sum": [_P, _P, _I64, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, _P, _P, _P],
+        "sr_segment_sum": [_P, _P, _I64, ctypes.c_int, ctypes.c_int, _I64,
+                           _I64, ctypes.c_int, _P, _P, _P],
     },
 }
 
@@ -374,11 +376,55 @@ def probe_searchsorted_plain(sorted_build: torch.Tensor, probe: torch.Tensor):
     return lo.to(torch.int32)
 
 
+# The static search tree of the probe kernel (csrc/probe_searchsorted.cu):
+# leaves are groups of PROBE_LEAF build keys, inner nodes PROBE_NODE
+# entries, and levels are added until one has at most PROBE_TOP_MAX
+# entries (it goes to each CTA's shared memory).
+PROBE_LEAF = 4
+PROBE_NODE = 16
+PROBE_TOP_MAX = 2048
+
+
+def probe_index_layout(k: int):
+    """The levels of the search tree over `k` sorted keys, bottom first, as
+    (stride, entries, offset): entry j of a level is the build key at
+    stride * (j + 1) - 1 (int64-max past k); each level is padded with
+    int64-max to whole nodes at `offset` of one int64 index. Returns
+    (levels, the index's length)."""
+    levels = []
+    off = 0
+    stride = PROBE_LEAF
+    while True:
+        n = -(-k // stride)
+        levels.append((stride, n, off))
+        off += -(-n // PROBE_NODE) * PROBE_NODE
+        if n <= PROBE_TOP_MAX:
+            return levels, off
+        stride *= PROBE_NODE
+
+
+def probe_index(sorted_build: torch.Tensor):
+    """The search tree's separator levels over `sorted_build` ([K] int64,
+    K >= 1), in one int64 tensor on its device: one strided copy and one
+    int64-max fill per level. Returns (index, levels)."""
+    k = sorted_build.shape[0]
+    levels, total = probe_index_layout(k)
+    index = torch.empty((total,), dtype=torch.int64,
+                        device=sorted_build.device)
+    for stride, n, off in levels:
+        full = k // stride  # the entries that lie inside the build
+        end = off + -(-n // PROBE_NODE) * PROBE_NODE
+        index[off:off + full] = sorted_build[stride - 1::stride]
+        index[off + full:end] = I64MAX
+    return index, levels
+
+
 @_counted
 def probe_searchsorted(sorted_build: torch.Tensor, probe: torch.Tensor):
     """searchsorted(sorted_build, probe, side='left') as [N] int32:
     `sorted_build` [K] int64 ascending (sentinels last), `probe` [N]
-    int64."""
+    int64. On the card the kernel descends `probe_index`'s tree; an empty
+    build or probe launches nothing."""
     _check_vector(sorted_build, torch.int64, "probe_searchsorted build")
     _check_vector(probe, torch.int64, "probe_searchsorted probe")
     if sorted_build.device != probe.device:
@@ -389,11 +435,16 @@ def probe_searchsorted(sorted_build: torch.Tensor, probe: torch.Tensor):
     probe_searchsorted.last_shape = (k, n)
     if not _route(probe, "probe_searchsorted"):
         return probe_searchsorted_plain(sorted_build, probe)
+    if k == 0 or n == 0:
+        return torch.zeros((n,), dtype=torch.int32, device=probe.device)
     lib = _lib("probe_searchsorted")
+    index, levels = probe_index(sorted_build)
+    offs = (_I64 * len(levels))(*[off for _, _, off in levels])
     out = torch.empty((n,), dtype=torch.int32, device=probe.device)
     rc = lib.sr_probe_searchsorted(sorted_build.data_ptr(), k,
                                    probe.data_ptr(), n, out.data_ptr(),
-                                   _stream(probe))
+                                   index.data_ptr(), offs, len(levels),
+                                   levels[-1][1], _stream(probe))
     _check_launch(lib, rc, "probe_searchsorted")
     probe_searchsorted.launches += 1
     return out
@@ -422,12 +473,45 @@ def segment_sum_plain(gid: torch.Tensor, vals: torch.Tensor,
     return acc[:num_groups]
 
 
+# The segment-sum kernel's fixed shape (csrc/segment_sum.cu). Pass 1 runs
+# at most SEG_CTAS CTAs (two per SM of an H100), each over a contiguous
+# range of rows, a multiple of SEG_ROW_ALIGN (the largest tile: SEG_WARPS
+# warps x 128 rows). Both depend on the row count alone, never on the card,
+# so the order of the additions (and every bit of the sums) is fixed by
+# the shape. A CTA has SEG_WARPS warps, halved while their private
+# accumulators would take more than SEG_SMEM_BUDGET (two CTAs to an SM).
+SEG_CTAS = 264
+SEG_WARPS = 16
+SEG_ROW_ALIGN = 128 * SEG_WARPS
+SEG_SMEM_BUDGET = 112 * 1024
+
+
+def segment_sum_partition(n: int):
+    """(CTAs, rows per CTA) of the segment-sum kernel's pass 1 over n rows:
+    CTA c takes rows [c * rows, min((c + 1) * rows, n))."""
+    if n <= 0:
+        return 0, 0
+    per = -(-n // SEG_CTAS)
+    rows = -(-per // SEG_ROW_ALIGN) * SEG_ROW_ALIGN
+    return -(-n // rows), rows
+
+
+def segment_sum_warps(num_groups: int, m: int) -> int:
+    """Warps per CTA of pass 1: each keeps a [G+1, M] f32 accumulator."""
+    w = SEG_WARPS
+    while w > 1 and w * (num_groups + 1) * m * 4 > SEG_SMEM_BUDGET:
+        w //= 2
+    return w
+
+
 @_counted
 def segment_sum(gid: torch.Tensor, vals: torch.Tensor, num_groups: int,
                 block: int):
     """Per-group column sums in f32: `gid` [N] int32 in [0, G] (G takes
     dead rows), `vals` [N, M] float32, N a multiple of `block` -> [G, M]
-    float32, block partials added in block order."""
+    float32. The plain version adds block partials in block order, as the
+    TPU does; the kernel adds in its own fixed order (see
+    csrc/segment_sum.cu), the same on every run."""
     _check_vector(gid, torch.int32, "segment_sum gid")
     if vals.dtype != torch.float32 or vals.ndim != 2:
         raise TypeError(f"segment_sum vals: expected [N, M] float32, got "
@@ -452,13 +536,15 @@ def segment_sum(gid: torch.Tensor, vals: torch.Tensor, num_groups: int,
     if not _route(vals, "segment_sum"):
         return segment_sum_plain(gid, vals, num_groups, block)
     lib = _lib("segment_sum")
-    partial = torch.empty((n // block, num_groups + 1, m),
-                          dtype=torch.float32, device=vals.device)
+    ctas, rows = segment_sum_partition(n)
+    warps = segment_sum_warps(num_groups, m)
+    partial = torch.empty((ctas, num_groups, m), dtype=torch.float32,
+                          device=vals.device)
     out = torch.empty((num_groups, m), dtype=torch.float32,
                       device=vals.device)
     rc = lib.sr_segment_sum(gid.data_ptr(), vals.data_ptr(), n, m,
-                            num_groups, block, partial.data_ptr(),
-                            out.data_ptr(), _stream(vals))
+                            num_groups, ctas, rows, warps,
+                            partial.data_ptr(), out.data_ptr(), _stream(vals))
     _check_launch(lib, rc, "segment_sum")
     segment_sum.launches += 1
     return out

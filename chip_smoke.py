@@ -22,10 +22,16 @@ Phases, each of which must pass:
 4. hash_topn (the first slice's path, counts set to 0 before it and read
    after it): Q9 at --sf with the hash-join kernels (`join_probe_strategy
    = 'pallas'`), and Q2 at SF 1, where its ORDER BY key packs for the
-   top-N kernel (at SF 10 it does not, in the reference too).
+   top-N kernel (at SF 10 it does not, in the reference too). The route
+   each hash probe took and the path's peak device memory are kept.
 5. kernels: each kernel on the card, at the shapes its path gave it and on
    edge cases (sentinels, duplicates, INT64_MIN/MAX, heavy slot
    collisions, all-equal top-N keys, dead rows, small blocks; for the
+   hash kernels chains across the end of an inner table slice and of the
+   table, T below and equal to a slice, N = 0, all-sentinel keys, M = 0,
+   all-sentinel probes, tables of 2^26, 2^28 and 2^31 slots, each also
+   with slices of 64 slots and a halo of 1, the tables held to the chain
+   invariant and both probe routes to the plain version; for the
    sorted probe K < 4, K off multiples of 4/64/1024, probes equal to the
    search tree's separators, runs of 5/65/1025 equal keys, int64-max
    probes with and without a sentinel tail, each also with a deep tree),
@@ -37,7 +43,9 @@ Phases, each of which must pass:
    the plain version and the plain version's against f64 are reported
    beside it. Each kernel is timed with CUDA events beside its bound (and
    its share of it), its plain version and a library yardstick, and one
-   call is traced with torch.profiler for its split by device kernel.
+   call is traced with torch.profiler for its split by device kernel; the
+   hash probe at each of Q9's probe counts by either route, with the keys
+   the build deferred past their slice and both kernels' scratch.
 6. card vs CPU: the 22 queries and S1/S2 at SF 0.1 on the card under the
    kernel strategies, and Q1/Q2/Q3/Q9 under the hash kernels, against the
    CPU (`device="cpu"`) under `auto`; rows must agree, in order: exactly,
@@ -107,6 +115,9 @@ DEFAULT_SHAPES = {"hash_build": (8_000_512, 1 << 24),
                   "topn_select": (2048, 1024),
                   "probe_searchsorted": (8_000_512, 9_001_984),
                   "segment_sum": (60_005_376, 1, 1024, 1024)}
+# Q9's two probe shapes (T, M) at SF 10: its cold run and its warm run (a
+# tighter capacity)
+Q9_PROBE_SHAPES = [(1 << 24, 2_483_200), (1 << 24, 9_001_984)]
 SEG_REL = 1e-6  # segment_sum vs f64: |err| <= SEG_REL * sum |x| per cell
 
 I64MAX = (1 << 63) - 1
@@ -299,9 +310,15 @@ def _run_queries(s, label, texts, out, shapes, kernels):
     launches (delta of the counters) and executor step times."""
     import torch
 
+    # the hash probe's launches by route (a tree whose probe has one route
+    # keeps no such counter)
+    def routes():
+        return dict(getattr(kernels.hash_probe, "routes", {}))
+
     for run in ("cold", "warm"):
         for q, text in texts.items():
             before = _snapshot(kernels)
+            routes_before = routes()
             torch.cuda.synchronize()
             t = time.perf_counter()
             res = s.sql(text)
@@ -310,6 +327,9 @@ def _run_queries(s, label, texts, out, shapes, kernels):
             wall = time.perf_counter() - t
             after = _snapshot(kernels)
             delta = {n: after[n] - before[n] for n in after}
+            probe_routes = {r: v - routes_before[r]
+                            for r, v in routes().items()
+                            if v != routes_before[r]}
             for n, w in kernels.WRAPPERS.items():
                 if delta[n] and w.last_shape is not None:
                     shapes[n].append(w.last_shape)
@@ -317,6 +337,9 @@ def _run_queries(s, label, texts, out, shapes, kernels):
             out.setdefault(f"{qname(q)}@{label}", {})[run] = {
                 "wall_s": wall, "rows": len(got),
                 "launches": {n: v for n, v in delta.items() if v},
+                "probe_routes": probe_routes,
+                "shapes": {n: kernels.WRAPPERS[n].last_shape
+                           for n, v in delta.items() if v},
                 "recompiles": prof.get("recompiles"),
                 "attempts": len(prof.get("attempts", ())),
                 # host clock per executor step (scan = host->device column
@@ -328,6 +351,9 @@ def _run_queries(s, label, texts, out, shapes, kernels):
                 "fetch_s": prof.get("fetch_s"),
                 "head": [[str(v) for v in r] for r in got[:3]],
             }
+            if probe_routes:
+                log(f"  {qname(q)}@{label} {run}: hash probe routes "
+                    f"{probe_routes} at (T, M) {kernels.hash_probe.last_shape}")
             log(f"  {qname(q)}@{label} {run}: {wall * 1e3:.1f} ms, "
                 f"{len(got)} rows, "
                 f"launches {out[f'{qname(q)}@{label}'][run]['launches']}, "
@@ -411,15 +437,18 @@ def phase_hash_topn(rec, cat, sf, seed):
     set_knobs(HASH_KNOBS)
     shapes = {n: [] for n in kernels.WRAPPERS}
     queries: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
     _run_queries(s, f"SF{sf:g}", {"9": texts["9"]}, queries, shapes, kernels)
     _run_queries(s2, f"SF{TOPN_SF:g}", {"2": texts["2"]}, queries, shapes,
                  kernels)
     total = _snapshot(kernels)
-    log(f"hash_topn launches: {total}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"hash_topn launches: {total}, peak device memory {peak:.2f} GB")
     rec["hash_topn"] = {"sf": sf, "topn_sf": TOPN_SF,
                         "gen_topn_sf_s": gen_small_s, "queries": queries,
-                        "launches": total,
+                        "launches": total, "peak_mem_gb": peak,
                         "shapes": {n: sorted(set(v)) for n, v in shapes.items()}}
     # the kernel routes, required of the cold runs (a warm run may plan a
     # tighter capacity: the reference's post-success tightening can leave
@@ -473,16 +502,17 @@ def trace_queries(s, texts) -> dict:
     return res
 
 
-def _colliding_keys(table_size: int, n: int, seed: int):
-    """n distinct keys whose home slot is one of 3 slots (long chains that
-    wrap around the table's end)."""
+def _colliding_keys(table_size: int, n: int, seed: int, slots=None):
+    """n distinct keys whose home slot is one of `slots` (default T - 1,
+    T - 2 and 5: long chains that wrap around the table's end)."""
     import numpy as np
     import torch
 
     from starrocks_tpu_torch.ops.common import mix64
 
     rng = np.random.default_rng(seed)
-    want = torch.tensor([table_size - 1, table_size - 2, 5])
+    want = torch.tensor(slots if slots is not None
+                        else [table_size - 1, table_size - 2, 5])
     found = []
     while sum(len(f) for f in found) < n:
         cand = torch.from_numpy(
@@ -492,20 +522,44 @@ def _colliding_keys(table_size: int, n: int, seed: int):
     return torch.unique(torch.cat(found)[:n])
 
 
-def _check_table(keys, tkey, trow):
-    """Table invariants: every non-sentinel key exactly once, with its row."""
+def _table_errors(keys, tkey, trow) -> list:
+    """What is wrong with a linear-probing table over `keys` ([] if
+    nothing): every non-sentinel key exactly once, with its row, and -1 in
+    every empty slot; and the chain invariant — for every occupied slot s
+    holding key k, every slot from home(k) to s, cyclically, is occupied.
+    Works on the occupied slots alone, so it also checks 2^31 slots."""
     import torch
 
-    live = keys != I64MAX
-    occ = tkey != I64MAX
-    if int(occ.sum()) != int(live.sum()):
-        return False
-    rows = trow[occ].to(torch.int64)
-    if int(rows.min()) < 0 or int(rows.max()) >= keys.shape[0]:
-        return False
-    if torch.unique(rows).shape[0] != rows.shape[0]:
-        return False
-    return bool((keys[rows] == tkey[occ]).all())
+    from starrocks_tpu_torch.ops.common import mix64
+
+    t = tkey.shape[0]
+    errors = []
+    idx = torch.nonzero(tkey != I64MAX).flatten()
+    live = int((keys != I64MAX).sum())
+    if idx.numel() != live:
+        errors.append(f"{idx.numel()} occupied slots for {live} keys")
+    if bool(((tkey == I64MAX) & (trow != -1)).any()):
+        errors.append("an empty slot has a row")
+    if idx.numel() == 0:
+        return errors
+    rows = trow[idx].to(torch.int64)
+    if (int(rows.min()) < 0 or int(rows.max()) >= keys.shape[0]
+            or torch.unique(rows).numel() != rows.numel()
+            or not bool((keys[rows] == tkey[idx]).all())):
+        errors.append("a slot's row does not hold its key")
+    # the run of occupied slots that ends at each occupied slot
+    starts = torch.ones_like(idx, dtype=torch.bool)
+    starts[1:] = idx[1:] != idx[:-1] + 1
+    pos = torch.arange(idx.numel(), device=idx.device)
+    first = torch.cummax(torch.where(starts, pos, 0), 0).values
+    run = idx - idx[first] + 1
+    if int(idx[0]) == 0 and int(idx[-1]) == t - 1:  # through T - 1 -> 0
+        run = torch.where(first == 0, run + (t - idx[first[-1]]), run)
+    disp = (idx - (mix64(tkey[idx]) & (t - 1))) % t
+    broken = int((disp >= run).sum())
+    if broken:
+        errors.append(f"{broken} keys break the chain invariant")
+    return errors
 
 
 def _key_rows(keys, tkey, trow):
@@ -518,17 +572,31 @@ def _key_rows(keys, tkey, trow):
     return r[order]
 
 
-def _hash_cases(dev, main_shape_build, main_shape_probe, seed):
-    """(name, keys, table_size, probe) on the card."""
+def _oracle_rows(keys, probe):
+    """The build row of each probe key, -1 where none, by a sort."""
+    import torch
+
+    rows = torch.nonzero(keys != I64MAX).flatten()
+    k = keys[rows]
+    if k.numel() == 0:
+        return torch.full(probe.shape, -1, dtype=torch.int32,
+                          device=probe.device)
+    order = torch.argsort(k)
+    sk, sr = k[order], rows[order]
+    at = torch.searchsorted(sk, probe).clamp(max=sk.numel() - 1)
+    hit = (sk[at] == probe) & (probe != I64MAX)
+    return torch.where(hit, sr[at], -1).to(torch.int32)
+
+
+def _hash_main_case(dev, build_shape, m, seed):
+    """(name, keys, table_size, probe) on the card at the main path's
+    shapes: unique keys in Q9's packed (partkey, suppkey) style with a
+    dead-row tail, probes hitting ~90% and missing the rest, a few dead."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
-    cases = []
-    n, t = main_shape_build
-    _, m = main_shape_probe
-    # the main path's shapes: unique keys in Q9's packed (partkey, suppkey)
-    # style with a dead-row tail, probes hitting ~90% and missing the rest
+    n, t = build_shape
     live = int(n * 0.9995)
     keys = np.full(n, I64MAX, np.int64)
     keys[:live] = (rng.permutation(live).astype(np.int64) << 20) | (
@@ -537,8 +605,20 @@ def _hash_cases(dev, main_shape_build, main_shape_probe, seed):
     miss = rng.integers(0, 1 << 60, m)
     probe = np.where(rng.random(m) < 0.9, hits, miss)
     probe[rng.random(m) < 0.01] = I64MAX  # dead probe rows
-    cases.append(("main_path_shape", keys, t, probe))
-    # edge cases
+    return ("main_path_shape", torch.from_numpy(keys).to(dev), t,
+            torch.from_numpy(probe).to(dev))
+
+
+def _hash_cases(dev, seed):
+    """(name, keys, table_size, probe) on the card: the edges of the
+    partitioned kernels' slices."""
+    import numpy as np
+    import torch
+
+    from starrocks_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(seed)
+    cases = []
     edge = np.array([0, 1, -1, 2, -2, I64MIN, I64MIN + 1, I64MAX - 1,
                      1 << 31, -(1 << 31), (1 << 62), -(1 << 62), I64MAX,
                      I64MAX], np.int64)
@@ -548,8 +628,52 @@ def _hash_cases(dev, main_shape_build, main_shape_probe, seed):
     ck = _colliding_keys(1024, 400, seed).numpy()
     cprobe = np.concatenate([ck[::-1], ck + 1, np.full(2048 - 2 * len(ck), I64MAX)])
     cases.append(("heavy_collisions", ck, 1024, cprobe))
-    return [(nm, torch.from_numpy(k).to(dev), tt, torch.from_numpy(
-        np.ascontiguousarray(p, np.int64)).to(dev)) for nm, k, tt, p in cases]
+
+    def fill(aimed, count):  # `aimed` plus random distinct keys, count in all
+        extra = np.setdiff1d(rng.integers(-(1 << 62), 1 << 62, 2 * count),
+                             aimed)[:count - len(aimed)]
+        return rng.permutation(np.concatenate([aimed, extra]))
+
+    def probes(k):  # every live key, its neighbour, misses, sentinels
+        lk = k[k != I64MAX]
+        return np.concatenate([lk[::-1], lk + 1,
+                               rng.integers(-(1 << 62), 1 << 62, 1000),
+                               [I64MAX, 0, -1]])
+
+    s = kernels.hash_partition_layout(1 << 31).slice_slots
+    ts = 4 * s  # chains across the end of an inner slice, and T - 1 -> 0
+    k = fill(_colliding_keys(ts, 300, seed, [2 * s - 1, 2 * s - 2,
+                                             2 * s - 3]).numpy(), ts // 2 - 7)
+    cases.append(("inner_slice_end", k, ts, probes(k)))
+    k = fill(_colliding_keys(ts, 200, seed, [ts - 1, ts - 2]).numpy(), ts // 4)
+    cases.append(("table_end_wraps", k, ts, probes(k)))
+    for name, tt in (("t_below_slice", s // 2), ("t_equals_slice", s)):
+        k = fill(_colliding_keys(tt, 40, seed, [tt - 1]).numpy(), tt // 2)
+        cases.append((name, k, tt, probes(k)))
+    # one key in most probes: its slice's places run out, and the rest of
+    # those probes walk directly
+    k = fill(np.zeros(0, np.int64), s // 2)
+    cases.append(("skewed_probe", k, 4 * s,
+                  np.concatenate([np.full(5 * s // 2, k[7]), probes(k)])))
+    cases.append(("n0", np.zeros(0, np.int64), 2 * s,
+                  rng.integers(-100, 100, 1000)))
+    cases.append(("all_sentinel_keys", np.full(100, I64MAX), 256,
+                  np.array([I64MAX, 0, 1, I64MAX - 1])))
+    k = fill(np.zeros(0, np.int64), 1000)
+    cases.append(("m0", k, 2048, np.zeros(0, np.int64)))
+    cases.append(("all_sentinel_probes", k, 2048, np.full(3000, I64MAX)))
+    # more slices than the probe's one scatter pass takes (8192: it walks
+    # directly); more than a shared-memory histogram holds (2^15): the
+    # build counts and scatters through global atomics; and the largest
+    # table the build takes, 2^31 slots (64-bit slot arithmetic; the probe
+    # takes tables below 2^31 slots, so it has no probe)
+    k = fill(np.zeros(0, np.int64), 1 << 20)
+    cases.append(("t_2_26", k, 1 << 26, probes(k)))
+    cases.append(("t_2_28", k, 1 << 28, probes(k)))
+    cases.append(("t_2_31", k, 1 << 31, np.zeros(0, np.int64)))
+    return [(nm, torch.from_numpy(np.ascontiguousarray(k, np.int64)).to(dev),
+             tt, torch.from_numpy(np.ascontiguousarray(p, np.int64)).to(dev))
+            for nm, k, tt, p in cases]
 
 
 def phase_kernels(rec, seed):
@@ -566,20 +690,20 @@ def phase_kernels(rec, seed):
         for n, v in (rec.get(path) or {}).get("shapes", {}).items():
             shapes[n] += [tuple(x) for x in v]
     build_shape = max(shapes["hash_build"] or [DEFAULT_SHAPES["hash_build"]])
-    probe_shape = max(shapes["hash_probe"] or [DEFAULT_SHAPES["hash_probe"]])
+    probe_shapes = sorted(set(shapes["hash_probe"]) or Q9_PROBE_SHAPES)
     topn_shape = max(shapes["topn_select"] or [DEFAULT_SHAPES["topn_select"]])
     sorted_shape = max(shapes["probe_searchsorted"]
                        or [DEFAULT_SHAPES["probe_searchsorted"]],
                        key=lambda kn: kn[0] * kn[1])
     segsum_shape = max(shapes["segment_sum"]
                        or [DEFAULT_SHAPES["segment_sum"]])
-    log(f"kernels: shapes build {build_shape} probe {probe_shape} "
+    log(f"kernels: shapes build {build_shape} probe {probe_shapes} "
         f"topn {topn_shape} sorted probe {sorted_shape} segment sum "
         f"{segsum_shape}")
     results = {n: {} for n in kernels.WRAPPERS}
     failures = []
     checks = [
-        ("hash", lambda: _check_hash(dev, build_shape, probe_shape, seed,
+        ("hash", lambda: _check_hash(dev, build_shape, probe_shapes, seed,
                                      failures, results)),
         ("topn_select", lambda: _check_topn(dev, topn_shape, seed, failures,
                                             results["topn_select"])),
@@ -608,53 +732,191 @@ def phase_kernels(rec, seed):
         raise PhaseError(f"kernel/plain mismatches: {failures}")
 
 
-def _check_hash(dev, build_shape, probe_shape, seed, failures, results):
+def _time_hash(keys, t, probe, probe_ms, results):
+    """The build at the main path's shape, and the probe at each of the
+    path's probe counts `probe_ms` (prefixes of `probe`), through the
+    wrappers, beside their bounds, plain versions and library yardsticks.
+    Uses only what every version of the wrappers has."""
     import torch
 
     from starrocks_tpu_torch.ops import kernels
 
+    n = keys.shape[0]
+    build_ms = cuda_ms(lambda: kernels.hash_build(keys, t))
+    log(f"  hash_build at N={n} T={t}: {build_ms:.4f} ms")
+    tk, tr = kernels.hash_build(keys, t)
+    by_m = {}
+    for m in probe_ms:
+        p = probe[:m]
+        by_m[m] = cuda_ms(lambda: kernels.hash_probe(tk, tr, p))
+        log(f"  hash_probe at T={t} M={m}: {by_m[m]:.4f} ms")
+    m = max(probe_ms)
+    ptk, ptr = kernels.hash_build_plain(keys, t)
+    build_plain = cuda_ms(lambda: kernels.hash_build_plain(keys, t), reps=2)
+    probe_plain = cuda_ms(lambda: kernels.hash_probe_plain(ptk, ptr, probe),
+                          reps=2)
+    srt = torch.sort(keys, stable=True).values
+    lib_build = cuda_ms(lambda: torch.sort(keys, stable=True))
+    lib_probe = cuda_ms(lambda: torch.searchsorted(srt, probe))
+    # bytes: keys in, (key, row) table out; probe keys + table in, rows
+    # out. ops: ~12 integer ops of splitmix64 + slot math per key, plus one
+    # compare per chain step (~1.5 at load <= 0.5)
+    b_bound = bound_ms(n * 8 + t * 12, n * 16)
+    results["hash_build"].update({
+        "ms": build_ms, "plain_ms": build_plain, "library_ms": lib_build,
+        "bound_ms": b_bound[0], "bound_by": b_bound[1], "shape": [n, t]})
+    p_bound = {k: bound_ms(k * 8 + t * 12 + k * 4, k * 18) for k in by_m}
+    results["hash_probe"].update({
+        "ms": by_m[m], "plain_ms": probe_plain, "library_ms": lib_probe,
+        "bound_ms": p_bound[m][0], "bound_by": p_bound[m][1],
+        "shape": [t, m], "ms_by_m": {str(k): v for k, v in by_m.items()},
+        "bound_ms_by_m": {str(k): b[0] for k, b in p_bound.items()}})
+
+
+def _force_route(kernels, route):
+    """Make `hash_partition_layout` pick `route` for every probe, through
+    its byte rule (what a probe of the direct walk costs)."""
+    kernels.HASH_RANDOM_BYTES = 0 if route == "direct" else 1 << 40
+
+
+def _hash_routes(keys, t, probe, probe_ms, results):
+    """Each probe route timed at each of the path's probe counts, the
+    build's overflow count, the scratch bytes beyond the outputs, and the
+    split of both kernels by device kernel."""
+    import torch
+
+    from starrocks_tpu_torch.ops import kernels
+
+    tk, tr = kernels.hash_build(keys, t)
+    torch.cuda.synchronize()
+    deferred = int(kernels.hash_build.last_deferred.sum())
+    lay = kernels.hash_partition_layout(t, max(probe_ms))
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.hash_build(keys, t)
+    torch.cuda.synchronize()
+    build_scratch = torch.cuda.max_memory_allocated() - base - t * 12
+    random_bytes = kernels.HASH_RANDOM_BYTES
+    routes, probe_scratch = {}, {}
+    try:
+        for route in kernels.HASH_PROBE_ROUTES:
+            _force_route(kernels, route)
+            for m in probe_ms:
+                p = probe[:m]
+                routes.setdefault(str(m), {})[route] = cuda_ms(
+                    lambda: kernels.hash_probe(tk, tr, p))
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.hash_probe(tk, tr, probe)
+            torch.cuda.synchronize()
+            probe_scratch[route] = (torch.cuda.max_memory_allocated() - base
+                                    - probe.shape[0] * 4)
+        _force_route(kernels, "partitioned")
+        probe_split = device_split(lambda: kernels.hash_probe(tk, tr, probe))
+    finally:
+        kernels.HASH_RANDOM_BYTES = random_bytes
+    build_split = device_split(lambda: kernels.hash_build(keys, t))
+    chosen = {str(m): kernels.hash_partition_layout(t, m).probe_route
+              for m in probe_ms}
+    log(f"  hash layout at T={t}: {lay.partitions} slices of "
+        f"{lay.slice_slots} slots, halo {lay.halo}; the build's scatter in "
+        f"{lay.build_passes} passes; "
+        f"keys deferred past their slice: {deferred} of {keys.shape[0]}; "
+        f"scratch beyond the outputs: build {build_scratch} B, probe "
+        f"{probe_scratch} B")
+    log(f"  hash_probe by route (ms): {routes}; the wrapper's route: {chosen}")
+    log(f"  hash_build split (device ms): {build_split}")
+    log(f"  hash_probe split, partitioned (device ms): {probe_split}")
+    results["hash_build"].update({
+        "deferred": deferred, "scratch_bytes": build_scratch,
+        "split": build_split, "slices": lay.partitions,
+        "slice_slots": lay.slice_slots})
+    results["hash_probe"].update({
+        "route_ms": routes, "route": chosen, "scratch_bytes": probe_scratch,
+        "split": probe_split, "halo": lay.halo})
+
+
+# the kernels' layout constants the edge cases run under besides the
+# default: slices small enough that chains cross many of them, and a halo
+# of 1 that they leave
+SMALL_SLICES = {"HASH_SLICE": 64, "HASH_HALO": 1}
+
+
+def _check_hash(dev, build_shape, probe_shapes, seed, failures, results):
+    """The main path's shapes timed first; then every case: the kernel's
+    table held to the table invariants (each live key once, with its row;
+    the chain invariant), and each probe route, forced where the table
+    allows it, to a sort's answer and to the plain probe of the plain table
+    (tables up to 2^24 slots), its route counter stepping once. The edge cases run again under
+    SMALL_SLICES."""
+    import torch
+
+    from starrocks_tpu_torch.ops import kernels
+
+    probe_ms = sorted({m for _, m in probe_shapes})
+    main = _hash_main_case(dev, build_shape, probe_ms[-1], seed)
+    _, keys, t, probe = main
+    _time_hash(keys, t, probe, probe_ms, results)
+    _hash_routes(keys, t, probe, probe_ms, results)
+    cases = [main] + _hash_cases(dev, seed)
     err_build = err_probe = 0
-    for name, keys, t, probe in _hash_cases(dev, build_shape, probe_shape, seed):
-        tk, tr = kernels.hash_build(keys, t)
-        row = kernels.hash_probe(tk, tr, probe)
-        torch.cuda.synchronize()
-        ptk, ptr = kernels.hash_build_plain(keys, t)
-        prow = kernels.hash_probe_plain(ptk, ptr, probe)
-        ok_table = _check_table(keys, tk, tr) and _check_table(keys, ptk, ptr)
-        eb = int((_key_rows(keys, tk, tr) - _key_rows(keys, ptk, ptr))
-                 .abs().max()) if ok_table else -1
-        ep = int((row.to(torch.int64) - prow.to(torch.int64)).abs().max())
-        log(f"  hash {name}: N={keys.shape[0]} T={t} M={probe.shape[0]} "
-            f"table invariants {ok_table}, build err {eb}, probe err {ep}, "
-            f"matches {int((row >= 0).sum())}")
-        if not ok_table or eb != 0 or ep != 0:
-            failures.append(f"hash {name}")
-        err_build = max(err_build, abs(eb))
-        err_probe = max(err_probe, ep)
-        if name == "main_path_shape":
-            n, m = keys.shape[0], probe.shape[0]
-            build_ms = cuda_ms(lambda: kernels.hash_build(keys, t))
-            probe_ms = cuda_ms(lambda: kernels.hash_probe(tk, tr, probe))
-            build_plain = cuda_ms(lambda: kernels.hash_build_plain(keys, t),
-                                  reps=2)
-            probe_plain = cuda_ms(
-                lambda: kernels.hash_probe_plain(ptk, ptr, probe), reps=2)
-            srt = torch.sort(keys, stable=True).values
-            lib_build = cuda_ms(lambda: torch.sort(keys, stable=True))
-            lib_probe = cuda_ms(lambda: torch.searchsorted(srt, probe))
-            # bytes: keys in, (key, row) table out; probe keys + table in,
-            # rows out. ops: ~12 integer ops of splitmix64 + slot math per
-            # key, plus one compare per chain step (~1.5 at load <= 0.5)
-            b_bound = bound_ms(n * 8 + t * 12, n * 16)
-            p_bound = bound_ms(m * 8 + t * 12 + m * 4, m * 18)
-            results["hash_build"].update({
-                "ms": build_ms, "plain_ms": build_plain,
-                "library_ms": lib_build, "bound_ms": b_bound[0],
-                "bound_by": b_bound[1], "shape": [n, t]})
-            results["hash_probe"].update({
-                "ms": probe_ms, "plain_ms": probe_plain,
-                "library_ms": lib_probe, "bound_ms": p_bound[0],
-                "bound_by": p_bound[1], "shape": [t, m]})
+    names = ("HASH_SLICE", "HASH_HALO", "HASH_RANDOM_BYTES")
+    saved = {n: getattr(kernels, n) for n in names}
+    try:
+        for name, keys, t, probe in cases:
+            configs = [("", {})]
+            if name != "main_path_shape" and t <= 1 << 20:
+                configs.append((" (small slices, halo 1)", SMALL_SLICES))
+            want = _oracle_rows(keys, probe)
+            plain = None
+            if t <= 1 << 24:
+                ptk, ptr = kernels.hash_build_plain(keys, t)
+                plain = kernels.hash_probe_plain(ptk, ptr, probe)
+            for label, consts in configs:
+                for n in names:
+                    setattr(kernels, n, consts.get(n, saved[n]))
+                tk, tr = kernels.hash_build(keys, t)
+                torch.cuda.synchronize()
+                deferred = int(kernels.hash_build.last_deferred.sum())
+                errors = _table_errors(keys, tk, tr)
+                eb = 0
+                if (plain is not None and not errors
+                        and bool((keys != I64MAX).any())):
+                    eb = int((_key_rows(keys, tk, tr)
+                              - _key_rows(keys, ptk, ptr)).abs().max())
+                ep = {}
+                for route in kernels.HASH_PROBE_ROUTES if t < 1 << 31 else ():
+                    # (a table of more than 2048 slices walks directly)
+                    _force_route(kernels, route)
+                    route = kernels.hash_partition_layout(
+                        t, probe.shape[0]).probe_route
+                    before = kernels.hash_probe.routes[route]
+                    row = kernels.hash_probe(tk, tr, probe)
+                    torch.cuda.synchronize()
+                    ran = kernels.hash_probe.routes[route] - before
+                    ep[route] = int((row.to(torch.int64) - want.to(torch.int64))
+                                    .abs().max()) if probe.numel() else 0
+                    if plain is not None and not torch.equal(row, plain):
+                        ep[route] = max(ep[route], 1)
+                    if ran != int(probe.numel() > 0) or ep[route]:
+                        failures.append(f"hash {name}{label} {route}")
+                    err_probe = max(err_probe, ep[route])
+                kernels.HASH_RANDOM_BYTES = saved["HASH_RANDOM_BYTES"]
+                lay = kernels.hash_partition_layout(t, probe.shape[0])
+                log(f"  hash {name}{label}: N={keys.shape[0]} T={t} "
+                    f"M={probe.shape[0]} ({lay.partitions} slices, the "
+                    f"build's scatter in {lay.build_passes} passes) table "
+                    f"errors {errors}, "
+                    f"deferred {deferred}, build err {eb}, probe err by "
+                    f"route {ep}, matches {int((want >= 0).sum())}")
+                if errors or eb:
+                    failures.append(f"hash {name}{label} build")
+                err_build = max(err_build, eb, int(bool(errors)))
+                del tk, tr
+            torch.cuda.empty_cache()
+    finally:
+        for n in names:
+            setattr(kernels, n, saved[n])
     results["hash_build"]["max_abs_err"] = err_build
     results["hash_probe"]["max_abs_err"] = err_probe
 

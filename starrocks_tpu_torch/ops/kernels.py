@@ -18,6 +18,10 @@ for a CUDA tensor it launches the kernel or raises — there is no fallback.
 counts kernel launches only, so a run on the card shows that the main path
 went through the kernels; `<wrapper>.last_shape` keeps the sizes of the
 latest call, so a benchmark can time a kernel at the shapes a query gave it.
+`hash_probe.routes` counts its launches by route ("direct", "partitioned":
+csrc/hash_table.cu), and `hash_build.last_deferred` holds the latest
+build's per-slice count of keys inserted past their slice (a device
+tensor).
 
 The kernels are compiled with nvcc for sm_90a into plain-C shared libraries
 (one per source, built in parallel) at first use, under `_build/` next to
@@ -34,6 +38,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -57,8 +62,12 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _SIGNATURES = {
     "hash_table": {
-        "sr_hash_build": [_P, _I64, _P, _P, _I64, _P],
+        "sr_hash_build": [_P, _I64, _P, _P, _I64, ctypes.c_int,
+                          ctypes.c_int, _P, _P, _P, _P],
         "sr_hash_probe": [_P, _P, _I64, _P, _I64, _P, _P],
+        "sr_hash_probe_partitioned": [_P, _P, _I64, _P, _I64, _P,
+                                      ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_int, _P, _P, _P, _P],
     },
     "topn_select": {
         "sr_topn_select": [_P, _I64, ctypes.c_int, _P, _P, _P],
@@ -188,12 +197,102 @@ def reset_counts():
         w.calls = 0
         w.launches = 0
         w.last_shape = None
+    hash_build.last_deferred = None
+    hash_probe.routes = dict.fromkeys(HASH_PROBE_ROUTES, 0)
 
 
 def counts() -> dict:
     """{wrapper name: {"calls": n, "launches": n}}."""
     return {n: {"calls": w.calls, "launches": w.launches}
             for n, w in WRAPPERS.items()}
+
+
+# --- the hash kernels' partitioned layout ------------------------------------
+
+# csrc/hash_table.cu groups keys by slices of the table, HASH_SLICE
+# consecutive slots (the whole table where it is smaller), and works on one
+# slice at a time in a CTA's shared memory (12 B a slot: 96 KB, two CTAs
+# to an SM); the probe's CTA also holds a halo of the next HASH_HALO
+# slots. The build's keys reach their slices through a scatter that sorts
+# tiles of HASH_SORT_TILE keys by slice in shared memory: in one pass for
+# up to HASH_COARSE_BINS slices, else in two (coarse bins of slices
+# first); where a histogram of one bin per slice exceeds HASH_HIST_SMEM
+# (more than 2^14 slices), through one global atomic per key. The probe's
+# scatter sorts tiles of HASH_WIDE_TILE keys in one pass, for up to
+# HASH_WIDE_BINS slices (a probe of a larger table walks directly), into a
+# range of probe_cap places a slice, with no count beforehand: 1/8 more
+# than an even share, and HASH_CAP_SLACK; a probe whose slice is full
+# walks directly. These mirror the constants of the CUDA source.
+HASH_SLICE = 8192
+HASH_HALO = 256
+HASH_HIST_SMEM = 64 * 1024
+HASH_SORT_TILE = 4096
+HASH_COARSE_BINS = 128
+HASH_WIDE_TILE = 16384
+HASH_WIDE_BINS = 2048
+HASH_CAP_SLACK = 64
+# What one probe of the direct route costs in device-memory traffic beyond
+# its key and its answer: two random reads (its chain's first keys, then
+# the row) of 64 bytes each where the table is larger than the L2, fewer
+# where part of it stays in the L2. 92 puts the switch of the byte rule of
+# hash_partition_layout where the two routes' times cross on an H100 at
+# Q9's table, 2^24 slots (M = 3.3M: PERF.md).
+HASH_RANDOM_BYTES = 92
+HASH_PROBE_ROUTES = ("direct", "partitioned")
+
+
+class HashLayout(NamedTuple):
+    slice_log2: int
+    slice_slots: int         # S
+    partitions: int          # P = T / S
+    halo: int                # H
+    hist_smem: int           # bytes of a count CTA's histogram (0: global)
+    build_passes: int        # the build's sorting passes (0: global atomics)
+    build_scatter_smem: int  # bytes of shared memory of their CTAs
+    build_smem: int          # ... of an insert CTA
+    probe_scatter_smem: int  # ... of a CTA of the probe's wide scatter
+    probe_smem: int          # ... of an answer CTA
+    work_ints: int           # the int32 scratch of the build
+    probe_cap: int           # places a slice for a probe of `m` keys
+    probe_route: str         # the route of a probe of `m` keys
+
+
+def hash_partition_layout(table_size: int, m: int = 0) -> HashLayout:
+    """The slices of the hash kernels over a table of `table_size` slots,
+    and the route of a probe of `m` keys. The route is the one that moves
+    fewer bytes: the direct walk M * (8 + 4 + HASH_RANDOM_BYTES); the
+    partitioned probe reads the table once (T * 12) and, per probe, 44
+    bytes: in the scatter its key read and written and where it went (20);
+    in the answer the key and the row (12); in the gather where it went
+    and its answer, read, and the answer written (12). A table of more
+    than HASH_WIDE_BINS slices is walked directly, and so is a probe whose
+    slices' places would pass int32 indices."""
+    s = min(HASH_SLICE, table_size)
+    parts = table_size // s
+    shared = parts * 4 <= HASH_HIST_SMEM
+    passes = 0 if not shared else 1 if parts <= HASH_COARSE_BINS else 2
+    w = s + HASH_HALO
+    cap = -(-m * 9 // (8 * parts)) + HASH_CAP_SLACK
+    direct = m * (8 + 4 + HASH_RANDOM_BYTES)
+    partitioned = table_size * 12 + m * 44
+    return HashLayout(
+        slice_log2=s.bit_length() - 1, slice_slots=s, partitions=parts,
+        halo=HASH_HALO, hist_smem=parts * 4 if shared else 0,
+        build_passes=passes,
+        build_scatter_smem=HASH_SORT_TILE * 14 + parts * 8 if shared else 0,
+        build_smem=s * 12,
+        probe_scatter_smem=HASH_WIDE_TILE * 10 + parts * 8,
+        probe_smem=-(-w * 8 // 16) * 16 + w * 4,
+        work_ints=4 * parts + HASH_COARSE_BINS + 1, probe_cap=cap,
+        probe_route=("partitioned" if parts <= HASH_WIDE_BINS
+                     and parts * cap < 1 << 31 and partitioned < direct
+                     else "direct"))
+
+
+def _check_smem(what: str, nbytes: int):
+    if nbytes > SMEM_MAX_BYTES:
+        raise ValueError(f"{what}: {nbytes} B of shared memory per CTA, more "
+                         f"than {SMEM_MAX_BYTES}")
 
 
 # --- hash build -------------------------------------------------------------
@@ -235,7 +334,10 @@ def hash_build_plain(keys: torch.Tensor, table_size: int):
 def hash_build(keys: torch.Tensor, table_size: int):
     """Open-addressing table over `keys` ([N] int64, unique except the
     int64-max NULL/dead sentinel): returns (table_key [T] int64, table_row
-    [T] int32, -1 = empty). T must be a power of two >= 2N."""
+    [T] int32, -1 = empty). T must be a power of two >= 2N. On the card
+    the keys go to their table slices first, and each slice is built in
+    shared memory (csrc/hash_table.cu); the slot order of colliding keys
+    may differ from run to run."""
     _check_vector(keys, torch.int64, "hash_build keys")
     n = keys.shape[0]
     if table_size <= 0 or table_size & (table_size - 1):
@@ -248,14 +350,23 @@ def hash_build(keys: torch.Tensor, table_size: int):
     hash_build.last_shape = (n, table_size)
     if not _route(keys, "hash_build"):
         return hash_build_plain(keys, table_size)
+    lay = hash_partition_layout(table_size)
+    _check_smem("hash_build", max(lay.build_smem, lay.build_scatter_smem))
     lib = _lib("hash_table")
-    tkey = torch.full((table_size,), I64MAX, dtype=torch.int64,
-                      device=keys.device)
-    trow = torch.full((table_size,), -1, dtype=torch.int32, device=keys.device)
+    dev = keys.device
+    # the kernel writes every slot: no fill
+    tkey = torch.empty((table_size,), dtype=torch.int64, device=dev)
+    trow = torch.empty((table_size,), dtype=torch.int32, device=dev)
+    skey = torch.empty((n,), dtype=torch.int64, device=dev)
+    srow = torch.empty((n,), dtype=torch.int32, device=dev)
+    work = torch.empty((lay.work_ints,), dtype=torch.int32, device=dev)
     rc = lib.sr_hash_build(keys.data_ptr(), n, tkey.data_ptr(),
-                           trow.data_ptr(), table_size, _stream(keys))
+                           trow.data_ptr(), table_size, lay.slice_log2,
+                           int(lay.hist_smem > 0), skey.data_ptr(),
+                           srow.data_ptr(), work.data_ptr(), _stream(keys))
     _check_launch(lib, rc, "hash_build")
     hash_build.launches += 1
+    hash_build.last_deferred = work[3 * lay.partitions:4 * lay.partitions]
     return tkey, trow
 
 
@@ -288,7 +399,9 @@ def hash_probe_plain(table_key: torch.Tensor, table_row: torch.Tensor,
 def hash_probe(table_key: torch.Tensor, table_row: torch.Tensor,
                probe: torch.Tensor):
     """Probe the table from `hash_build`: [M] int32 matched build row ids
-    (-1 = no match)."""
+    (-1 = no match). On the card the route (a direct walk per probe, or the
+    partitioned probe) follows from (T, M) alone: `hash_partition_layout`;
+    an empty probe launches nothing."""
     _check_vector(table_key, torch.int64, "hash_probe table_key")
     _check_vector(table_row, torch.int32, "hash_probe table_row")
     _check_vector(probe, torch.int64, "hash_probe probe")
@@ -297,17 +410,41 @@ def hash_probe(table_key: torch.Tensor, table_row: torch.Tensor,
         raise ValueError("hash_probe: table must be two pow-2 vectors of one size")
     if not (table_key.device == table_row.device == probe.device):
         raise ValueError("hash_probe: table and probe on different devices")
+    m = probe.shape[0]
     hash_probe.calls += 1
-    hash_probe.last_shape = (t, probe.shape[0])
+    hash_probe.last_shape = (t, m)
     if not _route(probe, "hash_probe"):
         return hash_probe_plain(table_key, table_row, probe)
+    dev = probe.device
+    out = torch.empty((m,), dtype=torch.int32, device=dev)
+    if m == 0:
+        return out
+    lay = hash_partition_layout(t, m)
+    if lay.probe_route == "partitioned" and (
+            table_key.data_ptr() % 16 or table_row.data_ptr() % 16):
+        raise ValueError("hash_probe: the table's vectors must start on 16 "
+                         "bytes (the partitioned probe copies whole slices)")
     lib = _lib("hash_table")
-    out = torch.empty(probe.shape, dtype=torch.int32, device=probe.device)
-    rc = lib.sr_hash_probe(table_key.data_ptr(), table_row.data_ptr(), t,
-                           probe.data_ptr(), probe.shape[0], out.data_ptr(),
-                           _stream(probe))
+    if lay.probe_route == "direct":
+        rc = lib.sr_hash_probe(table_key.data_ptr(), table_row.data_ptr(), t,
+                               probe.data_ptr(), m, out.data_ptr(),
+                               _stream(probe))
+    else:
+        _check_smem("hash_probe", max(lay.probe_smem, lay.probe_scatter_smem))
+        # the keys by slice; where each probe went, then the answers by
+        # slice; how many places of each slice are taken
+        places = lay.partitions * lay.probe_cap
+        skey = torch.empty((places,), dtype=torch.int64, device=dev)
+        sints = torch.empty((m + places,), dtype=torch.int32, device=dev)
+        fill = torch.empty((lay.partitions,), dtype=torch.int32, device=dev)
+        rc = lib.sr_hash_probe_partitioned(
+            table_key.data_ptr(), table_row.data_ptr(), t, probe.data_ptr(),
+            m, out.data_ptr(), lay.slice_log2, lay.halo, lay.probe_cap,
+            skey.data_ptr(), sints.data_ptr(), fill.data_ptr(),
+            _stream(probe))
     _check_launch(lib, rc, "hash_probe")
     hash_probe.launches += 1
+    hash_probe.routes[lay.probe_route] += 1
     return out
 
 
@@ -554,3 +691,4 @@ WRAPPERS = {"hash_build": hash_build, "hash_probe": hash_probe,
             "topn_select": topn_select,
             "probe_searchsorted": probe_searchsorted,
             "segment_sum": segment_sum}
+reset_counts()

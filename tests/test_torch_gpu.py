@@ -11,6 +11,9 @@ installed:
 - each kernel against its plain torch version on the same inputs: the
   integer kernels exactly (sentinels, misses, INT64_MIN/MAX, heavy slot
   collisions, duplicates, ties, all-equal and dead-row top-N keys); the
+  hash build's table also against the chain invariant, on the edges of
+  its slices (tests/test_torch_kernel_layouts.py), and both hash probe
+  routes, each asserted by its counter; the
   sorted probe also against torch.searchsorted(out_int32=True) and the
   numpy model of its tree descent, on the tree's edge cases
   (tests/test_torch_kernel_layouts.py), with the default top level and
@@ -42,8 +45,9 @@ from starrocks_tpu_torch.ops import segment
 from starrocks_tpu_torch.storage.tpch_queries import QUERIES, STAT_QUERIES
 
 from test_torch_kernel_layouts import (
-    PROBE_CASES, SEG_CASES, SEG_REL, _probe_case as _tree_case,
-    _seg_case, probe_descent_model, segment_sum_f64, segment_sum_order_model,
+    HASH_EDGE_CASES, PROBE_CASES, SEG_CASES, SEG_REL,
+    _probe_case as _tree_case, _seg_case, hash_edge_case, hash_table_errors,
+    probe_descent_model, segment_sum_f64, segment_sum_order_model, use_slices,
 )
 
 I64MAX = (1 << 63) - 1
@@ -106,11 +110,75 @@ def test_hash_kernels_match_plain(cuda, case):
     ptk, ptr = kernels.hash_build_plain(k, table)
     prow = kernels.hash_probe_plain(ptk, ptr, p)
     assert torch.equal(row.cpu(), prow)
-    # table invariants: every non-sentinel key once, with its row
+    # table invariants: every non-sentinel key once, with its row, and the
+    # chain invariant (every slot from a key's home to its slot occupied)
     tk, tr = tk.cpu(), tr.cpu()
     occ = tk != I64MAX
     assert int(occ.sum()) == int((k != I64MAX).sum())
     assert torch.equal(k[tr[occ].long()], tk[occ])
+    assert hash_table_errors(keys, tk.numpy(), tr.numpy()) == []
+
+
+# HASH_RANDOM_BYTES values that make every probe take one route
+ROUTE_BYTES = {"direct": 0, "partitioned": 1 << 40}
+
+
+@pytest.mark.parametrize("halo", [kernels.HASH_HALO, 1])
+@pytest.mark.parametrize("slices", ["default", "small"])
+@pytest.mark.parametrize("case", HASH_EDGE_CASES)
+def test_hash_partitioned_edge_cases(cuda, monkeypatch, halo, slices, case):
+    """The slices' edges (chains across the end of an inner build slice,
+    of an inner probe slice and of T - 1 -> 0, T < S, T = S, N = 0,
+    all-sentinel keys, M = 0, all-sentinel probes), with the default
+    slices and with slices of 64 slots, the default halo and a halo of 1:
+    a valid table, and each probe route, asserted by its counter, equal to
+    the plain probe of the plain build."""
+    use_slices(monkeypatch, slices)
+    monkeypatch.setattr(kernels, "HASH_HALO", halo)
+    _, keys, t, probe = hash_edge_case(case)
+    k, p = torch.from_numpy(keys), torch.from_numpy(probe)
+    kernels.reset_counts()
+    tk, tr = kernels.hash_build(k.to(cuda), t)
+    torch.cuda.synchronize()
+    assert kernels.counts()["hash_build"]["launches"] == 1
+    assert hash_table_errors(keys, tk.cpu().numpy(), tr.cpu().numpy()) == []
+    if case in ("inner_slice_end", "table_end_wraps"):
+        assert int(kernels.hash_build.last_deferred.sum()) > 0
+    ptk, ptr = kernels.hash_build_plain(k, t)
+    want = kernels.hash_probe_plain(ptk, ptr, p)
+    for route, nbytes in ROUTE_BYTES.items():
+        monkeypatch.setattr(kernels, "HASH_RANDOM_BYTES", nbytes)
+        before = kernels.hash_probe.routes[route]
+        got = kernels.hash_probe(tk, tr, p.to(cuda))
+        torch.cuda.synchronize()
+        # an empty probe launches nothing
+        assert kernels.hash_probe.routes[route] - before == int(len(probe) > 0)
+        assert torch.equal(got.cpu(), want)
+    assert sum(kernels.hash_probe.routes.values()) == (
+        kernels.counts()["hash_probe"]["launches"])
+
+
+@pytest.mark.parametrize("m,route", [(1000, "direct"),
+                                     (3_000_000, "partitioned")])
+def test_hash_probe_routes_by_shape(cuda, m, route):
+    """The route follows from (T, M): a small probe walks directly, a large
+    one takes the partitioned probe; both equal the plain probe."""
+    rng = np.random.default_rng(11)
+    keys = np.unique(rng.integers(-(1 << 62), 1 << 62, 1_000_000))
+    t = 1 << 21
+    probe = np.concatenate([keys, rng.integers(-(1 << 62), 1 << 62, m)])[
+        rng.permutation(len(keys) + m)[:m]]
+    assert kernels.hash_partition_layout(t, m).probe_route == route
+    k, p = torch.from_numpy(keys), torch.from_numpy(probe)
+    tk, tr = kernels.hash_build(k.to(cuda), t)
+    kernels.reset_counts()
+    got = kernels.hash_probe(tk, tr, p.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.hash_probe.routes == {
+        r: int(r == route) for r in kernels.HASH_PROBE_ROUTES}
+    want = kernels.hash_probe_plain(tk.cpu(), tr.cpu(), p)
+    assert torch.equal(got.cpu(), want)
+    assert int((got >= 0).sum()) > 0
 
 
 @pytest.mark.parametrize("case", ["ties", "all_equal", "int64_extremes",

@@ -1,8 +1,8 @@
-"""The host-side layouts of the port's two redesigned CUDA kernels, and
-numpy models of what the kernels do with them, on the CPU.
+"""The host-side layouts of the port's redesigned CUDA kernels, and numpy
+models of what the kernels do with them, on the CPU.
 
-The CUDA code (starrocks_tpu_torch/csrc/probe_searchsorted.cu and
-segment_sum.cu) cannot run here; what it mirrors can:
+The CUDA code (starrocks_tpu_torch/csrc/probe_searchsorted.cu,
+segment_sum.cu and hash_table.cu) cannot run here; what it mirrors can:
 
 - `probe_index_layout` / `probe_index`: the static search tree's level
   sizes, separators and int64-max padding, and a numpy model of the
@@ -18,16 +18,31 @@ segment_sum.cu) cannot run here; what it mirrors can:
   order of addition in float32 (lane trees over each group's lanes,
   per-warp chains, warps, CTAs strided by 8), held to an f64 sum at
   1e-6 * sum |x| per (group, column). tests/test_torch_gpu.py holds the
-  card's kernels to these same models bit for bit.
+  card's kernels to these same models bit for bit;
+- `hash_partition_layout`: the hash kernels' table slices, shared memory
+  and probe route, and numpy models of the partitioned build (keys
+  grouped by slice, inserted per slice in seeded random orders, deferred
+  at the slice's end, then a global overflow walk) and of the partitioned
+  probe (a window of slice + halo, then the global walk), on the slices'
+  edges: chains across an inner slice's end and T - 1 -> 0, T < S, T = S,
+  N = 0, all-sentinel keys, M = 0, all-sentinel probes; with the default
+  slices and slices of 64 slots, the default halo and a halo of 1. The
+  model's tables satisfy the table invariants (each live key once, with
+  its row; the chain invariant) and answer every probe as the plain
+  build's table does. The card's kernels race, so the gpu tests hold them
+  to the same invariants and answers, not to the model slot for slot.
 
 JAX-free: the file imports only the port, torch and numpy.
 """
+
+import functools
 
 import numpy as np
 import pytest
 import torch
 
 from starrocks_tpu_torch.ops import kernels
+from starrocks_tpu_torch.ops.common import mix64
 
 I64MAX = (1 << 63) - 1
 I64MIN = -(1 << 63)
@@ -329,3 +344,344 @@ def test_segment_order_model_within_f64_bound(case):
     want, mag = segment_sum_f64(gid, vals, g)
     assert got.shape == (g, vals.shape[1]) and got.dtype == np.float32
     assert (np.abs(got - want) <= SEG_REL * mag).all()
+
+
+# --- the hash kernels' slices, and models of the partitioned build and probe ---
+
+
+def hash_home(keys, table_size):
+    """Home slots of int64 keys: splitmix64(key) & (T - 1)."""
+    keys = torch.from_numpy(np.ascontiguousarray(keys, np.int64))
+    return (mix64(keys) & (table_size - 1)).numpy()
+
+
+def hash_table_errors(keys, tkey, trow):
+    """What is wrong with a linear-probing table built over `keys` ([] if
+    nothing): every live key exactly once, with its row, nothing else in
+    the table; and the chain invariant — for every occupied slot s holding
+    key k, every slot from home(k) to s, cyclically, is occupied."""
+    keys, tkey = np.asarray(keys, np.int64), np.asarray(tkey, np.int64)
+    trow = np.asarray(trow, np.int64)
+    t = len(tkey)
+    errors = []
+    idx = np.nonzero(tkey != I64MAX)[0]
+    live = keys != I64MAX
+    if len(idx) != int(live.sum()):
+        errors.append(f"{len(idx)} occupied slots for {int(live.sum())} keys")
+    rows = trow[idx]
+    if len(idx) and (rows.min() < 0 or rows.max() >= len(keys)
+                     or len(np.unique(rows)) != len(rows)
+                     or not (keys[rows] == tkey[idx]).all()):
+        errors.append("a slot's row does not hold its key")
+    if (trow[tkey == I64MAX] != -1).any():
+        errors.append("an empty slot has a row")
+    if len(idx) == 0:
+        return errors
+    # run of occupied slots ending at each occupied slot (cyclic)
+    starts = np.ones(len(idx), bool)
+    starts[1:] = idx[1:] != idx[:-1] + 1
+    first = np.maximum.accumulate(np.where(starts, np.arange(len(idx)), 0))
+    run = idx - idx[first] + 1
+    if idx[0] == 0 and idx[-1] == t - 1:  # the run through T - 1 -> 0
+        run[first == 0] += t - idx[first[-1]]
+    disp = (idx - hash_home(tkey[idx], t)) % t
+    if (disp >= run).any():
+        errors.append(f"{int((disp >= run).sum())} keys break the chain "
+                      "invariant")
+    return errors
+
+
+def hash_build_model(keys, table_size, seed):
+    """The partitioned build of csrc/hash_table.cu, in numpy, over the
+    slices of `hash_partition_layout`: each slice's keys are inserted in a
+    seeded random order (the CTA's threads race for the shared-memory CAS),
+    walking inside the slice; a key that runs off the slice's end is
+    deferred; then the deferred keys, in another random order, walk the
+    global table from the next slice's first slot, wrapping at T - 1 -> 0.
+    Returns (table_key, table_row, number deferred)."""
+    keys = np.asarray(keys, np.int64)
+    lay = kernels.hash_partition_layout(table_size)
+    s, mask = lay.slice_slots, table_size - 1
+    rng = np.random.default_rng(seed)
+    tkey = np.full(table_size, I64MAX, np.int64)
+    trow = np.full(table_size, -1, np.int32)
+    live = np.nonzero(keys != I64MAX)[0]
+    home = hash_home(keys[live], table_size)
+    part = home >> lay.slice_log2
+    deferred = []
+    for p in np.unique(part):
+        for j in rng.permutation(np.nonzero(part == p)[0]):
+            at = int(home[j]) & (s - 1)
+            while at < s and tkey[p * s + at] != I64MAX:
+                at += 1
+            if at == s:
+                deferred.append((int(p), int(live[j])))
+            else:
+                tkey[p * s + at], trow[p * s + at] = keys[live[j]], live[j]
+    for i in rng.permutation(len(deferred)):
+        p, r = deferred[i]
+        at = ((p + 1) * s) & mask
+        while tkey[at] != I64MAX:
+            at = (at + 1) & mask
+        tkey[at], trow[at] = keys[r], r
+    return tkey, trow, len(deferred)
+
+
+def hash_probe_model(tkey, trow, probe):
+    """The partitioned probe of csrc/hash_table.cu, in numpy: each probe
+    walks its slice's window in shared memory (the slice, then a halo
+    of `hash_partition_layout(T).halo` slots past it, wrapping at T), and
+    continues in the global table past the window. Returns (rows, number of
+    probes whose chain left the window)."""
+    tkey, trow = np.asarray(tkey, np.int64), np.asarray(trow, np.int32)
+    probe = np.asarray(probe, np.int64)
+    t = len(tkey)
+    lay = kernels.hash_partition_layout(t, len(probe))
+    s, mask = lay.slice_slots, t - 1
+    first = (np.arange(lay.partitions, dtype=np.int64) * s)
+    window = [tkey[(f + np.arange(s + lay.halo)) & mask] for f in first]
+    out = np.full(len(probe), -1, np.int32)
+    left = 0
+    home = hash_home(probe, t)
+    for i, k in enumerate(probe):
+        if k == I64MAX:
+            continue
+        p = int(home[i]) >> lay.slice_log2
+        at = int(home[i]) & (s - 1)
+        win = window[p]
+        while at < len(win) and win[at] != k and win[at] != I64MAX:
+            at += 1
+        if at < len(win):
+            if win[at] == k:
+                out[i] = trow[(first[p] + at) & mask]
+            continue
+        left += 1
+        g = int(first[p] + len(win)) & mask
+        while tkey[g] != k and tkey[g] != I64MAX:
+            g = (g + 1) & mask
+        if tkey[g] == k:
+            out[i] = trow[g]
+    return out, left
+
+
+def _aimed_keys(table_size, slots, n, seed):
+    """n distinct live keys whose home slot is one of `slots`."""
+    rng = np.random.default_rng(seed)
+    found = []
+    while sum(len(f) for f in found) < n:
+        cand = rng.integers(-(1 << 62), 1 << 62, 1 << 20, dtype=np.int64)
+        found.append(cand[np.isin(hash_home(cand, table_size), slots)])
+    return np.unique(np.concatenate(found))[:n]
+
+
+def _fill(keys, n, rng):
+    """`keys` plus random distinct keys, n in all."""
+    extra = rng.integers(-(1 << 62), 1 << 62, 2 * n, dtype=np.int64)
+    extra = np.setdiff1d(np.unique(extra), keys)[:n - len(keys)]
+    return rng.permutation(np.concatenate([keys, extra]))
+
+
+def hash_edge_cases(seed=13):
+    """(name, keys, table size, probe) of the partitioned kernels' edges, at
+    the slice size of `hash_partition_layout` at call time (the arrays are
+    shared between calls: read only)."""
+    return _hash_edge_cases(
+        seed, kernels.hash_partition_layout(1 << 31).slice_slots)
+
+
+@functools.lru_cache(maxsize=None)
+def _hash_edge_cases(seed, s):
+    rng = np.random.default_rng(seed)
+    cases = []
+
+    def probes(keys, t):
+        live = keys[keys != I64MAX]
+        miss = rng.integers(-(1 << 62), 1 << 62, max(64, len(live)),
+                            dtype=np.int64)
+        return np.concatenate([live[::-1], live + 1, miss, [I64MAX, 0, -1]])
+
+    t = 4 * s  # the last slots of an inner slice, with the slice full
+    aimed = _aimed_keys(t, [2 * s - 1, 2 * s - 2, 2 * s - 3], min(300, s // 2),
+                        seed)
+    keys = _fill(aimed, t // 2 - 7, rng)
+    cases.append(("inner_slice_end", keys, t, probes(keys, t)))
+    aimed = _aimed_keys(t, [t - 1, t - 2], min(200, s // 2), seed + 1)
+    keys = _fill(aimed, t // 4, rng)
+    cases.append(("table_end_wraps", keys, t, probes(keys, t)))
+    for name, tt in (("t_below_slice", s // 2), ("t_equals_slice", s)):
+        aimed = _aimed_keys(tt, [tt - 1], min(40, tt // 8), seed + 2)
+        keys = _fill(aimed, tt // 2, rng)
+        cases.append((name, keys, tt, probes(keys, tt)))
+    keys = _fill(np.zeros(0, np.int64), 4 * s, rng)
+    keys[rng.integers(0, len(keys), 50)] = I64MAX
+    cases.append(("full_load_dead_rows", keys, 8 * s, probes(keys, 8 * s)))
+    # one key in most probes: its slice's places run out, and the rest of
+    # those probes walk directly
+    keys = _fill(np.zeros(0, np.int64), s // 2, rng)
+    cases.append(("skewed_probe", keys, 4 * s, np.concatenate([
+        np.full(5 * s // 2, keys[7]), probes(keys, 4 * s)])))
+    cases.append(("n0", np.zeros(0, np.int64), 2 * s,
+                  rng.integers(-100, 100, 1000, dtype=np.int64)))
+    cases.append(("all_sentinel_keys", np.full(100, I64MAX, np.int64), 256,
+                  np.array([I64MAX, 0, 1, I64MAX - 1], np.int64)))
+    keys = _fill(np.zeros(0, np.int64), 1000, rng)
+    cases.append(("m0", keys, 2048, np.zeros(0, np.int64)))
+    cases.append(("all_sentinel_probes", keys, 2048,
+                  np.full(3000, I64MAX, np.int64)))
+    return [(nm, np.ascontiguousarray(k, np.int64), tt,
+             np.ascontiguousarray(p, np.int64)) for nm, k, tt, p in cases]
+
+
+HASH_EDGE_CASES = [c[0] for c in hash_edge_cases()]
+# slices small enough that every case spans many of them
+SMALL_SLICES = {"HASH_SLICE": 64}
+
+
+def use_slices(monkeypatch, slices: str):
+    """The kernels' default slices, or ("small") SMALL_SLICES."""
+    if slices == "small":
+        for name, value in SMALL_SLICES.items():
+            monkeypatch.setattr(kernels, name, value)
+
+
+def hash_edge_case(name):
+    return next(c for c in hash_edge_cases() if c[0] == name)
+
+
+@pytest.mark.parametrize("t", [1, 2, 4, 16, 64, 4096, 8192, 16_384, 32_768,
+                               1 << 17, 1 << 24, 1 << 25, 1 << 27, 1 << 28,
+                               1 << 31])
+def test_hash_partition_layout(t):
+    lay = kernels.hash_partition_layout(t)
+    s = lay.slice_slots
+    assert s == min(t, kernels.HASH_SLICE)
+    assert s & (s - 1) == 0 and s == 1 << lay.slice_log2
+    assert lay.partitions * s == t
+    # the CUDA code indexes slices with 32-bit unsigned ints
+    assert lay.partitions < 1 << 32
+    assert lay.build_smem == 12 * s
+    w = s + lay.halo
+    assert 12 * w <= lay.probe_smem < 12 * w + 16
+    # one histogram bin per slice in shared memory while it fits (2^14)
+    shared = 4 * lay.partitions <= kernels.HASH_HIST_SMEM
+    assert lay.hist_smem == (4 * lay.partitions if shared else 0)
+    assert shared == (t <= 1 << 27)
+    # the build's scatter sorts tiles in shared memory: one pass up to 128
+    # slices, two up to 2^14, global atomics beyond
+    assert lay.build_passes == (
+        0 if not shared else 1 if lay.partitions <= 128 else 2)
+    assert lay.work_ints == 4 * lay.partitions + kernels.HASH_COARSE_BINS + 1
+    for smem in (lay.build_smem, lay.probe_smem, lay.hist_smem,
+                 lay.build_scatter_smem):
+        assert 0 <= smem <= kernels.SMEM_MAX_BYTES
+    if lay.partitions <= kernels.HASH_WIDE_BINS:
+        assert lay.probe_scatter_smem <= kernels.SMEM_MAX_BYTES
+    else:  # the probe's one scatter pass takes 2048 slices at most
+        assert kernels.hash_partition_layout(t, 1 << 30).probe_route == "direct"
+
+
+@pytest.mark.parametrize("t,passes", [(1 << 17, 1), (1 << 24, 2), (1 << 27, 2),
+                                      (1 << 28, 0)])
+def test_hash_build_scatter_passes(t, passes):
+    """Q9's table (2^24 slots): 2048 slices, the build's keys scattered in
+    two passes."""
+    assert kernels.hash_partition_layout(t).build_passes == passes
+
+
+@pytest.mark.parametrize("t", [1024, 1 << 20, 1 << 24, 1 << 25])
+def test_hash_probe_route_moves_fewer_bytes(t):
+    """Partitioned while its T * 12 + M * 44 bytes are fewer than the
+    direct walk's M * (12 + HASH_RANDOM_BYTES), and the table has at most
+    HASH_WIDE_BINS slices; a single switch point in M."""
+    routes = []
+    for m in np.unique(np.geomspace(1, 64 * t, 60).astype(np.int64)):
+        lay = kernels.hash_partition_layout(t, int(m))
+        direct = m * (12 + kernels.HASH_RANDOM_BYTES)
+        fits = lay.partitions <= kernels.HASH_WIDE_BINS
+        assert (lay.probe_route == "partitioned") == (
+            fits and t * 12 + m * 44 < direct)
+        routes.append(lay.probe_route)
+    assert routes[0] == "direct"
+    assert routes[-1] == ("partitioned" if t <= 1 << 24 else "direct")
+    assert routes == sorted(routes)  # "direct" < "partitioned"
+
+
+@pytest.mark.parametrize("t,m", [(1 << 24, 9_001_984), (1 << 24, 1),
+                                 (1024, 3000), (1 << 17, 1 << 20)])
+def test_hash_probe_cap(t, m):
+    """A slice's places for the probe: 1/8 over an even share, and 64."""
+    lay = kernels.hash_partition_layout(t, m)
+    share = m / lay.partitions
+    assert share * 1.125 + 64 <= lay.probe_cap < share * 1.125 + 66
+    assert lay.partitions * lay.probe_cap < 1 << 31
+
+
+def test_hash_probe_route_at_q9():
+    """Q9's probes at SF 10 against 2^24 slots: M 9,001,984 take the
+    partitioned route, M 2,483,200 the direct walk."""
+    assert kernels.hash_partition_layout(
+        1 << 24, 9_001_984).probe_route == "partitioned"
+    assert kernels.hash_partition_layout(
+        1 << 24, 2_483_200).probe_route == "direct"
+
+
+def test_hash_table_errors_sees_a_broken_chain():
+    """One chain of six keys homed at slot 60 of 64 fills 60..63, 0, 1
+    (through T - 1 -> 0); a hole at 61 breaks it."""
+    keys = _aimed_keys(64, [60], 6, 0)
+    tk, tr = kernels.hash_build_plain(torch.from_numpy(keys), 64)
+    tk, tr = tk.numpy(), tr.numpy()
+    assert sorted(np.nonzero(tk != I64MAX)[0]) == [0, 1, 60, 61, 62, 63]
+    assert hash_table_errors(keys, tk, tr) == []
+    bk, br = tk.copy(), tr.copy()
+    bk[2], br[2] = tk[61], tr[61]
+    bk[61], br[61] = I64MAX, -1
+    errors = hash_table_errors(keys, bk, br)
+    assert len(errors) == 1 and "chain" in errors[0]
+    bk, br = tk.copy(), tr.copy()
+    bk[2], br[2] = tk[61], tr[61]  # a key twice
+    assert hash_table_errors(keys, bk, br)
+    br = tr.copy()
+    br[60], br[61] = tr[61], tr[60]  # rows swapped
+    assert hash_table_errors(keys, tk, br) == [
+        "a slot's row does not hold its key"]
+
+
+@pytest.mark.parametrize("slices", ["default", "small"])
+@pytest.mark.parametrize("case", HASH_EDGE_CASES)
+def test_hash_build_model(monkeypatch, slices, case):
+    """The partitioned build, in three insertion orders: a valid table, and
+    every probe answers as on the plain build's table."""
+    use_slices(monkeypatch, slices)
+    _, keys, t, probe = hash_edge_case(case)
+    pk, pr = kernels.hash_build_plain(torch.from_numpy(keys), t)
+    want = kernels.hash_probe_plain(pk, pr, torch.from_numpy(probe)).numpy()
+    oracle = {int(k): i for i, k in enumerate(keys) if k != I64MAX}
+    assert np.array_equal(want, [oracle.get(int(p), -1) for p in probe])
+    for seed in range(3):
+        tk, tr, deferred = hash_build_model(keys, t, seed)
+        assert hash_table_errors(keys, tk, tr) == []
+        got = kernels.hash_probe_plain(torch.from_numpy(tk),
+                                       torch.from_numpy(tr),
+                                       torch.from_numpy(probe)).numpy()
+        assert np.array_equal(got, want)
+        if case in ("inner_slice_end", "table_end_wraps"):
+            assert deferred > 0  # chains really cross the slice's end
+
+
+@pytest.mark.parametrize("halo", [kernels.HASH_HALO, 1])
+@pytest.mark.parametrize("slices", ["default", "small"])
+@pytest.mark.parametrize("case", HASH_EDGE_CASES)
+def test_hash_probe_model(monkeypatch, halo, slices, case):
+    """The partitioned probe, on the model build's table, with the default
+    halo and with a halo of 1: equal to the plain probe."""
+    use_slices(monkeypatch, slices)
+    monkeypatch.setattr(kernels, "HASH_HALO", halo)
+    _, keys, t, probe = hash_edge_case(case)
+    tk, tr, _ = hash_build_model(keys, t, 0)
+    got, left = hash_probe_model(tk, tr, probe)
+    want = kernels.hash_probe_plain(torch.from_numpy(tk), torch.from_numpy(tr),
+                                    torch.from_numpy(probe)).numpy()
+    assert np.array_equal(got, want)
+    if halo == 1 and case in ("inner_slice_end", "table_end_wraps"):
+        assert left > 0  # chains leave the window for the global walk

@@ -7,7 +7,9 @@ held against the JAX package's hash_build_pallas / hash_probe_pallas /
 topn_select_pallas run with interpret=True on the same numpy inputs. The
 results must be EXACT: probe rows and top-N candidates element for element,
 and the build table slot for slot. mix64, the engine's hash, must be
-bit-identical on edge values.
+bit-identical on edge values. The card's partitioned hash build lays its
+table out otherwise; its numpy model's table answers every probe as
+hash_probe_pallas does on the reference's own table.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_gpu.py.
@@ -23,6 +25,10 @@ from starrocks_tpu.ops import common as jcommon
 from starrocks_tpu.ops import pallas_kernels as pk
 from starrocks_tpu_torch.ops import common as tcommon
 from starrocks_tpu_torch.ops import kernels
+
+from test_torch_kernel_layouts import (
+    hash_build_model, hash_edge_case, hash_probe_model, use_slices,
+)
 
 I64MAX = (1 << 63) - 1
 I64MIN = -(1 << 63)
@@ -131,6 +137,26 @@ def test_hash_build_probe_plain_matches_pallas(case):
     assert (trow == jrow).all()
     oracle = {int(k): i for i, k in enumerate(keys) if k != I64MAX}
     assert (trow == np.array([oracle.get(int(p), -1) for p in probe])).all()
+
+
+@pytest.mark.parametrize("case", ["inner_slice_end", "table_end_wraps"])
+def test_partitioned_build_model_probes_as_pallas(monkeypatch, case):
+    """The card's partitioned build (its numpy model, at slices of 64 slots
+    so that chains cross slices and T - 1 -> 0) answers every probe as
+    hash_probe_pallas does on the reference's own table; the partitioned
+    probe's model answers the same."""
+    use_slices(monkeypatch, "small")
+    _, keys, t, probe = hash_edge_case(case)
+    block = 1024
+    probe = np.concatenate([probe, np.full(-len(probe) % block, I64MAX)])
+    jtk, jtr = _jax_build(keys, t)
+    want = _jax_probe(jtk, jtr, probe, block)
+    tk, tr, deferred = hash_build_model(keys, t, seed=0)
+    assert deferred > 0
+    got = kernels.hash_probe(torch.from_numpy(tk), torch.from_numpy(tr),
+                             torch.from_numpy(probe)).numpy()
+    assert (got == want).all()
+    assert (hash_probe_model(tk, tr, probe)[0] == want).all()
 
 
 def test_hash_wrappers_validate_and_count():

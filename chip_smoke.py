@@ -24,9 +24,22 @@ Phases, each of which must pass:
    = 'pallas'`), and Q2 at SF 1, where its ORDER BY key packs for the
    top-N kernel (at SF 10 it does not, in the reference too). The route
    each hash probe took and the path's peak device memory are kept.
-5. kernels: each kernel on the card, at the shapes its path gave it and on
+5. topn (the top-N path): N1-N3 (`TOPN_QUERIES`: ORDER BY .. LIMIT over
+   lineitem and orders, whose keys pack into one int64) at --sf, cold and
+   warm under `topn_strategy = 'pallas'`, then under `auto` in a fresh
+   session. Launch counts are set to 0 before each query; every cold run
+   under `pallas` must launch topn_select. The rows must be equal between
+   the two strategies, exactly. Each query's top-N shape, wall times and
+   the path's peak device memory are kept, and one traced warm run per
+   query splits the operator's device time by its profiler spans
+   (`sort::pack`, `topn::select`, `topn::reduce`, `topn::gather`; the
+   top-N kernel's own device time is under the `top` kernels beside it).
+6. kernels: each kernel on the card, at the shapes its path gave it and on
    edge cases (sentinels, duplicates, INT64_MIN/MAX, heavy slot
-   collisions, all-equal top-N keys, dead rows, small blocks; for the
+   collisions; for the top-N select ties, all-equal keys, dead rows,
+   INT64_MIN runs, clustered keys (its 64-bit pass), live spans too wide
+   for 64-bit keys (its pair kernel) and k across a lane's and a warp's
+   sizes; for the
    hash kernels chains across the end of an inner table slice and of the
    table, T below and equal to a slice, N = 0, all-sentinel keys, M = 0,
    all-sentinel probes, tables of 2^26, 2^28 and 2^31 slots, each also
@@ -36,7 +49,12 @@ Phases, each of which must pass:
    search tree's separators, runs of 5/65/1025 equal keys, int64-max
    probes with and without a sentinel tail, each also with a deep tree),
    against its plain version: the integer kernels exactly (the probe also
-   against torch.searchsorted(out_int32=True)). The f32 segment sum adds
+   against torch.searchsorted(out_int32=True)). The top-N select is timed
+   and checked on every edge case at the largest and the smallest shape
+   its paths gave it (N1's and Q2's), and its candidates' reduction is
+   timed two ways at the largest: the full stable sort, and the threshold
+   sort the port uses (`ops/sort.py first_kk_desc`), which must return the
+   same indices. The f32 segment sum adds
    in its own fixed order, not the plain version's block order, so it is
    held to an f64 sum of the same f32 values: within 1e-6 * sum |x| per
    (group, column), and bit-identical over two runs; its error against
@@ -46,8 +64,9 @@ Phases, each of which must pass:
    call is traced with torch.profiler for its split by device kernel; the
    hash probe at each of Q9's probe counts by either route, with the keys
    the build deferred past their slice and both kernels' scratch.
-6. card vs CPU: the 22 queries and S1/S2 at SF 0.1 on the card under the
-   kernel strategies, and Q1/Q2/Q3/Q9 under the hash kernels, against the
+7. card vs CPU: the 22 queries and S1/S2 at SF 0.1 on the card under the
+   kernel strategies, Q1/Q2/Q3/Q9 under the hash kernels and N1-N3 under
+   the top-N kernel, against the
    CPU (`device="cpu"`) under `auto`; rows must agree, in order: exactly,
    except floats to 6 significant digits — and S1/S2's floats to a
    relative 1e-4, since `pallas` sums their moments in f32 blocks (the
@@ -57,7 +76,9 @@ The last lines of output are the `kernels` JSON line and then
 {"ok": true, "device": {...}}; the full record goes to DIR/chip_smoke.json.
 `--phases kernels` (a comma list) runs those phases only, after `device`
 and `build`; the kernels then take the main path's shapes from
-DEFAULT_SHAPES, and the run ends without the `ok` line.
+DEFAULT_SHAPES, and the run ends without the `ok` line. `--kernels
+topn_select` (a comma list of the kernels phase's checks: hash,
+topn_select, probe_searchsorted, segment_sum) runs only those checks.
 Imports only the port, torch, numpy and the standard library.
 """
 
@@ -72,12 +93,13 @@ import traceback
 from pathlib import Path
 
 HASH_KNOBS = {"join_probe_strategy": "pallas", "topn_strategy": "pallas"}
-STAT_REL = 1e-4  # S1/S2 floats, f32 block sums vs f64 (see phase 6)
+TOPN_KNOBS = {"topn_strategy": "pallas"}
+STAT_REL = 1e-4  # S1/S2 floats, f32 block sums vs f64 (see phase 7)
 
 
 def qname(q: str) -> str:
-    """"9" -> "Q9"; "S1" stays "S1"."""
-    return q if q.startswith("S") else f"Q{q}"
+    """"9" -> "Q9"; "S1" and "N1" stay as they are."""
+    return q if q[0] in "SN" else f"Q{q}"
 
 
 def query_texts() -> dict:
@@ -85,6 +107,13 @@ def query_texts() -> dict:
     from starrocks_tpu_torch.storage.tpch_queries import QUERIES, STAT_QUERIES
 
     return {**{str(q): t for q, t in QUERIES.items()}, **STAT_QUERIES}
+
+
+def topn_texts() -> dict:
+    """{"N1": .., "N2": .., "N3": ..}: the top-N path's queries."""
+    from starrocks_tpu_torch.storage.tpch_queries import TOPN_QUERIES
+
+    return dict(TOPN_QUERIES)
 
 
 # H100 SXM published peaks (NVIDIA data sheet) used for the bounds: HBM3
@@ -100,7 +129,7 @@ KERNEL_META = {
     "hash_probe": ("starrocks_tpu_torch/csrc/hash_table.cu",
                    "starrocks_tpu/ops/pallas_kernels.py:266", "hash_topn"),
     "topn_select": ("starrocks_tpu_torch/csrc/topn_select.cu",
-                    "starrocks_tpu/ops/pallas_kernels.py:112", "hash_topn"),
+                    "starrocks_tpu/ops/pallas_kernels.py:112", "topn"),
     "probe_searchsorted": ("starrocks_tpu_torch/csrc/probe_searchsorted.cu",
                            "starrocks_tpu/ops/pallas_kernels.py:316", "tpch"),
     "segment_sum": ("starrocks_tpu_torch/csrc/segment_sum.cu",
@@ -108,11 +137,11 @@ KERNEL_META = {
 }
 
 # the main path's shapes at SF 10 (chip_smoke, PR 2), for a kernels phase
-# run without the paths: hash (N, T) and (T, M), top-N (N, k), sorted probe
-# (K, N) of Q9, segment sum (N, M, G, block) of S1
+# run without the paths: hash (N, T) and (T, M), top-N (N, k) of Q2 at SF 1
+# and of N1, sorted probe (K, N) of Q9, segment sum (N, M, G, block) of S1
 DEFAULT_SHAPES = {"hash_build": (8_000_512, 1 << 24),
                   "hash_probe": (1 << 24, 9_001_984),
-                  "topn_select": (2048, 1024),
+                  "topn_select": [(2048, 1024), (60_005_376, 1024)],
                   "probe_searchsorted": (8_000_512, 9_001_984),
                   "segment_sum": (60_005_376, 1, 1024, 1024)}
 # Q9's two probe shapes (T, M) at SF 10: its cold run and its warm run (a
@@ -280,7 +309,9 @@ def phase_build(rec):
         kernels._lib(name)  # load: the build really produced a library
     for name, text in logs.items():
         for ln in text.splitlines():
-            if "registers" in ln or "smem" in ln or "error" in ln.lower():
+            if any(w in ln.lower() for w in ("registers", "smem", "spill",
+                                             "function properties",
+                                             "error")):
                 log(f"  {name}: {ln.strip()}")
     log(f"build: {sorted(logs)} built in {dt:.1f} s")
     rec["build_s"] = dt
@@ -462,12 +493,99 @@ def phase_hash_topn(rec, cat, sf, seed):
     torch.cuda.empty_cache()
 
 
-def trace_queries(s, texts) -> dict:
+def _run_topn(s, label, texts, out, launches, tables, kernels):
+    """Cold then warm run of each top-N query, every launch count set to 0
+    just before it and read just after; `launches` sums them."""
+    import torch
+
+    for run in ("cold", "warm"):
+        for q, text in texts.items():
+            kernels.reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = s.sql(text)
+            table = res.table
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            got = _snapshot(kernels)
+            for n, v in got.items():
+                launches[n] += v
+            tables[(label, q, run)] = table
+            prof = res.profile
+            shape = kernels.topn_select.last_shape if got["topn_select"] else None
+            out.setdefault(q, {})[run] = {
+                "wall_s": wall, "rows": table.num_rows,
+                "launches": {n: v for n, v in got.items() if v},
+                "topn_shape": shape, "recompiles": prof.get("recompiles"),
+                "optimize_s": prof.get("optimize_s"),
+                "scan_s": sum(a["scan_s"] for a in prof["attempts"]),
+                "run_s": sum(a["run_s"] for a in prof["attempts"]),
+                "fetch_s": prof.get("fetch_s"),
+            }
+            log(f"  {q}@{label} {run}: {wall * 1e3:.1f} ms, {table.num_rows} "
+                f"rows, launches {out[q][run]['launches']}, top-N shape "
+                f"{shape}, scan {out[q][run]['scan_s']:.3f} s, run "
+                f"{out[q][run]['run_s']:.3f} s")
+
+
+# the top-N operator's profiler spans (ops/sort.py)
+TOPN_SPANS = ("sort::pack", "topn::select", "topn::reduce", "topn::gather")
+
+
+def phase_topn(rec, cat, sf):
+    """N1-N3 at `sf` under `topn_strategy = 'pallas'`, then under `auto` in
+    a fresh session (see the module docstring, phase 5)."""
+    import torch
+
+    from starrocks_tpu_torch.ops import kernels
+    from starrocks_tpu_torch.runtime.session import Session
+
+    texts = topn_texts()
+    out = {"sf": sf}
+    tables: dict = {}
+    for name, knobs in (("pallas", TOPN_KNOBS), ("auto", strategies("auto"))):
+        s = Session(cat, device=CARD)
+        set_knobs(knobs)
+        queries: dict = {}
+        launches = dict.fromkeys(kernels.WRAPPERS, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _run_topn(s, name, texts, queries, launches, tables, kernels)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"topn under {name}: launches {launches}, peak device memory "
+            f"{peak:.2f} GB")
+        out[name] = {"knobs": knobs, "queries": queries, "launches": launches,
+                     "peak_mem_gb": peak,
+                     "trace": trace_queries(s, texts, TOPN_SPANS)}
+        del s
+        torch.cuda.empty_cache()
+    main = out["pallas"]["queries"]
+    out["launches"] = out["pallas"]["launches"]
+    out["shapes"] = {"topn_select": sorted({tuple(r["topn_shape"])
+                                           for q in main.values()
+                                           for r in q.values()
+                                           if r["topn_shape"]})}
+    rec["topn"] = out
+    missed = [q for q in texts if main[q]["cold"]["launches"].get(
+        "topn_select", 0) < 1]
+    if missed:
+        raise PhaseError(f"{missed} did not launch topn_select")
+    differ = [f"{q} {run}" for q in texts for run in ("cold", "warm")
+              if not tables_agree(tables[("pallas", q, run)],
+                                  tables[("auto", q, run)], rel=0.0)]
+    empty = [q for q in texts if main[q]["cold"]["rows"] == 0]
+    if differ or empty:
+        raise PhaseError(f"rows differ between pallas and auto: {differ}; "
+                         f"no rows: {empty}")
+
+
+def trace_queries(s, texts, spans=()) -> dict:
     """One more warm run of each query under torch.profiler: the device's
     busy time (sum of kernel durations on the card), its idle share of the
-    traced wall time, and the kernels that took the most device time. The
-    profiler slows the host side, so the traced wall time is not the
-    query's wall time; the untraced warm runs above are."""
+    traced wall time, the kernels that took the most device time, and the
+    device time under each of the profiler `spans` (record_function
+    ranges). The profiler slows the host side, so the traced wall time is
+    not the query's wall time; the untraced warm runs above are."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -487,16 +605,20 @@ def trace_queries(s, texts) -> dict:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
         busy = sum(by_name.values()) / 1e6
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        span_ms = {e.key: getattr(e, "device_time_total", 0) / 1e3
+                   for e in prof.key_averages() if e.key in spans}
         res[q] = {
             "traced_wall_s": wall, "device_kernels": len(kern),
             "device_busy_s": busy if kern else None,
             "idle_share": (1 - busy / wall) if kern else None,
             "top": [[n[:80], us / 1e3] for n, us in top],
+            "span_device_ms": span_ms,
         }
         log(f"  trace {qname(q)}: traced wall {wall * 1e3:.1f} ms, "
             f"{len(kern)} device kernels, busy "
             + (f"{busy * 1e3:.1f} ms, idle share {1 - busy / wall:.3f}"
-               if kern else "not measured (no device events)"))
+               if kern else "not measured (no device events)")
+            + (f"; device ms by span {span_ms}" if spans else ""))
         for n, us in top[:2]:
             log(f"      {us / 1e3:8.2f} ms  {n[:90]}")
     return res
@@ -676,36 +798,39 @@ def _hash_cases(dev, seed):
             for nm, k, tt, p in cases]
 
 
-def phase_kernels(rec, seed):
+def phase_kernels(rec, seed, only=None):
     """Every kernel against its plain version and timed (see the module
-    docstring, phase 5). Each kernel's check runs even where an earlier
-    one failed; the phase fails if any did."""
+    docstring, phase 6); `only` names the checks to run (default all).
+    Each kernel's check runs even where an earlier one failed; the phase
+    fails if any did."""
     import torch
 
     from starrocks_tpu_torch.ops import kernels
 
     dev = torch.device(CARD)
     shapes = {n: [] for n in kernels.WRAPPERS}
-    for path in ("hash_topn", "tpch"):
+    for path in ("hash_topn", "tpch", "topn"):
         for n, v in (rec.get(path) or {}).get("shapes", {}).items():
             shapes[n] += [tuple(x) for x in v]
     build_shape = max(shapes["hash_build"] or [DEFAULT_SHAPES["hash_build"]])
     probe_shapes = sorted(set(shapes["hash_probe"]) or Q9_PROBE_SHAPES)
-    topn_shape = max(shapes["topn_select"] or [DEFAULT_SHAPES["topn_select"]])
+    # the top-N kernel at the largest and the smallest shape its paths gave
+    topn_shapes = shapes["topn_select"] or DEFAULT_SHAPES["topn_select"]
+    topn_shapes = sorted({min(topn_shapes), max(topn_shapes)})
     sorted_shape = max(shapes["probe_searchsorted"]
                        or [DEFAULT_SHAPES["probe_searchsorted"]],
                        key=lambda kn: kn[0] * kn[1])
     segsum_shape = max(shapes["segment_sum"]
                        or [DEFAULT_SHAPES["segment_sum"]])
     log(f"kernels: shapes build {build_shape} probe {probe_shapes} "
-        f"topn {topn_shape} sorted probe {sorted_shape} segment sum "
+        f"topn {topn_shapes} sorted probe {sorted_shape} segment sum "
         f"{segsum_shape}")
     results = {n: {} for n in kernels.WRAPPERS}
     failures = []
     checks = [
         ("hash", lambda: _check_hash(dev, build_shape, probe_shapes, seed,
                                      failures, results)),
-        ("topn_select", lambda: _check_topn(dev, topn_shape, seed, failures,
+        ("topn_select", lambda: _check_topn(dev, topn_shapes, seed, failures,
                                             results["topn_select"])),
         ("probe_searchsorted", lambda: _check_probe_searchsorted(
             dev, sorted_shape, seed, failures,
@@ -714,6 +839,8 @@ def phase_kernels(rec, seed):
             dev, segsum_shape, seed, failures, results["segment_sum"])),
     ]
     for name, check in checks:
+        if only and name not in only:
+            continue
         try:
             check()
         except Exception as e:  # report it, run the other kernels' checks
@@ -921,54 +1048,158 @@ def _check_hash(dev, build_shape, probe_shapes, seed, failures, results):
     results["hash_probe"]["max_abs_err"] = err_probe
 
 
-def _check_topn(dev, topn_shape, seed, failures, res):
-    import numpy as np
+def _topn_cases(dev, shape, seed):
+    """(name, neg [N] int64, k) on the card at the top-N shape (N, 1024):
+    N1's 53-bit keys (complemented, as topn_order hands them on),
+    N2's 6-bit keys (1/50 of the rows tied at the top), all-equal keys,
+    N3's dead rows (INT64_MIN) after the live ones, INT64_MIN runs and
+    all-dead blocks, clustered keys (the kernel's 64-bit pass), live spans
+    too wide for its 64-bit keys (INT64_MAX and INT64_MIN + 1 among small
+    values: its pair kernel), and N1's keys at k across a lane's (32) and
+    a warp's (1024) sizes."""
+    import torch
+
+    n, k = shape
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def ints(lo, hi, size=n):
+        return torch.randint(lo, hi, (size,), generator=g, device=dev,
+                             dtype=torch.int64)
+
+    # N1's key: the price code (10,404,850 cents wide at SF 10) above 29
+    # bits of (orderkey, linenumber)
+    main = ~((ints(0, 10_404_850) << 29) | ints(0, 1 << 29))
+    cases = [("main_path_shape", main, k), ("n2_ties", ~ints(0, 50), k),
+             ("all_equal", torch.full((n,), 42, dtype=torch.int64,
+                                      device=dev), k)]
+    dead = torch.full((n,), I64MIN, dtype=torch.int64, device=dev)
+    dead[:n // 2 + 77] = ~ints(0, 1 << 52, n // 2 + 77)
+    cases.append(("dead_rows", dead, k))
+    runs = main.clone()
+    starts = ints(0, n - 2000, 4096)
+    for ln in (1, 31, 97, 1024, 1500):
+        for st in starts[:1024].tolist()[ln % 7::7]:
+            runs[st:st + ln] = I64MIN
+    runs[(n // 2048) * 1024:(n // 2048 + 1) * 1024] = I64MIN
+    cases.append(("int64_min_runs", runs, k))
+    # rows within 100 of each other and one far row a block: the 32-bit
+    # keys' prefixes tie, and every block takes the kernel's 64-bit pass
+    clustered = ints(0, 100)
+    clustered[::1024] = 1 << 50
+    cases.append(("clustered", clustered, k))
+    wide = ints(-5, 5)
+    wide[ints(0, n, n // 40)] = I64MAX
+    wide[ints(0, n, n // 7)] = I64MIN
+    wide[ints(0, n, n // 500)] = I64MIN + 1
+    cases.append(("wide_spans", wide, k))
+    cases += [(f"main_k{kk}", main, kk) for kk in (1, 33, 257, 1000)
+              if kk < k]
+    return cases
+
+
+def _check_topn(dev, topn_shapes, seed, failures, res):
+    """At each of `topn_shapes`: the kernel timed beside its bound, its
+    plain version and two library calls (torch.sort of the blocks, the
+    same function; torch.topk per block, which orders ties otherwise) and
+    its host enqueue time, then every case of _topn_cases against its
+    plain version, bit for bit. At the largest shape the candidates'
+    reduction is timed two ways — the full stable sort, and the threshold
+    sort the port uses — which must return the same indices."""
     import torch
 
     from starrocks_tpu_torch.ops import kernels
+    from starrocks_tpu_torch.ops import sort as sort_ops
 
-    rng = np.random.default_rng(seed)
-    n, k = topn_shape
-    base = rng.integers(-(1 << 40), 0, n)
-    cases = [("main_path_shape", base, k)]
-    ties = rng.integers(0, 50, n)
-    cases.append(("ties", ties, k))
-    cases.append(("all_equal", np.full(n, 42), k))
-    ext = rng.integers(-5, 5, n)
-    ext[rng.integers(0, n, n // 7)] = I64MIN
-    ext[rng.integers(0, n, n // 40)] = I64MAX
-    ext[n // 2:] = I64MIN
-    cases.append(("int64_extremes", ext, k))
-    dead = np.full(n, I64MIN)
-    dead[:30] = rng.integers(-1000, 0, 30)
-    cases.append(("dead_tail", dead, min(k, 100)))
-    err_topn = 0
-    for name, x, kk in cases:
-        neg = torch.from_numpy(np.asarray(x, np.int64)).to(dev)
-        v, i = kernels.topn_select(neg, kk)
-        pv, pi = kernels.topn_select_plain(neg, kk)
+    res["max_abs_err"] = 0
+    by_shape = {}
+    big = max(topn_shapes)
+    for shape in sorted(topn_shapes):
+        n, k = shape
+        cases = _topn_cases(dev, shape, seed)
+        neg = cases[0][1]
+        nb = n // 1024
+        ms = cuda_ms(lambda: kernels.topn_select(neg, k), reps=20)
         torch.cuda.synchronize()
-        ev = float((v.double() - pv.double()).abs().max())
-        ei = int((i.to(torch.int64) - pi.to(torch.int64)).abs().max())
-        same = bool((v == pv).all()) and bool((i == pi).all())
-        log(f"  topn {name}: N={n} k={kk} equal={same} value err {ev} "
-            f"idx err {ei}")
+        t = time.perf_counter()
+        for _ in range(20):
+            kernels.topn_select(neg, k)
+        enqueue = (time.perf_counter() - t) / 20 * 1e3
+        torch.cuda.synchronize()
+        blocks = neg.view(-1, 1024)
+        # bytes: N keys in, nb*k (value, row) pairs out; operations: the
+        # compares a comparison sort of 1024 keys needs, log2(1024!) ~ 8770
+        # a block (the bytes bound it)
+        b = bound_ms(n * 8 + nb * k * 12, nb * 8770)
+        by_shape[str(list(shape))] = r = {
+            "ms": ms, "enqueue_ms": enqueue,
+            "plain_ms": cuda_ms(lambda: kernels.topn_select_plain(neg, k),
+                                reps=5),
+            "library_ms": cuda_ms(lambda: torch.sort(
+                blocks, dim=1, descending=True, stable=True), reps=10),
+            "library_topk_ms": cuda_ms(lambda: torch.topk(blocks, k, dim=1),
+                                       reps=10),
+            "bound_ms": b[0], "bound_by": b[1],
+            "split": device_split(lambda: kernels.topn_select(neg, k))}
+        log(f"  topn_select at N={n} k={k}: {ms:.4f} ms (host enqueue "
+            f"{enqueue:.4f} ms), bound {b[0]:.4f} ms by {b[1]}, plain "
+            f"{r['plain_ms']:.4f} ms, torch.sort of the blocks "
+            f"{r['library_ms']:.4f} ms, torch.topk per block "
+            f"{r['library_topk_ms']:.4f} ms; split {r['split']}")
+        del neg, blocks
+        for name, neg, kk in cases:
+            v, i = kernels.topn_select(neg, kk)
+            listed = getattr(kernels.topn_select, "last_listed", None)
+            listed = None if listed is None else listed.tolist()
+            pv, pi = kernels.topn_select_plain(neg, kk)
+            torch.cuda.synchronize()
+            ev = float((v.double() - pv.double()).abs().max())
+            ei = int((i.to(torch.int64) - pi.to(torch.int64)).abs().max())
+            same = torch.equal(v, pv) and torch.equal(i, pi)
+            log(f"  topn {name}: N={n} k={kk} equal={same} value err {ev} "
+                f"idx err {ei}; blocks to the 64-bit pass and to the pair "
+                f"kernel {listed}")
+            r.setdefault("listed", {})[name] = listed
+            if not same:
+                failures.append(f"topn {name} at N={n}")
+            res["max_abs_err"] = max(res["max_abs_err"], ei, ev)
+            if (shape == big and name in ("main_path_shape", "n2_ties")
+                    and hasattr(sort_ops, "first_kk_desc")):
+                _time_topn_reduction(name, neg, v, kk, sort_ops, failures,
+                                     res)
+            del v, i, pv, pi
+        del cases
+        torch.cuda.empty_cache()
+    res.update(by_shape[str(list(big))])
+    res.update({"shape": list(big), "by_shape": by_shape})
+
+
+def _time_topn_reduction(name, neg, cv, kk, sort_ops, failures, res):
+    """topn_order's reduction on the kernel's candidates `cv` (the
+    `pallas` route) and on `neg` itself (the `auto` route): the full
+    stable sort against the threshold sort, same indices required."""
+    import torch
+
+    red = res.setdefault("reduction", {})
+    for route, x in (("pallas", cv), ("auto", neg)):
+        full = torch.sort(x, descending=True, stable=True).indices[:kk]
+        got = sort_ops.first_kk_desc(x, kk)
+        same = torch.equal(full, got)
+        red[f"{name}/{route}"] = r = {
+            "full_sort_ms": cuda_ms(lambda: torch.sort(
+                x, descending=True, stable=True).indices[:kk], reps=5),
+            "threshold_ms": cuda_ms(lambda: sort_ops.first_kk_desc(x, kk),
+                                    reps=5),
+            "same_indices": same,
+            "rows_at_or_above_threshold": int(
+                (x >= x[got[-1]]).sum()) if kk else 0}
+        log(f"  topn reduction {name} ({route} route, N={x.shape[0]} "
+            f"kk={kk}): full stable sort {r['full_sort_ms']:.4f} ms, "
+            f"threshold {r['threshold_ms']:.4f} ms "
+            f"({r['rows_at_or_above_threshold']} rows sorted), same "
+            f"indices {same}")
         if not same:
-            failures.append(f"topn {name}")
-        err_topn = max(err_topn, ei, ev)
-        if name == "main_path_shape":
-            ms = cuda_ms(lambda: kernels.topn_select(neg, kk), reps=20)
-            plain = cuda_ms(lambda: kernels.topn_select_plain(neg, kk), reps=20)
-            lib = cuda_ms(lambda: torch.topk(neg.view(-1, 1024), kk, dim=1),
-                          reps=20)
-            nb = n // 1024
-            # bytes: N keys in, nb*k (value, index) pairs out; ops: the
-            # bitonic network's 55 compare-exchange stages over 1024 lanes
-            tb = bound_ms(n * 8 + nb * kk * 12, nb * 1024 * 55 * 4)
-            res.update({"ms": ms, "plain_ms": plain, "library_ms": lib,
-                        "bound_ms": tb[0], "bound_by": tb[1],
-                        "shape": [n, kk]})
-    res["max_abs_err"] = err_topn
+            failures.append(f"topn reduction {name} {route}")
 
 
 def _probe_cases(dev, shape, seed):
@@ -1221,6 +1452,8 @@ def phase_card_vs_cpu(rec, sf, seed):
     cpu = Session(cat, device="cpu")
     runs = [("kernels", strategies("kernels"), q) for q in texts]
     runs += [("hash_topn", HASH_KNOBS, q) for q in ("1", "2", "3", "9")]
+    texts.update(topn_texts())
+    runs += [("topn", TOPN_KNOBS, q) for q in topn_texts()]
     want = {}
     bad = []
     out = {}
@@ -1254,6 +1487,10 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=None,
                     help="comma list of phases to run after device and build "
                          "(default: all, and only then the ok line)")
+    ap.add_argument("--kernels", default=None,
+                    help="comma list of the kernels phase's checks to run "
+                         "(hash, topn_select, probe_searchsorted, "
+                         "segment_sum; default all)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1286,12 +1523,14 @@ def main(argv=None) -> int:
         ("tpch", lambda: phase_tpch(rec, data["cat"], args.sf)),
         ("hash_topn", lambda: phase_hash_topn(rec, data["cat"], args.sf,
                                               args.seed)),
-        ("kernels", lambda: phase_kernels(rec, args.seed)),
+        ("topn", lambda: phase_topn(rec, data["cat"], args.sf)),
+        ("kernels", lambda: phase_kernels(
+            rec, args.seed, args.kernels and args.kernels.split(","))),
         ("card_vs_cpu", lambda: phase_card_vs_cpu(rec, CPU_SF, args.seed)),
     ]
     if args.phases:
         wanted = {"device", "build", *args.phases.split(",")}
-        if wanted & {"tpch", "hash_topn"}:
+        if wanted & {"tpch", "hash_topn", "topn"}:
             wanted.add("generate")
         unknown = wanted - {name for name, _ in phases}
         if unknown:

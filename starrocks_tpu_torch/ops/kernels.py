@@ -19,9 +19,10 @@ counts kernel launches only, so a run on the card shows that the main path
 went through the kernels; `<wrapper>.last_shape` keeps the sizes of the
 latest call, so a benchmark can time a kernel at the shapes a query gave it.
 `hash_probe.routes` counts its launches by route ("direct", "partitioned":
-csrc/hash_table.cu), and `hash_build.last_deferred` holds the latest
-build's per-slice count of keys inserted past their slice (a device
-tensor).
+csrc/hash_table.cu), `hash_build.last_deferred` holds the latest build's
+per-slice count of keys inserted past their slice, and
+`topn_select.last_listed` the latest launch's count of blocks sent to the
+top-N kernel's 64-bit pass and to its pair kernel (device tensors).
 
 The kernels are compiled with nvcc for sm_90a into plain-C shared libraries
 (one per source, built in parallel) at first use, under `_build/` next to
@@ -70,7 +71,7 @@ _SIGNATURES = {
                                       ctypes.c_int, _P, _P, _P, _P],
     },
     "topn_select": {
-        "sr_topn_select": [_P, _I64, ctypes.c_int, _P, _P, _P],
+        "sr_topn_select": [_P, _I64, ctypes.c_int, _P, _P, _P, _P],
     },
     "probe_searchsorted": {
         "sr_probe_searchsorted": [_P, _I64, _P, _I64, _P, _P,
@@ -199,6 +200,7 @@ def reset_counts():
         w.last_shape = None
     hash_build.last_deferred = None
     hash_probe.routes = dict.fromkeys(HASH_PROBE_ROUTES, 0)
+    topn_select.last_listed = None
 
 
 def counts() -> dict:
@@ -480,13 +482,17 @@ def topn_select(neg: torch.Tensor, k: int):
     if not _route(neg, "topn_select"):
         return topn_select_plain(neg, k)
     lib = _lib("topn_select")
-    m = n // TOPN_BLOCK * k
-    vals = torch.empty((m,), dtype=torch.int64, device=neg.device)
-    idx = torch.empty((m,), dtype=torch.int32, device=neg.device)
+    nb = n // TOPN_BLOCK
+    vals = torch.empty((nb * k,), dtype=torch.int64, device=neg.device)
+    idx = torch.empty((nb * k,), dtype=torch.int32, device=neg.device)
+    # two counts and two lists of blocks, those the 32-bit keys cannot
+    # order and those too wide for 64-bit keys (csrc/topn_select.cu)
+    wide = torch.empty((2 + 2 * nb,), dtype=torch.int32, device=neg.device)
     rc = lib.sr_topn_select(neg.data_ptr(), n, k, vals.data_ptr(),
-                            idx.data_ptr(), _stream(neg))
+                            idx.data_ptr(), wide.data_ptr(), _stream(neg))
     _check_launch(lib, rc, "topn_select")
     topn_select.launches += 1
+    topn_select.last_listed = wide[:2]
     return vals, idx
 
 

@@ -20,6 +20,7 @@ jnp.lexsort and lax.top_k do.
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from ..column.column import Chunk, pad_capacity
 from . import kernels
@@ -88,6 +89,29 @@ def packed_order_key(keys, sort_keys, live):
     return torch.where(live, packed, _I64MAX)
 
 
+def first_kk_desc(x, kk: int):
+    """The first kk indices of a stable descending sort of `x` ([N] int64):
+    value descending, then index ascending — what the reference's
+    lax.top_k returns. Only the rows at or above a threshold are sorted,
+    and the threshold is at most the kk-th largest value: the first kk
+    all lie there, and the compaction keeps index order, so ties come out
+    as the full sort has them. Where `x` has at least kk blocks of 1024
+    rows, the kk-th largest block maximum is such a threshold (kk blocks
+    hold a row at or above it) and costs one pass over `x`; else the
+    kk-th largest value itself. torch.topk gives the threshold only; its
+    order of ties is unspecified."""
+    n = x.shape[0]
+    if kk >= n:
+        return torch.sort(x, descending=True, stable=True).indices[:kk]
+    if n % 1024 == 0 and n // 1024 >= kk:
+        top = torch.topk(x.view(-1, 1024).amax(dim=1), kk, sorted=False)
+    else:
+        top = torch.topk(x, kk, sorted=False)
+    pos = torch.nonzero(x >= top.values.min()).flatten()
+    return pos[torch.sort(x[pos], descending=True,
+                          stable=True).indices[:kk]]
+
+
 def topn_order(packed, kk: int):
     """Indices of the kk smallest packed keys, ascending, stable on ties
     (lower index first). `~packed` reverses int64 order exactly."""
@@ -96,12 +120,14 @@ def topn_order(packed, kk: int):
     neg = ~packed
     strategy = _cfg.get("topn_strategy")
     if strategy == "pallas" and packed.shape[0] % 1024 == 0 and kk <= 1024:
-        cv, ci = kernels.topn_select(neg.contiguous(), kk)
+        with record_function("topn::select"):
+            cv, ci = kernels.topn_select(neg.contiguous(), kk)
         # the candidates lie in block order, each block in (value desc,
-        # row asc) order, so a stable descending sort keeps lower rows first
-        pos = torch.sort(cv, descending=True, stable=True).indices[:kk]
-        return ci[pos].to(torch.int64)
-    return torch.sort(neg, descending=True, stable=True).indices[:kk]
+        # row asc) order, so candidate order is row order on ties
+        with record_function("topn::reduce"):
+            return ci[first_kk_desc(cv, kk)].to(torch.int64)
+    with record_function("topn::reduce"):
+        return first_kk_desc(neg, kk)
 
 
 def sort_chunk(chunk: Chunk, sort_keys, limit: int | None = None,
@@ -123,14 +149,16 @@ def sort_chunk(chunk: Chunk, sort_keys, limit: int | None = None,
     strategy = _cfg.get("topn_strategy")
     if strategy not in ("auto", "lexsort", "pallas"):
         raise ValueError(f"unknown topn_strategy {strategy!r}")
-    packed = None if strategy == "lexsort" else packed_order_key(
-        keys, sort_keys, live)
+    with record_function("sort::pack"):
+        packed = None if strategy == "lexsort" else packed_order_key(
+            keys, sort_keys, live)
     if packed is not None:
         if (limit is not None and 0 < limit <= TOPN_MAX_K
                 and pad_capacity(limit) < cap):
             kk = pad_capacity(limit)
             order = topn_order(packed, kk)
-            out = chunk.take(order)
+            with record_function("topn::gather"):
+                out = chunk.take(order)
             k = torch.clamp(n, max=limit)
             if counters is not None:
                 counters["topn_rows_pruned"] = torch.clamp(n - limit, min=0)

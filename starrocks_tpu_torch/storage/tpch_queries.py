@@ -10,6 +10,13 @@ CTE instead of the Q15 view.
 reach the segment-sum kernel under `segment_strategy = 'pallas'`:
 S1 is the reference's own flag-flip gate query for that strategy, S2 a
 Q1-shaped query over the whole variance and covariance family.
+
+`TOPN_QUERIES` holds plain `ORDER BY .. LIMIT` queries over the fact
+tables' base columns, whose ORDER BY keys pack into one int64: under
+`topn_strategy = 'pallas'` they reach the top-N kernel at the table's
+whole capacity. N1 sorts on a 53-bit key without ties (at SF 10), N2 on a
+6-bit key with about 1/50 of lineitem tied at the top, N3 a filtered input
+(its dead rows pack to the largest key) with a LIMIT near the kernel's k.
 """
 
 
@@ -293,5 +300,17 @@ from lineitem
 where l_shipdate <= date '1998-09-02'
 group by l_returnflag, l_linestatus
 order by 1, 2
+""",
+}
+
+TOPN_QUERIES = {
+"N1": """
+SELECT l_orderkey, l_linenumber, l_extendedprice FROM lineitem ORDER BY l_extendedprice DESC, l_orderkey, l_linenumber LIMIT 100
+""",
+"N2": """
+SELECT l_orderkey, l_linenumber, l_quantity FROM lineitem ORDER BY l_quantity DESC LIMIT 100
+""",
+"N3": """
+SELECT o_orderkey, o_custkey, o_totalprice, o_orderdate FROM orders WHERE o_orderdate >= DATE '1995-01-01' ORDER BY o_totalprice DESC, o_orderkey LIMIT 1000
 """,
 }

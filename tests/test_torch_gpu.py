@@ -11,6 +11,12 @@ installed:
 - each kernel against its plain torch version on the same inputs: the
   integer kernels exactly (sentinels, misses, INT64_MIN/MAX, heavy slot
   collisions, duplicates, ties, all-equal and dead-row top-N keys); the
+  top-N select also against the numpy model of its one-word keys and
+  network (tests/test_torch_kernel_layouts.py) at k across a lane's and a
+  warp's sizes, 1 to 4096 blocks and N > 2^24, ties across lanes and
+  blocks, INT64_MIN runs and all-dead blocks, and blocks too wide for its
+  one-word key; its candidates' threshold reduction against the full
+  stable sort; the
   hash build's table also against the chain invariant, on the edges of
   its slices (tests/test_torch_kernel_layouts.py), and both hash probe
   routes, each asserted by its counter; the
@@ -24,9 +30,10 @@ installed:
   numpy model of that order, and bit-identical over two runs;
 - the one-hot limb matmul stays exact when the caller allows TF32;
 - TPC-H Q1/Q2/Q3/Q9 at SF 0.01 through `Session.sql` on the card with the
-  hash and top-N kernels, and all 22 queries with S1/S2 under the
-  segment-sum and sorted-probe kernels, against the CPU run: the same
-  result tables, and the kernels really launched.
+  hash and top-N kernels, all 22 queries with S1/S2 under the
+  segment-sum and sorted-probe kernels, and the top-N queries N1-N3 at SF
+  0.1 under the top-N kernel, against the CPU run: the same result
+  tables, and the kernels really launched.
 """
 
 import numpy as np
@@ -45,9 +52,10 @@ from starrocks_tpu_torch.ops import segment
 from starrocks_tpu_torch.storage.tpch_queries import QUERIES, STAT_QUERIES
 
 from test_torch_kernel_layouts import (
-    HASH_EDGE_CASES, PROBE_CASES, SEG_CASES, SEG_REL,
+    HASH_EDGE_CASES, PROBE_CASES, SEG_CASES, SEG_REL, TOPN_EDGE_CASES,
     _probe_case as _tree_case, _seg_case, hash_edge_case, hash_table_errors,
-    probe_descent_model, segment_sum_f64, segment_sum_order_model, use_slices,
+    probe_descent_model, segment_sum_f64, segment_sum_order_model,
+    topn_edge_case, topn_select_model, use_slices,
 )
 
 I64MAX = (1 << 63) - 1
@@ -205,6 +213,43 @@ def test_topn_kernel_matches_plain(cuda, case):
     pv, pi = kernels.topn_select_plain(neg, k)
     assert torch.equal(v.cpu(), pv)
     assert torch.equal(i.cpu(), pi)
+
+
+@pytest.mark.parametrize("case", TOPN_EDGE_CASES + ["blocks4096",
+                                                    "n_over_2_24"])
+def test_topn_kernel_edge_cases(cuda, case):
+    _, x, k = topn_edge_case(case, big=True)
+    neg = torch.from_numpy(x)
+    v, i = kernels.topn_select(neg.to(cuda), k)
+    pv, pi = kernels.topn_select_plain(neg, k)
+    assert torch.equal(v.cpu(), pv)
+    assert torch.equal(i.cpu(), pi)
+    if len(x) <= 1 << 20:
+        mv, mi, _, _ = topn_select_model(x, k)
+        assert (v.cpu().numpy() == mv).all() and (i.cpu().numpy() == mi).all()
+
+
+def test_topn_kernel_unaligned_input(cuda):
+    """A view one key into its storage: the kernel's 8-byte copies."""
+    _, x, k = topn_edge_case("int64_min_runs")
+    store = torch.from_numpy(np.concatenate([[5], x])).to(cuda)
+    v, i = kernels.topn_select(store[1:], k)
+    pv, pi = kernels.topn_select_plain(torch.from_numpy(x), k)
+    assert torch.equal(v.cpu(), pv) and torch.equal(i.cpu(), pi)
+
+
+@pytest.mark.parametrize("n", [3 << 20, 3_000_000])  # by blocks or not
+@pytest.mark.parametrize("ties", [False, True])
+def test_topn_threshold_reduction_on_card(cuda, ties, n):
+    from starrocks_tpu_torch.ops.sort import first_kk_desc
+
+    rng = np.random.default_rng(9)
+    x = rng.integers(0, 50 if ties else 1 << 60, n)
+    x[rng.integers(0, len(x), 1000)] = I64MIN
+    t = torch.from_numpy(x).to(cuda)
+    for kk in (1, 100, 1024, 4096):
+        want = torch.sort(t, descending=True, stable=True).indices[:kk]
+        assert torch.equal(first_kk_desc(t, kk), want)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
@@ -375,6 +420,30 @@ def test_tpch_on_card_matches_cpu(cuda):
 def _set(knobs):
     for k, v in knobs.items():
         config.set(k, v)
+
+
+def test_topn_queries_on_card_match_cpu(cuda):
+    """N1-N3 at SF 0.1 on the card under the top-N kernel against the CPU
+    under auto: the same rows, exactly, and the kernel launched by each."""
+    from chip_smoke import tables_agree
+    from starrocks_tpu_torch.storage.tpch_queries import TOPN_QUERIES
+
+    cat = tpch_catalog(sf=0.1)
+    card = Session(cat, device=cuda)
+    cpu = Session(cat, device="cpu")
+    try:
+        for q, text in TOPN_QUERIES.items():
+            _set(AUTO_STRATEGIES)
+            want = cpu.sql(text).table
+            config.set("topn_strategy", "pallas")
+            kernels.reset_counts()
+            got = card.sql(text).table
+            torch.cuda.synchronize()
+            assert kernels.topn_select.launches >= 1, q
+            assert got.num_rows > 0
+            assert tables_agree(got, want, rel=0.0), q
+    finally:
+        _set(AUTO_STRATEGIES)
 
 
 def test_all_queries_on_card_under_kernel_strategies(cuda):

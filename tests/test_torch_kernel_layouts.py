@@ -685,3 +685,291 @@ def test_hash_probe_model(monkeypatch, halo, slices, case):
     assert np.array_equal(got, want)
     if halo == 1 and case in ("inner_slice_end", "table_end_wraps"):
         assert left > 0  # chains leave the window for the global walk
+
+
+# --- the top-N select's keys and its sorting network -------------------------
+
+TOPN_LANE_BITS = 10
+TOPN_MAX_SPAN = (1 << (64 - TOPN_LANE_BITS)) - 2  # csrc/topn_select.cu
+TOPN_PREFIX_BITS = 32 - TOPN_LANE_BITS
+TOPN_MAX_PASSES = 4
+
+
+def topn_slot(e):
+    """The kernel's `slot_of`: element e's 8-byte word in a warp's buffer,
+    16-byte chunks XOR-swizzled within each 256-byte row."""
+    e = np.asarray(e)
+    row = e >> 5
+    chunk = ((e & 31) >> 1) ^ (row & 15)
+    return (row << 5) | (chunk << 1) | (e & 1)
+
+
+def topn_keys_model(neg):
+    """The kernel's keys of each block, [nb, 1024]: the 64-bit keys
+    ((v - lo) << 10 | (1023 - lane)) + 1, the 32-bit keys (the top 22 bits
+    of v - lo above the lane) and their shift, 0 for INT64_MIN rows; and
+    the blocks too wide for 64-bit keys, and each block's live minimum."""
+    x = np.asarray(neg, np.int64).reshape(-1, 1024)
+    live = x != I64MIN
+    lo = np.where(live, x, np.iinfo(np.int64).max).min(axis=1)
+    hi = np.where(live, x, I64MIN).max(axis=1)
+    span = np.where(hi == I64MIN, np.uint64(0),
+                    hi.astype(np.uint64) - lo.astype(np.uint64))
+    pairs = np.nonzero(span > np.uint64(TOPN_MAX_SPAN))[0]
+    lane = np.arange(1024, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        off = x.astype(np.uint64) - lo[:, None].astype(np.uint64)
+        key64 = ((off << np.uint64(TOPN_LANE_BITS)) | (np.uint64(1023) - lane)
+                 ) + np.uint64(1)
+    top = (1 << TOPN_PREFIX_BITS) - 1
+    shift = np.array([0 if int(sp) < top else int(sp).bit_length()
+                      - TOPN_PREFIX_BITS for sp in span])
+    shift += np.array([int(sp) >> int(sh) >= top
+                       for sp, sh in zip(span, shift)])
+    pre = off >> shift[:, None].astype(np.uint64)
+    key32 = ((pre << np.uint64(TOPN_LANE_BITS)) | (np.uint64(1023) - lane)
+             ) + np.uint64(1)
+    zero = np.uint64(0)
+    return (np.where(live, key64, zero), np.where(live, key32, zero), shift,
+            pairs, lo)
+
+
+def topn_network_model(key):
+    """The kernel's bitonic schedule on [nb, 1024] keys, element e = 32 *
+    lane + r: the mirror stage of each merge, then its strides, the larger
+    key always to the lower position; strides under 32 inside a lane,
+    larger ones between lanes lane ^ (stride / 32) (the shuffles)."""
+    k = np.array(key, np.uint64).reshape(-1, 32, 32)  # [block, lane, r]
+    lanes = np.arange(32)
+
+    def in_lane(q_of):
+        r = np.array([r for r in range(32) if r < q_of(r)])
+        q = np.array([q_of(r) for r in r])
+        a, b = k[:, :, r], k[:, :, q]
+        k[:, :, r], k[:, :, q] = np.maximum(a, b), np.minimum(a, b)
+
+    for ls in range(1, 6):
+        in_lane(lambda r: r ^ ((1 << ls) - 1))
+        for ss in range(ls - 2, -1, -1):
+            in_lane(lambda r: r ^ (1 << ss))
+    for ls in range(6, 11):
+        mask = (1 << (ls - 5)) - 1
+        lower = ((lanes & (1 << (ls - 6))) == 0)[None, :, None]
+        other = k[:, lanes ^ mask, ::-1]  # (lane ^ mask, 31 - r)
+        k[...] = np.where(lower, np.maximum(k, other), np.minimum(k, other))
+        for ss in range(ls - 2, 4, -1):
+            m = 1 << (ss - 5)
+            lower = ((lanes & m) == 0)[None, :, None]
+            other = k[:, lanes ^ m, :]
+            k[...] = np.where(lower, np.maximum(k, other),
+                              np.minimum(k, other))
+        for ss in range(4, -1, -1):
+            in_lane(lambda r: r ^ (1 << ss))
+    return k.reshape(-1, 1024)
+
+
+def topn_transposition_pass(key):
+    """One odd-even transposition pass over a block's 1024 keys: pairs
+    (2i, 2i + 1), then (2i + 1, 2i + 2), the larger first."""
+    k = key.copy()
+    for start in (0, 1):
+        a, b = k[start:1023:2], k[start + 1::2]
+        n = min(len(a), len(b))
+        hi, lo = np.maximum(a[:n], b[:n]), np.minimum(a[:n], b[:n])
+        k[start:start + 2 * n:2], k[start + 1:start + 2 * n:2] = hi, lo
+    return k
+
+
+def topn_sorted_model(neg):
+    """Each block's 64-bit keys in the kernel's final order, and the blocks
+    it sends on: to the 64-bit pass (prefix ties the transposition passes
+    did not order) and to the pair kernel. The first pass sorts the 32-bit
+    keys, reads each row's 64-bit key through its lane, and orders rows
+    whose prefixes tie with up to TOPN_MAX_PASSES transposition passes."""
+    key64, key32, shift, pairs, lo = topn_keys_model(neg)
+    srt32 = topn_network_model(key32)
+    lanes = (1023 - ((srt32 - np.uint64(1)) & np.uint64(1023))).astype(np.int64)
+    out = np.where(srt32 == 0, np.uint64(0),
+                   np.take_along_axis(key64, lanes, axis=1))
+    wide = []
+    for b in range(len(out)):
+        if b in pairs or shift[b] == 0:
+            continue
+        passes = 0
+        while (np.diff(out[b].astype(object)) > 0).any():
+            if passes == TOPN_MAX_PASSES:
+                wide.append(b)
+                out[b] = topn_network_model(key64[b:b + 1])[0]
+                break
+            out[b] = topn_transposition_pass(out[b])
+            passes += 1
+    return out, np.array(wide, int), pairs, lo
+
+
+def topn_select_model(neg, k):
+    """The kernel's answer: the keys in the kernel's order, unpacked, the
+    blocks for the pair kernel sorted as (value, lane) pairs."""
+    x = np.asarray(neg, np.int64).reshape(-1, 1024)
+    srt, wide, pairs, lo = topn_sorted_model(neg)
+    srt = srt[:, :k]
+    c = srt - np.uint64(1)
+    dead = srt == 0
+    vals = np.where(dead, I64MIN,
+                    lo[:, None] + (c >> np.uint64(TOPN_LANE_BITS)).astype(
+                        np.int64))
+    lane = np.where(dead, 0, 1023 - (c & np.uint64(1023)).astype(np.int64))
+    for b in pairs:  # a stable sort, and lane 0 for INT64_MIN
+        order = np.argsort(-x[b].astype(object), kind="stable")[:k]
+        vals[b] = x[b][order]
+        lane[b] = np.where(x[b][order] == I64MIN, 0, order)
+    base = (np.arange(len(x)) * 1024)[:, None]
+    return (vals.reshape(-1), (base + lane).astype(np.int32).reshape(-1),
+            wide, pairs)
+
+
+def topn_edge_cases(seed=17, big=False):
+    """(name, neg, k): k across the lane and warp sizes, block counts, ties
+    that straddle a lane's, a block's and a CTA's rows, blocks of nothing
+    but INT64_MIN, INT64_MIN runs inside blocks, live spans too wide for
+    the one-word key; with `big`, block counts of 4096 and N > 2^24 (for
+    the card)."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for k in (1, 31, 32, 33, 100, 255, 256, 257, 1000, 1024):
+        x = rng.integers(0, 1 << 52, 3 * 1024)
+        x[rng.integers(0, len(x), 500)] = x[7]  # some ties
+        cases.append((f"k{k}", ~x, k))
+    counts = (1, 2, 3, 264, 265) + ((4096,) if big else ())
+    for nb in counts:
+        cases.append((f"blocks{nb}", rng.integers(-(1 << 40), 1 << 40,
+                                                  nb * 1024), 1024))
+    if big:
+        n = (1 << 24) + 1024
+        cases.append(("n_over_2_24", rng.integers(-(1 << 52), 0, n), 1024))
+    x = rng.integers(0, 1 << 20, 8 * 1024)
+    for start, ln in ((20, 40), (1000, 60), (4090, 20), (5000, 300)):
+        x[start:start + ln] = 12345  # across a lane, a block, 4 blocks
+    x[2048:3072] = 999  # one block all tied
+    cases.append(("ties_straddle", x, 1024))
+    x = rng.integers(-1000, 1000, 6 * 1024)
+    x[1024:2048] = I64MIN          # a block of dead-row codes only
+    x[3000:3100] = I64MIN          # a run inside a block
+    x[4096 + 31:4096 + 97] = I64MIN  # across lanes
+    x[5120:5120 + 1023] = I64MIN   # one live row, the block's last
+    cases.append(("int64_min_runs", x, 1024))
+    cases.append(("int64_min_runs_k100", x, 100))
+    x = rng.integers(-5, 5, 4 * 1024)
+    x[1024:2048] = I64MAX - rng.integers(0, 5, 1024)  # near INT64_MAX
+    x[rng.integers(0, len(x), 600)] = I64MIN
+    x[1024 + rng.integers(0, 1024, 50)] = I64MAX
+    x[2048 + 5] = I64MIN + 1       # span 2^64 - 2: the pair kernel
+    x[3072:] = rng.integers(-(1 << 62), 1 << 62, 1024)
+    cases.append(("wide_spans", x, 333))
+    # rows whose 32-bit keys tie on the prefix, the larger value at the
+    # later row: the transposition passes order them
+    x = rng.integers(0, 1 << 40, 4 * 1024)
+    for i in rng.integers(0, 4 * 1024 - 600, 300):
+        x[i + 1 + (i % 500)] = x[i] + 1 + (i % 3)
+    x[5:9] = x[4] + np.arange(4, 0, -1)  # a run of 5: four ordered
+    x[900:905] = x[899] + np.arange(1, 6)  # a run of 6, backwards
+    cases.append(("prefix_ties", x, 1024))
+    # 900 rows within 100 of each other and one far away: more prefix ties
+    # than the passes order, so the block takes the 64-bit pass
+    x = rng.integers(0, 100, 2 * 1024)
+    x[1024 + 77] = 1 << 50
+    x[1024:1024 + 30] = I64MIN
+    cases.append(("prefix_cluster", x, 1024))
+    x = rng.integers(0, 1 << 20, 2 * 1024)
+    x[0], x[1] = 0, TOPN_MAX_SPAN       # span at the 64-bit key's limit
+    x[1024], x[1025] = 0, TOPN_MAX_SPAN + 1  # one past it: listed
+    cases.append(("span_limit", x, 1024))
+    cases.append(("all_equal", np.full(2 * 1024, 42), 1024))
+    return [(nm, np.asarray(x, np.int64), k) for nm, x, k in cases]
+
+
+TOPN_EDGE_CASES = [c[0] for c in topn_edge_cases()]
+
+
+def topn_edge_case(name, big=False):
+    return next(c for c in topn_edge_cases(big=big) if c[0] == name)
+
+
+def test_topn_slots_are_a_bijection_without_bank_conflicts():
+    e = np.arange(1024)
+    assert sorted(topn_slot(e)) == list(range(1024))
+    # a blocked read: lane L reads elements 32 L + r, r + 1 (16 B); every
+    # 8 lanes (one phase of a 16-byte access) hit 8 distinct 4-bank groups
+    for r in range(0, 32, 2):
+        banks = (topn_slot(32 * np.arange(32) + r) * 2 // 4) % 8
+        for q in range(4):
+            assert len(set(banks[8 * q:8 * q + 8])) == 8
+    # a striped read: lanes read elements 32 i + lane, one 256-byte row
+    for i in range(32):
+        words = topn_slot(32 * i + np.arange(32)) * 2
+        assert sorted(words % 64) == list(range(0, 64, 2))
+
+
+def test_topn_key_widths():
+    """The largest 64-bit key (span TOPN_MAX_SPAN, lane 0) and the largest
+    32-bit key fit their words; the 32-bit key's prefix is exact up to a
+    span of 2^22 - 2 and drops bits above it."""
+    assert ((TOPN_MAX_SPAN << TOPN_LANE_BITS) | 1023) + 1 < 1 << 64
+    for span, shift in ((0, 0), ((1 << 22) - 2, 0), ((1 << 22) - 1, 1),
+                        (1 << 22, 1), ((1 << 40) + 5, 19),
+                        (TOPN_MAX_SPAN, 33)):
+        x = np.full(1024, I64MIN, np.int64)
+        x[0], x[1] = 7, 7 + span
+        key64, key32, sh, pairs, _ = topn_keys_model(x)
+        assert sh[0] == shift and len(pairs) == 0, span
+        assert int(key32.max()) < 1 << 32 and int(key64.max()) < 1 << 64
+
+
+def test_topn_network_model_sorts():
+    rng = np.random.default_rng(1)
+    key = rng.integers(0, 1 << 62, (5, 1024)).astype(np.uint64)
+    key[1, :500] = key[1, 0]  # equal keys
+    key[2] = 0
+    got = topn_network_model(key)
+    assert (got == -np.sort(-key.astype(object), axis=1)).all()
+
+
+def test_topn_keys_order_as_value_then_lane():
+    _, x, _ = topn_edge_case("ties_straddle")
+    key, _, _, pairs, _ = topn_keys_model(x)
+    assert len(pairs) == 0
+    for b in range(len(key)):
+        blk = x[b * 1024:(b + 1) * 1024]
+        order = np.argsort(-blk, kind="stable")
+        assert (np.argsort(-key[b].astype(object), kind="stable")
+                == order).all()
+
+
+@pytest.mark.parametrize("case", TOPN_EDGE_CASES)
+def test_topn_select_model_equals_plain(case):
+    _, x, k = topn_edge_case(case)
+    v, i, wide, pairs = topn_select_model(x, k)
+    pv, pi = kernels.topn_select_plain(torch.from_numpy(x), k)
+    assert (v == pv.numpy()).all()
+    assert (i == pi.numpy()).all()
+    assert list(pairs) == {"wide_spans": [2, 3],
+                           "span_limit": [1]}.get(case, [])
+    assert list(wide) == {"prefix_cluster": [1],
+                          "span_limit": [0]}.get(case, [])
+
+
+def test_topn_prefix_ties_need_the_transposition_passes():
+    """In prefix_ties the 32-bit keys leave rows out of order in every
+    block (the passes order them); a run of 6 rows needs 3 passes."""
+    _, x, _ = topn_edge_case("prefix_ties")
+    key64, key32, shift, _, _ = topn_keys_model(x)
+    srt32 = topn_network_model(key32)
+    lanes = (1023 - ((srt32 - np.uint64(1)) & np.uint64(1023))).astype(int)
+    first = np.take_along_axis(key64, lanes, axis=1)
+    assert all((np.diff(b.astype(object)) > 0).any() for b in first)
+    want = -np.sort(-key64.astype(object), axis=1)
+    b = first[0]
+    for passes in range(1, TOPN_MAX_PASSES + 1):
+        b = topn_transposition_pass(b)
+        if (b == want[0]).all():
+            break
+    assert 3 <= passes <= TOPN_MAX_PASSES

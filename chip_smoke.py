@@ -1,14 +1,18 @@
 """End-to-end check of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--sf 10] [--seed 42] [--out DIR]
+    python3 chip_smoke.py [--sf 10] [--ssb-sf 10] [--seed 42] [--out DIR]
 
 Drives the port's paths through `starrocks_tpu_torch` `Session.sql` and
 holds every hand-written CUDA kernel against its plain torch version.
-Phases, each of which must pass:
+Before each phase after `build`, garbage is collected and the allocator's
+cache emptied, and the memory still allocated on the card is kept, so a
+phase's peak is its own; a query's peak stands beside the memory
+allocated when it started. Phases, each of which must pass:
 
 1. device: the card's name, count, and `nvidia-smi` name + power limit;
    fails without a CUDA device.
-2. build: compile every kernel source with nvcc (sm_90a), in parallel.
+2. build: compile every kernel source with nvcc (sm_90a), in parallel,
+   and the native lane's host library with the host C++ compiler.
 3. tpch (the main path): generate TPC-H at --sf (the data is the engine's
    "weights", made from --seed) and run all 22 TPC-H queries and the
    statistical queries S1/S2 cold and warm under the kernel strategies
@@ -29,12 +33,27 @@ Phases, each of which must pass:
    warm under `topn_strategy = 'pallas'`, then under `auto` in a fresh
    session. Launch counts are set to 0 before each query; every cold run
    under `pallas` must launch topn_select. The rows must be equal between
-   the two strategies, exactly. Each query's top-N shape, wall times and
+   the two strategies, exactly. Each query's kernel shapes, wall times and
    the path's peak device memory are kept, and one traced warm run per
    query splits the operator's device time by its profiler spans
    (`sort::pack`, `topn::select`, `topn::reduce`, `topn::gather`; the
    top-N kernel's own device time is under the `top` kernels beside it).
-6. kernels: each kernel on the card, at the shapes its path gave it and on
+6. breadth (the new SQL surface): B1-B8 (`BREADTH_QUERIES`: UNION ALL,
+   INTERSECT, EXCEPT, UNION with a FROM-less row, DECIMAL(38) sums and
+   extremes, group_concat, the numeric, date and string functions) at
+   --sf cold and warm under the kernel strategies, then under `auto` in a
+   fresh session; launch counts set to 0 and peak memory reset before
+   each query; rows equal between the two (B7's floats to a relative
+   1e-4: its float sums take the f32 segment-sum kernel under `pallas`);
+   one traced warm run of each under both.
+7. ssb: SSB-flat generated at --ssb-sf (default 10: lineorder_flat of
+   60,000,000 rows) and dropped after the phase; the 13 FLAT_QUERIES as
+   in breadth, rows equal exactly. Then the native filter-sum lane:
+   NL1-NL3 (q1.1-q1.3 summing lo_quantity * lo_discount, so that every
+   column is an integer) under `segment_strategy = 'native'` must take
+   the host lane and give the card's `auto` rows, and q1.1-q1.3 must
+   decline it; the lane's host time stands beside the card's wall.
+8. kernels: each kernel on the card, at the shapes its path gave it and on
    edge cases (sentinels, duplicates, INT64_MIN/MAX, heavy slot
    collisions; for the top-N select ties, all-equal keys, dead rows,
    INT64_MIN runs, clustered keys (its 64-bit pass), live spans too wide
@@ -49,12 +68,14 @@ Phases, each of which must pass:
    search tree's separators, runs of 5/65/1025 equal keys, int64-max
    probes with and without a sentinel tail, each also with a deep tree),
    against its plain version: the integer kernels exactly (the probe also
-   against torch.searchsorted(out_int32=True)). The top-N select is timed
-   and checked on every edge case at the largest and the smallest shape
-   its paths gave it (N1's and Q2's), and its candidates' reduction is
+   against torch.searchsorted(out_int32=True)); the sorted probe is checked
+   at every shape its paths gave it and timed at the largest. The top-N
+   select is timed and checked on every edge case at every shape its
+   paths gave it (Q2's, N1-N3's), and its candidates' reduction is
    timed two ways at the largest: the full stable sort, and the threshold
    sort the port uses (`ops/sort.py first_kk_desc`), which must return the
-   same indices. The f32 segment sum adds
+   same indices. The f32 segment sum is checked at every shape its paths
+   gave it (S1/S2's and B7's) and timed at the largest; it adds
    in its own fixed order, not the plain version's block order, so it is
    held to an f64 sum of the same f32 values: within 1e-6 * sum |x| per
    (group, column), and bit-identical over two runs; its error against
@@ -64,12 +85,13 @@ Phases, each of which must pass:
    call is traced with torch.profiler for its split by device kernel; the
    hash probe at each of Q9's probe counts by either route, with the keys
    the build deferred past their slice and both kernels' scratch.
-7. card vs CPU: the 22 queries and S1/S2 at SF 0.1 on the card under the
-   kernel strategies, Q1/Q2/Q3/Q9 under the hash kernels and N1-N3 under
-   the top-N kernel, against the
-   CPU (`device="cpu"`) under `auto`; rows must agree, in order: exactly,
-   except floats to 6 significant digits — and S1/S2's floats to a
-   relative 1e-4, since `pallas` sums their moments in f32 blocks (the
+9. card vs CPU: the 22 queries, S1/S2 and B1-B8 at SF 0.1 on the card
+   under the kernel strategies, Q1/Q2/Q3/Q9 under the hash kernels, N1-N3
+   under the top-N kernel, the 13 SSB-flat queries at SF 0.1 under the
+   kernel strategies and NL1-NL3 under the native lane, against the CPU
+   (`device="cpu"`) under `auto`; rows must agree, in order: exactly,
+   except floats to 6 significant digits — and S1/S2's and B7's floats to
+   a relative 1e-4, since `pallas` sums their moments in f32 blocks (the
    reference's contract) while `auto` sums in f64.
 
 The last lines of output are the `kernels` JSON line and then
@@ -94,12 +116,12 @@ from pathlib import Path
 
 HASH_KNOBS = {"join_probe_strategy": "pallas", "topn_strategy": "pallas"}
 TOPN_KNOBS = {"topn_strategy": "pallas"}
-STAT_REL = 1e-4  # S1/S2 floats, f32 block sums vs f64 (see phase 7)
+STAT_REL = 1e-4  # S1/S2 floats, f32 block sums vs f64 (see phase 9)
 
 
 def qname(q: str) -> str:
-    """"9" -> "Q9"; "S1" and "N1" stay as they are."""
-    return q if q[0] in "SN" else f"Q{q}"
+    """"9" -> "Q9"; "S1", "N1", "B1", "NL1" and "q1.1" stay as they are."""
+    return q if q[0] in "SNBq" else f"Q{q}"
 
 
 def query_texts() -> dict:
@@ -300,10 +322,12 @@ def phase_device(rec):
 
 
 def phase_build(rec):
+    from starrocks_tpu_torch import native
     from starrocks_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
     logs = kernels.build_kernels(verbose=True)
+    native.build()  # the host filter-sum lane's library
     dt = time.perf_counter() - t0
     for name in kernels.SOURCES:
         kernels._lib(name)  # load: the build really produced a library
@@ -315,6 +339,23 @@ def phase_build(rec):
                 log(f"  {name}: {ln.strip()}")
     log(f"build: {sorted(logs)} built in {dt:.1f} s")
     rec["build_s"] = dt
+
+
+def _settle():
+    """Collect garbage and return the allocator's cached blocks before a
+    phase, so that its peak memory is its own: [GB allocated on the card
+    before, after]."""
+    import gc
+
+    import torch
+
+    before = torch.cuda.memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated() / 1e9
+    log(f"  {before:.2f} GB allocated on the card, {after:.2f} after "
+        "collecting garbage")
+    return [before, after]
 
 
 def _snapshot(kernels):
@@ -350,6 +391,8 @@ def _run_queries(s, label, texts, out, shapes, kernels):
         for q, text in texts.items():
             before = _snapshot(kernels)
             routes_before = routes()
+            for w in kernels.WRAPPERS.values():
+                w.shapes.clear()
             torch.cuda.synchronize()
             t = time.perf_counter()
             res = s.sql(text)
@@ -362,8 +405,8 @@ def _run_queries(s, label, texts, out, shapes, kernels):
                             for r, v in routes().items()
                             if v != routes_before[r]}
             for n, w in kernels.WRAPPERS.items():
-                if delta[n] and w.last_shape is not None:
-                    shapes[n].append(w.last_shape)
+                if delta[n]:
+                    shapes[n] += sorted(w.shapes)
             prof = res.profile
             out.setdefault(f"{qname(q)}@{label}", {})[run] = {
                 "wall_s": wall, "rows": len(got),
@@ -493,39 +536,62 @@ def phase_hash_topn(rec, cat, sf, seed):
     torch.cuda.empty_cache()
 
 
-def _run_topn(s, label, texts, out, launches, tables, kernels):
-    """Cold then warm run of each top-N query, every launch count set to 0
-    just before it and read just after; `launches` sums them."""
+def _run_each(s, label, texts, out, launches, tables, kernels):
+    """Cold then warm run of each query, every launch count set to 0 just
+    before it and read just after (`launches` sums them, and each run keeps
+    the shapes of every launch), and the device's peak memory reset before
+    it and read after it."""
     import torch
 
     for run in ("cold", "warm"):
         for q, text in texts.items():
             kernels.reset_counts()
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated() / 1e9
             t = time.perf_counter()
             res = s.sql(text)
             table = res.table
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated() / 1e9
             got = _snapshot(kernels)
             for n, v in got.items():
                 launches[n] += v
             tables[(label, q, run)] = table
             prof = res.profile
-            shape = kernels.topn_select.last_shape if got["topn_select"] else None
+            shapes = {n: sorted(kernels.WRAPPERS[n].shapes)
+                      for n, v in got.items() if v}
+            attempts = prof.get("attempts", ())
             out.setdefault(q, {})[run] = {
-                "wall_s": wall, "rows": table.num_rows,
+                "wall_s": wall, "rows": table.num_rows, "peak_mem_gb": peak,
+                "base_mem_gb": base,
                 "launches": {n: v for n, v in got.items() if v},
-                "topn_shape": shape, "recompiles": prof.get("recompiles"),
+                "shapes": shapes, "recompiles": prof.get("recompiles"),
                 "optimize_s": prof.get("optimize_s"),
-                "scan_s": sum(a["scan_s"] for a in prof["attempts"]),
-                "run_s": sum(a["run_s"] for a in prof["attempts"]),
+                "scan_s": sum(a["scan_s"] for a in attempts),
+                "run_s": sum(a["run_s"] for a in attempts),
                 "fetch_s": prof.get("fetch_s"),
+                "native_fused": prof.get("native_fused"),
+                "native_s": prof.get("native_s"),
             }
             log(f"  {q}@{label} {run}: {wall * 1e3:.1f} ms, {table.num_rows} "
-                f"rows, launches {out[q][run]['launches']}, top-N shape "
-                f"{shape}, scan {out[q][run]['scan_s']:.3f} s, run "
-                f"{out[q][run]['run_s']:.3f} s")
+                f"rows, peak {peak:.2f} GB (from {base:.2f}), launches "
+                f"{out[q][run]['launches']}, shapes {shapes}, scan "
+                f"{out[q][run]['scan_s']:.3f} s, run "
+                f"{out[q][run]['run_s']:.3f} s"
+                + (f", native lane {prof['native_s'] * 1e3:.1f} ms"
+                   if prof.get("native_fused") else ""))
+
+
+def _path_shapes(queries) -> dict:
+    """{kernel: the distinct shapes of its launches} over a path's runs."""
+    shapes: dict = {}
+    for q in queries.values():
+        for r in q.values():
+            for n, v in r["shapes"].items():
+                shapes.setdefault(n, set()).update(tuple(x) for x in v)
+    return {n: sorted(v) for n, v in shapes.items()}
 
 
 # the top-N operator's profiler spans (ops/sort.py)
@@ -548,10 +614,10 @@ def phase_topn(rec, cat, sf):
         set_knobs(knobs)
         queries: dict = {}
         launches = dict.fromkeys(kernels.WRAPPERS, 0)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _run_topn(s, name, texts, queries, launches, tables, kernels)
-        peak = torch.cuda.max_memory_allocated() / 1e9
+        _run_each(s, name, texts, queries, launches, tables, kernels)
+        # the path's peak: the largest of its queries' peaks
+        peak = max(r["peak_mem_gb"] for q in queries.values()
+                   for r in q.values())
         log(f"topn under {name}: launches {launches}, peak device memory "
             f"{peak:.2f} GB")
         out[name] = {"knobs": knobs, "queries": queries, "launches": launches,
@@ -561,10 +627,7 @@ def phase_topn(rec, cat, sf):
         torch.cuda.empty_cache()
     main = out["pallas"]["queries"]
     out["launches"] = out["pallas"]["launches"]
-    out["shapes"] = {"topn_select": sorted({tuple(r["topn_shape"])
-                                           for q in main.values()
-                                           for r in q.values()
-                                           if r["topn_shape"]})}
+    out["shapes"] = _path_shapes(main)
     rec["topn"] = out
     missed = [q for q in texts if main[q]["cold"]["launches"].get(
         "topn_select", 0) < 1]
@@ -577,6 +640,125 @@ def phase_topn(rec, cat, sf):
     if differ or empty:
         raise PhaseError(f"rows differ between pallas and auto: {differ}; "
                          f"no rows: {empty}")
+
+
+def _strategy_pair(cat, texts, kernels, out, tables):
+    """Run `texts` cold and warm under the kernel strategies, then under
+    `auto` in a fresh session (launch counts and peak memory per query),
+    with one traced warm run of each under both."""
+    import torch
+
+    from starrocks_tpu_torch.runtime.session import Session
+
+    for name in ("kernels", "auto"):
+        s = Session(cat, device=CARD)
+        knobs = strategies(name)
+        set_knobs(knobs)
+        queries: dict = {}
+        launches = dict.fromkeys(kernels.WRAPPERS, 0)
+        _run_each(s, name, texts, queries, launches, tables, kernels)
+        peak = max(r["peak_mem_gb"] for q in queries.values()
+                   for r in q.values())
+        log(f"  under {name}: launches {launches}, peak device memory "
+            f"{peak:.2f} GB")
+        out[name] = {"knobs": knobs, "queries": queries, "launches": launches,
+                     "peak_mem_gb": peak, "trace": trace_queries(s, texts)}
+        del s
+        torch.cuda.empty_cache()
+    # the kernel strategies' shapes, for the kernels phase
+    out["shapes"] = _path_shapes(out["kernels"]["queries"])
+
+
+def _differ(texts, tables, a, b, rel=None) -> list:
+    """Queries whose rows differ between labels a and b (cold and warm);
+    exactly, or floats to a relative `rel[q]` where given."""
+    rel = rel or {}
+    return [f"{q} {run}" for q in texts for run in ("cold", "warm")
+            if not tables_agree(tables[(a, q, run)], tables[(b, q, run)],
+                                rel=rel.get(q, 0.0))]
+
+
+def phase_ssb(rec, sf, seed):
+    """SSB-flat at `sf`: the 13 FLAT_QUERIES over lineorder_flat under the
+    kernel strategies, then under `auto`; rows equal exactly. Then the
+    native filter-sum lane: NL1-NL3 under `segment_strategy = 'native'`
+    must take it and give auto's rows; q1.1-q1.3 must decline it."""
+    import gc
+
+    import torch
+
+    from starrocks_tpu_torch.ops import kernels
+    from starrocks_tpu_torch.runtime.session import Session
+    from starrocks_tpu_torch.storage.datagen.ssb import ssb_catalog
+    from starrocks_tpu_torch.storage.ssb_queries import (
+        FLAT_QUERIES, NATIVE_QUERIES)
+
+    t0 = time.perf_counter()
+    cat = ssb_catalog(sf=sf, seed=seed)
+    gen_s = time.perf_counter() - t0
+    rows = {n: h.row_count for n, h in cat.tables.items()}
+    log(f"SSB SF {sf:g} generated in {gen_s:.1f} s: {rows}")
+    out = {"sf": sf, "seed": seed, "gen_s": gen_s, "rows": rows}
+    tables: dict = {}
+    _strategy_pair(cat, FLAT_QUERIES, kernels, out, tables)
+    differ = _differ(FLAT_QUERIES, tables, "kernels", "auto")
+    # the native lane, then the same queries on the card under auto
+    lane = {**NATIVE_QUERIES,
+            **{q: FLAT_QUERIES[q] for q in ("q1.1", "q1.2", "q1.3")}}
+    for name, knobs in (("native", {"segment_strategy": "native"}),
+                        ("auto", strategies("auto"))):
+        s = Session(cat, device=CARD)
+        set_knobs(strategies("auto"))
+        set_knobs(knobs)
+        queries: dict = {}
+        launches = dict.fromkeys(kernels.WRAPPERS, 0)
+        _run_each(s, f"lane_{name}", lane, queries, launches, tables,
+                  kernels)
+        out[f"lane_{name}"] = {"knobs": knobs, "queries": queries,
+                               "launches": launches}
+        del s
+        torch.cuda.empty_cache()
+    differ += _differ(lane, tables, "lane_native", "lane_auto")
+    took = out["lane_native"]["queries"]
+    wrong = [q for q in lane for run in ("cold", "warm")
+             if (took[q][run]["native_fused"] == "filter_sum")
+             != q.startswith("NL")]
+    for q in NATIVE_QUERIES:
+        log(f"  {q}: native lane {took[q]['warm']['native_s'] * 1e3:.1f} ms "
+            f"(host), card under auto "
+            f"{out['lane_auto']['queries'][q]['warm']['wall_s'] * 1e3:.1f} ms "
+            "(warm wall)")
+    rec["ssb"] = out
+    del cat
+    gc.collect()
+    if differ or wrong:
+        raise PhaseError(f"rows differ: {differ}; lane taken or declined "
+                         f"wrongly: {wrong}")
+
+
+# B7's float sums reach the segment-sum kernel under `pallas`, in f32
+BREADTH_REL = {"B7": 1e-4}
+
+
+def phase_breadth(rec, cat, sf):
+    """B1-B8 (`BREADTH_QUERIES`: UNION ALL, INTERSECT, EXCEPT, UNION,
+    DECIMAL(38), group_concat, the scalar functions) at `sf` under the
+    kernel strategies, then under `auto`; rows equal (B7's floats to a
+    relative 1e-4: its float sums take the f32 segment-sum kernel under
+    `pallas`)."""
+    from starrocks_tpu_torch.ops import kernels
+    from starrocks_tpu_torch.storage.tpch_queries import BREADTH_QUERIES
+
+    out = {"sf": sf}
+    tables: dict = {}
+    _strategy_pair(cat, BREADTH_QUERIES, kernels, out, tables)
+    rec["breadth"] = out
+    differ = _differ(BREADTH_QUERIES, tables, "kernels", "auto", BREADTH_REL)
+    empty = [q for q in BREADTH_QUERIES
+             if out["kernels"]["queries"][q]["cold"]["rows"] == 0]
+    if differ or empty:
+        raise PhaseError(f"rows differ between strategies: {differ}; no "
+                         f"rows: {empty}")
 
 
 def trace_queries(s, texts, spans=()) -> dict:
@@ -592,14 +774,18 @@ def trace_queries(s, texts, spans=()) -> dict:
 
     res = {}
     for q, text in texts.items():
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            s.sql(text).rows()
+        for _ in range(3):  # the profiler now and then records no device event
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                s.sql(text).rows()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            kern = [e for e in prof.events()
+                    if e.device_type == DeviceType.CUDA]
+            if kern:
+                break
         by_name: dict = {}
         for e in kern:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -809,22 +995,22 @@ def phase_kernels(rec, seed, only=None):
 
     dev = torch.device(CARD)
     shapes = {n: [] for n in kernels.WRAPPERS}
-    for path in ("hash_topn", "tpch", "topn"):
+    for path in ("hash_topn", "tpch", "topn", "breadth", "ssb"):
         for n, v in (rec.get(path) or {}).get("shapes", {}).items():
             shapes[n] += [tuple(x) for x in v]
     build_shape = max(shapes["hash_build"] or [DEFAULT_SHAPES["hash_build"]])
     probe_shapes = sorted(set(shapes["hash_probe"]) or Q9_PROBE_SHAPES)
-    # the top-N kernel at the largest and the smallest shape its paths gave
-    topn_shapes = shapes["topn_select"] or DEFAULT_SHAPES["topn_select"]
-    topn_shapes = sorted({min(topn_shapes), max(topn_shapes)})
-    sorted_shape = max(shapes["probe_searchsorted"]
-                       or [DEFAULT_SHAPES["probe_searchsorted"]],
-                       key=lambda kn: kn[0] * kn[1])
-    segsum_shape = max(shapes["segment_sum"]
-                       or [DEFAULT_SHAPES["segment_sum"]])
+    # the top-N and sorted-probe kernels at every shape their paths gave
+    topn_shapes = sorted(set(shapes["topn_select"])
+                         or DEFAULT_SHAPES["topn_select"])
+    sorted_shapes = sorted(set(shapes["probe_searchsorted"])
+                           or [DEFAULT_SHAPES["probe_searchsorted"]])
+    # the segment-sum kernel at every shape its paths gave it
+    segsum_shapes = sorted(set(shapes["segment_sum"])
+                           or [DEFAULT_SHAPES["segment_sum"]])
     log(f"kernels: shapes build {build_shape} probe {probe_shapes} "
-        f"topn {topn_shapes} sorted probe {sorted_shape} segment sum "
-        f"{segsum_shape}")
+        f"topn {topn_shapes} sorted probe {sorted_shapes} segment sum "
+        f"{segsum_shapes}")
     results = {n: {} for n in kernels.WRAPPERS}
     failures = []
     checks = [
@@ -833,10 +1019,10 @@ def phase_kernels(rec, seed, only=None):
         ("topn_select", lambda: _check_topn(dev, topn_shapes, seed, failures,
                                             results["topn_select"])),
         ("probe_searchsorted", lambda: _check_probe_searchsorted(
-            dev, sorted_shape, seed, failures,
+            dev, sorted_shapes, seed, failures,
             results["probe_searchsorted"])),
         ("segment_sum", lambda: _check_segment_sum(
-            dev, segsum_shape, seed, failures, results["segment_sum"])),
+            dev, segsum_shapes, seed, failures, results["segment_sum"])),
     ]
     for name, check in checks:
         if only and name not in only:
@@ -1202,24 +1388,29 @@ def _time_topn_reduction(name, neg, cv, kk, sort_ops, failures, res):
             failures.append(f"topn reduction {name} {route}")
 
 
-def _probe_cases(dev, shape, seed):
-    """(name, sorted build [K], probe [N]) on the card: the main path's
-    shape, then the search tree's edge cases."""
+def _probe_cases(dev, shapes, seed):
+    """(name, sorted build [K], probe [N]) on the card: one case at each of
+    the paths' `shapes` (the largest, timed, is "main_path_shape"), then
+    the search tree's edge cases."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
-    k, n = shape
-    # the main path's shape: unique packed keys with a sentinel (NULL/dead)
-    # tail, sorted; probes hit ~90% and miss the rest, a few dead
-    live = int(k * 0.9995)
-    build = np.full(k, I64MAX, np.int64)
-    build[:live] = np.sort((rng.permutation(live).astype(np.int64) << 20)
-                           | rng.integers(0, 1 << 20, live))
-    hits = build[rng.integers(0, live, n)]
-    probe = np.where(rng.random(n) < 0.9, hits, rng.integers(0, 1 << 60, n))
-    probe[rng.random(n) < 0.01] = I64MAX
-    cases = [("main_path_shape", build, probe)]
+    big = max(shapes, key=lambda kn: (kn[0] * kn[1], kn))
+    cases = []
+    for k, n in sorted(shapes):
+        # unique packed keys with a sentinel (NULL/dead) tail, sorted;
+        # probes hit ~90% and miss the rest, a few dead
+        live = int(k * 0.9995)
+        build = np.full(k, I64MAX, np.int64)
+        build[:live] = np.sort((rng.permutation(live).astype(np.int64) << 20)
+                               | rng.integers(0, 1 << 20, live))
+        hits = build[rng.integers(0, live, n)]
+        probe = np.where(rng.random(n) < 0.9, hits,
+                         rng.integers(0, 1 << 60, n))
+        probe[rng.random(n) < 0.01] = I64MAX
+        cases.append(("main_path_shape" if (k, n) == big
+                      else f"path_shape_{k}x{n}", build, probe))
     dup = np.sort(rng.integers(-50, 50, 5000))
     cases.append(("duplicates_sentinels",
                   np.concatenate([dup, np.full(300, I64MAX)]),
@@ -1259,16 +1450,18 @@ def _probe_cases(dev, shape, seed):
             for nm, b, p in cases]
 
 
-def _check_probe_searchsorted(dev, shape, seed, failures, res):
+def _check_probe_searchsorted(dev, shapes, seed, failures, res):
     """Every case against the plain ladder and torch.searchsorted, first
-    with the default tree (timing the main path's shape), then each edge
-    case again with a top level of 2 entries: the deepest tree it makes."""
+    with the default tree (timing the largest of the paths' `shapes`), then
+    each edge case again with a top level of 2 entries: the deepest tree
+    it makes."""
     import torch
 
     from starrocks_tpu_torch.ops import kernels
 
     res["max_abs_err"] = 0
-    cases = _probe_cases(dev, shape, seed)
+    cases = _probe_cases(dev, shapes, seed)
+    edges = cases[len(set(shapes)):]
 
     def check(name, build, probe, label):
         got = kernels.probe_searchsorted(build, probe)
@@ -1305,29 +1498,37 @@ def _check_probe_searchsorted(dev, shape, seed, failures, res):
                 lambda: kernels.probe_searchsorted(build, probe))})
         log(f"  probe_searchsorted split (device ms): {res['split']}")
     top_max = kernels.PROBE_TOP_MAX
-    res["tree_levels"] = len(kernels.probe_index_layout(shape[0])[0])
+    res["tree_levels"] = len(kernels.probe_index_layout(res["shape"][0])[0])
     kernels.PROBE_TOP_MAX = 2
     try:
-        for name, build, probe in cases[1:]:
+        for name, build, probe in edges:
             check(name, build, probe, " (deep tree)")
     finally:
         kernels.PROBE_TOP_MAX = top_max
 
 
-def _segment_cases(dev, shape, seed):
-    """(name, gid [N] int32, vals [N, M] f32, G, block) on the card."""
+def _segment_cases(dev, shapes, seed):
+    """(name, gid [N] int32, vals [N, M] f32, G, block) on the card: one
+    case at each of the paths' `shapes` (the largest, timed, is
+    "main_path_shape"), then the edge cases."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
-    n, m, g, block = shape
-    # the main path's shape: S1's l_returnflag groups (3 live codes), the
-    # capacity's padding rows dead (id G), discount-like values in [0, 0.1]
-    live = int(n * 0.9999)
-    gid = np.full(n, g, np.int32)
-    gid[:live] = rng.integers(0, 3, live)
-    vals = (rng.integers(0, 11, (n, m)) / 100.0).astype(np.float32)
-    cases = [("main_path_shape", gid, vals, g, block)]
+    big = max(shapes, key=lambda s: (s[0] * s[1], s))
+    cases = []
+    for shape in sorted(shapes):
+        n, m, g, block = shape
+        # the paths' groups: few live codes (S1's l_returnflag, B7's ship
+        # modes), the capacity's padding rows dead (id G), discount-like
+        # values in [0, 0.1]
+        live = int(n * 0.9999)
+        gid = np.full(n, g, np.int32)
+        gid[:live] = rng.integers(0, min(g, 4), live)
+        vals = (rng.integers(0, 11, (n, m)) / 100.0).astype(np.float32)
+        name = ("main_path_shape" if shape == big
+                else "path_shape_" + "x".join(map(str, shape)))
+        cases.append((name, gid, vals, g, block))
     gid8 = rng.integers(0, 9, 8192).astype(np.int32)
     cases.append(("g8_m4_block2048", gid8,
                   (rng.random((8192, 4)) * 100).astype(np.float32), 8, 2048))
@@ -1378,7 +1579,7 @@ def _err_over_mag(x, ref, mag) -> float:
     return float(e.max())
 
 
-def _check_segment_sum(dev, shape, seed, failures, res):
+def _check_segment_sum(dev, shapes, seed, failures, res):
     """The kernel within SEG_REL * sum |x| of an f64 sum of the same f32
     values, and bit-identical over two runs; its difference from the plain
     version (the TPU's block order) and the plain version's from f64 are
@@ -1389,7 +1590,7 @@ def _check_segment_sum(dev, shape, seed, failures, res):
 
     res.update({"max_abs_err": 0.0, "max_err_vs_f64": 0.0,
                 "plain_max_err_vs_f64": 0.0})
-    for name, gid, vals, g, block in _segment_cases(dev, shape, seed):
+    for name, gid, vals, g, block in _segment_cases(dev, shapes, seed):
         got = kernels.segment_sum(gid, vals, g, block)
         again = kernels.segment_sum(gid, vals, g, block)
         torch.cuda.synchronize()
@@ -1445,27 +1646,45 @@ def phase_card_vs_cpu(rec, sf, seed):
 
     from starrocks_tpu_torch.runtime.session import Session
     from starrocks_tpu_torch.storage.catalog import tpch_catalog
+    from starrocks_tpu_torch.storage.datagen.ssb import ssb_catalog
+    from starrocks_tpu_torch.storage.ssb_queries import (
+        FLAT_QUERIES, NATIVE_QUERIES)
+    from starrocks_tpu_torch.storage.tpch_queries import BREADTH_QUERIES
 
     texts = query_texts()
     cat = tpch_catalog(sf=sf, seed=seed)
-    card = Session(cat, device=CARD)
-    cpu = Session(cat, device="cpu")
+    ssb = ssb_catalog(sf=sf, seed=seed)
+    sessions = {"tpch": (Session(cat, device=CARD), Session(cat, device="cpu")),
+                "ssb": (Session(ssb, device=CARD), Session(ssb, device="cpu"))}
     runs = [("kernels", strategies("kernels"), q) for q in texts]
     runs += [("hash_topn", HASH_KNOBS, q) for q in ("1", "2", "3", "9")]
     texts.update(topn_texts())
     runs += [("topn", TOPN_KNOBS, q) for q in topn_texts()]
+    texts.update(BREADTH_QUERIES)
+    runs += [("kernels", strategies("kernels"), q) for q in BREADTH_QUERIES]
+    texts.update(FLAT_QUERIES)
+    texts.update(NATIVE_QUERIES)
+    runs += [("kernels", strategies("kernels"), q) for q in FLAT_QUERIES]
+    runs += [("native", {"segment_strategy": "native"}, q)
+             for q in NATIVE_QUERIES]
     want = {}
     bad = []
     out = {}
     for label, knobs, q in runs:
+        card, cpu = sessions["ssb" if q in FLAT_QUERIES or q in NATIVE_QUERIES
+                             else "tpch"]
         if q not in want:
             set_knobs(strategies("auto"))
             want[q] = cpu.sql(texts[q]).table
+        set_knobs(strategies("auto"))
         set_knobs(knobs)
-        got = card.sql(texts[q]).table
+        res = card.sql(texts[q])
+        got = res.table
         torch.cuda.synchronize()
-        rel = STAT_REL if q.startswith("S") else 1e-6
+        rel = STAT_REL if q.startswith("S") else BREADTH_REL.get(q, 1e-6)
         ok = tables_agree(got, want[q], rel=rel)
+        if label == "native":
+            ok = ok and res.profile.get("native_fused") == "filter_sum"
         out[f"{q}@{label}"] = {"rows": got.num_rows, "agree": ok}
         log(f"  card ({label}) vs cpu (auto) SF {sf} {qname(q)}: {got.num_rows} "
             f"rows, agree {ok}")
@@ -1481,6 +1700,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=10.0,
                     help="TPC-H scale factor of the main path (default 10)")
+    ap.add_argument("--ssb-sf", type=float, default=10.0,
+                    help="SSB scale factor of the ssb path (default 10)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--out", default="chip_smoke_out",
                     help="directory for chip_smoke.json")
@@ -1524,13 +1745,15 @@ def main(argv=None) -> int:
         ("hash_topn", lambda: phase_hash_topn(rec, data["cat"], args.sf,
                                               args.seed)),
         ("topn", lambda: phase_topn(rec, data["cat"], args.sf)),
+        ("breadth", lambda: phase_breadth(rec, data["cat"], args.sf)),
+        ("ssb", lambda: phase_ssb(rec, args.ssb_sf, args.seed)),
         ("kernels", lambda: phase_kernels(
             rec, args.seed, args.kernels and args.kernels.split(","))),
         ("card_vs_cpu", lambda: phase_card_vs_cpu(rec, CPU_SF, args.seed)),
     ]
     if args.phases:
         wanted = {"device", "build", *args.phases.split(",")}
-        if wanted & {"tpch", "hash_topn", "topn"}:
+        if wanted & {"tpch", "hash_topn", "topn", "breadth"}:
             wanted.add("generate")
         unknown = wanted - {name for name, _ in phases}
         if unknown:
@@ -1539,6 +1762,7 @@ def main(argv=None) -> int:
     for name, fn in phases:
         t0 = time.perf_counter()
         log(f"== phase {name}")
+        mem = _settle() if name not in ("device", "build") else None
         try:
             fn()
             status = "ok"
@@ -1549,7 +1773,8 @@ def main(argv=None) -> int:
         finally:
             set_knobs(strategies("auto"))
         dt = time.perf_counter() - t0
-        rec["phases"][name] = {"status": status, "s": dt}
+        rec["phases"][name] = {"status": status, "s": dt,
+                               "mem_before_gb": mem}
         log(f"== phase {name}: {status} ({dt:.1f} s)")
         if name in ("device", "generate") and failed:
             break

@@ -6,12 +6,15 @@ codes + a StringDict. Reference analog: result materialization
 (be/src/data_sink/result/mysql_result_writer.h:48).
 
 A copy of the JAX package's ``column/host_table.py`` restricted to the
-scalar (rank-1) types the port's slice covers; ``to_pylist`` returns the
-same Python values as the reference's. Wide types (ARRAY, DECIMAL(>18),
-HLL, BITMAP) are not in the port yet and raise.
+scalar (rank-1) types and DECIMAL(>18), whose values are a [rows, 4] limb
+matrix (``ops/dec128.py``); ``to_pylist`` returns the same Python values
+as the reference's. The other wide types (ARRAY, HLL, BITMAP) are not in
+the port yet and raise.
 """
 
 from __future__ import annotations
+
+import decimal
 
 import numpy as np
 import torch
@@ -65,6 +68,13 @@ class HostTable:
                 continue
             vals = list(values) if not isinstance(values, np.ndarray) else values
             t = types.get(name)
+            if t is not None and t.is_decimal128:
+                arr, vl = _build_dec128_column(vals, t)
+                fields.append(Field(name, t, nullable))
+                arrays[name] = arr
+                if vl is not None:
+                    valids[name] = vl
+                continue
             if t is not None and t.is_wide:
                 raise NotImplementedError(f"{t!r} columns are not in the port yet")
             nulls = None
@@ -118,7 +128,7 @@ class HostTable:
         out = []
         cols = []
         for f in self.schema.fields:
-            if f.type.is_wide:
+            if f.type.is_wide and not f.type.is_decimal128:
                 raise NotImplementedError(
                     f"{f.type!r} columns are not in the port yet")
             a = self.arrays[f.name]
@@ -133,6 +143,11 @@ class HostTable:
             for a, v, f in cols:
                 if v is not None and not v[r]:
                     row.append(None)
+                elif f.type.is_decimal128:
+                    # default context rounds to 28 digits; DECIMAL(38) needs
+                    # the full width
+                    row.append(decimal.Decimal(_dec128_to_int(a[r])).scaleb(
+                        -f.type.scale, decimal.Context(prec=60)))
                 elif f.type.is_decimal:
                     row.append(int(a[r]) / (10 ** f.type.scale))
                 elif f.type.kind is TypeKind.DATE:
@@ -178,3 +193,49 @@ def _numpy_to_logical(dt) -> LogicalType:
     if dt in m:
         return LogicalType(m[dt])
     raise TypeError(f"unsupported numpy dtype {dt}")
+
+
+# --- DECIMAL128 columns ([n, 4] limb matrices) ------------------------------
+
+_D128_LIMBS = 4
+
+
+def _int_to_dec128(v: int) -> list:
+    """Signed 128-bit int -> 4x32-bit limbs, most significant first, stored
+    in int64 lanes (two's complement across the 128-bit value)."""
+    u = v & ((1 << 128) - 1)
+    return [(u >> (96 - 32 * i)) & 0xFFFFFFFF for i in range(_D128_LIMBS)]
+
+
+def _dec128_to_int(limbs) -> int:
+    u = 0
+    for x in np.asarray(limbs).tolist():
+        u = (u << 32) | (int(x) & 0xFFFFFFFF)
+    if u >= 1 << 127:
+        u -= 1 << 128
+    return u
+
+
+def _build_dec128_column(vals, t):
+    """DECIMAL(p>18): values (ints = unscaled logical, floats/str/Decimal =
+    logical) -> [n, 4] limb matrix."""
+    n = len(vals)
+    out = np.zeros((n, _D128_LIMBS), dtype=np.int64)
+    valid = np.ones(n, dtype=bool)
+    scale = 10 ** t.scale
+    for i, v in enumerate(vals):
+        if v is None:
+            valid[i] = False
+            continue
+        if isinstance(v, (decimal.Decimal, str)):
+            # wide context everywhere: the default one rounds EVERY operation
+            # (including *) to 28 significant digits
+            ctx = decimal.Context(prec=60, rounding=decimal.ROUND_HALF_EVEN)
+            scaled = int(decimal.Decimal(str(v)).scaleb(t.scale, ctx)
+                         .to_integral_value(decimal.ROUND_HALF_EVEN, ctx))
+        elif isinstance(v, float):
+            scaled = int(round(v * scale))
+        else:
+            scaled = int(v) * scale
+        out[i] = _int_to_dec128(scaled)
+    return out, (None if valid.all() else valid)

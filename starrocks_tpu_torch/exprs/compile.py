@@ -13,22 +13,26 @@ Evaluation value: EVal(data, valid, type, dict, bounds)
 - type: LogicalType
 - dict: StringDict | None for VARCHAR values
 
-The port covers what the 22 TPC-H queries need: columns, literals (dates
-included), scaled-decimal add/subtract/multiply, DOUBLE division (x/0 is
-NULL), comparisons (dictionary codes for strings), AND/OR/NOT with
-3-valued NULLs, searched CASE, IN lists, LIKE / NOT LIKE and substr as
-dictionary LUTs and remaps, extract(year), date +/- interval days and
-months, and CAST between numeric and temporal types. Anything else raises:
-the parser builds a registry call only for names registered in
-`_FUNCTIONS`, the compiler raises KeyError for any other call, and
-NotImplementedError for DECIMAL(>18), string-valued CASE and string
-casts.
+The port registers the reference compiler's 51 core functions, and
+`nullif` of its function waves: the arithmetic (scaled DECIMAL(18) and
+128-bit DECIMAL(38) limbs, `ops/dec128.py`), comparisons (dictionary
+codes for strings), AND/OR/NOT with 3-valued NULLs, NULL tests,
+CASE/IF/COALESCE, IN lists, the date parts and date arithmetic, the string
+functions as dictionary LUTs and remaps (LIKE, substr, upper, trim,
+replace, concat of one column, length, ...) and the maths functions.
+Anything else raises: the parser builds a registry call only for names
+registered in `_FUNCTIONS`, and the compiler raises KeyError for any other
+call. String-valued CASE, IF and COALESCE raise NotImplementedError (the
+reference returns dictionary codes there, or fails), and so do string
+casts. Negating a DECIMAL(38) value and its absolute value are two's
+complement limb operations here; the reference negates each limb.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import decimal
 import re
 from typing import Optional
 
@@ -38,6 +42,7 @@ import torch
 from .. import types as T
 from ..column.column import Chunk
 from ..column.dict_encoding import StringDict
+from ..column.host_table import _int_to_dec128
 from .ir import AggExpr, Call, Case, Cast, Col, Expr, InList, Lit
 
 
@@ -70,13 +75,6 @@ def as_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.tensor(x, dtype=dtype, device=device)
 
 
-def _no_dec128(*vals):
-    for v in vals:
-        if v.type.is_wide:
-            raise NotImplementedError(
-                f"{v.type!r} values are not in the port yet")
-
-
 # --- literal handling -------------------------------------------------------
 
 
@@ -99,16 +97,13 @@ def _infer_lit(value, ltype: T.LogicalType | None) -> tuple:
         if ltype is not None and ltype.is_decimal:
             return value * 10 ** ltype.scale, ltype
         if abs(value) >= (1 << 63):
-            raise NotImplementedError(
-                "integer literals beyond int64 (DECIMAL(38)) are not in the "
-                "port yet")
+            # beyond int64: the literal rides as DECIMAL128 limbs
+            return _int_to_dec128(value), T.DECIMAL(38, 0)
         return value, ltype or T.BIGINT
     if isinstance(value, float):
         if ltype is not None and ltype.is_decimal:
             return int(round(value * 10 ** ltype.scale)), ltype
         return value, ltype or T.DOUBLE
-    import decimal
-
     if isinstance(value, decimal.Decimal):
         if ltype is not None and ltype.is_decimal:
             return int(value.scaleb(ltype.scale,
@@ -117,9 +112,9 @@ def _infer_lit(value, ltype: T.LogicalType | None) -> tuple:
         s = max(int(exp), 0)
         unscaled = int(value.scaleb(s, decimal.Context(prec=60)))
         if abs(unscaled) >= (1 << 63):
-            raise NotImplementedError(
-                "decimal literals beyond int64 (DECIMAL(38)) are not in the "
-                "port yet")
+            # beyond int64/float64 exactness: carry the literal as
+            # DECIMAL128 limbs so dec128 comparisons stay exact
+            return _int_to_dec128(unscaled), T.DECIMAL(38, s)
         return float(value), ltype or T.DOUBLE
     if isinstance(value, datetime.date):
         return (value - datetime.date(1970, 1, 1)).days, T.DATE
@@ -176,9 +171,19 @@ def _promote_temporal_literals(a: EVal, b: EVal):
 def _to_numeric(v: EVal, target: T.LogicalType, device) -> torch.Tensor:
     """Cast v.data to target's representation (handles decimal rescale and
     temporal unit conversion)."""
-    _no_dec128(v)
-    if target.is_wide:
-        raise NotImplementedError(f"{target!r} values are not in the port yet")
+    if v.type.is_decimal128 and target.is_float:
+        f = d128.to_f64(as_tensor(v.data, torch.int64, device))
+        return (f / (10 ** v.type.scale)).to(target.dtype)
+    if v.type.is_decimal128 and target.is_decimal128:
+        if target.scale < v.type.scale:
+            raise NotImplementedError("DECIMAL128 downscale cast")
+        return d128.rescale(as_tensor(v.data, torch.int64, device),
+                            target.scale - v.type.scale)
+    if target.is_decimal128:
+        return _to_dec128(v, target.scale or 0, device)
+    if v.type.is_decimal128:
+        # the reference reads the limbs as one int64 column here
+        raise NotImplementedError(f"{v.type!r} to {target!r} casts")
     if v.type.kind is T.TypeKind.DATE and target.kind is T.TypeKind.DATETIME:
         return as_tensor(v.data, torch.int64, device) * 86_400_000_000
     if v.type.kind is T.TypeKind.DATETIME and target.kind is T.TypeKind.DATE:
@@ -236,6 +241,8 @@ class ExprCompiler:
                                 device=self.device),
                     lt,
                 )
+            if lt.is_decimal128:  # [4] limbs
+                hv = torch.tensor(hv, dtype=torch.int64, device=self.device)
             # literals stay host scalars (strings and numbers alike);
             # compute sites coerce them with as_tensor where needed
             return EVal(hv, None, lt)
@@ -319,11 +326,22 @@ class ExprCompiler:
     # --- IN list ------------------------------------------------------------
     def _in_list(self, e: InList) -> EVal:
         v = self.eval(e.arg)
-        _no_dec128(v)
         cap, dev = self.chunk.capacity, self.device
         has_null = any(x is None for x in e.values)
         values = [x for x in e.values if x is not None]
-        if v.type.is_string:
+        if v.type.is_decimal128:
+            # OR of exact limb equalities (the 128-bit compare kernels)
+            ctx = decimal.Context(prec=60)
+            m = torch.zeros((cap,), dtype=torch.bool, device=dev)
+            for x in values:
+                scaled = decimal.Decimal(str(x)).scaleb(v.type.scale, ctx)
+                if scaled != scaled.to_integral_value(decimal.ROUND_FLOOR,
+                                                      ctx):
+                    continue  # inexact at this scale: can never match
+                lit = torch.tensor(_int_to_dec128(int(scaled)),
+                                   dtype=torch.int64, device=dev)
+                m = m | d128.eq(v.data, lit)
+        elif v.type.is_string:
             if v.dict is None:
                 raise TypeError("IN over strings needs a dict column")
             codes = {v.dict.encode_one(str(x)) for x in values}
@@ -373,38 +391,90 @@ def function(name):
 
 
 def _binary_numeric(cc: ExprCompiler, a: EVal, b: EVal, op):
-    _no_dec128(a, b)
     a, b = _promote_temporal_literals(a, b)
     ct = _common(a, b)
     da, db = _to_numeric(a, ct, cc.device), _to_numeric(b, ct, cc.device)
     return op(da, db), _and_valid(a.valid, b.valid), ct
 
 
+def _scale_of(t: T.LogicalType) -> int:
+    return t.scale if (t.is_decimal or t.is_decimal128) else 0
+
+
+def _is_dec128_pair(a, b):
+    nonfloat = all(t.is_decimal or t.is_decimal128 or t.is_integer
+                   or t.kind is T.TypeKind.BOOLEAN for t in (a.type, b.type))
+    return nonfloat and (a.type.is_decimal128 or b.type.is_decimal128)
+
+
+def _to_dec128(v: EVal, scale: int, device):
+    """v's data as [.., 4] limbs at `scale` (exact widening casts only)."""
+    if v.type.is_decimal128:
+        if v.type.scale > scale:
+            raise NotImplementedError("DECIMAL128 downscale in comparison")
+        return d128.rescale(as_tensor(v.data, torch.int64, device),
+                            scale - v.type.scale)
+    if v.type.is_decimal:
+        d = d128.from_i64(as_tensor(v.data, torch.int64, device))
+        return d128.rescale(d, scale - v.type.scale)
+    if v.type.is_integer or v.type.kind is T.TypeKind.BOOLEAN:
+        return d128.rescale(
+            d128.from_i64(as_tensor(v.data, torch.int64, device)), scale)
+    if v.type.is_float and isinstance(v.data, float):
+        # concrete float literal: exact iff it round-trips at this scale
+        # (decimal literals small enough for float64 always do)
+        iv = int(round(v.data * (10 ** scale)))
+        if iv / (10 ** scale) == v.data and abs(iv) < (1 << 63):
+            return d128.from_i64(torch.tensor(iv, dtype=torch.int64,
+                                              device=device))
+    raise NotImplementedError(
+        f"cannot widen {v.type!r} to DECIMAL128 exactly (cast to DOUBLE)")
+
+
+def _dec128_addsub(a: EVal, b: EVal, is_sub: bool, device) -> EVal:
+    s = max(_scale_of(a.type), _scale_of(b.type))
+    da, db = _to_dec128(a, s, device), _to_dec128(b, s, device)
+    out = d128.sub(da, db) if is_sub else d128.add(da, db)
+    return EVal(out, _and_valid(a.valid, b.valid), T.DECIMAL(38, s))
+
+
 @function("add")
 def _f_add(cc, a, b):
+    if _is_dec128_pair(a, b):
+        return _dec128_addsub(a, b, False, cc.device)
     d, v, t = _binary_numeric(cc, a, b, torch.add)
     return EVal(d, v, t)
 
 
 @function("subtract")
 def _f_sub(cc, a, b):
+    if _is_dec128_pair(a, b):
+        return _dec128_addsub(a, b, True, cc.device)
     d, v, t = _binary_numeric(cc, a, b, torch.sub)
     return EVal(d, v, t)
 
 
+def _dec128_mul(a: EVal, b: EVal, device) -> EVal:
+    sa, sb = _scale_of(a.type), _scale_of(b.type)
+    if sa + sb > 38:
+        raise NotImplementedError(f"decimal multiply scale {sa + sb} > 38")
+    out = d128.mul(_to_dec128(a, sa, device), _to_dec128(b, sb, device))
+    return EVal(out, _and_valid(a.valid, b.valid), T.DECIMAL(38, sa + sb))
+
+
 @function("multiply")
 def _f_mul(cc, a, b):
-    _no_dec128(a, b)
     a, b = _promote_temporal_literals(a, b)
+    if _is_dec128_pair(a, b):
+        return _dec128_mul(a, b, cc.device)
     ct = _common(a, b)
     if ct.is_decimal:
         sa = a.type.scale if a.type.is_decimal else 0
         sb = b.type.scale if b.type.is_decimal else 0
         out_s = sa + sb
         if out_s > 18:
-            raise NotImplementedError(
-                f"decimal product of scale {out_s} needs DECIMAL(38), which "
-                "is not in the port yet")
+            # product scale overflows DECIMAL64: promote to the 128-bit path
+            return _dec128_mul(a, b, cc.device)
         da = (as_tensor(a.data, torch.int64, cc.device) if a.type.is_decimal
               else _to_numeric(a, T.DECIMAL(18, 0), cc.device))
         db = (as_tensor(b.data, torch.int64, cc.device) if b.type.is_decimal
@@ -424,6 +494,35 @@ def _f_div(cc, a, b):
     return EVal(d, _and_valid(a.valid, b.valid, ~zero), T.DOUBLE)
 
 
+@function("mod")
+def _f_mod(cc, a, b):
+    # SQL MOD: truncated remainder (sign of the dividend), x % 0 -> NULL
+    ct = _common(a, b)
+    da, db = _to_numeric(a, ct, cc.device), _to_numeric(b, ct, cc.device)
+    zero = db == 0
+    safe_db = torch.where(zero, torch.ones_like(db), db)
+    mag = torch.abs(da) % torch.abs(safe_db)
+    d = torch.where(da < 0, -mag, mag)
+    return EVal(d, _and_valid(a.valid, b.valid, ~zero), ct)
+
+
+@function("negate")
+def _f_neg(cc, a):
+    if a.type.is_decimal128:
+        return EVal(d128.neg(a.data), a.valid, a.type)
+    return EVal(-as_tensor(a.data, a.type.dtype, cc.device), a.valid, a.type)
+
+
+@function("abs")
+def _f_abs(cc, a):
+    if a.type.is_decimal128:
+        d = as_tensor(a.data, torch.int64, cc.device)
+        neg = (d[..., 0] >= 0x80000000).unsqueeze(-1)
+        return EVal(torch.where(neg, d128.neg(d), d), a.valid, a.type)
+    return EVal(torch.abs(as_tensor(a.data, a.type.dtype, cc.device)),
+                a.valid, a.type)
+
+
 _FLIPPED = {
     torch.eq: torch.eq,
     torch.ne: torch.ne,
@@ -434,8 +533,27 @@ _FLIPPED = {
 }
 
 
+def _compare_dec128(cc, a: EVal, b: EVal, op):
+    s = max(_scale_of(a.type), _scale_of(b.type))
+    da, db = _to_dec128(a, s, cc.device), _to_dec128(b, s, cc.device)
+    if op is torch.eq:
+        res = d128.eq(da, db)
+    elif op is torch.ne:
+        res = ~d128.eq(da, db)
+    elif op is torch.lt:
+        res = d128.lt(da, db)
+    elif op is torch.le:
+        res = ~d128.lt(db, da)
+    elif op is torch.gt:
+        res = d128.lt(db, da)
+    else:  # ge
+        res = ~d128.lt(da, db)
+    return EVal(res, _and_valid(a.valid, b.valid), T.BOOLEAN)
+
+
 def _compare(cc, a, b, op):
-    _no_dec128(a, b)
+    if a.type.is_decimal128 or b.type.is_decimal128:
+        return _compare_dec128(cc, a, b, op)
     a, b = _promote_temporal_literals(a, b)
     if a.type.is_string or b.type.is_string:
         return _compare_strings(cc, a, b, op)
@@ -568,6 +686,36 @@ def _f_not(cc, a):
     return EVal(~as_tensor(a.data, torch.bool, cc.device), a.valid, T.BOOLEAN)
 
 
+@function("is_null")
+def _f_is_null(cc, a):
+    cap, dev = cc.chunk.capacity, cc.device
+    if a.valid is None:
+        return EVal(torch.zeros((cap,), dtype=torch.bool, device=dev), None,
+                    T.BOOLEAN)
+    return EVal(~a.valid.expand(cap), None, T.BOOLEAN)
+
+
+@function("is_not_null")
+def _f_is_not_null(cc, a):
+    cap, dev = cc.chunk.capacity, cc.device
+    if a.valid is None:
+        return EVal(torch.ones((cap,), dtype=torch.bool, device=dev), None,
+                    T.BOOLEAN)
+    return EVal(a.valid.expand(cap), None, T.BOOLEAN)
+
+
+@function("null_of")
+def _f_null_of(cc, a):
+    # typed NULL column shaped like `a` (ROLLUP's grouping placeholder)
+    cap, dev = cc.chunk.capacity, cc.device
+    if isinstance(a.data, torch.Tensor):
+        data = a.data.expand((cap,) + tuple(a.data.shape[1:]))
+    else:
+        data = torch.zeros((cap,), dtype=a.type.dtype, device=dev)
+    return EVal(data, torch.zeros((cap,), dtype=torch.bool, device=dev),
+                a.type, a.dict)
+
+
 @function("coalesce")
 def _f_coalesce(cc, *args):
     cap, dev = cc.chunk.capacity, cc.device
@@ -586,6 +734,39 @@ def _f_coalesce(cc, *args):
               if out.valid is None else out.valid)
         out = EVal(torch.where(v.valid, dv, do), v.valid | ov, ct)
     return out
+
+
+@function("nullif")
+def _f_nullif(cc, a, b):
+    """NULL when a == b else a (the reference's functions_ext.py)."""
+    eq = _f_eq(cc, a, b)
+    equal = as_tensor(eq.data, torch.bool, cc.device)
+    if eq.valid is not None:
+        equal = equal & eq.valid  # NULL comparison -> keep a
+    v = ~equal if a.valid is None else (a.valid & ~equal)
+    return EVal(a.data, v, a.type, a.dict)
+
+
+@function("if")
+def _f_if(cc, c, a, b):
+    ct = _common_valued(a.type, b.type)
+    if ct.is_string:
+        # the reference returns dictionary codes here (ROADMAP: reference
+        # defects, not ported)
+        raise NotImplementedError("string-valued IF is not in the port")
+    cap, dev = cc.chunk.capacity, cc.device
+    cond = as_tensor(c.data, torch.bool, dev).expand(cap)
+    if c.valid is not None:
+        cond = cond & c.valid
+    da = _to_numeric(a, ct, dev).expand(cap)
+    db = _to_numeric(b, ct, dev).expand(cap)
+    d = torch.where(cond, da, db)
+    if a.valid is None and b.valid is None:
+        return EVal(d, None, ct)
+    ones = torch.ones((cap,), dtype=torch.bool, device=dev)
+    va = ones if a.valid is None else a.valid.expand(cap)
+    vb = ones if b.valid is None else b.valid.expand(cap)
+    return EVal(d, torch.where(cond, va, vb), ct)
 
 
 # --- dates ------------------------------------------------------------------
@@ -642,6 +823,20 @@ def _f_year(cc, a):
     yb = ((_py_year_of_days(db[0]), _py_year_of_days(db[1]))
           if db is not None else None)
     return EVal(y, a.valid, T.INT, bounds=yb)
+
+
+@function("month")
+def _f_month(cc, a):
+    a = _lit_as_date_if_str(a)
+    _, m, _ = _civil_from_days(_as_days(a, cc.device))
+    return EVal(m, a.valid, T.INT, bounds=(1, 12))
+
+
+@function("day")
+def _f_day(cc, a):
+    a = _lit_as_date_if_str(a)
+    _, _, d = _civil_from_days(_as_days(a, cc.device))
+    return EVal(d, a.valid, T.INT, bounds=(1, 31))
 
 
 @function("date_add_days")
@@ -735,6 +930,18 @@ def _f_not_like(cc, a, pat):
     return EVal(~as_tensor(v.data, torch.bool, cc.device), v.valid, T.BOOLEAN)
 
 
+@function("starts_with")
+def _f_starts_with(cc, a, pre):
+    p = str(pre.data)
+    return _string_bool_fn(cc, a, lambda s: str(s).startswith(p))
+
+
+@function("ends_with")
+def _f_ends_with(cc, a, suf):
+    p = str(suf.data)
+    return _string_bool_fn(cc, a, lambda s: str(s).endswith(p))
+
+
 def _string_map_fn(cc, a: EVal, f) -> EVal:
     """string->string function via a constant remap into a fresh dict."""
     if a.dict is None and isinstance(a.data, str):
@@ -771,6 +978,186 @@ def _f_substr(cc, a, start, length=None):
     return _string_map_fn(cc, a, sub)
 
 
+@function("upper")
+def _f_upper(cc, a):
+    return _string_map_fn(cc, a, str.upper)
+
+
+@function("lower")
+def _f_lower(cc, a):
+    return _string_map_fn(cc, a, str.lower)
+
+
+@function("trim")
+def _f_trim(cc, a):
+    return _string_map_fn(cc, a, str.strip)
+
+
+@function("ltrim")
+def _f_ltrim(cc, a):
+    return _string_map_fn(cc, a, str.lstrip)
+
+
+@function("rtrim")
+def _f_rtrim(cc, a):
+    return _string_map_fn(cc, a, str.rstrip)
+
+
+@function("replace")
+def _f_replace(cc, a, old, new):
+    o, n = str(old.data), str(new.data)
+    return _string_map_fn(cc, a, lambda s: s.replace(o, n))
+
+
+@function("concat")
+def _f_concat(cc, *args):
+    """Dict-remap concat: works when at most ONE argument is a (dict) column
+    and the rest are literals — the common SQL pattern. Column-column
+    concat would need a cross-product dictionary."""
+    col_args = [a for a in args if a.dict is not None]
+    if len(col_args) > 1:
+        raise NotImplementedError("concat of multiple string columns")
+    for a in args:
+        if a.dict is None and not isinstance(a.data, (str, int, float, bool)):
+            raise NotImplementedError(
+                "concat requires string literals / one string column "
+                f"(got a {a.type} column)")
+    if not col_args:
+        return EVal("".join(str(a.data) for a in args), None, T.VARCHAR)
+    col = col_args[0]
+
+    def f(s):
+        return "".join(s if a is col else str(a.data) for a in args)
+
+    return _string_map_fn(cc, col, f)
+
+
+@function("length")
+def _f_length(cc, a):
+    if a.dict is None:
+        raise TypeError("length() needs a string column")
+    lens = np.fromiter((len(str(v)) for v in a.dict.values),
+                       count=len(a.dict), dtype=np.int32)
+    if not len(lens):
+        lens = np.zeros(1, np.int32)
+    lut = torch.from_numpy(lens).to(cc.device)
+    n = max(len(a.dict), 1)
+    return EVal(lut[as_tensor(a.data, torch.int64, cc.device).clamp(0, n - 1)],
+                a.valid, T.INT)
+
+
+# --- maths ------------------------------------------------------------------
+
+
+@function("round")
+def _f_round(cc, a, nd=None):
+    digits = 0 if nd is None else int(nd.data)
+    dev = cc.device
+    if a.type.is_decimal:
+        sc = a.type.scale
+        if digits >= sc:
+            return a
+        q = 10 ** (sc - digits)
+        d = as_tensor(a.data, torch.int64, dev)
+        # round-half-away-from-zero on scaled ints
+        r = torch.where(d >= 0, (d + q // 2) // q, -((-d + q // 2) // q)) * q
+        return EVal(r, a.valid, a.type)
+    d = as_tensor(a.data, torch.float64, dev)
+    f = 10.0 ** digits
+    # SQL rounds half away from zero (torch.round is half-to-even)
+    r = torch.sign(d) * torch.floor(torch.abs(d) * f + 0.5) / f
+    return EVal(r, a.valid, T.DOUBLE)
+
+
+@function("floor")
+def _f_floor(cc, a):
+    return EVal(torch.floor(_to_numeric(a, T.DOUBLE, cc.device)), a.valid,
+                T.DOUBLE)
+
+
+@function("ceil")
+def _f_ceil(cc, a):
+    return EVal(torch.ceil(_to_numeric(a, T.DOUBLE, cc.device)), a.valid,
+                T.DOUBLE)
+
+
+@function("sqrt")
+def _f_sqrt(cc, a):
+    d = _to_numeric(a, T.DOUBLE, cc.device)
+    neg = d < 0
+    out = torch.sqrt(torch.where(neg, 0.0, d))
+    return EVal(out, _and_valid(a.valid, ~neg), T.DOUBLE)
+
+
+@function("power")
+def _f_power(cc, a, b):
+    da = _to_numeric(a, T.DOUBLE, cc.device)
+    db = _to_numeric(b, T.DOUBLE, cc.device)
+    return EVal(torch.pow(da, db), _and_valid(a.valid, b.valid), T.DOUBLE)
+
+
+@function("exp")
+def _f_exp(cc, a):
+    return EVal(torch.exp(_to_numeric(a, T.DOUBLE, cc.device)), a.valid,
+                T.DOUBLE)
+
+
+@function("ln")
+def _f_ln(cc, a):
+    d = _to_numeric(a, T.DOUBLE, cc.device)
+    bad = d <= 0
+    return EVal(torch.log(torch.where(bad, 1.0, d)),
+                _and_valid(a.valid, ~bad), T.DOUBLE)
+
+
+def _extreme(cc, args, op):
+    ct = args[0].type
+    for x in args[1:]:
+        ct = T.common_numeric_type(ct, x.type)
+    d = _to_numeric(args[0], ct, cc.device)
+    v = args[0].valid
+    for x in args[1:]:
+        d = op(d, _to_numeric(x, ct, cc.device))
+        v = _and_valid(v, x.valid)
+    return EVal(d, v, ct)
+
+
+@function("greatest")
+def _f_greatest(cc, *args):
+    return _extreme(cc, args, torch.maximum)
+
+
+@function("least")
+def _f_least(cc, *args):
+    return _extreme(cc, args, torch.minimum)
+
+
+# --- date differences ---------------------------------------------------------
+
+
+@function("datediff")
+def _f_datediff(cc, a, b):
+    a = _lit_as_date_if_str(a)
+    b = _lit_as_date_if_str(b)
+    return EVal(_as_days(a, cc.device) - _as_days(b, cc.device),
+                _and_valid(a.valid, b.valid), T.INT)
+
+
+@function("dayofweek")
+def _f_dayofweek(cc, a):
+    a = _lit_as_date_if_str(a)
+    # 1970-01-01 was a Thursday; SQL convention: 1=Sunday .. 7=Saturday
+    days = _as_days(a, cc.device).to(torch.int64)
+    return EVal(((days + 4) % 7 + 1).to(torch.int32), a.valid, T.INT)
+
+
+@function("quarter")
+def _f_quarter(cc, a):
+    a = _lit_as_date_if_str(a)
+    _, m, _ = _civil_from_days(_as_days(a, cc.device))
+    return EVal((m - 1) // 3 + 1, a.valid, T.INT)
+
+
 
 def eval_expr(chunk: Chunk, e: Expr) -> EVal:
     return ExprCompiler(chunk).eval(e)
@@ -778,3 +1165,7 @@ def eval_expr(chunk: Chunk, e: Expr) -> EVal:
 
 def eval_predicate(chunk: Chunk, e: Expr) -> torch.Tensor:
     return ExprCompiler(chunk).eval_predicate(e)
+
+
+# the operators import this module, so the limb arithmetic comes last
+from ..ops import dec128 as d128  # noqa: E402

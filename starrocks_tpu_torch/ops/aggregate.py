@@ -15,8 +15,10 @@ executor can retry at a larger capacity. Two paths:
 The port covers COMPLETE mode with count / sum / min / max / avg and the
 variance and covariance families (var_pop/var_samp/stddev_pop/stddev_samp,
 covar_pop/covar_samp/corr, summed as float64 moments), which is what the
-single-device plans emit; PARTIAL/FINAL two-phase aggregation and the
-percentile, sketch and array aggregates raise.
+single-device plans emit; DECIMAL(38) values (`dec128.py` limbs) take sum,
+min, max and count, as in the reference. PARTIAL/FINAL two-phase
+aggregation and the percentile, sketch and array aggregates raise;
+group_concat runs in the executor (`runtime/executor.py`), never here.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 from .. import types as T
 from ..column.column import Chunk, Field, Schema
 from ..exprs.compile import EVal, ExprCompiler, as_tensor
+from . import dec128 as d128
 from .common import argsort_stable, boundaries, eval_keys, key_sort_arrays, lexsort
 from .segment import seg_count, seg_first_index, seg_max, seg_min, seg_sum
 
@@ -51,6 +54,8 @@ def _as_f64(a: EVal, device):
 
 
 def _sum_out_type(t: T.LogicalType) -> T.LogicalType:
+    if t.is_decimal128:
+        return t
     if t.is_decimal:
         return T.DECIMAL(18, t.scale)
     if t.is_float:
@@ -178,9 +183,11 @@ def _lowcard_key_columns(infos, total: int, num_groups: int, device):
     return cols
 
 
-def _no_wide(a: EVal):
+def _no_wide(a: EVal, fn: str):
     if a.type.is_wide:
-        raise NotImplementedError(f"{a.type!r} values are not in the port yet")
+        raise NotImplementedError(
+            f"{fn} over {a.type!r} is not supported (sum/min/max/count are; "
+            "cast to DOUBLE for the rest)")
 
 
 def _to_rep(a: EVal, out_t: T.LogicalType, device):
@@ -222,7 +229,7 @@ def _emit_agg_columns(cc, aggs, mode, cap, live_rows, reorder, gid,
 
         if agg.fn in _VAR_FNS:
             a = cc.eval(agg.arg)
-            _no_wide(a)
+            _no_wide(a, agg.fn)
             d = reorder(_full(_as_f64(a, dev)))
             m = live_rows if a.valid is None else (
                 live_rows & reorder(_full(a.valid)))
@@ -242,8 +249,8 @@ def _emit_agg_columns(cc, aggs, mode, cap, live_rows, reorder, gid,
         if agg.fn in _COVAR_FNS:
             ax = cc.eval(agg.arg)
             ay = cc.eval(agg.extra[0])
-            _no_wide(ax)
-            _no_wide(ay)
+            _no_wide(ax, agg.fn)
+            _no_wide(ay, agg.fn)
             dx = reorder(_full(_as_f64(ax, dev)))
             dy = reorder(_full(_as_f64(ay, dev)))
             m = live_rows
@@ -277,11 +284,51 @@ def _emit_agg_columns(cc, aggs, mode, cap, live_rows, reorder, gid,
             continue
 
         a = cc.eval(agg.arg)
-        _no_wide(a)
+        if agg.fn == "avg":
+            _no_wide(a, agg.fn)
         m = live_rows if a.valid is None else (
             live_rows & reorder(_full(a.valid)))
 
-        if agg.fn == "avg":
+        if a.type.is_decimal128 and agg.fn in ("min", "max"):
+            # lexicographic limb refinement: per limb (ms->ls), keep only
+            # rows still tied on all more-significant limbs and take the
+            # segment extreme — 4 scatter-free passes
+            is_min = agg.fn == "min"
+            adj = d128.cmp_limbs(reorder(a.data))
+            ident = (1 << 32) if is_min else -1
+            gidc = gid.to(torch.int64).clamp(0, num_groups - 1)
+            segfn = seg_min if is_min else seg_max
+            tied = m
+            best_limbs = []
+            for limb in adj:
+                lv = torch.where(tied, limb, ident)
+                best = segfn(lv, gid, num_groups, identity=ident,
+                             sorted_gid=indices_sorted)
+                best_limbs.append(best)
+                tied = tied & (limb == best[gidc])
+            best_limbs[0] = best_limbs[0] ^ 0x80000000  # undo sign adjust
+            res = torch.stack([x.to(torch.int64) & 0xFFFFFFFF
+                               for x in best_limbs], dim=1)
+            out_fields.append(Field(name, a.type, True))
+            out_data.append(res)
+            out_valid.append(_seg_sum(m, nbits=1) > 0)
+        elif agg.fn == "sum" and a.type.is_decimal128:
+            # 128-bit exact sum: per-32-bit-limb segment sums (limb sums of
+            # up to 2^31 rows fit int64), then one carry-propagation pass;
+            # wraps mod 2^128 like the reference's int128 accumulator
+            d = reorder(a.data)  # [cap, 4] limbs, ms first
+            limb_sums = [_seg_sum(torch.where(m, d[:, i] & 0xFFFFFFFF, 0))
+                         for i in range(4)]
+            out_limbs = [None] * 4
+            carry = torch.zeros_like(limb_sums[0])
+            for i in (3, 2, 1, 0):  # least significant first
+                tot = limb_sums[i] + carry
+                out_limbs[i] = tot & 0xFFFFFFFF
+                carry = tot >> 32
+            out_fields.append(Field(name, a.type, True))
+            out_data.append(torch.stack(out_limbs, dim=1))
+            out_valid.append(_seg_sum(m, nbits=1) > 0)
+        elif agg.fn == "avg":
             sum_t = _sum_out_type(a.type)
             d = reorder(_full(_to_rep(a, sum_t, dev)))
             gsum = _seg_sum(torch.where(m, d, 0))

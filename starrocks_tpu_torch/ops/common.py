@@ -18,6 +18,7 @@ import torch
 
 from ..column.column import Chunk
 from ..exprs.compile import EVal, ExprCompiler, as_tensor
+from . import dec128 as d128
 
 
 def eval_keys(chunk: Chunk, key_exprs) -> list:
@@ -25,12 +26,11 @@ def eval_keys(chunk: Chunk, key_exprs) -> list:
     out = []
     for e in key_exprs:
         v = cc.eval(e)
-        if v.type.is_wide:
-            raise NotImplementedError(f"{v.type!r} keys are not in the port yet")
         if isinstance(v.data, str):
             raise NotImplementedError("string literal keys are not in the port")
         d = as_tensor(v.data, v.type.dtype, chunk.device)
-        data = d.expand(chunk.capacity)
+        # a DECIMAL128 key is rank 2: [capacity, 4] limbs
+        data = d.expand((chunk.capacity,) + tuple(d.shape[1:]))
         # valid can come back scalar too (nullness from a literal operand):
         # lexsort/boundaries need full rank
         valid = None if v.valid is None else v.valid.expand(chunk.capacity)
@@ -67,6 +67,9 @@ def key_sort_arrays(keys, live):
     """
     ops = []
     for k in reversed(keys):
+        if k.type.is_decimal128:
+            ops.extend(d128.sort_ops(k.data, k.valid))
+            continue
         ops.append(k.data)
         if k.valid is not None:
             # sort by (is_null, value): nulls form their own cluster
@@ -88,7 +91,10 @@ def boundaries(keys, live, order):
     diff = torch.zeros((cap,), dtype=torch.bool, device=dev)
     for k in keys:
         ks = k.data[order]
-        d = torch.cat([one, ks[1:] != ks[:-1]])
+        neq = ks[1:] != ks[:-1]
+        if neq.ndim > 1:  # rank-2 keys: any limb differs
+            neq = neq.any(dim=-1)
+        d = torch.cat([one, neq])
         if k.valid is not None:
             vs = k.valid[order]
             dv = torch.cat([one, vs[1:] != vs[:-1]])
@@ -102,8 +108,10 @@ def boundaries(keys, live, order):
 def scatter_set(size: int, idx: torch.Tensor, values, fill, dtype):
     """`jnp.full((size,), fill).at[idx].set(values, mode="drop")`: indices
     outside [0, size) are dropped. Callers pass unique in-range indices (or
-    a value that is equal for every duplicate), as the reference requires."""
-    out = torch.full((size + 1,), fill, dtype=dtype, device=idx.device)
+    a value that is equal for every duplicate), as the reference requires.
+    Rank-2 values (DECIMAL128 limbs) scatter whole rows."""
+    row = tuple(values.shape[1:]) if isinstance(values, torch.Tensor) else ()
+    out = torch.full((size + 1,) + row, fill, dtype=dtype, device=idx.device)
     idx = torch.where((idx >= 0) & (idx < size), idx, size)
     if isinstance(values, torch.Tensor):
         out[idx] = values.to(dtype)

@@ -27,13 +27,13 @@ def project(chunk: Chunk, exprs, names) -> Chunk:
     fields, data, valid = [], [], []
     for name, e in zip(names, exprs):
         v = cc.eval(e)
-        if v.type.is_wide:
-            raise NotImplementedError(f"{v.type!r} values are not in the port yet")
         if v.type.is_string and isinstance(v.data, str):
             # string literal output: one-entry dictionary column
             d, codes = StringDict.from_strings([v.data])
             v = dataclasses.replace(v, data=int(codes[0]), dict=d)
-        d = as_tensor(v.data, v.type.dtype, chunk.device).expand(cap)
+        d = as_tensor(v.data, v.type.dtype, chunk.device)
+        # a DECIMAL128 value is rank 2 ([capacity, 4] limbs): already per row
+        d = d if d.ndim == 2 else d.expand(cap)
         fields.append(Field(name, v.type, v.valid is not None, v.dict,
                             bounds=v.bounds))
         data.append(d)

@@ -49,13 +49,19 @@ def _pack_evals(keys, live, capacity: int, bit_widths):
         packed = keys[0].data.to(torch.int64)
     elif bit_widths == "hash":
         h = torch.zeros((capacity,), dtype=torch.int64, device=dev)
+        cols = []
         for k in keys:
             kd = k.data
+            if kd.ndim == 2:  # rank-2 (DECIMAL128 limbs): hash each limb
+                cols.extend(kd[:, j] for j in range(kd.shape[1]))
+                continue
             if kd.is_floating_point() or kd.dtype == torch.bool:
                 # non-integer keys hash their float64 bit pattern
                 kd = kd.to(torch.float64)
                 kd = torch.where(kd == 0, 0.0, kd)  # -0.0 == +0.0 in SQL
                 kd = kd.contiguous().view(torch.int64)
+            cols.append(kd)
+        for kd in cols:
             kh = mix64(kd.to(torch.int64))
             # boost hash_combine: order-sensitive, avalanched
             h = mix64(h ^ (kh + GOLDEN + (h << 6) + shr64(h, 2)))

@@ -17,7 +17,8 @@ for a CUDA tensor it launches the kernel or raises — there is no fallback.
 `<wrapper>.calls` counts every call (either device) and `<wrapper>.launches`
 counts kernel launches only, so a run on the card shows that the main path
 went through the kernels; `<wrapper>.last_shape` keeps the sizes of the
-latest call, so a benchmark can time a kernel at the shapes a query gave it.
+latest call and `<wrapper>.shapes` those of every call since the counts were
+last reset, so a benchmark can time a kernel at the shapes a query gave it.
 `hash_probe.routes` counts its launches by route ("direct", "partitioned":
 csrc/hash_table.cu), `hash_build.last_deferred` holds the latest build's
 per-slice count of keys inserted past their slice, and
@@ -190,7 +191,14 @@ def _counted(fn):
     fn.calls = 0
     fn.launches = 0
     fn.last_shape = None
+    fn.shapes = set()
     return fn
+
+
+def _called(fn, shape):
+    fn.calls += 1
+    fn.last_shape = shape
+    fn.shapes.add(shape)
 
 
 def reset_counts():
@@ -198,6 +206,7 @@ def reset_counts():
         w.calls = 0
         w.launches = 0
         w.last_shape = None
+        w.shapes = set()
     hash_build.last_deferred = None
     hash_probe.routes = dict.fromkeys(HASH_PROBE_ROUTES, 0)
     topn_select.last_listed = None
@@ -348,8 +357,7 @@ def hash_build(keys: torch.Tensor, table_size: int):
         raise ValueError(f"hash_build: table size {table_size} < 2 * {n} keys")
     if table_size > (1 << 31):
         raise ValueError(f"hash_build: table size {table_size} too large")
-    hash_build.calls += 1
-    hash_build.last_shape = (n, table_size)
+    _called(hash_build, (n, table_size))
     if not _route(keys, "hash_build"):
         return hash_build_plain(keys, table_size)
     lay = hash_partition_layout(table_size)
@@ -413,8 +421,7 @@ def hash_probe(table_key: torch.Tensor, table_row: torch.Tensor,
     if not (table_key.device == table_row.device == probe.device):
         raise ValueError("hash_probe: table and probe on different devices")
     m = probe.shape[0]
-    hash_probe.calls += 1
-    hash_probe.last_shape = (t, m)
+    _called(hash_probe, (t, m))
     if not _route(probe, "hash_probe"):
         return hash_probe_plain(table_key, table_row, probe)
     dev = probe.device
@@ -477,8 +484,7 @@ def topn_select(neg: torch.Tensor, k: int):
         raise ValueError(f"topn_select: {n} rows is not a multiple of {TOPN_BLOCK}")
     if not 1 <= k <= TOPN_BLOCK:
         raise ValueError(f"topn_select: k={k} outside [1, {TOPN_BLOCK}]")
-    topn_select.calls += 1
-    topn_select.last_shape = (n, k)
+    _called(topn_select, (n, k))
     if not _route(neg, "topn_select"):
         return topn_select_plain(neg, k)
     lib = _lib("topn_select")
@@ -574,8 +580,7 @@ def probe_searchsorted(sorted_build: torch.Tensor, probe: torch.Tensor):
         raise ValueError("probe_searchsorted: build and probe on different "
                          "devices")
     k, n = sorted_build.shape[0], probe.shape[0]
-    probe_searchsorted.calls += 1
-    probe_searchsorted.last_shape = (k, n)
+    _called(probe_searchsorted, (k, n))
     if not _route(probe, "probe_searchsorted"):
         return probe_searchsorted_plain(sorted_build, probe)
     if k == 0 or n == 0:
@@ -674,8 +679,7 @@ def segment_sum(gid: torch.Tensor, vals: torch.Tensor, num_groups: int,
         raise ValueError(f"segment_sum: a [{num_groups + 1}, {m}] f32 "
                          f"accumulator needs {smem} B of shared memory, "
                          f"more than {SMEM_MAX_BYTES}")
-    segment_sum.calls += 1
-    segment_sum.last_shape = (n, m, num_groups, block)
+    _called(segment_sum, (n, m, num_groups, block))
     if not _route(vals, "segment_sum"):
         return segment_sum_plain(gid, vals, num_groups, block)
     lib = _lib("segment_sum")

@@ -53,13 +53,18 @@ SLAB_BYTES = 1 << 30
 
 
 def _strategy() -> str:
+    """The segment strategy in force. `native` selects the executor's host
+    filter-sum lane for the queries it fits; every other reduction runs as
+    under `scatter`, as in the reference (its `_use_mxu` is False there)."""
     from ..runtime.config import config
 
     s = config.get("segment_strategy")
+    if s == "native":
+        return "scatter"
     if s not in ("auto", "scatter", "mxu", "pallas"):
-        raise NotImplementedError(
-            f"segment_strategy={s!r} is not ported yet "
-            "(auto | scatter | mxu | pallas)")
+        raise ValueError(
+            f"unknown segment_strategy {s!r} "
+            "(auto | scatter | mxu | pallas | native)")
     return s
 
 

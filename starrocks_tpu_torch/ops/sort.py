@@ -25,6 +25,7 @@ from torch.profiler import record_function
 from ..column.column import Chunk, pad_capacity
 from . import kernels
 from .common import argsort_stable, eval_keys, lexsort
+from .dec128 import cmp_limbs
 
 _I64MAX = (1 << 63) - 1
 
@@ -39,6 +40,12 @@ def sort_operands(keys, sort_keys) -> list:
     ops = []
     for k, (_, asc, nulls_first) in zip(reversed(keys),
                                         reversed(list(sort_keys))):
+        if k.type.is_decimal128:
+            for limb in reversed(cmp_limbs(k.data)):  # ls-first operands
+                ops.append(limb if asc else (0xFFFFFFFF - limb))
+            if k.valid is not None:
+                ops.append((k.valid if nulls_first else ~k.valid).to(torch.int8))
+            continue
         d = k.data
         if d.dtype == torch.bool:
             d = d.to(torch.int8)

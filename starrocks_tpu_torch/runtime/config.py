@@ -182,8 +182,10 @@ config.define("segment_strategy", "auto", True,
               "min/max); pallas is mxu with float sums over <= 1024 "
               "groups routed through the segment-sum kernel "
               "(csrc/segment_sum.cu; its plain torch version on CPU "
-              "tensors); native (a C++ host kernel) is not ported and "
-              "raises",
+              "tensors); native runs an ungrouped filter + integer sum "
+              "over one table as one pass of a host C++ function "
+              "(csrc/host/fused_filter_sum.cpp) and every other "
+              "reduction as scatter",
               trace=True)
 config.define("enable_packed_sort_keys", True, True,
               "pack bounded ORDER BY / window sort keys (dict codes, "

@@ -10,7 +10,12 @@ around the program implements
 - uncorrelated scalar-subquery evaluation;
 - the adaptive capacity loop (`_adaptive`): a run whose overflow checks
   exceed their capacities is retried with larger ones, and the capacities
-  that worked are kept per plan so a repeated query runs once.
+  that worked are kept per plan so a repeated query runs once;
+- group_concat as a two-plan orchestration finished on the host
+  (`_execute_group_concat`);
+- the native filter-sum lane (`SET segment_strategy = 'native'`,
+  `_try_native_scan_agg`): an ungrouped filter + integer sum over one
+  table runs as one pass of a host C++ function (native.py).
 
 The program runs eagerly, so nothing is compiled; every overflow check of
 an attempt is read in ONE device-to-host copy. Not ported yet: the query
@@ -28,14 +33,16 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from ..column import Chunk, HostTable, Schema
+from .. import types as T
+from ..column import Chunk, Field, HostTable, Schema, StringDict
 from ..column.column import pad_capacity
 from ..exprs.ir import AggExpr, Call, Case, Cast, Col, Expr, InList, Lit
 from ..sql.analyzer import ScalarSubquery
 from ..sql.logical import (
-    LAggregate, LFilter, LJoin, LLimit, LProject, LSort, LWindow, LogicalPlan,
+    LAggregate, LFilter, LJoin, LLimit, LProject, LScan, LSort, LWindow,
+    LogicalPlan, walk_plan,
 )
-from ..sql.optimizer import _replace_children, optimize
+from ..sql.optimizer import _replace_children, expr_cols, optimize
 from ..sql.physical import Caps, compile_plan
 from .config import config
 
@@ -68,8 +75,8 @@ class DeviceCache:
 
         def put(a, fill):
             if len(a) < cap:
-                a = np.concatenate(
-                    [a, np.full((cap - len(a),), fill, dtype=a.dtype)])
+                a = np.concatenate([a, np.full(
+                    (cap - len(a),) + a.shape[1:], fill, dtype=a.dtype)])
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
         fields, data, valid = [], [], []
@@ -166,6 +173,119 @@ class Executor:
     def execute_logical(self, plan: LogicalPlan,
                         profile: dict | None = None) -> QueryResult:
         profile = {} if profile is None else profile
+        if config.get("segment_strategy") == "native":
+            res = self._try_native_scan_agg(plan, profile)
+            if res is not None:
+                return res
+        gc = _extract_group_concat(plan)
+        if gc is not None:
+            return self._execute_group_concat(plan, gc, profile)
+        return self._execute_plain(plan, profile)
+
+    def _try_native_scan_agg(self, plan: LogicalPlan, profile: dict):
+        """`SET segment_strategy='native'`: the scan-agg shape
+        Project?(Agg(Filter(Scan))) with one ungrouped non-distinct
+        sum(a*b | a) under a conjunctive compare of integer columns with
+        integer literals runs as ONE pass of the host C++ function
+        (native.fused_filter_sum_i64) over the catalog's host columns.
+        Any other shape, non-integer types or NULLs return None and the
+        regular path runs unchanged; a failed build of the library
+        raises."""
+        from .. import native
+
+        node = plan
+        renames = None
+        if isinstance(node, LProject):
+            renames = node.exprs
+            node = node.child
+        if (not isinstance(node, LAggregate) or node.group_by
+                or len(node.aggs) != 1
+                or not isinstance(node.child, LFilter)
+                or not isinstance(node.child.child, LScan)):
+            return None
+        agg_name, agg = node.aggs[0]
+        out_name = agg_name
+        if renames is not None:
+            if len(renames) != 1:
+                return None
+            out_name, e = renames[0]
+            if not (isinstance(e, Col) and e.name == agg_name):
+                return None
+        if (not isinstance(agg, AggExpr) or agg.fn != "sum"
+                or agg.distinct or agg.extra or agg.arg is None):
+            return None
+        scan = node.child.child
+        handle = self.catalog.tables.get(scan.table)
+        if handle is None:
+            return None
+        prefix = scan.alias + "."
+
+        def base_col(e):
+            if isinstance(e, Col) and e.name.startswith(prefix):
+                return e.name[len(prefix):]
+            return None
+
+        if isinstance(agg.arg, Call) and agg.arg.fn == "multiply" \
+                and len(agg.arg.args) == 2:
+            a_col = base_col(agg.arg.args[0])
+            b_col = base_col(agg.arg.args[1])
+            if a_col is None or b_col is None:
+                return None
+        else:
+            a_col, b_col = base_col(agg.arg), None
+            if a_col is None:
+                return None
+        terms: list = []
+
+        def flat(e) -> bool:
+            if isinstance(e, Call) and e.fn == "and":
+                return all(flat(x) for x in e.args)
+            if (isinstance(e, Call) and e.fn in native.FS_OPS
+                    and len(e.args) == 2):
+                c = base_col(e.args[0])
+                lit = e.args[1]
+                if (c is not None and isinstance(lit, Lit)
+                        and isinstance(lit.value, int)
+                        and not isinstance(lit.value, bool)):
+                    terms.append((c, e.fn, lit.value))
+                    return True
+            return False
+
+        if not flat(node.child.predicate) or not terms:
+            return None
+        ht = handle.table
+        need = {c for c, _, _ in terms} | {a_col} | (
+            {b_col} if b_col else set())
+        for c in need:
+            try:
+                f = ht.schema.field(c)
+            except KeyError:
+                return None
+            if not f.type.is_integer:
+                return None
+            v = ht.valids.get(c)
+            if v is not None and not v.all():
+                return None  # NULL compare/sum semantics: regular path
+        t0 = time.perf_counter()
+        total, cnt = native.fused_filter_sum_i64(
+            [ht.arrays[c] for c, _, _ in terms],
+            [native.FS_OPS[op] for _, op, _ in terms],
+            [v for _, _, v in terms],
+            ht.arrays[a_col],
+            ht.arrays[b_col] if b_col else None,
+        )
+        out = HostTable.from_pydict(
+            {out_name: [total if cnt else None]}, types={out_name: T.BIGINT})
+        counters = profile.setdefault("counters", {})
+        counters["native_fused_rows"] = (
+            counters.get("native_fused_rows", 0) + int(ht.num_rows))
+        profile["native_fused"] = "filter_sum"
+        profile["native_s"] = time.perf_counter() - t0
+        return QueryResult(out, plan, profile)
+
+    def _execute_plain(self, plan: LogicalPlan,
+                       profile: dict | None = None) -> QueryResult:
+        profile = {} if profile is None else profile
         t0 = time.perf_counter()
         opt_key = (plan, _config_key())
         opt = self.cache.opt_plans.get(opt_key)
@@ -180,6 +300,126 @@ class Executor:
         ht = _prettify_names(HostTable.from_chunk(out_chunk))
         profile["fetch_s"] = time.perf_counter() - t1
         return QueryResult(ht, plan, profile)
+
+    # --- group_concat orchestration -----------------------------------------
+    def _execute_group_concat(self, plan, gc, profile):
+        """Two-plan execution for group_concat (see _extract_group_concat):
+        main plan with min() placeholders + a (keys, args) side plan, joined
+        on the host by group-key values."""
+        agg, gcs = gc
+        plan_a, gc_vis = group_concat_main_plan(plan, gc)
+        res = self._execute_plain(plan_a, profile)
+        ht = res.table
+
+        # side plan: (keys..., arg per gc, order-by exprs per gc) straight
+        # off the agg input
+        items = tuple(
+            (f"__k{i}", e) for i, (_, e) in enumerate(agg.group_by)
+        ) + tuple(
+            (f"__a{j}", a.arg) for j, (_, a) in enumerate(gcs)
+        )
+        order_specs = []  # per gc: [(col_offset, asc), ...]
+        for j, (_, a) in enumerate(gcs):
+            spec = []
+            for m, item in enumerate(a.extra[1:]):
+                expr, asc = item[0], item[1]
+                spec.append((len(items), asc))
+                items = items + ((f"__o{j}_{m}", expr),)
+            order_specs.append(spec)
+        side = self._execute_plain(LProject(agg.child, items))
+        srows = side.table.to_pylist()
+        nk = len(agg.group_by)
+        per_gc = [dict() for _ in gcs]
+        for row in srows:
+            key = tuple(row[:nk])
+            for j in range(len(gcs)):
+                v = row[nk + j]
+                if v is None:
+                    continue
+                okey = tuple(row[pos] for pos, _ in order_specs[j])
+                per_gc[j].setdefault(key, []).append((okey, v))
+
+        def fmt(v):
+            if isinstance(v, bool):
+                return str(int(v))
+            if isinstance(v, float):
+                return repr(v)
+            return str(v)
+
+        concat = []
+        for j, (_, a) in enumerate(gcs):
+            sep = ","
+            if a.extra and isinstance(a.extra[0], Lit) \
+                    and a.extra[0].value is not None:
+                sep = str(a.extra[0].value)
+            spec = order_specs[j]
+            m = {}
+            for key, pairs in per_gc[j].items():
+                if spec:
+                    # explicit ORDER BY: stable multi-pass sort; NULL order
+                    # keys always sort last (second stable pass per key)
+                    for idx in range(len(spec) - 1, -1, -1):
+                        _, asc = spec[idx]
+                        pairs = sorted(
+                            pairs,
+                            key=lambda p, i=idx: (
+                                (isinstance(p[0][i], str), p[0][i])
+                                if p[0][i] is not None else (False, 0)),
+                            reverse=not asc)
+                        # NULL placement follows the engine's ORDER BY
+                        # default: last on ASC, first on DESC
+                        pairs = sorted(
+                            pairs,
+                            key=lambda p, i=idx, a=asc: (
+                                (p[0][i] is None) == a))
+                    vals = [v for _, v in pairs]
+                else:
+                    vals = sorted((v for _, v in pairs),
+                                  key=lambda x: (isinstance(x, str), x))
+                if a.distinct:
+                    vals = list(dict.fromkeys(vals))
+                m[key] = sep.join(fmt(v) for v in vals)
+            concat.append(m)
+
+        # patch the result: replace gc columns, drop hidden key columns
+        cols = ht.to_pylist()
+        names = [f.name for f in ht.schema]
+        # positions: the hidden key columns where the root had a
+        # projection; otherwise the agg output's keys come first
+        if any(n.startswith("__gck_") for n in names):
+            key_pos = [names.index(f"__gck_{i}") for i in range(nk)]
+        else:
+            key_pos = list(range(nk))
+        keep = [i for i, n in enumerate(names) if not n.startswith("__gck_")]
+        gc_by_final = {}
+        for j, (n, _) in enumerate(gcs):
+            vis = gc_vis.get(n)
+            if vis is None:
+                continue  # concat column dropped by a projection
+            for i, on in enumerate(names):
+                if on == vis or on.split(".")[-1] == vis.split(".")[-1]:
+                    gc_by_final[i] = j
+                    break
+        fields, arrays, valids = [], {}, {}
+        for i in keep:
+            f = ht.schema.fields[i]
+            if i in gc_by_final:
+                m = concat[gc_by_final[i]]
+                vals = [m.get(tuple(r[p] for p in key_pos)) for r in cols]
+                nulls = np.array([v is None for v in vals], dtype=bool)
+                d, codes = StringDict.from_strings(
+                    ["" if v is None else str(v) for v in vals])
+                fields.append(Field(f.name, T.VARCHAR, True, d))
+                arrays[f.name] = codes
+                if nulls.any():
+                    valids[f.name] = ~nulls
+            else:
+                fields.append(f)
+                arrays[f.name] = ht.arrays[f.name]
+                if f.name in ht.valids:
+                    valids[f.name] = ht.valids[f.name]
+        table = HostTable(Schema(tuple(fields)), arrays, valids)
+        return QueryResult(table, plan, res.profile)
 
     def _resolve_scalar_subqueries(self, plan: LogicalPlan) -> LogicalPlan:
         def fix_expr(e: Expr) -> Expr:
@@ -331,6 +571,128 @@ class Executor:
         out = self._adaptive(profile, attempt, caps)
         _lru_put(self.cache.last_caps, caps_key, dict(caps.values))
         return out
+
+
+def _extract_group_concat(plan: LogicalPlan):
+    """Find a root-reachable LAggregate carrying group_concat aggregates.
+
+    group_concat builds data-dependent strings, which the dictionary design
+    cannot express on the device (output dictionaries would depend on
+    values). The executor therefore runs it as a TWO-PLAN orchestration
+    (same pattern as uncorrelated scalar subqueries): the main plan computes
+    every other aggregate with a placeholder in the group_concat slot, a
+    side plan fetches (group keys, arg) rows, and the host joins the
+    per-group concatenations into the final result. Reference behavior:
+    be/src/exprs/agg/group_concat.h (engine-side state strings).
+
+    Returns (agg_node, [(name, AggExpr)]) or None. Only aggregates reachable
+    through Project/Sort/Limit/Filter chains are eligible; group_concat
+    anywhere else (subquery under a join, HAVING on the concat itself)
+    raises ExecError."""
+    hits = []
+    for node in walk_plan(plan):
+        if isinstance(node, LAggregate):
+            gcs = [(n, a) for n, a in node.aggs if a.fn == "group_concat"]
+            if gcs:
+                hits.append((node, gcs))
+    if not hits:
+        return None
+    if len(hits) > 1:
+        raise ExecError("multiple group_concat aggregations in one query")
+    agg, gcs = hits[0]
+    # eligibility: the agg must sit under a pure chain from the root, and no
+    # expression above it may CONSUME the concat column beyond Col
+    # passthrough. Renames ARE passthroughs, so track the concat column's
+    # visible names level by level (bottom-up).
+    chain = []
+    node = plan
+    while node is not agg:
+        if not isinstance(node, (LSort, LFilter, LProject, LLimit, LWindow)):
+            raise ExecError(
+                "group_concat is only supported in the query's top "
+                "aggregation block")
+        chain.append(node)
+        node = node.child
+    visible = {n for n, _ in gcs}
+    for node in reversed(chain):  # agg side first
+        if isinstance(node, (LSort, LFilter, LWindow)):
+            if isinstance(node, LSort):
+                exprs = [k for k, _, _ in node.keys]
+            elif isinstance(node, LFilter):
+                exprs = [node.predicate]
+            else:
+                exprs = list(node.partition_by) + [
+                    k for k, _, _ in node.order_by
+                ] + [a for _, _, a, *_ in node.funcs if a is not None]
+            for e in exprs:
+                if _expr_cols_safe(e) & visible:
+                    raise ExecError(
+                        "group_concat result cannot be referenced by "
+                        "ORDER BY/HAVING/window expressions "
+                        "(host-finalized aggregate)")
+        elif isinstance(node, LProject):
+            nxt = set()
+            for n, e in node.exprs:
+                if isinstance(e, Col) and e.name in visible:
+                    nxt.add(n)
+                elif _expr_cols_safe(e) & visible:
+                    raise ExecError(
+                        "group_concat result cannot be used inside "
+                        "expressions (host-finalized aggregate)")
+            visible = nxt
+    return agg, gcs
+
+
+def group_concat_main_plan(plan, gc):
+    """The MAIN plan of the group_concat two-plan orchestration: the
+    aggregate re-emitted with min() placeholders in each group_concat slot
+    (min over the arg is well-typed and cheap; the host overwrites the
+    column), and hidden group-key passthroughs appended to every projection
+    above it so the final output still carries the join keys.
+
+    Returns (plan_a, gc_vis) where gc_vis maps each group_concat output
+    name to its visible column name at the root."""
+    agg, gcs = gc
+    new_aggs = tuple(
+        (n, AggExpr("min", a.arg) if a.fn == "group_concat" else a)
+        for n, a in agg.aggs
+    )
+    agg_a = LAggregate(agg.child, agg.group_by, new_aggs)
+    key_names = [n for n, _ in agg.group_by]
+
+    def rebuild(node):
+        """Returns (new_node, key_map, gc_map): key_map tracks each
+        group key's visible column name at this level (hidden
+        passthroughs are appended to every projection); gc_map tracks
+        each group_concat output's visible name through renames."""
+        if node is agg:
+            return agg_a, {k: k for k in key_names}, {n: n for n, _ in gcs}
+        child, key_map, gc_map = rebuild(node.child)
+        if isinstance(node, LProject):
+            items = list(node.exprs)
+            new_gc = {}
+            for n, e in node.exprs:
+                if isinstance(e, Col):
+                    for g, vis in gc_map.items():
+                        if e.name == vis:
+                            new_gc[g] = n
+            new_key = {}
+            for i, k in enumerate(key_names):
+                hid = f"__gck_{i}"
+                items.append((hid, Col(key_map[k])))
+                new_key[k] = hid
+            return LProject(child, tuple(items)), new_key, new_gc
+        return dataclasses.replace(node, child=child), key_map, gc_map
+
+    plan_a, _key_map, gc_vis = rebuild(plan)
+    return plan_a, gc_vis
+
+
+def _expr_cols_safe(e):
+    try:
+        return expr_cols(e)
+    except Exception:  # noqa: BLE001 — an unknown expression shape: no cols
+        return set()
 
 
 def _prettify_names(ht: HostTable) -> HostTable:

@@ -11,8 +11,8 @@ two packages pick the same operators and capacities for the same plan.
 
 The planning helpers (choose_key_packing, dense_rf_range, the runtime-filter
 ladder, maybe_compact, the 24x expand rule, the multiway LUT probe) are the
-reference's, unchanged. LWindow, LUnion and LUnnest are not ported yet and
-raise PlanError.
+reference's, unchanged. LUnion concatenates its inputs (ops/setops.py);
+LWindow and LUnnest are not ported yet and raise PlanError.
 
 Planning decisions made here:
 - join implementation: unique-build gather join when the build side is
@@ -35,6 +35,7 @@ from ..ops import (
     filter_chunk, hash_aggregate, hash_join_expand, hash_join_unique,
     limit_chunk, project, sort_chunk,
 )
+from ..ops.setops import union_all
 from ..column.column import pad_capacity
 from .analyzer import _conjuncts
 from .logical import (
@@ -603,9 +604,14 @@ def compile_plan(plan: LogicalPlan, catalog, caps: Caps,
                 return out
             if isinstance(p, LLimit):
                 return limit_chunk(emit(p.child), p.limit, p.offset)
-            if isinstance(p, (LWindow, LUnion, LUnnest)):
+            if isinstance(p, (LWindow, LUnnest)):
                 raise PlanError(
                     f"{type(p).__name__} is not in the port yet")
+            if isinstance(p, LUnion):
+                out = emit(p.inputs[0])
+                for child in p.inputs[1:]:
+                    out = union_all(out, emit(child))
+                return out
             if isinstance(p, LAggregate):
                 c0 = emit(p.child)
                 key = f"agg_{ordinal(p)}"

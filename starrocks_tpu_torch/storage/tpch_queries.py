@@ -17,6 +17,12 @@ tables' base columns, whose ORDER BY keys pack into one int64: under
 whole capacity. N1 sorts on a 53-bit key without ties (at SF 10), N2 on a
 6-bit key with about 1/50 of lineitem tied at the top, N3 a filtered input
 (its dead rows pack to the largest key) with a LIMIT near the kernel's k.
+
+`BREADTH_QUERIES` drive the SQL surface beyond TPC-H: UNION ALL (B1),
+INTERSECT (B2), EXCEPT (B3), UNION with a FROM-less row (B4), DECIMAL(38)
+sums of products, minima and maxima (B5), group_concat (B6), the numeric
+and date functions (B7), and the string functions with IF, NULLIF and an
+ORDER BY .. LIMIT (B8).
 """
 
 
@@ -312,5 +318,66 @@ SELECT l_orderkey, l_linenumber, l_quantity FROM lineitem ORDER BY l_quantity DE
 """,
 "N3": """
 SELECT o_orderkey, o_custkey, o_totalprice, o_orderdate FROM orders WHERE o_orderdate >= DATE '1995-01-01' ORDER BY o_totalprice DESC, o_orderkey LIMIT 1000
+""",
+}
+
+
+BREADTH_QUERIES = {
+    "B1": """
+select l_returnflag, count(*) c, sum(l_quantity) q from (
+  select l_returnflag, l_quantity from lineitem where l_shipdate < date '1993-01-01'
+  union all
+  select l_returnflag, l_quantity from lineitem where l_shipdate >= date '1998-01-01') u
+group by l_returnflag order by l_returnflag
+""",
+    "B2": """
+select count(*) c from (
+  select o_custkey k from orders where o_orderpriority = '1-URGENT'
+  intersect
+  select c_custkey k from customer where c_mktsegment = 'BUILDING') t
+""",
+    "B3": """
+select count(*) c from (
+  select o_custkey k from orders where o_orderpriority = '1-URGENT'
+  except
+  select c_custkey k from customer where c_mktsegment = 'BUILDING') t
+""",
+    "B4": """
+select l_shipmode, n from (
+  select l_shipmode, count(*) n from lineitem group by l_shipmode
+  union select 'NONE', 0) t
+order by l_shipmode
+""",
+    "B5": """
+select l_returnflag,
+  sum(cast(l_extendedprice as decimal(38,2)) * cast(l_quantity as decimal(38,2))) s,
+  min(cast(l_extendedprice as decimal(38,4))) mn,
+  max(cast(l_extendedprice as decimal(38,4))) mx
+from lineitem group by l_returnflag order by l_returnflag
+""",
+    "B6": """
+select n_regionkey, group_concat(n_name order by n_name separator ',') g
+from nation group by n_regionkey order by n_regionkey
+""",
+    "B7": """
+select l_shipmode, count(*) c, sum(mod(l_orderkey, 7)) m,
+  max(abs(l_discount - 0.05)) d, round(avg(sqrt(l_quantity)), 4) s,
+  min(datediff(l_receiptdate, l_shipdate)) dd, max(quarter(l_shipdate)) qq,
+  max(month(l_shipdate)) mm, min(dayofweek(l_shipdate)) dw,
+  max(length(l_comment)) ln,
+  sum(greatest(l_quantity, 10) - least(l_quantity, 40)) gl,
+  sum(floor(l_extendedprice / 1000) + ceil(l_tax * 10)) fc,
+  round(sum(power(l_discount, 2) + exp(0 - l_tax) + ln(l_quantity)), 3) pe
+from lineitem
+where starts_with(l_shipmode, 'R') or ends_with(l_shipmode, 'L') or l_shipmode = 'TRUCK'
+group by l_shipmode order by l_shipmode
+""",
+    "B8": """
+select upper(l_shipinstruct) ui, lower(l_shipmode) lm,
+  trim(replace(l_shipinstruct, 'DELIVER', ' ')) t, count(*) c,
+  sum(if(l_returnflag = 'R', 1, 0)) r, count(nullif(l_linenumber, 1)) n1
+from lineitem
+group by upper(l_shipinstruct), lower(l_shipmode), trim(replace(l_shipinstruct, 'DELIVER', ' '))
+order by ui, lm limit 50
 """,
 }

@@ -33,7 +33,11 @@ installed:
   hash and top-N kernels, all 22 queries with S1/S2 under the
   segment-sum and sorted-probe kernels, and the top-N queries N1-N3 at SF
   0.1 under the top-N kernel, against the CPU run: the same result
-  tables, and the kernels really launched.
+  tables, and the kernels really launched;
+- the native filter-sum lane on a card Session whose columns sit on the
+  card, DECIMAL(38) sums, minima and maxima and the limb arithmetic on
+  CUDA tensors, and UNION ALL's concatenation (dictionaries merged,
+  masks kept on the card), each against the CPU.
 """
 
 import numpy as np
@@ -476,3 +480,139 @@ def test_all_queries_on_card_under_kernel_strategies(cuda):
     assert launched["20"]["probe_searchsorted"] >= 1
     assert launched["S1"]["segment_sum"] >= 1
     assert launched["S2"]["segment_sum"] >= 1
+
+
+def test_native_lane_with_card_resident_columns(cuda):
+    """NL1-NL3 on a card Session whose lineorder_flat columns already sit
+    on the card (an `auto` run put them there): the host lane answers as
+    the CPU Session does, and as the card does under `auto`."""
+    from starrocks_tpu_torch.storage.datagen.ssb import ssb_catalog
+    from starrocks_tpu_torch.storage.ssb_queries import NATIVE_QUERIES
+
+    cat = ssb_catalog(sf=0.01)
+    card = Session(cat, device=cuda)
+    cpu = Session(cat, device="cpu")
+    try:
+        for q, text in NATIVE_QUERIES.items():
+            _set(AUTO_STRATEGIES)
+            on_card = card.sql(text).rows()
+            want = cpu.sql(text).rows()
+            assert card.cache._cols, "no column cached on the card"
+            assert all(d.is_cuda for d, _ in card.cache._cols.values())
+            config.set("segment_strategy", "native")
+            r = card.sql(text)
+            assert r.profile.get("native_fused") == "filter_sum", q
+            assert r.rows() == want == on_card, q
+    finally:
+        _set(AUTO_STRATEGIES)
+
+
+def _dec128_spec(seed, n=50_000):
+    from starrocks_tpu_torch.column.host_table import _int_to_dec128
+
+    rng = np.random.default_rng(seed)
+    vals = [int(a) * 10 ** 20 + int(b) for a, b in zip(
+        rng.integers(-10 ** 15, 10 ** 15, n), rng.integers(0, 10 ** 18, n))]
+    vals[:2] = [(1 << 126), -(1 << 126)]
+    limbs = np.array([_int_to_dec128(v) for v in vals], np.int64)
+    return {"t": [
+        ("g", "BIGINT", rng.integers(0, 300, n), None, None),
+        ("d", "DECIMAL(38,2)", limbs, None, rng.random(n) > 0.05),
+        ("p", "DECIMAL(15,2)", rng.integers(-10 ** 9, 10 ** 9, n), None,
+         None),
+    ]}
+
+
+@pytest.mark.parametrize("strategy", ["auto", "kernels"])
+def test_dec128_aggregates_on_card_match_cpu(cuda, strategy):
+    """DECIMAL(38) sums, minima and maxima (and a product promoted to the
+    128-bit path) on CUDA tensors equal the CPU's, exactly."""
+    from chip_smoke import tables_agree
+    from starrocks_tpu_torch.storage.catalog import catalog_from_numpy
+
+    cat = catalog_from_numpy(_dec128_spec(3))
+    card = Session(cat, device=cuda)
+    cpu = Session(cat, device="cpu")
+    sql = ("select g, sum(d) s, min(d) mn, max(d) mx, count(d) c, "
+           "sum(cast(p as decimal(38,2)) * cast(p as decimal(38,2))) pp "
+           "from t group by g order by g")
+    try:
+        _set(AUTO_STRATEGIES)
+        want = cpu.sql(sql).table
+        _set(KERNEL_STRATEGIES if strategy == "kernels" else AUTO_STRATEGIES)
+        got = card.sql(sql).table
+        assert got.num_rows == 300
+        assert tables_agree(got, want, rel=0.0)
+    finally:
+        _set(AUTO_STRATEGIES)
+
+
+def test_dec128_limbs_on_card_match_cpu(cuda):
+    from starrocks_tpu_torch.ops import dec128
+
+    spec = _dec128_spec(4, 20_000)["t"][1][2]
+    a = torch.from_numpy(spec)
+    b = torch.from_numpy(np.roll(spec, 7, axis=0))
+    for fn in ("add", "sub", "mul", "lt", "eq"):
+        got = getattr(dec128, fn)(a.to(cuda), b.to(cuda))
+        assert got.is_cuda
+        assert torch.equal(got.cpu(), getattr(dec128, fn)(a, b)), fn
+    assert torch.equal(dec128.to_f64(a.to(cuda)).cpu(), dec128.to_f64(a))
+
+
+def test_union_all_keeps_dictionaries_and_masks_on_card(cuda):
+    from starrocks_tpu_torch.column import HostTable
+    from starrocks_tpu_torch.ops.setops import union_all
+
+    a = HostTable.from_pydict({"s": ["x", None, "pear", "fig"] * 300,
+                               "v": list(range(1200))})
+    b = HostTable.from_pydict({"s": ["kiwi", "fig", None] * 200,
+                               "v": [1.5, None, -2.0] * 200})
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        ca, cb = a.to_chunk(device=dev), b.to_chunk(device=dev)
+        cb = cb.with_sel(torch.arange(cb.capacity, device=dev) % 5 != 1)
+        outs[dev.type] = union_all(ca, cb)
+    card, cpu = outs["cuda"], outs["cpu"]
+    assert card.device.type == "cuda"
+    assert all(t.is_cuda for t in card.data)
+    assert all(v is None or v.is_cuda for v in card.valid)
+    assert card.sel.is_cuda
+    assert card.schema.fields[0].dict.values.tolist() == \
+        cpu.schema.fields[0].dict.values.tolist()
+    for x, y in zip(card.data + card.valid + (card.sel,),
+                    cpu.data + cpu.valid + (cpu.sel,)):
+        assert (x is None) == (y is None)
+        if x is not None:
+            assert torch.equal(x.cpu(), y)
+
+
+def test_union_all_widens_decimal38_on_card(cuda):
+    """A DECIMAL(38, 2) child against a DECIMAL(38, 4) and a BIGINT one:
+    the widened limbs on the card equal the CPU's."""
+    from decimal import Decimal
+
+    from starrocks_tpu_torch import types as T
+    from starrocks_tpu_torch.column import HostTable
+    from starrocks_tpu_torch.ops.setops import union_all
+
+    rng = np.random.default_rng(7)
+    a = HostTable.from_pydict(
+        {"v": [None if i % 13 == 0 else Decimal(int(x)).scaleb(-2)
+               for i, x in enumerate(rng.integers(-10 ** 18, 10 ** 18, 900))]},
+        types={"v": T.DECIMAL(38, 2)})
+    others = [
+        HostTable.from_pydict(
+            {"v": [Decimal(int(x)).scaleb(-4)
+                   for x in rng.integers(-10 ** 18, 10 ** 18, 500)]},
+            types={"v": T.DECIMAL(38, 4)}),
+        HostTable.from_pydict({"v": rng.integers(-2 ** 62, 2 ** 62, 500)
+                               .tolist()}, types={"v": T.BIGINT})]
+    for b in others:
+        card, cpu = (union_all(a.to_chunk(device=dev), b.to_chunk(device=dev))
+                     for dev in (cuda, torch.device("cpu")))
+        assert card.schema.fields[0].type == cpu.schema.fields[0].type
+        assert card.data[0].shape[1] == 4
+        assert torch.equal(card.data[0].cpu(), cpu.data[0])
+        assert card.data[0].device.type == cuda.type
+        assert torch.equal(card.valid[0].cpu(), cpu.valid[0])

@@ -201,12 +201,28 @@ def test_min_max_exact(strategy, dtype, n, g, sorted_gid):
 
 
 def test_native_strategy_still_raises():
+    """`native` no longer raises: it selects the executor's host filter-sum
+    lane, and every segment reduction runs as under `scatter` (the
+    reference's `_use_mxu` is False there); the sums and extremes equal
+    the JAX package's under `scatter`."""
+    rng = np.random.default_rng(5)
+    n, g = 4096, 37
+    gid = _gids(rng, n, g, False)
+    vals = rng.integers(-10 ** 12, 10 ** 12, n)
     tcfg.set("segment_strategy", "native")
     try:
-        with pytest.raises(NotImplementedError):
-            tseg.seg_sum(torch.ones(8), torch.zeros(8, dtype=torch.int32), 2)
+        assert not tseg._use_mxu()
+        out = {fn: getattr(tseg, fn)(torch.from_numpy(vals),
+                                     torch.from_numpy(gid), g, **kw).numpy()
+               for fn, kw in (("seg_sum", {}),
+                              ("seg_min", {"identity": I64MAX}),
+                              ("seg_max", {"identity": I64MIN}))}
     finally:
         tcfg.set("segment_strategy", "auto")
+    for fn, kw in (("seg_sum", {}), ("seg_min", {"identity": I64MAX}),
+                   ("seg_max", {"identity": I64MIN})):
+        j, _ = _both(fn, vals, gid, g, **kw)
+        assert np.array_equal(j, out[fn]), fn
 
 
 def test_small_slabs_give_the_same_results(monkeypatch):

@@ -257,14 +257,22 @@ def test_session_needs_a_card_unless_asked_for_cpu():
 
 
 def test_unported_statements_raise():
+    """DDL raises, and so does a function neither package registers;
+    `native` (the host filter-sum lane, now ported) answers Q1, which is
+    grouped and so not the lane's shape, as `auto` does."""
     s = Session(tpch_catalog(sf=SF), device="cpu")
     with pytest.raises(NotImplementedError):
         s.sql("create table t (a int)")
     with pytest.raises(Exception, match="unknown function"):
-        s.sql("select sqrt(l_quantity) from lineitem")
-    with pytest.raises(NotImplementedError):
-        s.sql("SET segment_strategy = 'native'")
-        s.sql(QUERIES[1])
+        s.sql("select no_such_function(l_quantity) from lineitem")
+    want = s.sql(QUERIES[1]).rows()
+    s.sql("SET segment_strategy = 'native'")
+    try:
+        r = s.sql(QUERIES[1])
+    finally:
+        s.sql("SET segment_strategy = 'auto'")
+    assert r.rows() == want
+    assert "native_fused" not in r.profile
 
 
 _BLOCKER = textwrap.dedent("""

@@ -53,7 +53,29 @@ allocated when it started. Phases, each of which must pass:
    column is an integer) under `segment_strategy = 'native'` must take
    the host lane and give the card's `auto` rows, and q1.1-q1.3 must
    decline it; the lane's host time stands beside the card's wall.
-8. kernels: each kernel on the card, at the shapes its path gave it and on
+8. store (statements and storage): the --sf data persisted in a
+   TabletStore under a temporary directory (removed at the end; its bytes
+   on disk are kept). Each table is made by CREATE TABLE with its
+   generator types, PRIMARY KEY from TPCH_UNIQUE_KEYS and DISTRIBUTED BY
+   HASH .. BUCKETS 32 (lineitem, orders, partsupp, part, customer), 4
+   (supplier) or one bucket (nation, region), then loaded by INSERT INTO t
+   SELECT * FROM a staging copy, which is dropped; each load is split into
+   the SELECT on the card, the fetch, the primary-key index, the bucketing
+   and the file writes. A fresh Session over the directory (its replay
+   timed) runs Q5, Q9 and Q20 under `join_probe_strategy =
+   'pallas_sorted'`, Q9 under `'pallas'`, S1 under `segment_strategy =
+   'pallas'`, N1 under `topn_strategy = 'pallas'` and Q1 under `auto`,
+   cold (file reads included) and warm, counts set to 0 before each; all
+   five kernels must launch, and the rows must equal the in-memory
+   catalog's (S1's floats to a relative 1e-4). Then DML on the stored
+   tables and on an in-memory twin, each answer held to numpy over the
+   generated arrays: a 1% upsert of orders (count unchanged, the price sum
+   up by exactly 1.00 per key, two rowsets, that many delete-vector rows),
+   a DELETE by date and an UPDATE of customer; Q3 and Q5 (`pallas_sorted`)
+   after them equal the twin's. A second restart must give the same
+   answers; then a second 1% upsert and `compact_table('orders')` (one
+   rowset, no delete vectors left), and the answers again.
+9. kernels: each kernel on the card, at the shapes its path gave it and on
    edge cases (sentinels, duplicates, INT64_MIN/MAX, heavy slot
    collisions; for the top-N select ties, all-equal keys, dead rows,
    INT64_MIN runs, clustered keys (its 64-bit pass), live spans too wide
@@ -85,7 +107,7 @@ allocated when it started. Phases, each of which must pass:
    call is traced with torch.profiler for its split by device kernel; the
    hash probe at each of Q9's probe counts by either route, with the keys
    the build deferred past their slice and both kernels' scratch.
-9. card vs CPU: the 22 queries, S1/S2 and B1-B8 at SF 0.1 on the card
+10. card vs CPU: the 22 queries, S1/S2 and B1-B8 at SF 0.1 on the card
    under the kernel strategies, Q1/Q2/Q3/Q9 under the hash kernels, N1-N3
    under the top-N kernel, the 13 SSB-flat queries at SF 0.1 under the
    kernel strategies and NL1-NL3 under the native lane, against the CPU
@@ -116,7 +138,7 @@ from pathlib import Path
 
 HASH_KNOBS = {"join_probe_strategy": "pallas", "topn_strategy": "pallas"}
 TOPN_KNOBS = {"topn_strategy": "pallas"}
-STAT_REL = 1e-4  # S1/S2 floats, f32 block sums vs f64 (see phase 9)
+STAT_REL = 1e-4  # S1/S2 floats, f32 block sums vs f64 (see phase 10)
 
 
 def qname(q: str) -> str:
@@ -761,6 +783,349 @@ def phase_breadth(rec, cat, sf):
                          f"rows: {empty}")
 
 
+# the store path: buckets of each TPC-H table (nation and region: one)
+STORE_BUCKETS = {"lineitem": 32, "orders": 32, "partsupp": 32, "part": 32,
+                 "customer": 32, "supplier": 4}
+# the store path's queries over the stored tables: (label, knobs, query);
+# each of the five kernels is launched by at least one of them
+STORE_RUNS = [
+    ("sorted", {"join_probe_strategy": "pallas_sorted"}, "5"),
+    ("sorted", {"join_probe_strategy": "pallas_sorted"}, "9"),
+    ("sorted", {"join_probe_strategy": "pallas_sorted"}, "20"),
+    ("hash", {"join_probe_strategy": "pallas"}, "9"),
+    ("segment", {"segment_strategy": "pallas"}, "S1"),
+    ("topn", {"topn_strategy": "pallas"}, "N1"),
+    ("auto", {}, "1"),
+]
+# the DML step's queries, run on the stored tables and on the in-memory twin
+STORE_AFTER = [("auto", {}, "3"),
+               ("sorted", {"join_probe_strategy": "pallas_sorted"}, "5")]
+# S1's f32 moment sums under `pallas`: the stored row order differs
+STORE_REL = {"S1": STAT_REL}
+
+
+def _store_ddl(name, schema) -> str:
+    """CREATE TABLE of a generated TPC-H table: its column types, its
+    PRIMARY KEY from TPCH_UNIQUE_KEYS, hash buckets from STORE_BUCKETS."""
+    from starrocks_tpu_torch.storage.catalog import (
+        TPCH_DISTRIBUTION, TPCH_UNIQUE_KEYS)
+
+    cols = ", ".join(f"{f.name} {f.type!r}" + ("" if f.nullable
+                                              else " NOT NULL")
+                     for f in schema)
+    pk = ", ".join(TPCH_UNIQUE_KEYS[name][0])
+    ddl = f"CREATE TABLE {name} ({cols}, PRIMARY KEY({pk}))"
+    if name in STORE_BUCKETS:
+        ddl += (f" DISTRIBUTED BY HASH({TPCH_DISTRIBUTION[name][0]}) "
+                f"BUCKETS {STORE_BUCKETS[name]}")
+    return ddl
+
+
+def _dir_bytes(path) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
+
+
+def _exact(table, col: int = 0) -> int:
+    """A one-row result's column as an exact integer (decimals as their
+    scaled integers, DECIMAL(38) from its limbs)."""
+    from starrocks_tpu_torch.column.host_table import _dec128_to_int
+
+    f = table.schema.fields[col]
+    a = table.arrays[f.name]
+    return _dec128_to_int(a[0]) if f.type.is_decimal128 else int(a[0])
+
+
+def _timed(s, text):
+    """(result, wall seconds) of one statement, the card synchronized."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = s.sql(text)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t
+
+
+def phase_store(rec, cat, sf):
+    """The store path (see the module docstring, phase 8): TPC-H at `sf`
+    persisted in a TabletStore under a temporary directory, which is
+    removed at the end."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from starrocks_tpu_torch.ops import kernels
+    from starrocks_tpu_torch.runtime.session import Session
+    from starrocks_tpu_torch.storage.catalog import Catalog
+
+    texts = {**query_texts(), **topn_texts()}
+    out = {"sf": sf, "buckets": STORE_BUCKETS}
+    rec["store"] = out
+    root = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    d = os.path.join(root, "db")
+    log(f"store: {root}, {shutil.disk_usage(root).free / 1e9:.1f} GB free")
+    failures = []
+    try:
+        # 1. bulk load: INSERT INTO t SELECT * FROM stage_t, per table
+        s = Session(device=CARD, data_dir=d)
+        load = {}
+        for name, h in cat.tables.items():
+            s.sql(_store_ddl(name, h.schema))
+            s.catalog.register(f"stage_{name}", h.table)
+            n, wall = _timed(s, f"INSERT INTO {name} SELECT * FROM stage_{name}")
+            prof = s.last_profile
+            attempts = prof.get("attempts", ())
+            step = {"rows": n, "wall_s": wall,
+                    "select_s": (prof.get("optimize_s", 0.0)
+                                 + sum(a["scan_s"] + a["run_s"]
+                                       for a in attempts)),
+                    "fetch_s": prof.get("fetch_s"),
+                    **{k: v for k, v in s.store.last_write_stats.items()
+                       if k != "rows"}}
+            step["other_s"] = wall - sum(step[k] for k in (
+                "select_s", "fetch_s", "index_s", "bucket_s", "write_s"))
+            load[name] = step
+            s.sql(f"DROP TABLE stage_{name}")
+            if n != h.row_count:
+                failures.append(f"load {name}: {n} rows of {h.row_count}")
+            log(f"  load {name}: {n} rows in {wall:.2f} s (select "
+                f"{step['select_s']:.2f}, fetch {step['fetch_s']:.2f}, key "
+                f"index {step['index_s']:.2f}, bucketing "
+                f"{step['bucket_s']:.2f}, writes {step['write_s']:.2f}, "
+                f"other {step['other_s']:.2f})")
+        out["load"] = load
+        out["load_s"] = sum(v["wall_s"] for v in load.values())
+        out["bytes_after_load"] = _dir_bytes(d)
+        log(f"  load: {out['load_s']:.1f} s, {out['bytes_after_load'] / 1e9:.2f}"
+            " GB on disk")
+        del s
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 2. restart over the same directory: the stored catalog's peak
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        s2 = Session(device=CARD, data_dir=d)
+        out["replay_s"] = time.perf_counter() - t
+        log(f"  restart: replay {out['replay_s'] * 1e3:.1f} ms")
+
+        # 3. the queries over the stored tables, cold then warm
+        queries, tables = {}, {}
+        launches = dict.fromkeys(kernels.WRAPPERS, 0)
+        trace = {}
+        for label, knobs, q in STORE_RUNS:
+            set_knobs(strategies("auto"))
+            set_knobs(knobs)
+            sub: dict = {}
+            _run_each(s2, label, {q: texts[q]}, sub, launches, tables,
+                      kernels)
+            queries[f"{qname(q)}@{label}"] = sub[q]
+            trace[f"{qname(q)}@{label}"] = trace_queries(
+                s2, {q: texts[q]})[q]
+        out["queries"] = queries
+        # host seconds each stored table took to load from its files (in
+        # the first query that read it: its cold wall includes them)
+        out["file_load_s"] = {n: h.load_s for n, h in s2.catalog.tables.items()
+                              if getattr(h, "load_s", None) is not None}
+        log("  file loads: " + ", ".join(
+            f"{n} {v:.2f} s" for n, v in out["file_load_s"].items()))
+        out["launches"] = launches
+        out["shapes"] = _path_shapes(queries)
+        out["trace"] = trace
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"  store queries: launches {launches}, peak device memory "
+            f"{out['peak_mem_gb']:.2f} GB")
+        missed = [n for n in kernels.WRAPPERS if launches[n] < 1]
+        if missed:
+            failures.append(f"kernels not launched over stored tables: {missed}")
+        # the same queries on the in-memory catalog: equal rows
+        m = Session(cat, device=CARD)
+        for label, knobs, q in STORE_RUNS:
+            set_knobs(strategies("auto"))
+            set_knobs(knobs)
+            want = m.sql(texts[q]).table
+            for run in ("cold", "warm"):
+                if not tables_agree(tables[(label, q, run)], want,
+                                    rel=STORE_REL.get(q, 1e-6)):
+                    failures.append(f"{qname(q)}@{label} {run}: stored rows "
+                                    "differ from the in-memory catalog's")
+        del m
+        torch.cuda.empty_cache()
+
+        # 4. DML on the stored tables and on an in-memory twin, each
+        # answer held to numpy over the generated arrays
+        twin = Catalog()
+        for h in cat.tables.values():
+            twin.register_handle(h)
+        tw = Session(twin, device=CARD)
+        o = cat.tables["orders"].table.arrays
+        c = cat.tables["customer"].table
+        okey = o["o_orderkey"].astype(np.int64)
+        price = o["o_totalprice"].astype(np.int64)  # scale 2
+        cut = int((np.datetime64("1993-01-01") - np.datetime64("1970-01-01"))
+                  .astype(np.int64))
+        kept = o["o_orderdate"].astype(np.int64) >= cut
+        up1, up2 = okey % 100 == 7, okey % 100 == 13
+        seg = c.schema.field("c_mktsegment").dict.encode_one("BUILDING")
+        building = c.arrays["c_mktsegment"] == seg
+        acct = c.arrays["c_acctbal"].astype(np.int64)
+        want = {
+            "upsert": (len(okey), int(price.sum()) + 100 * int(up1.sum())),
+            "delete": int((~kept).sum()),
+            "after_delete": (int(kept.sum()),
+                             int((price + 100 * up1)[kept].sum())),
+            "update": int(building.sum()),
+            "acctbal": int(acct.sum()) + 100 * int(building.sum()),
+            "upsert2": (int(kept.sum()),
+                        int((price + 100 * up1 + 100 * up2)[kept].sum())),
+        }
+        ocols = [f.name for f in cat.tables["orders"].schema]
+
+        def upsert_sql(mod):
+            items = ", ".join("o_totalprice + 1" if n == "o_totalprice" else n
+                              for n in ocols)
+            return (f"INSERT INTO orders SELECT {items} FROM orders "
+                    f"WHERE o_orderkey % 100 = {mod}")
+
+        stmts = {"upsert": upsert_sql(7),
+                 "delete": "DELETE FROM orders WHERE o_orderdate < "
+                           "DATE '1993-01-01'",
+                 "update": "UPDATE customer SET c_acctbal = c_acctbal + 1 "
+                           "WHERE c_mktsegment = 'BUILDING'"}
+        osum = "SELECT count(*), sum(o_totalprice) FROM orders"
+        csum = "SELECT sum(c_acctbal) FROM customer"
+        dml = {}
+
+        def check_orders(sess, key, where):
+            t = sess.sql(osum).table
+            got = (_exact(t, 0), _exact(t, 1))
+            if got != want[key]:
+                failures.append(f"{where}: orders count, sum {got} != "
+                                f"numpy's {want[key]}")
+            return got
+
+        def delvec_rows(sess):
+            mf = sess.store.read_manifest("orders")
+            return (len(mf["rowsets"]),
+                    sum(len(f.get("delvec") or ())
+                        for rs in mf["rowsets"] for f in rs["files"]))
+
+        set_knobs(strategies("auto"))
+        for label, sess in (("stored", s2), ("twin", tw)):
+            res = {}
+            n, wall = _timed(sess, stmts["upsert"])
+            res["upsert"] = {"rows": n, "wall_s": wall}
+            if label == "stored":
+                res["upsert"].update(s2.store.last_write_stats)
+                res["upsert"]["manifest"] = delvec_rows(s2)
+                if res["upsert"]["manifest"] != (2, int(up1.sum())):
+                    failures.append(f"upsert manifest (rowsets, delete-vector"
+                                    f" rows) {res['upsert']['manifest']}, "
+                                    f"want (2, {int(up1.sum())})")
+            if n != int(up1.sum()):
+                failures.append(f"{label} upsert: {n} rows")
+            res["after_upsert"] = check_orders(sess, "upsert",
+                                               f"{label} upsert")
+            n, wall = _timed(sess, stmts["delete"])
+            res["delete"] = {"rows": n, "wall_s": wall}
+            if n != want["delete"]:
+                failures.append(f"{label} delete: {n} rows, numpy "
+                                f"{want['delete']}")
+            res["after_delete"] = check_orders(sess, "after_delete",
+                                               f"{label} delete")
+            n, wall = _timed(sess, stmts["update"])
+            res["update"] = {"rows": n, "wall_s": wall}
+            got = _exact(sess.sql(csum).table)
+            if n != want["update"] or got != want["acctbal"]:
+                failures.append(f"{label} update: {n} rows, sum {got}; numpy "
+                                f"{want['update']}, {want['acctbal']}")
+            dml[label] = res
+            log(f"  DML {label}: " + ", ".join(
+                f"{k} {v['rows']} rows in {v['wall_s']:.2f} s"
+                for k, v in res.items() if isinstance(v, dict)))
+        after = {}
+
+        def after_queries(sess, tag):
+            for label, knobs, q in STORE_AFTER:
+                set_knobs(strategies("auto"))
+                set_knobs(knobs)
+                res, wall = _timed(sess, texts[q])
+                after[(tag, q)] = res.table
+                dml.setdefault("after_s", {})[f"{qname(q)}@{tag}"] = wall
+            set_knobs(strategies("auto"))
+
+        def same_after(a, b, where):
+            for _, _, q in STORE_AFTER:
+                if not tables_agree(after[(a, q)], after[(b, q)]):
+                    failures.append(f"{where}: {qname(q)} rows differ")
+
+        after_queries(s2, "stored")
+        after_queries(tw, "twin")
+        same_after("stored", "twin", "after DML, stored vs twin")
+
+        # 5. restart again (durability), then a second upsert and compaction
+        del s2
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        s3 = Session(device=CARD, data_dir=d)
+        dml["replay2_s"] = time.perf_counter() - t
+        check_orders(s3, "after_delete", "second restart")
+        if _exact(s3.sql(csum).table) != want["acctbal"]:
+            failures.append("second restart: customer sum differs")
+        after_queries(s3, "restart")
+        same_after("restart", "twin", "second restart vs twin")
+        for label, sess in (("stored", s3), ("twin", tw)):
+            n, wall = _timed(sess, upsert_sql(13))
+            dml[label]["upsert2"] = {"rows": n, "wall_s": wall}
+            check_orders(sess, "upsert2", f"{label} second upsert")
+        dml["manifest_before_compaction"] = delvec_rows(s3)
+        t = time.perf_counter()
+        dml["compacted_rows"] = s3.store.compact_table("orders")
+        dml["compact_s"] = time.perf_counter() - t
+        dml["manifest_after_compaction"] = delvec_rows(s3)
+        if (dml["compacted_rows"] != want["upsert2"][0]
+                or dml["manifest_after_compaction"] != (1, 0)):
+            failures.append(f"compaction: {dml['compacted_rows']} rows, "
+                            f"manifest {dml['manifest_after_compaction']}")
+        s3.catalog.get_table("orders").invalidate()
+        s3.cache.invalidate("orders")
+        check_orders(s3, "upsert2", "after compaction")
+        after_queries(s3, "compacted")
+        after_queries(tw, "twin2")
+        same_after("compacted", "twin2", "after compaction vs twin")
+        log(f"  restart 2: replay {dml['replay2_s'] * 1e3:.1f} ms; compaction "
+            f"{dml['manifest_before_compaction']} -> "
+            f"{dml['manifest_after_compaction']} (rowsets, delete-vector "
+            f"rows), {dml['compacted_rows']} rows in {dml['compact_s']:.2f} s")
+        out["dml"] = dml
+        import resource
+
+        # the process's peak resident host memory so far (KiB on Linux)
+        out["host_peak_rss_gb"] = (resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9)
+        out["bytes_at_end"] = _dir_bytes(d)
+        out["files_at_end"] = sum(len(fs) for _, _, fs in os.walk(d))
+        log(f"  store: {out['bytes_at_end'] / 1e9:.2f} GB in "
+            f"{out['files_at_end']} files at the end; host peak resident "
+            f"memory {out['host_peak_rss_gb']:.1f} GB")
+        del s3, tw, twin
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failures:
+        raise PhaseError(f"store: {failures}")
+
+
 def trace_queries(s, texts, spans=()) -> dict:
     """One more warm run of each query under torch.profiler: the device's
     busy time (sum of kernel durations on the card), its idle share of the
@@ -986,7 +1351,7 @@ def _hash_cases(dev, seed):
 
 def phase_kernels(rec, seed, only=None):
     """Every kernel against its plain version and timed (see the module
-    docstring, phase 6); `only` names the checks to run (default all).
+    docstring, phase 9); `only` names the checks to run (default all).
     Each kernel's check runs even where an earlier one failed; the phase
     fails if any did."""
     import torch
@@ -995,7 +1360,7 @@ def phase_kernels(rec, seed, only=None):
 
     dev = torch.device(CARD)
     shapes = {n: [] for n in kernels.WRAPPERS}
-    for path in ("hash_topn", "tpch", "topn", "breadth", "ssb"):
+    for path in ("hash_topn", "tpch", "topn", "breadth", "ssb", "store"):
         for n, v in (rec.get(path) or {}).get("shapes", {}).items():
             shapes[n] += [tuple(x) for x in v]
     build_shape = max(shapes["hash_build"] or [DEFAULT_SHAPES["hash_build"]])
@@ -1747,13 +2112,14 @@ def main(argv=None) -> int:
         ("topn", lambda: phase_topn(rec, data["cat"], args.sf)),
         ("breadth", lambda: phase_breadth(rec, data["cat"], args.sf)),
         ("ssb", lambda: phase_ssb(rec, args.ssb_sf, args.seed)),
+        ("store", lambda: phase_store(rec, data["cat"], args.sf)),
         ("kernels", lambda: phase_kernels(
             rec, args.seed, args.kernels and args.kernels.split(","))),
         ("card_vs_cpu", lambda: phase_card_vs_cpu(rec, CPU_SF, args.seed)),
     ]
     if args.phases:
         wanted = {"device", "build", *args.phases.split(",")}
-        if wanted & {"tpch", "hash_topn", "topn", "breadth"}:
+        if wanted & {"tpch", "hash_topn", "topn", "breadth", "store"}:
             wanted.add("generate")
         unknown = wanted - {name for name, _ in phases}
         if unknown:

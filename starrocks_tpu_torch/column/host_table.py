@@ -95,6 +95,18 @@ class HostTable:
                     a = a.astype(np.int64) * 10 ** t.scale
                 elif t.is_decimal and a.dtype.kind == "f":
                     a = np.round(a * 10 ** t.scale).astype(np.int64)
+                elif t.is_decimal and a.dtype.kind == "O":
+                    # decimal.Decimal objects: scale EXACTLY (an int64
+                    # astype would truncate the fraction away)
+                    ctx = decimal.Context(prec=60)
+                    a = np.array(
+                        [int(decimal.Decimal(str(v)).scaleb(t.scale, ctx)
+                             .to_integral_value(decimal.ROUND_HALF_EVEN, ctx))
+                         for v in vals], dtype=np.int64)
+                elif t.kind is TypeKind.DATE and a.dtype.kind in "UO":
+                    a = np.asarray(a, dtype="datetime64[D]").astype(np.int32)
+                elif t.kind is TypeKind.DATETIME and a.dtype.kind in "UO":
+                    a = np.asarray(a, dtype="datetime64[us]").astype(np.int64)
                 arrays[name] = a.astype(t.np_dtype)
                 fields.append(Field(name, t, nullable))
             if nulls is not None:

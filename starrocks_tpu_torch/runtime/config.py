@@ -143,6 +143,10 @@ config = ConfigRegistry()
 # --- engine options (the session-variable / config.h analog subset) ----------
 config.define("max_recompiles", 10, True, "adaptive capacity recompile limit per query")
 config.define("join_expand_headroom", 1.2, True, "growth factor applied on capacity overflow")
+config.define("enable_zonemap_pruning", True, True, "prune parquet rowsets by zonemap stats")
+config.define("compaction_trigger_rowsets", 8, True,
+              "compact a stored table when its rowset count reaches this "
+              "(0 disables auto-compaction)")
 config.define("enable_runtime_filters", True, True, "build-side min/max filters applied to join probes",
               trace=True)
 config.define("runtime_filter_strategy", "auto", True,
@@ -161,6 +165,9 @@ config.define("rf_bloom_max_bits", 1 << 23, True,
               "cap — past it the filter degrades gracefully and the "
               "planner stops treating it as near-exact)",
               trace=True)
+config.define("enable_mv_rewrite", True, True,
+              "transparently rewrite queries onto FRESH matching "
+              "materialized views (SPJG containment; sql/mv_rewrite.py)")
 config.define("enable_lowcard_agg", True, True,
               "sort-free packed-code aggregation for dictionary-bounded group keys",
               trace=True)

@@ -15,12 +15,15 @@ around the program implements
   (`_execute_group_concat`);
 - the native filter-sum lane (`SET segment_strategy = 'native'`,
   `_try_native_scan_agg`): an ungrouped filter + integer sum over one
-  table runs as one pass of a host C++ function (native.py).
+  table runs as one pass of a host C++ function (native.py);
+- scan-level runtime filters on stored tables (`_scan_runtime_filters`):
+  a probe scan whose join's build side bounds its keys loads only the
+  files whose zonemaps may hold them (sql/scan_rf.py).
 
 The program runs eagerly, so nothing is compiled; every overflow check of
 an attempt is read in ONE device-to-host copy. Not ported yet: the query
-cache, plan feedback, batched/spill execution, scan-level runtime filters
-on stored tables, profiling spans and the distributed executor.
+cache, plan feedback, batched/spill execution, profiling spans and the
+distributed executor.
 """
 
 from __future__ import annotations
@@ -53,25 +56,80 @@ class ExecError(RuntimeError):
 
 class DeviceCache:
     """Per-(table, column) device tensors + valid masks on one device (the
-    page-cache analog), cached build-side sort orders, optimized plans, and
-    the last capacities that worked for each plan. One per Session."""
+    page-cache analog), cached build-side sort orders, RF-pruned table
+    snapshots, optimized plans, and the last capacities that worked for
+    each plan. One per Session. Every entry keys on its table's name first,
+    so `invalidate(table)` drops exactly what a change to that table made
+    stale."""
 
     def __init__(self, device):
         self.device = torch.device(device)
-        self._cols: dict = {}    # (table, column) -> (data, valid|None)
-        self._sel: dict = {}     # table -> (capacity, sel|None)
+        self._cols: dict = {}    # (table, column, tag) -> (data, valid|None)
+        self._sel: dict = {}     # (table, tag) -> (capacity, sel|None)
         self._border: dict = {}  # (table, key_cols, bit_widths) -> order
+        # (table, tag, columns) -> (pruned handle, scan stats, tag)
+        self._rfscan: dict = {}
         self.opt_plans: OrderedDict = OrderedDict()
         self.last_caps: OrderedDict = OrderedDict()
 
-    def chunk_for(self, handle, alias: str, columns) -> Chunk:
+    def clear_plans(self):
+        """Drop optimized plans and their capacities (an MV freshness flip,
+        anything that re-shapes planning wholesale)."""
+        self.opt_plans.clear()
+        self.last_caps.clear()
+
+    def invalidate(self, table: str):
+        """Evict everything derived from `table`: its device columns,
+        selection masks, build orders and RF-pruned snapshots, and every
+        optimized plan and capacity set whose plan scans it (plans bake
+        stats-derived choices: dense-aggregation domains, LUT-join
+        eligibility, packed bit widths, which new rows can outgrow)."""
+        def scans_table(plan) -> bool:
+            return any(isinstance(node, LScan) and node.table == table
+                       for node in walk_plan(plan))
+
+        for d in (self._cols, self._sel, self._border, self._rfscan):
+            for k in [k for k in d if k[0] == table]:
+                del d[k]
+        for od in (self.opt_plans, self.last_caps):
+            for k in [k for k in od if scans_table(k[0])]:
+                del od[k]
+
+    def pruned_handle_for(self, handle, columns, bounds):
+        """(handle, scan_stats, tag) for an RF-pruned snapshot of a stored
+        table: loads only the files whose zonemaps may hold build keys
+        (TabletStore.load_table's rf_predicate channel), wrapped in a fresh
+        TableHandle so chunk_for and its column stats see the pruned
+        subset. Cached per (table, bounds, columns); invalidation covers it
+        (keys lead with the table name like every other cache entry)."""
+        from ..sql.scan_rf import bounds_predicate
+        from ..storage.catalog import TableHandle
+
+        tag = "rf:" + ",".join(f"{c}[{lo},{hi}]" for c, lo, hi in bounds)
+        key = (handle.name, tag, tuple(columns))
+        e = self._rfscan.get(key)
+        if e is None:
+            ht, stats = handle.store.load_table(
+                handle.name, columns=list(columns),
+                rf_predicate=bounds_predicate(bounds), with_stats=True)
+            ph = TableHandle(handle.name, ht, handle.unique_keys,
+                             handle.distribution)
+            e = self._rfscan[key] = (ph, dict(stats), tag)
+        return e
+
+    def chunk_for(self, handle, alias: str, columns, cache_tag=None) -> Chunk:
         """Device chunk of the requested columns, renamed alias-qualified and
         padded to the 1024-aligned capacity; bounds from catalog stats ride
-        on the fields (they drive the dense aggregation and packed sorts)."""
+        on the fields (they drive the dense aggregation and packed sorts).
+        `cache_tag` names the column-cache namespace (RF-pruned scans must
+        not collide with the full table's entries); information_schema
+        relations are rebuilt per read and never cached."""
         ht = handle.table
         n = ht.num_rows
         cap = pad_capacity(n)
         dev = self.device
+        tag = cache_tag or "local"
+        cacheable = not handle.name.startswith("information_schema.")
 
         def put(a, fill):
             if len(a) < cap:
@@ -81,13 +139,14 @@ class DeviceCache:
 
         fields, data, valid = [], [], []
         for c in columns:
-            key = (handle.name, c)
-            entry = self._cols.get(key)
+            key = (handle.name, c, tag)
+            entry = self._cols.get(key) if cacheable else None
             if entry is None:
                 v = ht.valids.get(c)
                 entry = (put(ht.arrays[c], 0),
                          None if v is None else put(v, False))
-                self._cols[key] = entry
+                if cacheable:
+                    self._cols[key] = entry
             d, v = entry
             f = ht.schema.field(c)
             st = handle.column_stats(c)
@@ -99,11 +158,14 @@ class DeviceCache:
                 dataclasses.replace(f, name=f"{alias}.{c}", bounds=bounds))
             data.append(d)
             valid.append(v)
-        sentry = self._sel.get(handle.name)
+        skey = (handle.name, tag)
+        sentry = self._sel.get(skey) if cacheable else None
         if sentry is None or sentry[0] != cap:
             sel = None if n == cap else (
                 torch.arange(cap, device=dev) < n)
-            sentry = self._sel[handle.name] = (cap, sel)
+            sentry = (cap, sel)
+            if cacheable:
+                self._sel[skey] = sentry
         return Chunk(Schema(tuple(fields)), tuple(data), tuple(valid),
                      sentry[1], dev)
 
@@ -548,15 +610,51 @@ class Executor:
         raise ExecError(
             f"capacity did not converge after {max_recompiles} recompiles")
 
+    def _scan_runtime_filters(self, plan, profile) -> dict:
+        """Two-phase scan pruning, phase 2 glue: resolve host-evaluated
+        build key bounds (sql/scan_rf.py) into RF-pruned table snapshots
+        and report `rf_segments_pruned`. {(table, alias): (handle, tag)}."""
+        if not (config.get("enable_runtime_filters")
+                and config.get("runtime_filter_strategy") != "off"
+                and config.get("enable_zonemap_pruning")):
+            return {}
+        from ..sql.scan_rf import compute_scan_prune
+
+        try:
+            prune_map = compute_scan_prune(plan, self.catalog)
+        except Exception:  # noqa: BLE001 — stats must never fail a query
+            return {}
+        scan_rf: dict = {}
+        rf_segs = 0
+        for (t, a), (cols, bounds) in prune_map.items():
+            handle = self.catalog.get_table(t)
+            if handle is None:
+                continue
+            ph, stats, tag = self.cache.pruned_handle_for(handle, cols, bounds)
+            scan_rf[(t, a)] = (ph, tag)
+            rf_segs += stats.get("rf_pruned", 0)
+        if scan_rf:
+            counters = profile.setdefault("counters", {})
+            counters["rf_segments_pruned"] = (
+                counters.get("rf_segments_pruned", 0) + rf_segs)
+        return scan_rf
+
     def _run(self, plan: LogicalPlan, profile: dict) -> Chunk:
         caps_key = (plan, _config_key())
         caps = Caps(dict(self.cache.last_caps.get(caps_key, {})))
+        scan_rf = self._scan_runtime_filters(plan, profile)
+
+        def scan_input(t, a, cols):
+            rf = scan_rf.get((t, a))
+            if rf is not None:
+                ph, tag = rf
+                return self.cache.chunk_for(ph, a, cols, cache_tag=tag)
+            return self.cache.chunk_for(self.catalog.get_table(t), a, cols)
 
         def attempt(caps):
             t0 = time.perf_counter()
             compiled = compile_plan(plan, self.catalog, caps)
-            inputs = [self.cache.chunk_for(self.catalog.get_table(t), a, cols)
-                      for t, a, cols in compiled.scans]
+            inputs = [scan_input(t, a, cols) for t, a, cols in compiled.scans]
             for table, a, key_cols, bw in compiled.aux:
                 inputs.append(self.cache.build_order_for(
                     self.catalog.get_table(table), a, key_cols, bw))

@@ -37,9 +37,9 @@ def optimize(plan: LogicalPlan, catalog, feedback=None) -> LogicalPlan:
     Callers that pass one must key the result by the entry's consult token
     (the executor's opt_key does) — the same logical plan legally optimizes
     differently as observations accumulate."""
-    if getattr(catalog, "mv_defs", None):
-        raise NotImplementedError(
-            "materialized-view rewrite is not supported in the port yet")
+    from .mv_rewrite import try_rewrite as _mv_try_rewrite
+
+    plan = _mv_try_rewrite(plan, catalog)  # before any rule reshapes it
     plan = rewrite_full_joins(plan)
     plan = rewrite_distinct_aggs(plan)
     plan = pushdown_filters(plan)

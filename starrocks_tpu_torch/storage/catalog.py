@@ -1,18 +1,26 @@
-"""In-memory catalog: table registry + basic statistics.
+"""Catalog: table registry, basic statistics, views, materialized views and
+the storage views of information_schema.
 
 Reference behavior: fe catalog/ (Database/OlapTable/Column) + statistic/
-(row counts, column stats used by the CBO). A slim copy of the JAX package's
+(row counts, column stats used by the CBO). A copy of the JAX package's
 ``storage/catalog.py``: the optimizer and planner read only ``get_table``,
 ``row_count``, ``column_stats``, ``column_ndv``, ``unique_keys`` and
 ``schema``, and those behave exactly as in the reference, so both packages
-make the same plans from the same data. Persistence, views, materialized
-views and information_schema are not in the port yet.
+make the same plans from the same data. The clocks (``versions``,
+``data_epochs``, ``schema_epoch``) and the invalidation listeners are the
+reference's: every register/drop bumps them, and a Session's DeviceCache
+listens. ``StoredTableHandle`` reads a TabletStore table lazily.
+information_schema serves the storage views; the views over planes the
+port does not have yet (query log, processlist, metrics, resource groups,
+privileges, fail points, ingest, alerts) raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import re
+import time
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -78,22 +86,187 @@ class TableHandle:
                 st.n_distinct = int(len(np.unique(a)))
         return st.n_distinct
 
+    def data_version(self) -> tuple:
+        """Content token of this handle's CURRENT data. In-memory tables
+        mutate only through catalog.register (which bumps the epoch), so
+        the row count is belt-and-braces."""
+        return ("mem", self.row_count)
+
+
+class StoredTableHandle(TableHandle):
+    """Lazy handle over a TabletStore table (loads + caches on first read).
+
+    The declared schema is available without touching data files."""
+
+    def __init__(self, name: str, store, schema: Schema, unique_keys=(),
+                 distribution=()):
+        super().__init__(name, None, unique_keys, distribution)
+        self.store = store
+        self._schema = schema
+        self.load_s = None  # host seconds of the last load from the files
+
+    @property
+    def table(self) -> HostTable:
+        if self._table is None:
+            t0 = time.perf_counter()
+            self._table = self.store.load_table(self.name)
+            self.load_s = time.perf_counter() - t0
+        return self._table
+
+    @property
+    def schema(self) -> Schema:
+        return self._schema
+
+    @property
+    def row_count(self) -> int:
+        # cheap: manifests record rowset sizes; no data load needed
+        if self._table is not None:
+            return self._table.num_rows
+        return _live_rows(self.store.read_manifest(self.name))
+
+    def invalidate(self):
+        self._table = None
+        self._stats = {}
+
+    def data_version(self) -> tuple:
+        """Manifest-derived content token: rowset watermark + live rows +
+        file count. Catches direct TabletStore mutations (compaction, out-
+        of-session loads) that never pass through the session's DML path."""
+        m = self.store.read_manifest(self.name)
+        nfiles = sum(len(rs["files"]) for rs in m["rowsets"])
+        return ("store", m["next_rowset"], _live_rows(m), nfiles)
+
+    def file_metas(self):
+        """Per-data-file metadata rows for the information_schema tablets/
+        partitions views (manifest only — no data load)."""
+        m = self.store.read_manifest(self.name)
+        out = []
+        for rs in m["rowsets"]:
+            for f in rs["files"]:
+                out.append({
+                    "file": f.get("file", ""),
+                    "rows": f["rows"] - len(f.get("delvec") or ()),
+                    "part": f.get("part", rs.get("part", 0)) or 0,
+                })
+        return out
+
+
+def _live_rows(m: dict) -> int:
+    """Rows of a manifest's files less their delete vectors."""
+    return sum(f["rows"] - len(f.get("delvec") or ())
+               for rs in m["rowsets"] for f in rs["files"])
+
+
+# information_schema views of the reference that read planes the port does
+# not have yet (query log, processlist, metrics, resource groups, UDFs,
+# privileges, fail points, ingest, alerts, config): slice 8 brings them
+_PLANE_VIEWS = frozenset({
+    "resource_groups", "routines", "session_variables", "global_variables",
+    "table_privileges", "user_privileges", "engines", "character_sets",
+    "collations", "external_tables", "queries", "processlist",
+    "fail_points", "query_log", "query_profiles", "be_configs", "metrics",
+    "audit_log", "events", "metrics_history", "workload_summary",
+    "ingest_jobs", "alerts",
+})
+
 
 class Catalog:
     def __init__(self):
         self.tables: dict = {}
-        # logical views: name -> SQL text (the analyzer inlines them);
-        # the port has no DDL yet, so this stays empty
+        # logical views: name -> SQL text (inlined at reference, like the
+        # reference's view expansion); MVs live in `tables` + mv_defs
         self.views: dict = {}
+        self.mv_defs: dict = {}  # mv name -> SQL text (for REFRESH)
+        # mv name -> {"bases": {table: version}, "meta": (sig, col/agg maps)}
+        # driving the transparent rewrite (sql/mv_rewrite.py)
+        self.mv_meta: dict = {}
+        # per-table mutation counters: the MV staleness clock
+        self.versions: dict = {}
+        # per-table DATA epochs: every bump_version bumps the data epoch
+        # too, but the epoch ALSO moves on storage-level mutations that
+        # preserve MV freshness (compaction rewrites files without changing
+        # logical content)
+        self.data_epochs: dict = {}
+        # invalidation listeners: fn(table_name) called on every data-epoch
+        # bump (device caches subscribe; failures are swallowed — cache
+        # bookkeeping must never take down DML). Held weakly: a Session's
+        # DeviceCache, with its device tensors, must not outlive the
+        # Session because the catalog it read outlives it.
+        self._listeners: list = []
+        # catalog SHAPE clock: bumped by register/drop/ALTER/view DDL.
+        # DML does NOT bump it: analysis depends on schemas, not data.
+        self.schema_epoch = 0
+
+    def bump_schema_epoch(self):
+        self.schema_epoch += 1
+
+    def bump_version(self, name: str):
+        n = name.lower()
+        self.versions[n] = self.versions.get(n, 0) + 1
+        self.bump_data_epoch(n)
+
+    def bump_data_epoch(self, name: str):
+        """Advance the table's data epoch and notify cache listeners (MV
+        freshness keeps its own `versions` clock)."""
+        n = name.lower()
+        self.data_epochs[n] = self.data_epochs.get(n, 0) + 1
+        self._listeners = [r for r in self._listeners if r() is not None]
+        for ref in list(self._listeners):
+            fn = ref()
+            if fn is None:
+                continue
+            try:
+                fn(n)
+            except Exception:  # noqa: BLE001 — listeners must never fail DML
+                pass
+
+    def add_invalidation_listener(self, fn):
+        """Subscribe fn(table_name) to data-epoch bumps. A bound method is
+        held through a weak reference (its object may go away first); a
+        plain function is held as it is."""
+        if any(r() == fn for r in self._listeners):
+            return
+        self._listeners.append(weakref.WeakMethod(fn)
+                               if hasattr(fn, "__self__") else (lambda: fn))
+
+    def data_version(self, name: str) -> tuple:
+        """(epoch, handle content token) for one table."""
+        n = name.lower()
+        epoch = self.data_epochs.get(n, 0)
+        h = self.tables.get(n)
+        if h is None:
+            return (epoch, None)
+        try:
+            return (epoch,) + tuple(h.data_version())
+        except Exception:  # noqa: BLE001 — a torn manifest is a cache miss
+            return (epoch, "unversioned", id(h))
 
     def register(self, name: str, table: HostTable, unique_keys=(),
                  distribution=()):
         self.tables[name.lower()] = TableHandle(
             name.lower(), table, unique_keys, distribution
         )
+        self.bump_schema_epoch()
+        self.bump_version(name)
+
+    def register_handle(self, handle: TableHandle):
+        self.tables[handle.name] = handle
+        self.bump_schema_epoch()
+        self.bump_version(handle.name)
+
+    def drop(self, name: str, if_exists: bool = False):
+        if name.lower() not in self.tables:
+            if if_exists:
+                return
+            raise KeyError(f"unknown table {name}")
+        del self.tables[name.lower()]
+        self.bump_schema_epoch()
+        self.bump_version(name)
 
     def get_table(self, name: str) -> Optional[TableHandle]:
         name = name.lower()
+        if name.startswith("information_schema."):
+            return self._info_schema(name.split(".", 1)[1])
         if name == "__dual__":
             # hidden one-row constant table backing FROM-less SELECT
             if not hasattr(self, "_dual"):
@@ -102,6 +275,271 @@ class Catalog:
                 )
             return self._dual
         return self.tables.get(name)
+
+    def _info_schema(self, view: str) -> Optional[TableHandle]:
+        """Virtual tables over catalog state (reference analog: BE
+        schema_scanner/ + fe catalog/system/information/)."""
+        if view in _PLANE_VIEWS:
+            raise NotImplementedError(
+                f"information_schema.{view} reads a plane that is not in "
+                "the port yet (slice 8)")
+
+        def vtable(cols):
+            # build even when empty (from_pydict can't infer types of [])
+            fields, arrays = [], {}
+            for cname, ctype, values in cols:
+                if ctype.is_string:
+                    d, codes = StringDict.from_strings([str(v) for v in values])
+                    fields.append(Field(cname, T.VARCHAR, False, d))
+                    arrays[cname] = codes
+                else:
+                    fields.append(Field(cname, ctype, False))
+                    arrays[cname] = np.asarray(values, dtype=ctype.np_dtype)
+            return TableHandle(f"information_schema.{view}",
+                               HostTable(Schema(tuple(fields)), arrays, {}))
+
+        def stored(h) -> bool:
+            return getattr(h, "store", None) is not None
+
+        if view == "tables":
+            rows = [(n, self.tables[n].row_count,
+                     "MATERIALIZED VIEW" if n in self.mv_defs
+                     else "BASE TABLE")
+                    for n in sorted(self.tables)]
+            rows += [(n, 0, "VIEW") for n in sorted(self.views)]
+            rows.sort()
+            return vtable([
+                ("table_name", T.VARCHAR, [r[0] for r in rows]),
+                ("table_rows", T.BIGINT, [r[1] for r in rows]),
+                ("table_type", T.VARCHAR, [r[2] for r in rows]),
+            ])
+        if view == "schemata":
+            return vtable([
+                ("schema_name", T.VARCHAR, ["default", "information_schema"]),
+            ])
+        if view == "views":
+            names = sorted(self.views) + sorted(self.mv_defs)
+            defs = ([self.views[n] for n in sorted(self.views)]
+                    + [self.mv_defs[n] for n in sorted(self.mv_defs)])
+            kinds = (["VIEW"] * len(self.views)
+                     + ["MATERIALIZED VIEW"] * len(self.mv_defs))
+            return vtable([
+                ("table_name", T.VARCHAR, names),
+                ("view_definition", T.VARCHAR, [d.strip() for d in defs]),
+                ("view_type", T.VARCHAR, kinds),
+            ])
+        if view == "statistics":
+            def fmt(f, v):
+                """SQL-value render of an internal stats value."""
+                if v is None or f.type.is_string:
+                    return ""  # string stats hold dictionary CODES
+                if f.type.is_decimal:
+                    return str(v / 10 ** f.type.scale)
+                if f.type.kind is T.TypeKind.DATE:
+                    return str(np.datetime64(int(v), "D"))
+                if f.type.kind is T.TypeKind.DATETIME:
+                    return str(np.datetime64(int(v), "us"))
+                return str(v)
+
+            tn, cn, ndv, mn, mx, fresh = [], [], [], [], [], []
+            for n in sorted(self.tables):
+                h = self.tables[n]
+                # metadata-only contract: computing stats loads + scans the
+                # data — only report tables already resident (ANALYZE-style
+                # warmth); cold stored tables show analyzed=0
+                loaded = getattr(h, "_table", None) is not None or not stored(h)
+                for f in h.schema:
+                    if f.type.is_wide:
+                        continue
+                    tn.append(n)
+                    cn.append(f.name)
+                    if loaded:
+                        st = h.column_stats(f.name)
+                        ndv.append(int(h.column_ndv(f.name) or 0))
+                        mn.append(fmt(f, st.min))
+                        mx.append(fmt(f, st.max))
+                    else:
+                        ndv.append(0)
+                        mn.append("")
+                        mx.append("")
+                    fresh.append(1 if loaded else 0)
+            return vtable([
+                ("table_name", T.VARCHAR, tn),
+                ("column_name", T.VARCHAR, cn),
+                ("ndv", T.BIGINT, ndv),
+                ("min", T.VARCHAR, mn),
+                ("max", T.VARCHAR, mx),
+                ("analyzed", T.INT, fresh),
+            ])
+        if view == "tablets":
+            # storage-layout introspection (be_tablets analog): one row per
+            # stored data file; in-memory tables report one resident blob
+            tn, fn, rws, prt = [], [], [], []
+            for n in sorted(self.tables):
+                h = self.tables[n]
+                metas = getattr(h, "file_metas", None)
+                if callable(metas):
+                    for m in metas():
+                        tn.append(n)
+                        fn.append(m.get("file", ""))
+                        rws.append(int(m.get("rows", 0)))
+                        prt.append(int(m.get("part", 0)))
+                else:
+                    tn.append(n)
+                    fn.append("<memory>")
+                    rws.append(h.row_count)
+                    prt.append(0)
+            return vtable([
+                ("table_name", T.VARCHAR, tn),
+                ("file", T.VARCHAR, fn),
+                ("rows", T.BIGINT, rws),
+                ("partition_id", T.BIGINT, prt),
+            ])
+        if view == "partitions":
+            tn, pn, rws = [], [], []
+            for n in sorted(self.tables):
+                h = self.tables[n]
+                metas = getattr(h, "file_metas", None)
+                if callable(metas):
+                    by_part: dict = {}
+                    for m in metas():
+                        by_part[int(m.get("part", 0))] = (
+                            by_part.get(int(m.get("part", 0)), 0)
+                            + int(m.get("rows", 0)))
+                    for p in sorted(by_part) or [0]:
+                        tn.append(n)
+                        pn.append(f"p{p}")
+                        rws.append(by_part.get(p, 0))
+                else:
+                    tn.append(n)
+                    pn.append("p0")
+                    rws.append(h.row_count)
+            return vtable([
+                ("table_name", T.VARCHAR, tn),
+                ("partition_name", T.VARCHAR, pn),
+                ("rows", T.BIGINT, rws),
+            ])
+        if view == "materialized_views":
+            names = sorted(self.mv_defs)
+            fresh = []
+            for n in names:
+                meta = self.mv_meta.get(n)
+                if meta is None:
+                    fresh.append(0)
+                else:
+                    fresh.append(1 if all(
+                        self.versions.get(tb, 0) == v
+                        for tb, v in meta["bases"].items()) else 0)
+            return vtable([
+                ("name", T.VARCHAR, names),
+                ("definition", T.VARCHAR,
+                 [self.mv_defs[n].strip()[:512] for n in names]),
+                ("rows", T.BIGINT,
+                 [self.tables[n].row_count if n in self.tables else 0
+                  for n in names]),
+                ("is_fresh", T.INT, fresh),
+            ])
+        if view in ("key_column_usage", "table_constraints"):
+            tn, cn, ct = [], [], []
+            for n in sorted(self.tables):
+                for keys in self.tables[n].unique_keys:
+                    for c in keys:
+                        tn.append(n)
+                        cn.append(c)
+                        ct.append("UNIQUE")
+            if view == "table_constraints":
+                seen = sorted({(t, "UNIQUE") for t in tn})
+                return vtable([
+                    ("table_name", T.VARCHAR, [s[0] for s in seen]),
+                    ("constraint_type", T.VARCHAR, [s[1] for s in seen]),
+                ])
+            return vtable([
+                ("table_name", T.VARCHAR, tn),
+                ("column_name", T.VARCHAR, cn),
+                ("constraint_name", T.VARCHAR, ct),
+            ])
+        if view == "referential_constraints":
+            # no FOREIGN KEY DDL surface: present, empty, typed
+            return vtable([
+                ("constraint_name", T.VARCHAR, []),
+                ("table_name", T.VARCHAR, []),
+                ("referenced_table_name", T.VARCHAR, []),
+            ])
+        if view == "rowsets":
+            tn, rid, fn, rws, prt = [], [], [], [], []
+            for n in sorted(self.tables):
+                h = self.tables[n]
+                if not stored(h):
+                    continue
+                m = h.store.read_manifest(n)
+                for rs in m["rowsets"]:
+                    for f in rs["files"]:
+                        tn.append(n)
+                        rid.append(int(rs["id"]))
+                        fn.append(f.get("file", ""))
+                        rws.append(int(f.get("rows", 0)))
+                        prt.append(int(f.get("part", rs.get("part", 0))
+                                       or 0))
+            return vtable([
+                ("table_name", T.VARCHAR, tn),
+                ("rowset_id", T.BIGINT, rid),
+                ("file", T.VARCHAR, fn),
+                ("rows", T.BIGINT, rws),
+                ("partition_id", T.BIGINT, prt),
+            ])
+        if view in ("loads", "compactions"):
+            # the journal IS the history (op=insert/upsert vs op=compact)
+            ops = ({"insert", "upsert"} if view == "loads"
+                   else {"compact"})
+            store = next((h.store for h in self.tables.values()
+                          if stored(h)), None)
+            sq, tn, rws, kind = [], [], [], []
+            if store is not None:
+                for op in store.replay():
+                    if op.get("op") in ops:
+                        sq.append(int(op.get("seq", 0)))
+                        tn.append(op.get("table", ""))
+                        rws.append(int(op.get("rows", 0)))
+                        kind.append(op["op"].upper())
+            return vtable([
+                ("seq", T.BIGINT, sq),
+                ("table_name", T.VARCHAR, tn),
+                ("rows", T.BIGINT, rws),
+                ("type", T.VARCHAR, kind),
+            ])
+        if view == "column_statistics":
+            tn, cn, ndv = [], [], []
+            for n in sorted(self.tables):
+                h = self.tables[n]
+                if getattr(h, "_table", None) is None and stored(h):
+                    continue  # metadata-only contract (see "statistics"):
+                    # computing NDV would LOAD cold stored data
+                for f in h.schema:
+                    if f.type.is_wide:
+                        continue
+                    tn.append(n)
+                    cn.append(f.name)
+                    ndv.append(int(h.column_ndv(f.name) or 0))
+            return vtable([
+                ("table_name", T.VARCHAR, tn),
+                ("column_name", T.VARCHAR, cn),
+                ("ndv", T.BIGINT, ndv),
+            ])
+        if view == "columns":
+            tn, cn, ty, nu = [], [], [], []
+            for n in sorted(self.tables):
+                for f in self.tables[n].schema:
+                    tn.append(n)
+                    cn.append(f.name)
+                    ty.append(repr(f.type))
+                    nu.append(1 if f.nullable else 0)
+            return vtable([
+                ("table_name", T.VARCHAR, tn),
+                ("column_name", T.VARCHAR, cn),
+                ("data_type", T.VARCHAR, ty),
+                ("is_nullable", T.INT, nu),
+            ])
+        return None
 
 
 TPCH_UNIQUE_KEYS = {

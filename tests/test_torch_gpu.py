@@ -37,7 +37,11 @@ installed:
 - the native filter-sum lane on a card Session whose columns sit on the
   card, DECIMAL(38) sums, minima and maxima and the limb arithmetic on
   CUDA tensors, and UNION ALL's concatenation (dictionaries merged,
-  masks kept on the card), each against the CPU.
+  masks kept on the card), each against the CPU;
+- statements and storage: a small TabletStore on the card (create,
+  insert, upsert, delete, update, restart, compaction, then queries under
+  `auto` and the kernel strategies), a table registered again under a card
+  Session, and DML on in-memory PRIMARY KEY tables, each against the CPU.
 """
 
 import numpy as np
@@ -616,3 +620,111 @@ def test_union_all_widens_decimal38_on_card(cuda):
         assert torch.equal(card.data[0].cpu(), cpu.data[0])
         assert card.data[0].device.type == cuda.type
         assert torch.equal(card.valid[0].cpu(), cpu.valid[0])
+
+
+# --- statements and storage (slice 4 of queue A) -------------------------------
+
+
+def _statement_script(mod: int):
+    """DDL, an upsert with a duplicate key, DELETE and UPDATE over a small
+    PRIMARY KEY table, then the queries whose rows are compared."""
+    rows = ", ".join(f"({i}, {i % mod}, 'n{i % 7}', {i * 0.25})"
+                     for i in range(3000))
+    return [
+        "create table f (id bigint, k bigint, s varchar, x decimal(12,2), "
+        "primary key(id)) distributed by hash(id) buckets 8",
+        "create table d (k bigint, g varchar, primary key(k))",
+        f"insert into f values {rows}",
+        "insert into d values " + ", ".join(
+            f"({i}, 'g{i % 3}')" for i in range(mod)),
+        "insert into f values (7, 1, 'new', 1.5), (7, 2, 'newer', 2.5), "
+        "(99999, 3, 'tail', 3.5)",
+        "delete from f where x < 10",
+        "update f set x = x + 1 where s = 'n3'",
+    ], [
+        "select count(*), sum(x) from f",
+        "select d.g, count(*) c, sum(f.x) sx from f join d on f.k = d.k "
+        "group by d.g order by d.g",
+        "select s, count(*) from f group by s order by s",
+        "select id, x from f order by x desc, id limit 5",
+    ]
+
+
+def _run_script(s, ddl, queries):
+    return ([s.sql(t) for t in ddl], [s.sql(q).table for q in queries])
+
+
+def _tables_equal(a, b):
+    assert [f.name for f in a.schema] == [f.name for f in b.schema]
+    assert a.to_pylist() == b.to_pylist()
+
+
+@pytest.mark.parametrize("knobs", ["auto", "kernels"])
+def test_store_on_card_matches_cpu(cuda, tmp_path, knobs):
+    """A small store on the card: create, insert, upsert, delete and
+    update, restart, then query: every statement's value and every query's
+    rows equal the CPU's, before and after the restart."""
+    ddl, queries = _statement_script(97)
+    for k, v in (KERNEL_STRATEGIES if knobs == "kernels"
+                 else AUTO_STRATEGIES).items():
+        config.set(k, v)
+    try:
+        card = Session(data_dir=str(tmp_path / "card"))
+        cpu = Session(device="cpu", data_dir=str(tmp_path / "cpu"))
+        vals_card, got_card = _run_script(card, ddl, queries)
+        vals_cpu, got_cpu = _run_script(cpu, ddl, queries)
+        assert vals_card == vals_cpu
+        for a, b in zip(got_card, got_cpu):
+            _tables_equal(a, b)
+        card2 = Session(data_dir=str(tmp_path / "card"))
+        cpu2 = Session(device="cpu", data_dir=str(tmp_path / "cpu"))
+        assert card2.device.type == "cuda"
+        for q, b in zip(queries, got_cpu):
+            _tables_equal(card2.sql(q).table, b)
+        # an upsert leaves a delta rowset and delete vectors, which
+        # compaction folds into one rowset
+        extra = "insert into f values (8, 1, 'again', 9.5), (9, 2, 'x', 1)"
+        assert card2.sql(extra) == cpu2.sql(extra) == 2
+        want = [cpu2.sql(q).table for q in queries]
+        n = cpu2.sql("select count(*) from f").rows()[0][0]
+        assert card2.store.compact_table("f") == n
+        card2.catalog.get_table("f").invalidate()
+        card2.cache.invalidate("f")
+        for q, b in zip(queries, want):
+            _tables_equal(card2.sql(q).table, b)
+    finally:
+        for k, v in AUTO_STRATEGIES.items():
+            config.set(k, v)
+
+
+def test_invalidation_on_card(cuda):
+    """A table registered again under a card Session: the new rows are
+    served (the catalog's listener drops the device cache)."""
+    from starrocks_tpu_torch.column import HostTable
+    from starrocks_tpu_torch.storage.catalog import Catalog
+
+    cat = Catalog()
+    cat.register("t", HostTable.from_pydict(
+        {"k": np.arange(10), "v": np.ones(10, dtype=np.int64)}))
+    s = Session(cat)
+    q = "select k, sum(v) from t group by k order by k desc limit 2"
+    assert s.sql(q).rows() == [(9, 1), (8, 1)]
+    assert s.sql("select count(*) from t").rows() == [(10,)]
+    cat.register("t", HostTable.from_pydict(
+        {"k": np.arange(100), "v": np.full(100, 2, dtype=np.int64)}))
+    assert s.sql(q).rows() == [(99, 2), (98, 2)]
+    assert s.sql("select count(*) from t").rows() == [(100,)]
+
+
+def test_dml_on_card_matches_cpu(cuda):
+    """Upsert, delete and update on in-memory PRIMARY KEY tables on the
+    card: the same counts and rows as the CPU, keys past the old maximum
+    included."""
+    ddl, queries = _statement_script(31)
+    ddl += ["insert into d values (5000, 'far')",
+            "insert into f values (5000, 5000, 'far', 7.25)"]
+    vals_card, got_card = _run_script(Session(), ddl, queries)
+    vals_cpu, got_cpu = _run_script(Session(device="cpu"), ddl, queries)
+    assert vals_card == vals_cpu
+    for a, b in zip(got_card, got_cpu):
+        _tables_equal(a, b)

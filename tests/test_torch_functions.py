@@ -226,22 +226,71 @@ def test_reference_string_defects_raise_in_the_port(tpch_sessions, k):
             ["3", "2", "2"]
 
 
+# B7's rounded float cells, by column: s = round(avg(sqrt(..)), 4) and
+# pe = round(sum(..), 3). Under the kernel strategies their sums are f32
+# block sums whose order of addition differs between the packages (and
+# with the thread count); where the true value lies on a rounding
+# boundary (TRUCK's s: 4.79465) the rounded cells differ by one unit in
+# their rounded place. So each is held to that unit or to
+# STAT_KERNEL_REL, whichever is larger: pe's sums (~34,000) are f32
+# values 0.0039 apart, so there the relative bound is the larger
+B7_ROUNDED_UNIT = {4: 1e-4, 12: 1e-3}
+# B7's two float aggregates unrounded: held at STAT_KERNEL_REL
+B7_FLOATS = """
+select l_shipmode, avg(sqrt(l_quantity)) s,
+  sum(power(l_discount, 2) + exp(0 - l_tax) + ln(l_quantity)) pe
+from lineitem
+where starts_with(l_shipmode, 'R') or ends_with(l_shipmode, 'L') or l_shipmode = 'TRUCK'
+group by l_shipmode order by l_shipmode
+"""
+
+
+def _b7_kernels_match(got, want) -> bool:
+    """B7 under the kernel strategies: the rounded cells to one unit in
+    their rounded place or STAT_KERNEL_REL, whichever is larger, every
+    other cell as rows_match at STAT_KERNEL_REL."""
+    def rest(rows):
+        return [tuple(v for i, v in enumerate(r) if i not in B7_ROUNDED_UNIT)
+                for r in rows]
+
+    if len(got) != len(want) or not rows_match(rest(got), rest(want),
+                                               rel=STAT_KERNEL_REL):
+        return False
+    return all(abs(g[i] - w[i]) <= max(
+        unit * (1 + 1e-9), STAT_KERNEL_REL * max(abs(g[i]), abs(w[i])))
+        for g, w in zip(got, want) for i, unit in B7_ROUNDED_UNIT.items())
+
+
+def _both(tpch_sessions, text, knobs):
+    js, ts = tpch_sessions
+    set_knobs(jcfg, knobs)
+    try:
+        want = js.sql(text).rows()
+    finally:
+        set_knobs(jcfg, AUTO_KNOBS)
+    set_knobs(tcfg, knobs)
+    return ts.sql(text).rows(), want
+
+
 @pytest.mark.parametrize("strategy", ["auto", "kernels"])
 @pytest.mark.parametrize("qid", ["B6", "B7", "B8"])
 def test_breadth_functions_match_jax(tpch_sessions, qid, strategy):
     """B7's float sums take the f32 segment-sum kernel under the kernel
     strategies, in both packages: those runs are held to each other at
-    the S1/S2 tolerance."""
-    js, ts = tpch_sessions
+    the S1/S2 tolerance, and its rounded cells also allow one unit in
+    their rounded place (B7_ROUNDED_UNIT)."""
     knobs = KERNEL_KNOBS if strategy == "kernels" else AUTO_KNOBS
-    set_knobs(jcfg, knobs)
-    try:
-        want = js.sql(BREADTH_QUERIES[qid]).rows()
-    finally:
-        set_knobs(jcfg, AUTO_KNOBS)
-    set_knobs(tcfg, knobs)
-    got = ts.sql(BREADTH_QUERIES[qid]).rows()
-    rel = STAT_KERNEL_REL if (qid, strategy) == ("B7", "kernels") else 1e-6
-    assert rows_match(got, want, rel=rel) and got
+    got, want = _both(tpch_sessions, BREADTH_QUERIES[qid], knobs)
+    if (qid, strategy) == ("B7", "kernels"):
+        assert _b7_kernels_match(got, want) and got
+    else:
+        assert rows_match(got, want) and got
     if qid == "B6":
         assert got[0] == (0, "ALGERIA,ETHIOPIA,KENYA,MOROCCO,MOZAMBIQUE")
+
+
+def test_breadth_b7_unrounded_floats_match_jax(tpch_sessions):
+    """B7's two float aggregates without round(): the f32 kernel sums of
+    both packages agree at STAT_KERNEL_REL, where rounding hides nothing."""
+    got, want = _both(tpch_sessions, B7_FLOATS, KERNEL_KNOBS)
+    assert len(got) == 4 and rows_match(got, want, rel=STAT_KERNEL_REL)

@@ -1,6 +1,7 @@
 """End-to-end check of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--sf 10] [--ssb-sf 10] [--seed 42] [--out DIR]
+    python3 chip_smoke.py [--sf 10] [--ssb-sf 10] [--tpcds-sf 10] [--seed 42]
+                          [--out DIR]
 
 Drives the port's paths through `starrocks_tpu_torch` `Session.sql` and
 holds every hand-written CUDA kernel against its plain torch version.
@@ -76,7 +77,26 @@ allocated when it started. Phases, each of which must pass:
    after them equal the twin's. A second restart must give the same
    answers; then a second 1% upsert and `compact_table('orders')` (one
    rowset, no delete vectors left), and the answers again.
-9. kernels: each kernel on the card, at the shapes its path gave it and on
+9. tpcds (windows and TPC-DS): the TPC-H catalog is dropped, then TPC-DS
+   is generated at --tpcds-sf (default 10: store_sales 28.8M rows,
+   inventory 295.8M; seed 11; every query fits the card at SF 10, so the
+   output's `reduced` list is empty). All 99 queries (`ALL_QUERIES`) run
+   cold and warm under
+   `auto`; the 15 window queries and every query that launches a kernel
+   (`KERNEL_RUN_QUERIES`) then run cold and warm under the kernel
+   strategies in a fresh session (24 queries at a time cold, then warm,
+   then traced: a Session keeps its last 64 plans), both with `max_recompiles` 32
+   (TPCDS_KNOBS: q24 needs more than the default 10 at SF 1 and up).
+   Counts set to 0 and peak memory reset
+   before each query; each query keeps its wall, launches per kernel,
+   each kernel's shapes and its peak memory, and one traced warm run its
+   busy time, idle share and device time by the window operator's spans
+   (`window::prefilter`, `window::sort`, `window::scan`,
+   `window::frame`). Rows equal between the two: exactly, floats to 6
+   significant digits, the float cells of the queries that launch
+   segment_sum to a relative 1e-4 (f32 block sums); probe_searchsorted,
+   topn_select and segment_sum must each launch.
+10. kernels: each kernel on the card, at the shapes its path gave it and on
    edge cases (sentinels, duplicates, INT64_MIN/MAX, heavy slot
    collisions; for the top-N select ties, all-equal keys, dead rows,
    INT64_MIN runs, clustered keys (its 64-bit pass), live spans too wide
@@ -98,7 +118,8 @@ allocated when it started. Phases, each of which must pass:
    timed two ways at the largest: the full stable sort, and the threshold
    sort the port uses (`ops/sort.py first_kk_desc`), which must return the
    same indices. The f32 segment sum is checked at every shape its paths
-   gave it (S1/S2's and B7's) and timed at the largest; it adds
+   gave it (S1/S2's, B7's and the tpcds path's) and timed at the
+   largest; it adds
    in its own fixed order, not the plain version's block order, so it is
    held to an f64 sum of the same f32 values: within 1e-6 * sum |x| per
    (group, column), and bit-identical over two runs; its error against
@@ -108,16 +129,18 @@ allocated when it started. Phases, each of which must pass:
    call is traced with torch.profiler for its split by device kernel; the
    hash probe at each of Q9's probe counts by either route, with the keys
    the build deferred past their slice and both kernels' scratch.
-10. card vs CPU: the 22 queries, S1/S2 and B1-B8 at SF 0.1 on the card
-   under the kernel strategies, Q1/Q2/Q3/Q9 under the hash kernels, N1-N3
-   under the top-N kernel, the 13 SSB-flat queries at SF 0.1 under the
-   kernel strategies and NL1-NL3 under the native lane, against the CPU
+11. card vs CPU: the 22 queries, S1/S2, B1-B8 and INTERSECT ALL / EXCEPT
+   ALL (BAG_QUERIES) at SF 0.1 on the card under the kernel strategies,
+   Q1/Q2/Q3/Q9 under the hash kernels, N1-N3 under the top-N kernel, the
+   13 SSB-flat queries and the 15 TPC-DS window queries at SF 0.1 under
+   the kernel strategies and NL1-NL3 under the native lane, against the CPU
    (`device="cpu"`) under `auto`; rows must agree, in order: exactly,
    except floats to 6 significant digits — and S1/S2's and B7's floats to
    a relative 1e-4, since `pallas` sums their moments in f32 blocks (the
    reference's contract) while `auto` sums in f64.
 
-The last lines of output are the `kernels` JSON line and then
+The last lines of output are the `kernels` JSON line (each kernel's
+`launches` over its first path and the tpcds path) and then
 {"ok": true, "device": {...}}; the full record goes to DIR/chip_smoke.json.
 `--phases kernels` (a comma list) runs those phases only, after `device`
 and `build`; the kernels then take the main path's shapes from
@@ -794,6 +817,100 @@ def phase_breadth(rec, cat, sf):
                          f"rows: {empty}")
 
 
+# TPC-DS (the tpcds path): the generator's seed, and the window operator's
+# profiler spans (ops/window.py)
+TPCDS_SEED = 11
+# q24's plan needs 11 capacity recompiles at SF 1 (in the JAX package too)
+# and more at SF 10, past max_recompiles' default of 10; a higher limit
+# changes no answer, only how many attempts a plan may take
+TPCDS_KNOBS = {"max_recompiles": 32}
+TPCDS_GROUP = 24  # queries run cold, warm and traced together
+WINDOW_SPANS = ("window::prefilter", "window::sort", "window::scan",
+                "window::frame")
+
+
+def phase_tpcds(rec, sf):
+    """TPC-DS generated at `sf`: all 99 queries cold and warm under
+    `auto`, then the 15 window queries and the queries that launch a
+    kernel under the kernel strategies in a fresh session, with one traced
+    warm run of each (device busy and idle share, device time by window
+    span). Rows equal between the two: exactly, floats to 6 significant
+    digits, the float cells of the queries that launch segment_sum to
+    SEGMENT_SUM_REL (the f32 contract). probe_searchsorted, topn_select
+    and segment_sum must each launch on the path."""
+    import gc
+
+    import torch
+
+    from starrocks_tpu_torch.ops import kernels
+    from starrocks_tpu_torch.runtime.config import config
+    from starrocks_tpu_torch.runtime.session import Session
+    from starrocks_tpu_torch.storage.datagen.tpcds import tpcds_catalog
+    from starrocks_tpu_torch.storage.tpcds_queries import (
+        ALL_QUERIES, KERNEL_RUN_QUERIES, SEGMENT_SUM_QUERIES,
+        SEGMENT_SUM_REL)
+
+    t0 = time.perf_counter()
+    cat = tpcds_catalog(sf=sf, seed=TPCDS_SEED)
+    gen_s = time.perf_counter() - t0
+    rows = {n: h.row_count for n, h in cat.tables.items()}
+    host_gb = sum(sum(a.nbytes for a in h.table.arrays.values())
+                  for h in cat.tables.values()) / 1e9
+    log(f"TPC-DS SF {sf:g} generated in {gen_s:.1f} s, {host_gb:.2f} GB of "
+        f"host arrays: {rows}")
+    # every query runs at `sf`: none needs a smaller scale to fit the card
+    out = {"sf": sf, "seed": TPCDS_SEED, "reduced": [], "gen_s": gen_s,
+           "host_gb": host_gb, "rows": rows}
+    tables: dict = {}
+    before = {k: config.get(k) for k in TPCDS_KNOBS}
+    runs = (("auto", ALL_QUERIES),
+            ("kernels", {q: ALL_QUERIES[q] for q in KERNEL_RUN_QUERIES}))
+    try:
+        for name, texts in runs:
+            s = Session(cat, device=CARD)
+            set_knobs({**strategies(name), **TPCDS_KNOBS})
+            queries: dict = {}
+            launches = dict.fromkeys(kernels.WRAPPERS, 0)
+            trace: dict = {}
+            # a Session keeps the last 64 plans and their capacities: run
+            # cold, warm and traced a group at a time, so that the warm and
+            # traced runs find what the cold run learned
+            names = list(texts)
+            for i in range(0, len(names), TPCDS_GROUP):
+                group = {q: texts[q] for q in names[i:i + TPCDS_GROUP]}
+                _run_each(s, name, group, queries, launches, tables, kernels)
+                trace.update(trace_queries(s, group, WINDOW_SPANS))
+            peak = max(r["peak_mem_gb"] for q in queries.values()
+                       for r in q.values())
+            log(f"tpcds under {name}: launches {launches}, peak device "
+                f"memory {peak:.2f} GB")
+            out[name] = {"knobs": strategies(name), "queries": queries,
+                         "launches": launches, "peak_mem_gb": peak,
+                         "trace": trace}
+            del s
+            torch.cuda.empty_cache()
+    finally:
+        set_knobs(before)
+    out["launches"] = out["kernels"]["launches"]
+    out["shapes"] = _path_shapes(out["kernels"]["queries"])
+    rec["tpcds"] = out
+    del cat
+    gc.collect()
+    differ = [f"{q} {run}" for q in KERNEL_RUN_QUERIES
+              for run in ("cold", "warm")
+              if not tables_agree(
+                  tables[("kernels", q, run)], tables[("auto", q, run)],
+                  rel=SEGMENT_SUM_REL if q in SEGMENT_SUM_QUERIES else 1e-6)]
+    missed = [k for k in ("probe_searchsorted", "topn_select", "segment_sum")
+              if out["launches"][k] < 1]
+    log(f"tpcds: float cells of {list(SEGMENT_SUM_QUERIES)} held to a "
+        f"relative {SEGMENT_SUM_REL} (f32 segment sums); rows differ: "
+        f"{differ}; kernels not launched: {missed}")
+    if differ or missed:
+        raise PhaseError(f"rows differ between strategies: {differ}; not "
+                         f"launched: {missed}")
+
+
 # the store path: buckets of each TPC-H table (nation and region: one)
 STORE_BUCKETS = {"lineitem": 32, "orders": 32, "partsupp": 32, "part": 32,
                  "customer": 32, "supplier": 4}
@@ -1137,52 +1254,104 @@ def phase_store(rec, cat, sf):
         raise PhaseError(f"store: {failures}")
 
 
+def _ns(event, what: str) -> int:
+    """A raw profiler event's start or duration in ns (`start_ns()`, or
+    `start_us()` where a torch build has only that)."""
+    f = getattr(event, f"{what}_ns", None)
+    return f() if f is not None else getattr(event, f"{what}_us")() * 1000
+
+
 def trace_queries(s, texts, spans=()) -> dict:
-    """One more warm run of each query under torch.profiler: the device's
-    busy time (sum of kernel durations on the card), its idle share of the
-    traced wall time, the kernels that took the most device time, and the
-    device time under each of the profiler `spans` (record_function
-    ranges). The profiler slows the host side, so the traced wall time is
-    not the query's wall time; the untraced warm runs above are."""
+    """One more warm run of each query, all under ONE torch.profiler
+    session: per query the device's busy time (the summed durations of the
+    kernels, copies and sets that start inside the query's range, not the
+    device-side twins of record_function ranges; each query ends
+    with a synchronize, so its kernels finish inside it), its idle share of
+    the traced wall time, the kernels that took the most device time, and
+    the device time under each of the profiler `spans` (record_function
+    ranges: the device events whose launch lies inside one). It reads the
+    profiler's raw event list: building torch.profiler's Python event tree
+    costs ~2 s per TPC-DS query, more than the queries. The profiler slows
+    the host side, so the traced wall time is not the query's wall time;
+    the untraced warm runs are. The session is tried again where it
+    recorded no device event (it has come back without any in long runs)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    res = {}
-    for q, text in texts.items():
-        for _ in range(3):  # the profiler now and then records no device event
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+    walls, kern = {}, []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for q, text in texts.items():
                 t = time.perf_counter()
-                s.sql(text).rows()
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t
-            kern = [e for e in prof.events()
-                    if e.device_type == DeviceType.CUDA]
-            if kern:
-                break
+                with record_function(f"query::{q}"):
+                    s.sql(text).rows()
+                    torch.cuda.synchronize()
+                walls[q] = time.perf_counter() - t
+        raw = prof.profiler.kineto_results.events()
+        host = [e for e in raw if e.device_type() != DeviceType.CUDA]
+        host_names = {e.name() for e in host}
+        # device events: kernels, copies and sets; a record_function range
+        # also shows on the device's timeline, under its host name, and is
+        # no work of its own
+        kern = [(_ns(e, "start"), _ns(e, "duration"), e.name(),
+                 e.correlation_id()) for e in raw
+                if e.device_type() == DeviceType.CUDA
+                and e.name() not in host_names]
+        if kern:
+            break
+    ranges, span_ranges, launched = {}, [], {}
+    for e in host:
+        name = e.name()
+        start = _ns(e, "start")
+        end = start + _ns(e, "duration")
+        if name.startswith("query::"):
+            ranges[name[len("query::"):]] = (start, end)
+        elif name in spans:
+            span_ranges.append((name, start, end))
+        elif name.startswith("cu"):
+            # a launch (cudaLaunchKernel, cudaMemcpyAsync, cuLaunchKernel,
+            # ...): its correlation id is the device event's
+            launched[e.correlation_id()] = start
+    res = {}
+    attributed = 0
+    for q in texts:
+        r0, r1 = ranges[q]
+        mine = [k for k in kern if r0 <= k[0] <= r1]
         by_name: dict = {}
-        for e in kern:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-        busy = sum(by_name.values()) / 1e6
+        for _, dur, name, _ in mine:
+            by_name[name] = by_name.get(name, 0) + dur
+        busy = sum(by_name.values()) / 1e9
+        attributed += sum(by_name.values())
+        wall = walls[q]
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        span_ms = {e.key: getattr(e, "device_time_total", 0) / 1e3
-                   for e in prof.key_averages() if e.key in spans}
+        span_ms: dict = {}
+        for name, a, b in span_ranges:
+            if not r0 <= a <= r1:
+                continue
+            ms = sum(dur for _, dur, _, c in mine
+                     if a <= launched.get(c, -1) <= b) / 1e6
+            span_ms[name] = span_ms.get(name, 0.0) + ms
         res[q] = {
-            "traced_wall_s": wall, "device_kernels": len(kern),
+            "traced_wall_s": wall, "device_kernels": len(mine),
             "device_busy_s": busy if kern else None,
             "idle_share": (1 - busy / wall) if kern else None,
-            "top": [[n[:80], us / 1e3] for n, us in top],
+            "top": [[n[:80], ns / 1e6] for n, ns in top],
             "span_device_ms": span_ms,
         }
         log(f"  trace {qname(q)}: traced wall {wall * 1e3:.1f} ms, "
-            f"{len(kern)} device kernels, busy "
+            f"{len(mine)} device kernels, busy "
             + (f"{busy * 1e3:.1f} ms, idle share {1 - busy / wall:.3f}"
                if kern else "not measured (no device events)")
             + (f"; device ms by span {span_ms}" if spans else ""))
-        for n, us in top[:2]:
-            log(f"      {us / 1e3:8.2f} ms  {n[:90]}")
+        for n, ns in top[:2]:
+            log(f"      {ns / 1e6:8.2f} ms  {n[:90]}")
+    total = sum(k[1] for k in kern)
+    log(f"  traced {len(texts)} queries in one session: {total / 1e6:.1f} "
+        f"ms of device time, {(total - attributed) / 1e6:.1f} ms of it "
+        "outside every query's range")
     return res
 
 
@@ -1371,7 +1540,8 @@ def phase_kernels(rec, seed, only=None):
 
     dev = torch.device(CARD)
     shapes = {n: [] for n in kernels.WRAPPERS}
-    for path in ("hash_topn", "tpch", "topn", "breadth", "ssb", "store"):
+    for path in ("hash_topn", "tpch", "topn", "breadth", "ssb", "store",
+                 "tpcds"):
         for n, v in (rec.get(path) or {}).get("shapes", {}).items():
             shapes[n] += [tuple(x) for x in v]
     build_shape = max(shapes["hash_build"] or [DEFAULT_SHAPES["hash_build"]])
@@ -1408,6 +1578,13 @@ def phase_kernels(rec, seed, only=None):
         except Exception as e:  # report it, run the other kernels' checks
             traceback.print_exc()
             failures.append(f"{name}: {type(e).__name__}: {e}")
+    tpcds_shapes = (rec.get("tpcds") or {}).get("shapes", {})
+    if not only or {"probe_searchsorted", "segment_sum"} & set(only):
+        try:
+            _time_tpcds_shapes(dev, tpcds_shapes, seed, results)
+        except Exception as e:  # report it with the checks' failures
+            traceback.print_exc()
+            failures.append(f"tpcds timing: {type(e).__name__}: {e}")
     for nm, r in results.items():
         if "ms" not in r:
             continue
@@ -1419,6 +1596,51 @@ def phase_kernels(rec, seed, only=None):
     rec["kernels"] = results
     if failures:
         raise PhaseError(f"kernel/plain mismatches: {failures}")
+
+
+def _time_tpcds_shapes(dev, shapes, seed, results):
+    """The sorted probe and the segment sum timed at each shape the tpcds
+    path launched them with (random inputs of that shape: sorted distinct
+    build keys, uniform probes; four live groups of discount-like values):
+    the kernel and the library call with CUDA events, beside the bound
+    (the checks' formulas). The top-N select's checks time it at every
+    path shape already."""
+    import numpy as np
+    import torch
+
+    from starrocks_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(seed)
+    for k, n in shapes.get("probe_searchsorted", ()):
+        build = torch.from_numpy(np.sort(rng.choice(
+            1 << 40, size=k, replace=False))).to(dev)
+        probe = torch.from_numpy(rng.integers(0, 1 << 40, n)).to(dev)
+        b = bound_ms(k * 8 + n * 8 + n * 4, n * max(k, 1).bit_length() * 3)
+        r = {"shape": [k, n], "bound_ms": b[0], "bound_by": b[1],
+             "ms": cuda_ms(lambda: kernels.probe_searchsorted(build, probe)),
+             "library_ms": cuda_ms(lambda: torch.searchsorted(
+                 build, probe, out_int32=True))}
+        results["probe_searchsorted"].setdefault("tpcds", []).append(r)
+    for n, m, g, block in shapes.get("segment_sum", ()):
+        gid = torch.from_numpy(rng.integers(0, min(g, 4), n).astype(
+            np.int32)).to(dev)
+        vals = torch.from_numpy((rng.integers(0, 11, (n, m)) / 100.0).astype(
+            np.float32)).to(dev)
+        b = bound_ms(n * 4 + n * m * 4 + g * m * 4, n * m)
+
+        def library():
+            acc = torch.zeros((g + 1, m), dtype=torch.float32, device=dev)
+            return acc.index_add_(0, gid, vals)
+
+        r = {"shape": [n, m, g, block], "bound_ms": b[0], "bound_by": b[1],
+             "ms": cuda_ms(lambda: kernels.segment_sum(gid, vals, g, block)),
+             "library_ms": cuda_ms(library)}
+        results["segment_sum"].setdefault("tpcds", []).append(r)
+    for name in ("probe_searchsorted", "segment_sum"):
+        for r in results[name].get("tpcds", ()):
+            log(f"  {name} at the tpcds shape {r['shape']}: {r['ms']:.4f} "
+                f"ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+                f"library {r['library_ms']:.4f} ms")
 
 
 def _time_hash(keys, t, probe, probe_ms, results):
@@ -2017,6 +2239,20 @@ def _check_segment_sum(dev, shapes, seed, failures, res):
                 f"{res['split']}")
 
 
+# INTERSECT ALL / EXCEPT ALL (a row_number window over UNION ALL) over
+# lineitem's duplicates, for the card-vs-CPU phase
+BAG_QUERIES = {
+    "BI": "select l_shipmode, l_returnflag from lineitem where l_orderkey "
+          "< 4000 intersect all select l_shipmode, l_returnflag from "
+          "lineitem where l_orderkey between 2000 and 9000 "
+          "order by l_shipmode, l_returnflag",
+    "BE": "select l_shipmode, l_returnflag from lineitem where l_orderkey "
+          "< 4000 except all select l_shipmode, l_returnflag from lineitem "
+          "where l_orderkey between 2000 and 5000 "
+          "order by l_shipmode, l_returnflag",
+}
+
+
 def phase_card_vs_cpu(rec, sf, seed):
     import torch
 
@@ -2027,11 +2263,17 @@ def phase_card_vs_cpu(rec, sf, seed):
         FLAT_QUERIES, NATIVE_QUERIES)
     from starrocks_tpu_torch.storage.tpch_queries import BREADTH_QUERIES
 
+    from starrocks_tpu_torch.storage.datagen.tpcds import tpcds_catalog
+    from starrocks_tpu_torch.storage.tpcds_queries import (
+        ALL_QUERIES, WINDOW_QUERIES)
+
     texts = query_texts()
     cat = tpch_catalog(sf=sf, seed=seed)
     ssb = ssb_catalog(sf=sf, seed=seed)
+    ds = tpcds_catalog(sf=sf, seed=TPCDS_SEED)
     sessions = {"tpch": (Session(cat, device=CARD), Session(cat, device="cpu")),
-                "ssb": (Session(ssb, device=CARD), Session(ssb, device="cpu"))}
+                "ssb": (Session(ssb, device=CARD), Session(ssb, device="cpu")),
+                "tpcds": (Session(ds, device=CARD), Session(ds, device="cpu"))}
     runs = [("kernels", strategies("kernels"), q) for q in texts]
     runs += [("hash_topn", HASH_KNOBS, q) for q in ("1", "2", "3", "9")]
     texts.update(topn_texts())
@@ -2043,12 +2285,17 @@ def phase_card_vs_cpu(rec, sf, seed):
     runs += [("kernels", strategies("kernels"), q) for q in FLAT_QUERIES]
     runs += [("native", {"segment_strategy": "native"}, q)
              for q in NATIVE_QUERIES]
+    texts.update(BAG_QUERIES)
+    runs += [("kernels", strategies("kernels"), q) for q in BAG_QUERIES]
+    texts.update({q: ALL_QUERIES[q] for q in WINDOW_QUERIES})
+    runs += [("kernels", strategies("kernels"), q) for q in WINDOW_QUERIES]
     want = {}
     bad = []
     out = {}
     for label, knobs, q in runs:
-        card, cpu = sessions["ssb" if q in FLAT_QUERIES or q in NATIVE_QUERIES
-                             else "tpch"]
+        card, cpu = sessions[
+            "ssb" if q in FLAT_QUERIES or q in NATIVE_QUERIES
+            else "tpcds" if q in WINDOW_QUERIES else "tpch"]
         if q not in want:
             set_knobs(strategies("auto"))
             want[q] = cpu.sql(texts[q]).table
@@ -2078,6 +2325,8 @@ def main(argv=None) -> int:
                     help="TPC-H scale factor of the main path (default 10)")
     ap.add_argument("--ssb-sf", type=float, default=10.0,
                     help="SSB scale factor of the ssb path (default 10)")
+    ap.add_argument("--tpcds-sf", type=float, default=10.0,
+                    help="TPC-DS scale factor of the tpcds path (default 10)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--out", default="chip_smoke_out",
                     help="directory for chip_smoke.json")
@@ -2124,6 +2373,8 @@ def main(argv=None) -> int:
         ("breadth", lambda: phase_breadth(rec, data["cat"], args.sf)),
         ("ssb", lambda: phase_ssb(rec, args.ssb_sf, args.seed)),
         ("store", lambda: phase_store(rec, data["cat"], args.sf)),
+        ("tpcds", lambda: (data.pop("cat", None), _settle(),
+                           phase_tpcds(rec, args.tpcds_sf))),
         ("kernels", lambda: phase_kernels(
             rec, args.seed, args.kernels and args.kernels.split(","))),
         ("card_vs_cpu", lambda: phase_card_vs_cpu(rec, CPU_SF, args.seed)),
@@ -2171,7 +2422,9 @@ def main(argv=None) -> int:
         r = rec["kernels"][name]
         line.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": rec[path]["launches"][name],
+            "replaces": replaces,
+            "launches": rec[path]["launches"][name]
+            + rec["tpcds"]["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

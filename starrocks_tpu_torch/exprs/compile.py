@@ -66,6 +66,14 @@ def _and_valid(*valids):
     return out
 
 
+def div_scalar(x: torch.Tensor, s) -> torch.Tensor:
+    """x / s, correctly rounded on every device. CUDA divides a float
+    tensor by a host scalar as x * (1 / s), up to an ulp off the quotient
+    the CPU (and XLA) give, which reorders rows that an ORDER BY on such a
+    value ties; a 0-d divisor on x's device takes the true division."""
+    return x / torch.full((), s, dtype=x.dtype, device=x.device)
+
+
 def as_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
     """`x` (a tensor or a host scalar) as a tensor of `dtype` on `device`:
     the port's `jnp.asarray(x, dtype)`. Float to int truncates, as JAX's
@@ -173,7 +181,7 @@ def _to_numeric(v: EVal, target: T.LogicalType, device) -> torch.Tensor:
     temporal unit conversion)."""
     if v.type.is_decimal128 and target.is_float:
         f = d128.to_f64(as_tensor(v.data, torch.int64, device))
-        return (f / (10 ** v.type.scale)).to(target.dtype)
+        return div_scalar(f, 10 ** v.type.scale).to(target.dtype)
     if v.type.is_decimal128 and target.is_decimal128:
         if target.scale < v.type.scale:
             raise NotImplementedError("DECIMAL128 downscale cast")
@@ -197,7 +205,8 @@ def _to_numeric(v: EVal, target: T.LogicalType, device) -> torch.Tensor:
             d = d // (10 ** (v.type.scale - target.scale))
         return d
     if v.type.is_decimal and target.is_float:
-        return as_tensor(v.data, target.dtype, device) / (10 ** v.type.scale)
+        return div_scalar(as_tensor(v.data, target.dtype, device),
+                          10 ** v.type.scale)
     if (not v.type.is_decimal) and target.is_decimal:
         return as_tensor(v.data, torch.int64, device) * (10 ** target.scale)
     return as_tensor(v.data, target.dtype, device)
@@ -301,9 +310,9 @@ class ExprCompiler:
         out_t = vals[0].type
         for v in vals[1:]:
             out_t = _common_valued(out_t, v.type)
+        out_dict = None
         if out_t.is_string:
-            raise NotImplementedError(
-                "string-valued CASE is not in the port yet")
+            out_dict = _one_dict(vals)
         cap, dev = self.chunk.capacity, self.device
         if orelse is not None:
             acc = _to_numeric(orelse, out_t, dev).expand(cap)
@@ -321,7 +330,7 @@ class ExprCompiler:
             bv = (torch.ones((cap,), dtype=torch.bool, device=dev)
                   if val.valid is None else val.valid.expand(cap))
             acc_valid = torch.where(c, bv, acc_valid)
-        return EVal(acc, acc_valid, out_t)
+        return EVal(acc, acc_valid, out_t, out_dict)
 
     # --- IN list ------------------------------------------------------------
     def _in_list(self, e: InList) -> EVal:
@@ -365,6 +374,23 @@ class ExprCompiler:
         if has_null:
             valid = m if valid is None else (valid & m)
         return EVal(~m if e.negated else m, valid, T.BOOLEAN)
+
+
+def _one_dict(vals) -> StringDict:
+    """The dictionary of a string-valued CASE whose values are columns of
+    ONE dictionary (or NULL): its codes are then the result's codes, as in
+    TPC-DS q36/q86's `case when grouping(c) = 0 then i_category end`.
+    Branches over two dictionaries or string literals need a branch merge
+    the port does not have (the reference answers them with raw codes or
+    fails: ROADMAP.md, reference defects), so they raise."""
+    strs = [v for v in vals if v.type.kind is not T.TypeKind.NULL]
+    dicts = {id(v.dict) for v in strs}
+    if (any(v.dict is None or isinstance(v.data, str) for v in strs)
+            or len(dicts) != 1):
+        raise NotImplementedError(
+            "string-valued CASE over string literals or more than one "
+            "dictionary is not in the port yet")
+    return strs[0].dict
 
 
 def _common_valued(a: T.LogicalType, b: T.LogicalType) -> T.LogicalType:
@@ -1065,7 +1091,7 @@ def _f_round(cc, a, nd=None):
     d = as_tensor(a.data, torch.float64, dev)
     f = 10.0 ** digits
     # SQL rounds half away from zero (torch.round is half-to-even)
-    r = torch.sign(d) * torch.floor(torch.abs(d) * f + 0.5) / f
+    r = div_scalar(torch.sign(d) * torch.floor(torch.abs(d) * f + 0.5), f)
     return EVal(r, a.valid, T.DOUBLE)
 
 

@@ -29,7 +29,7 @@ import torch
 
 from .. import types as T
 from ..column.column import Chunk, Field, Schema
-from ..exprs.compile import EVal, ExprCompiler, as_tensor
+from ..exprs.compile import EVal, ExprCompiler, as_tensor, div_scalar
 from . import dec128 as d128
 from .common import argsort_stable, boundaries, eval_keys, key_sort_arrays, lexsort
 from .segment import seg_count, seg_first_index, seg_max, seg_min, seg_sum
@@ -49,7 +49,7 @@ def _as_f64(a: EVal, device):
     """Arg data as float64 (decimals unscale)."""
     d = as_tensor(a.data, torch.float64, device)
     if a.type.is_decimal:
-        return d / (10 ** a.type.scale)
+        return div_scalar(d, 10 ** a.type.scale)
     return d
 
 
@@ -335,7 +335,8 @@ def _emit_agg_columns(cc, aggs, mode, cap, live_rows, reorder, gid,
             gcnt = _seg_sum(m.to(torch.int64), nbits=1)
             denom = torch.clamp(gcnt, min=1)
             if sum_t.is_decimal:
-                res = gsum.to(torch.float64) / (10 ** sum_t.scale) / denom
+                res = div_scalar(gsum.to(torch.float64),
+                                 10 ** sum_t.scale) / denom
             else:
                 res = gsum.to(torch.float64) / denom
             out_fields.append(Field(name, T.DOUBLE, True))

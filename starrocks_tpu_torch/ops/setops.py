@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..column.column import Chunk, Field, Schema
+from ..exprs.compile import div_scalar
 from ..types import DECIMAL, DOUBLE, TypeKind, common_numeric_type
 from . import dec128 as d128
 
@@ -31,7 +32,7 @@ def _widen(d, t, out):
         scale = (out.scale or 0) - ((t.scale or 0) if t.is_decimal else 0)
         return d.to(torch.int64) * (10 ** scale)
     if out.is_float and t.is_decimal:
-        return d.to(out.dtype) / (10 ** (t.scale or 0))
+        return div_scalar(d.to(out.dtype), 10 ** (t.scale or 0))
     return d.to(out.dtype)
 
 
@@ -52,7 +53,7 @@ def _widen128(d, t, out):
     rescaled to `out`'s scale, or a DECIMAL(38)'s value as DOUBLE."""
     if out.is_float:
         if t.is_decimal128:
-            return d128.to_f64(d) / (10 ** (t.scale or 0))
+            return div_scalar(d128.to_f64(d), 10 ** (t.scale or 0))
         return _widen(d, t, out)
     if not t.is_decimal128:
         d = d128.from_i64(d.to(torch.int64))

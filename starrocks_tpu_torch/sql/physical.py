@@ -12,7 +12,8 @@ two packages pick the same operators and capacities for the same plan.
 The planning helpers (choose_key_packing, dense_rf_range, the runtime-filter
 ladder, maybe_compact, the 24x expand rule, the multiway LUT probe) are the
 reference's, unchanged. LUnion concatenates its inputs (ops/setops.py);
-LWindow and LUnnest are not ported yet and raise PlanError.
+LWindow runs ops/window.py, behind the window top-N prefilter where the
+function set allows it; LUnnest is not ported yet and raises PlanError.
 
 Planning decisions made here:
 - join implementation: unique-build gather join when the build side is
@@ -36,6 +37,9 @@ from ..ops import (
     limit_chunk, project, sort_chunk,
 )
 from ..ops.setops import union_all
+from ..ops.window import (
+    window_op, window_topn_prefilter, window_topn_prefilter_safe,
+)
 from ..column.column import pad_capacity
 from .analyzer import _conjuncts
 from .logical import (
@@ -604,9 +608,49 @@ def compile_plan(plan: LogicalPlan, catalog, caps: Caps,
                 return out
             if isinstance(p, LLimit):
                 return limit_chunk(emit(p.child), p.limit, p.offset)
-            if isinstance(p, (LWindow, LUnnest)):
+            if isinstance(p, LWindow):
+                c = emit(p.child)
+                ctrs = {}
+                pre = None
+                if p.limit is not None:
+                    # TopN runtime filter: mask rows past the per-partition
+                    # k-th key BEFORE the window's sort, then compact —
+                    # the expensive lexsort runs over ~k*partitions rows
+                    # instead of the whole window input (threshold ties
+                    # can exceed the seed; the overflow check recompiles).
+                    # Only when the function set tolerates pre-sort drops
+                    # (row-counting limit func, prefix-only co-residents);
+                    # otherwise window_op's exact in-window mask does all
+                    # the work
+                    from ..ops.common import compact
+
+                    if window_topn_prefilter_safe(p.funcs, p.limit):
+                        pre = window_topn_prefilter(
+                            c, p.partition_by, p.order_by, p.limit[1])
+                    if pre is not None:
+                        keep, seed_rows = pre
+                        n_live = c.num_rows()
+                        c = c.and_sel(keep)
+                        ctrs["window_topn_prefiltered"] = (
+                            n_live - c.num_rows())
+                        key = f"wtop_{ordinal(p)}"
+                        cap = caps.get(key, pad_capacity(
+                            seed_rows * 2 + 1024))
+                        if cap < c.capacity:
+                            c, nk = compact(c, cap)
+                            checks[key] = nk
+                if pre is None:
+                    # no threshold path: the estimate-seeded shrink is the
+                    # only capacity reduction before the window sort
+                    c = maybe_compact(p.child, c, str(ordinal(p)))
+                out = window_op(c, p.partition_by, p.order_by, p.funcs,
+                                limit_spec=p.limit, counters=ctrs)
+                for nm, v in ctrs.items():
+                    checks[f"~ctr_{nm}@{ordinal(p)}"] = v
+                return out
+            if isinstance(p, LUnnest):
                 raise PlanError(
-                    f"{type(p).__name__} is not in the port yet")
+                    "LUnnest is not in the port yet (queue A, slice 5b)")
             if isinstance(p, LUnion):
                 out = emit(p.inputs[0])
                 for child in p.inputs[1:]:
@@ -1004,6 +1048,11 @@ def compile_plan(plan: LogicalPlan, catalog, caps: Caps,
             return out
 
         chunk = emit(plan)
+        # emit and _emit reference each other, so the closures and
+        # emit_memo form a reference cycle that only Python's cyclic
+        # collector frees: clear the memo here, or every intermediate
+        # chunk of the query stays on the device after it returns
+        emit_memo.clear()
         return chunk, checks
 
     return Compiled(run, scans, plan.output_names(), tuple(aux),

@@ -41,7 +41,12 @@ installed:
 - statements and storage: a small TabletStore on the card (create,
   insert, upsert, delete, update, restart, compaction, then queries under
   `auto` and the kernel strategies), a table registered again under a card
-  Session, and DML on in-memory PRIMARY KEY tables, each against the CPU.
+  Session, and DML on in-memory PRIMARY KEY tables, each against the CPU;
+- the window operator on a 2^20-row chunk for every function and frame
+  kind, its top-N prefilter under both branches and its rank mask, and
+  the TPC-DS window and kernel queries at SF 0.01 under the kernel
+  strategies, each against the CPU; decimal quotients (divisions by a
+  power of ten) bit for bit against the CPU.
 """
 
 import numpy as np
@@ -728,3 +733,192 @@ def test_dml_on_card_matches_cpu(cuda):
     assert vals_card == vals_cpu
     for a, b in zip(got_card, got_cpu):
         _tables_equal(a, b)
+
+
+# --- the window operator (ops/window.py) -------------------------------------
+
+WINDOW_CAP = 1 << 20
+
+
+def _window_chunk(device):
+    """A seeded chunk of WINDOW_CAP rows with NULLs and dead rows: a
+    partition key of 600 values (g), a dictionary one of 7 (p), an
+    order key with ties (k), a DECIMAL(10, 2) (kd), a DOUBLE (v) and a
+    BIGINT (i)."""
+    from starrocks_tpu_torch import types as T
+    from starrocks_tpu_torch.column import (
+        Field, Schema, StringDict, chunk_from_arrays)
+
+    rng = np.random.default_rng(23)
+    n = WINDOW_CAP
+    pd_ = StringDict.from_values([f"p{j}" for j in range(7)])
+    arrays = {"g": rng.integers(0, 600, n).astype(np.int32),
+              "p": rng.integers(0, 7, n).astype(np.int32),
+              "k": rng.integers(0, 5000, n).astype(np.int32),
+              "kd": rng.integers(0, 100_000, n).astype(np.int64),
+              "v": np.round(rng.normal(50, 20, n), 2),
+              "i": rng.integers(-10**6, 10**6, n).astype(np.int64)}
+    valids = {c: rng.random(n) > 0.05 for c in ("g", "k", "v", "i")}
+    schema = Schema((Field("g", T.INT, True), Field("p", T.VARCHAR, False,
+                                                    pd_),
+                     Field("k", T.INT, True), Field("kd", T.DECIMAL(10, 2),
+                                                    False),
+                     Field("v", T.DOUBLE, True), Field("i", T.BIGINT, True)))
+    c = chunk_from_arrays(schema, arrays, valids, device=device)
+    return c.and_sel(torch.from_numpy(rng.random(n) > 0.03).to(device))
+
+
+def _wspec(spec):
+    from starrocks_tpu_torch.exprs.ir import Col
+
+    part, order, funcs = spec
+    return (tuple(Col(c) for c in part),
+            tuple((Col(c), a, nf) for c, a, nf in order),
+            tuple((f[0], f[1], None if f[2] is None else Col(f[2]), *f[3:])
+                  for f in funcs))
+
+
+def _wframe(frame):
+    return [(f"{fn}_{c}", fn, c, None, None, frame)
+            for c in ("v", "i", "kd") for fn in ("sum", "avg", "min", "max",
+                                                 "count")]
+
+
+_WAGGS = [("cnt", "count", None, None, None)] + [
+    (f"{fn}_{c}", fn, c, None, None) for c in ("v", "i", "kd")
+    for fn in ("sum", "avg", "min", "max", "count")]
+WINDOW_GPU_CASES = {
+    "ranks": (("g",), (("k", True, True), ("v", False, False)),
+              [("rn", "row_number", None, None, None),
+               ("rk", "rank", None, None, None),
+               ("dr", "dense_rank", None, None, None)]),
+    "lead_lag": (("p", "g"), (("k", True, False), ("i", True, False)),
+                 [("ld", "lead", "v", 1, None), ("lg", "lag", "v", 2, None),
+                  ("lgd", "lag", "i", 1, 0), ("ld3", "lead", "kd", 3, None)]),
+    "first_last": (("g",), (("k", True, True),),
+                   [("fv", "first_value", "v", None, None),
+                    ("lv", "last_value", "i", None, None),
+                    ("fr", "first_value", "v", None, None,
+                     ("rows", "p", 1, "f", 1)),
+                    ("lr", "last_value", "i", None, None,
+                     ("range", "p", 50, "f", 50))]),
+    "ntile": (("p",), (("i", True, True),),
+              [("n3", "ntile", None, 3, None), ("n7", "ntile", None, 7,
+                                                 None)]),
+    "whole_partition": (("g",), (), _WAGGS),
+    "running": (("g",), (("k", True, False),), _WAGGS),
+    "rows_frame": (("g",), (("k", True, False), ("i", True, False)),
+                   _wframe(("rows", "p", 3, "f", 2))),
+    "range_frame": (("p",), (("kd", False, True),),
+                    _wframe(("range", "p", 5, "f", 1.5))),
+}
+
+
+def _window_tables_equal(a, b):
+    from starrocks_tpu_torch.column import HostTable
+
+    ta, tb = HostTable.from_chunk(a), HostTable.from_chunk(b)
+    assert [f.name for f in ta.schema] == [f.name for f in tb.schema]
+    assert ta.num_rows == tb.num_rows
+    for f in ta.schema:
+        va, vb = ta.valids.get(f.name), tb.valids.get(f.name)
+        ma = np.ones(ta.num_rows, bool) if va is None else np.asarray(va)
+        mb = np.ones(tb.num_rows, bool) if vb is None else np.asarray(vb)
+        assert (ma == mb).all(), f.name
+        xa, xb = ta.arrays[f.name][ma], tb.arrays[f.name][mb]
+        if f.type.is_float:
+            # explicit-frame sums are prefix-sum differences (the JAX
+            # package's design): the card's cumsum adds in another order
+            # than the CPU's, so a difference carries the rounding of the
+            # prefix (~5e7 here: 2^-52 * 5e7 = 1.1e-8), not of the frame
+            np.testing.assert_allclose(xa, xb, rtol=1e-9, atol=1e-6,
+                                       err_msg=f.name)
+        else:
+            assert (np.asarray(xa) == np.asarray(xb)).all(), f.name
+
+
+@pytest.mark.parametrize("name", sorted(WINDOW_GPU_CASES))
+def test_window_op_on_card_matches_cpu(cuda, name):
+    """window_op on a 2^20-row chunk on the card equals the CPU's, row for
+    row in the window's sorted order."""
+    from starrocks_tpu_torch.ops.window import window_op
+
+    spec = _wspec(WINDOW_GPU_CASES[name])
+    card = window_op(_window_chunk(cuda), *spec)
+    assert card.data[0].is_cuda
+    _window_tables_equal(card, window_op(_window_chunk("cpu"), *spec))
+
+
+@pytest.mark.parametrize("strategy", ["auto", "mxu"])
+def test_window_topn_on_card_matches_cpu(cuda, strategy):
+    """The top-N prefilter (the strided ladder under `auto`, the exact
+    torch.topk threshold under `mxu`) and the in-window rank mask on the
+    card: the same keep mask, pruned count and rows as the CPU."""
+    from starrocks_tpu_torch.exprs.ir import Col
+    from starrocks_tpu_torch.ops.window import (
+        window_op, window_topn_prefilter)
+
+    config.set("segment_strategy", strategy)
+    try:
+        spec = _wspec((("p",), (("v", False, False),),
+                       [("r", "rank", None, None, None)]))
+        out = []
+        for dev in (cuda, "cpu"):
+            c = _window_chunk(dev)
+            keep, seed = window_topn_prefilter(
+                c, (Col("p"),), ((Col("v"), False, False),), 10)
+            ctr = {}
+            w = window_op(c.and_sel(keep), *spec, limit_spec=("r", 10),
+                          counters=ctr)
+            out.append((keep.cpu(), seed, int(ctr["window_topn_pruned"]), w))
+        assert (out[0][0] == out[1][0]).all()
+        assert out[0][1:3] == out[1][1:3]
+        _window_tables_equal(out[0][3], out[1][3])
+    finally:
+        config.set("segment_strategy", AUTO_STRATEGIES["segment_strategy"])
+
+
+def test_tpcds_window_queries_on_card_match_cpu(cuda):
+    """The 15 TPC-DS window queries and the kernel queries at SF 0.01 on
+    the card under the kernel strategies, against the CPU under `auto`;
+    the float cells of the segment-sum queries to a relative 1e-4."""
+    from starrocks_tpu_torch.storage.datagen.tpcds import tpcds_catalog
+    from starrocks_tpu_torch.storage.tpcds_queries import (
+        ALL_QUERIES, KERNEL_RUN_QUERIES, SEGMENT_SUM_QUERIES,
+        SEGMENT_SUM_REL)
+
+    from chip_smoke import tables_agree
+
+    cat = tpcds_catalog(sf=0.01)
+    card, cpu = Session(cat, device=cuda), Session(cat, device="cpu")
+    launched = dict.fromkeys(kernels.WRAPPERS, 0)
+    try:
+        for q in KERNEL_RUN_QUERIES:
+            _set(AUTO_STRATEGIES)
+            want = cpu.sql(ALL_QUERIES[q]).table
+            _set(KERNEL_STRATEGIES)
+            kernels.reset_counts()
+            got = card.sql(ALL_QUERIES[q]).table
+            torch.cuda.synchronize()
+            for n, c in kernels.counts().items():
+                launched[n] += c["launches"]
+            rel = SEGMENT_SUM_REL if q in SEGMENT_SUM_QUERIES else 1e-6
+            assert tables_agree(got, want, rel=rel), q
+    finally:
+        _set(AUTO_STRATEGIES)
+    assert all(launched[n] >= 1 for n in
+               ("probe_searchsorted", "topn_select", "segment_sum")), launched
+
+
+def test_decimal_quotients_on_card_equal_the_cpu(cuda):
+    """Decimal -> DOUBLE conversions, averages and round() divide by a
+    power of ten: on the card a float tensor divided by a host scalar is
+    x * (1 / s), up to an ulp off the CPU's quotient (TPC-DS q89's ORDER BY
+    on such a difference then broke its ties otherwise). div_scalar gives
+    the CPU's bits."""
+    from starrocks_tpu_torch.exprs.compile import div_scalar
+
+    x = torch.from_numpy(np.random.default_rng(3).integers(
+        -10**9, 10**9, 1 << 16)).to(torch.float64)
+    for s in (100, 10**4, 1000.0):
+        assert torch.equal(div_scalar(x.to(cuda), s).cpu(), x / s)

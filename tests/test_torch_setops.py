@@ -9,8 +9,9 @@ strings, values, validity and the selection mask. Then UNION, UNION ALL,
 INTERSECT and EXCEPT through SQL, over `catalog_from_numpy` tables that
 copy the data of tests/test_sql_frontend.py's set-operation tests, and
 B1-B4 (`BREADTH_QUERIES`) at SF 0.01, against the JAX Session. INTERSECT
-ALL and EXCEPT ALL plan a window (row_number per row group), which the
-port does not have yet: they raise.
+ALL and EXCEPT ALL (a window, row_number per row group, over UNION ALL)
+and their chains over duplicates and NULLs, against the JAX Session and
+tests/test_sql_frontend.py's expected rows.
 """
 
 from decimal import Decimal
@@ -30,7 +31,6 @@ from starrocks_tpu_torch.column import HostTable as THostTable
 from starrocks_tpu_torch.column.column import Chunk as TChunk
 from starrocks_tpu_torch.ops import setops as tsetops
 from starrocks_tpu_torch.runtime.session import Session
-from starrocks_tpu_torch.sql.physical import PlanError
 from starrocks_tpu_torch.storage.catalog import catalog_from_numpy, tpch_catalog
 from starrocks_tpu_torch.storage.tpch_queries import BREADTH_QUERIES
 
@@ -288,11 +288,46 @@ def test_setops_sql_known_answers(setop_sessions):
     assert ts.sql(SETOP_SQL["except"]).rows() == [(1, "p")]
 
 
-@pytest.mark.parametrize("op", ["intersect all", "except all"])
-def test_bag_setops_need_the_window_operator(setop_sessions, op):
-    _, ts = setop_sessions
-    with pytest.raises(PlanError, match="LWindow"):
-        ts.sql(f"select x, s from ba {op} select x, s from bb")
+# INTERSECT ALL / EXCEPT ALL: the analyzer's rewrite onto UNION ALL and a
+# row_number() window per row group; ba and bb hold duplicates and NULLs
+BAG_SQL = {
+    "intersect_all": "select x, s from ba intersect all select x, s from bb "
+                     "order by x nulls last, s",
+    "except_all": "select x, s from ba except all select x, s from bb "
+                  "order by x nulls last, s",
+    "except_all_rev": "select x, s from bb except all select x, s from ba "
+                      "order by x nulls last, s",
+    "intersect_all_chain": "select x, s from ba intersect all select x, s "
+                           "from bb intersect all select x, s from ba "
+                           "order by x nulls last, s",
+    "except_all_chain": "select x, s from ba except all select x, s from bb "
+                        "except all select x, s from ia "
+                        "order by x nulls last, s",
+}
+# tests/test_sql_frontend.py's expected rows
+BAG_KNOWN = {
+    "intersect_all": [(1, "a"), (1, "a"), (3, None), (None, None)],
+    "except_all": [(1, "a"), (2, "b"), (3, None)],
+    "intersect_all_chain": [(1, "a"), (1, "a"), (3, None), (None, None)],
+}
+
+
+@pytest.mark.parametrize("name", sorted(BAG_SQL))
+def test_bag_setops_match_jax(setop_sessions, name):
+    js, ts = setop_sessions
+    want = js.sql(BAG_SQL[name]).rows()
+    got = ts.sql(BAG_SQL[name]).rows()
+    assert rows_match(got, want) and got
+    if name in BAG_KNOWN:
+        assert got == BAG_KNOWN[name]
+
+
+def test_bag_setops_mixing_raises(setop_sessions):
+    """A chain mixing INTERSECT ALL with INTERSECT is refused by both."""
+    for s in setop_sessions:
+        with pytest.raises(Exception, match="mixing"):
+            s.sql("select x, s from ba intersect all select x, s from bb "
+                  "intersect select x, s from ba")
 
 
 @pytest.fixture(scope="module")

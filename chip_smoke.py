@@ -23,8 +23,8 @@ allocated when it started. Phases, each of which must pass:
    launch probe_searchsorted, S1 and S2 segment_sum. The peak device
    memory of the path is kept. Then the same queries under `auto`, in a
    fresh session, for the times beside them. A traced warm run of each
-   query under `auto` reads the device's busy time from torch.profiler
-   (the run under the kernel strategies is cut: TRACED_PATH_STRATEGIES).
+   query under the strategy sets in TRACED_PATH_STRATEGIES reads the
+   device's busy time from torch.profiler (none: CUTS).
 4. hash_topn (the first slice's path, counts set to 0 before it and read
    after it): Q9 at --sf with the hash-join kernels (`join_probe_strategy
    = 'pallas'`), and Q2 at SF 1, where its ORDER BY key packs for the
@@ -45,21 +45,42 @@ allocated when it started. Phases, each of which must pass:
    extremes, group_concat, the numeric, date and string functions) at
    --sf cold and warm under the kernel strategies, then under `auto` in a
    fresh session; launch counts set to 0 and peak memory reset before
-   each query; rows equal between the two (B7's floats to a relative
+   each query (cold only under the kernel strategies: CUTS); rows equal
+   between the two (B7's floats to a relative
    1e-4, or one unit in the rounded place of its rounded cells: its float
    sums take the f32 segment-sum kernel under `pallas`);
-   one traced warm run of each under `auto` (cut as tpch's).
+   traced warm runs cut as tpch's.
 6b. functions (the rest of the scalar surface): F1-F11
    (`FUNCTION_QUERIES`: the function waves' maths, bit, date and string
    functions, arrays, UNNEST, lambdas with MAP and STRUCT, HLL/BITMAP
    sketches, percentiles, array_agg over supplier, and a Python UDF,
    `FUNCTION_UDF`, over supplier) at --sf, before `tpcds` drops that
-   catalog, as breadth runs B1-B8 (traced under `auto`). Rows equal between
+   catalog, as breadth runs B1-B8. Rows equal between
    the strategy sets (F1's, F10's and F11's floats to a relative 1e-4:
    their sums take the f32 segment-sum kernel under `pallas`);
    segment_sum must launch in F1 and F10, topn_select in F3. Each run
    keeps F10's UDF host seconds (`udf_s`), F5's unnest capacity and the
    recompiles.
+6c. spill (execution beyond device memory): SPILL_QUERIES over the same
+   catalog with `batch_rows_threshold = spill_batch_rows = 2^23`, so
+   lineitem (60,004,659 rows at SF 10) streams through the card in 8
+   batches and orders in 2: batched aggregation (Q1, Q6, S1, S2, B7), the
+   hybrid partitioned join (Q4, Q12, Q14, Q19, and Q12 again under
+   `join_hybrid_strategy = 'grace'`), the spilled sort (N3; N1 once, cold,
+   under the kernel strategies only) and the spilled window (W1). Each
+   query runs cold and warm under the kernel strategies in a Session of
+   its own, then under `auto` in another; launch counts set to 0 and peak
+   memory reset before each run. Each run keeps its wall, the executor's
+   profile node (batches or partitions, resident, spilled and skew keys,
+   host-to-device seconds and bytes, host partition seconds, the host
+   lexsort's seconds, device-to-host syncs), the join counters, the peak
+   device memory and the resident host memory, launches and shapes; one
+   traced warm run under `auto` of the queries in SPILL_TRACED, and the
+   queries in SPILL_COLD_ONLY cold only (CUTS). Rows
+   must equal the same query's
+   rows without the threshold (S1/S2/B7's f32 cells to a relative 1e-4,
+   W1's unordered rows as a sorted list); SPILL_PARTS_LIVE must read 0
+   after every run; segment_sum must launch.
 7. ssb: SSB-flat generated at --ssb-sf (default 10: lineorder_flat of
    60,000,000 rows) and dropped after the phase; the 13 FLAT_QUERIES as
    in breadth, rows equal exactly. Then the native filter-sum lane:
@@ -81,7 +102,14 @@ allocated when it started. Phases, each of which must pass:
    'pallas'`, N1 under `topn_strategy = 'pallas'` and Q1 under `auto`,
    cold (file reads included) and warm, counts set to 0 before each; all
    five kernels must launch, and the rows must equal the in-memory
-   catalog's (S1's floats to a relative 1e-4). Then DML on the stored
+   catalog's (S1's floats to a relative 1e-4). The query cache
+   (`enable_query_cache` on): Q1 cold (its partial tier aggregates every
+   lineitem segment) and warm (a full-result hit), and QC1 (a
+   scan-aggregate over orders) before the first upsert and after it, where
+   only the segments the upsert touched (new delete vectors, the new
+   rowset's files) aggregate again: the cache's hit, miss and recompute
+   counters are kept and checked, and the rows must equal those with the
+   cache off. Then DML on the stored
    tables and on an in-memory twin, each answer held to numpy over the
    generated arrays: a 1% upsert of orders (count unchanged, the price sum
    up by exactly 1.00 per key, two rowsets, that many delete-vector rows),
@@ -93,8 +121,8 @@ allocated when it started. Phases, each of which must pass:
    is generated at --tpcds-sf (default 10: store_sales 28.8M rows,
    inventory 295.8M; seed 11; every query fits the card at SF 10, so the
    output's `reduced` list is empty). All 99 queries (`ALL_QUERIES`) run
-   cold and warm under
-   `auto`; the 15 window queries and every query that launches a kernel
+   under `auto`, cold (the 15 window queries cold and warm: the cut in
+   CUTS); the 15 window queries and every query that launches a kernel
    (`KERNEL_RUN_QUERIES`) then run cold and warm under the kernel
    strategies in a fresh session (24 queries at a time cold, then warm,
    then traced: a Session keeps its last 64 plans), both with `max_recompiles` 32
@@ -102,8 +130,8 @@ allocated when it started. Phases, each of which must pass:
    Counts set to 0 and peak memory reset
    before each query; each query keeps its wall, launches per kernel,
    each kernel's shapes and its peak memory, and one traced warm run (of
-   every kernel-strategy query, and under `auto` of the window queries:
-   the cut in CUTS) its busy time, idle share and device time by the
+   the window queries, under either strategy set: the cut in CUTS) its
+   busy time, idle share and device time by the
    window operator's spans (`window::prefilter`, `window::sort`,
    `window::scan`, `window::frame`). Rows equal between the two: exactly, floats to 6
    significant digits, the float cells of the queries that launch
@@ -131,8 +159,8 @@ allocated when it started. Phases, each of which must pass:
    timed two ways at the largest: the full stable sort, and the threshold
    sort the port uses (`ops/sort.py first_kk_desc`), which must return the
    same indices. The f32 segment sum is checked at every shape its paths
-   gave it (S1/S2's, B7's, the functions path's and the tpcds path's) and
-   timed at the largest and at each functions and tpcds shape; it adds
+   gave it (S1/S2's, B7's, the functions, spill and tpcds paths') and
+   timed at the largest and at each functions, spill and tpcds shape; it adds
    in its own fixed order, not the plain version's block order, so it is
    held to an f64 sum of the same f32 values: within 1e-6 * sum |x| per
    (group, column), and bit-identical over two runs; its error against
@@ -146,7 +174,9 @@ allocated when it started. Phases, each of which must pass:
    ALL (BAG_QUERIES) and F1-F11 at SF 0.1 on the card under the kernel
    strategies, Q1/Q2/Q3/Q9 under the hash kernels, N1-N3 under the top-N
    kernel, the 13 SSB-flat queries and the 15 TPC-DS window queries at SF
-   0.1 under the kernel strategies and NL1-NL3 under the native lane,
+   0.1 under the kernel strategies and NL1-NL3 under the native lane, and
+   SPILL_QUERIES with a 2^17-row batch budget (lineitem in 5 batches) on
+   both sides,
    against the CPU (`device="cpu"`) under `auto`; rows must agree, in
    order: exactly, except floats to 6 significant digits — and S1/S2's,
    B7's and F1/F10/F11's floats to a relative 1e-4, since `pallas` sums
@@ -154,7 +184,7 @@ allocated when it started. Phases, each of which must pass:
    sums in f64.
 
 The last lines of output are the `kernels` JSON line (each kernel's
-`launches` over its first path, the functions path and the tpcds path) and
+`launches` over its first path, the functions, spill and tpcds paths) and
 then
 {"ok": true, "device": {...}}; the full record goes to DIR/chip_smoke.json.
 `--phases kernels` (a comma list) runs those phases only, after `device`
@@ -181,9 +211,9 @@ STAT_REL = 1e-4  # S1/S2 floats, f32 block sums vs f64 (see phase 10)
 
 
 def qname(q: str) -> str:
-    """"9" -> "Q9"; "S1", "N1", "B1", "F1", "NL1" and "q1.1" stay as they
-    are."""
-    return q if q[0] in "SNBFq" else f"Q{q}"
+    """"9" -> "Q9"; "S1", "N1", "B1", "F1", "NL1", "q1.1", "Q12g", "W1" and
+    "spill:Q1" stay as they are."""
+    return q if q[0] in "SNBFqQW" or ":" in q else f"Q{q}"
 
 
 def query_texts() -> dict:
@@ -236,17 +266,26 @@ SEG_REL = 1e-6  # segment_sum vs f64: |err| <= SEG_REL * sum |x| per cell
 I64MAX = (1 << 63) - 1
 I64MIN = -(1 << 63)
 CARD = "cuda"  # the device every phase runs the port on
-# The depth cuts that keep the whole script within its time: the tpch,
-# breadth and functions paths trace their warm runs under `auto` only (the
-# kernel strategies' traces of earlier runs are in PERF.md), and tpcds
-# traces its `auto` run for the window queries only
-TRACED_PATH_STRATEGIES = ("auto",)
-CUTS = ["tpch, breadth and functions: no traced warm run under the kernel "
-        "strategies", "tpcds: under `auto` only the 15 window queries "
-        "traced (all 36 under the kernel strategies)", "the untraced cold "
-        "and warm runs and every kernel check stay"]
+# The depth cuts that keep the whole script within its time (CUTS, printed
+# at the end): the tpch, breadth, functions and ssb paths trace no warm run
+# (the strategy sets in TRACED_PATH_STRATEGIES would be traced)
+TRACED_PATH_STRATEGIES = ()
+CUTS = ["tpch, breadth, functions and ssb: no traced warm runs (earlier "
+        "traces are in PERF.md)", "breadth and functions: cold only under "
+        "the kernel strategies", "tpcds: only the 15 window queries "
+        "traced, under either strategy set",
+        "spill: traced under `auto` only Q1, Q6, S1, S2, B7 and N3 "
+        "(SPILL_TRACED)", "spill: Q4, Q12, Q14, Q19, Q12 (grace) and W1 "
+        "cold only (SPILL_COLD_ONLY)",
+        "tpcds: under `auto` the 84 non-window queries cold only",
+        "store: no traced runs (earlier ones are in PERF.md)",
+        "kernels: every check at every shape stays; the extra timings at "
+        "the functions and tpcds paths' shapes are not repeated (earlier "
+        "timings are in PERF.md); the spill path's shapes are timed",
+        "the untraced cold and warm runs and every kernel check stay"]
 TOPN_SF = 1.0  # Q2's top-N scale (see phase_hash_topn)
 CPU_SF = 0.1   # the card-vs-CPU phase's scale (the CPU runs it too)
+CPU_SPILL_ROWS = 1 << 17  # its spill queries' batch budget
 
 
 class PhaseError(RuntimeError):
@@ -401,7 +440,9 @@ def phase_build(rec):
 
     t0 = time.perf_counter()
     logs = kernels.build_kernels(verbose=True)
-    native.build()  # the host filter-sum lane's library
+    # the host libraries: the filter-sum lane's and the spill executors'
+    # bucket function
+    native.build_all()
     dt = time.perf_counter() - t0
     for name in kernels.SOURCES:
         kernels._lib(name)  # load: the build really produced a library
@@ -611,15 +652,18 @@ def phase_hash_topn(rec, cat, sf, seed):
     torch.cuda.empty_cache()
 
 
-def _run_each(s, label, texts, out, launches, tables, kernels):
-    """Cold then warm run of each query, every launch count set to 0 just
-    before it and read just after (`launches` sums them, and each run keeps
-    the shapes of every launch), and the device's peak memory reset before
-    it and read after it."""
+def _run_each(s, label, texts, out, launches, tables, kernels,
+              cold_only=()):
+    """Cold then warm run of each query (the queries in `cold_only` cold
+    only), every launch count set to 0 just before it and read just after
+    (`launches` sums them, and each run keeps the shapes of every launch),
+    and the device's peak memory reset before it and read after it."""
     import torch
 
     for run in ("cold", "warm"):
         for q, text in texts.items():
+            if run == "warm" and q in cold_only:
+                continue
             kernels.reset_counts()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -722,11 +766,11 @@ def phase_topn(rec, cat, sf):
 
 
 def _strategy_pair(cat, texts, kernels, out, tables,
-                   traced=("kernels", "auto")):
+                   traced=("kernels", "auto"), warm=("kernels", "auto")):
     """Run `texts` cold and warm under the kernel strategies, then under
-    `auto` in a fresh session (launch counts and peak memory per query),
-    with one traced warm run of each under the strategy sets in
-    `traced`."""
+    `auto` in a fresh session (launch counts and peak memory per query;
+    a strategy set not in `warm` runs cold only), with one traced warm run
+    of each under the strategy sets in `traced`."""
     import torch
 
     from starrocks_tpu_torch.runtime.session import Session
@@ -737,7 +781,8 @@ def _strategy_pair(cat, texts, kernels, out, tables,
         set_knobs(knobs)
         queries: dict = {}
         launches = dict.fromkeys(kernels.WRAPPERS, 0)
-        _run_each(s, name, texts, queries, launches, tables, kernels)
+        _run_each(s, name, texts, queries, launches, tables, kernels,
+                  () if name in warm else list(texts))
         peak = max(r["peak_mem_gb"] for q in queries.values()
                    for r in q.values())
         log(f"  under {name}: launches {launches}, peak device memory "
@@ -753,14 +798,15 @@ def _strategy_pair(cat, texts, kernels, out, tables,
 
 
 def _differ(texts, tables, a, b, rel=None, units=None) -> list:
-    """Queries whose rows differ between labels a and b (cold and warm);
-    exactly, or floats to a relative `rel[q]` (or the rounded place of
-    `units[q]`) where given."""
+    """Queries whose rows differ between labels a and b (cold, and warm
+    where both ran warm); exactly, or floats to a relative `rel[q]` (or
+    the rounded place of `units[q]`) where given."""
     rel = rel or {}
     units = units or {}
     return [f"{q} {run}" for q in texts for run in ("cold", "warm")
-            if not tables_agree(tables[(a, q, run)], tables[(b, q, run)],
-                                rel=rel.get(q, 0.0), units=units.get(q))]
+            if (a, q, run) in tables and (b, q, run) in tables
+            and not tables_agree(tables[(a, q, run)], tables[(b, q, run)],
+                                 rel=rel.get(q, 0.0), units=units.get(q))]
 
 
 def phase_ssb(rec, sf, seed):
@@ -785,7 +831,8 @@ def phase_ssb(rec, sf, seed):
     log(f"SSB SF {sf:g} generated in {gen_s:.1f} s: {rows}")
     out = {"sf": sf, "seed": seed, "gen_s": gen_s, "rows": rows}
     tables: dict = {}
-    _strategy_pair(cat, FLAT_QUERIES, kernels, out, tables)
+    _strategy_pair(cat, FLAT_QUERIES, kernels, out, tables,
+                   traced=TRACED_PATH_STRATEGIES)
     differ = _differ(FLAT_QUERIES, tables, "kernels", "auto")
     # the native lane, then the same queries on the card under auto
     lane = {**NATIVE_QUERIES,
@@ -841,7 +888,7 @@ def phase_breadth(rec, cat, sf):
     out = {"sf": sf}
     tables: dict = {}
     _strategy_pair(cat, BREADTH_QUERIES, kernels, out, tables,
-                   traced=TRACED_PATH_STRATEGIES)
+                   traced=TRACED_PATH_STRATEGIES, warm=("auto",))
     rec["breadth"] = out
     differ = _differ(BREADTH_QUERIES, tables, "kernels", "auto", BREADTH_REL,
                      BREADTH_UNITS)
@@ -886,18 +933,18 @@ def phase_functions(rec, cat, sf):
     tables: dict = {}
     try:
         _strategy_pair(cat, FUNCTION_QUERIES, kernels, out, tables,
-                       traced=TRACED_PATH_STRATEGIES)
+                       traced=TRACED_PATH_STRATEGIES, warm=("auto",))
     finally:
         udf.drop_udf("f_udf", if_exists=True)
     main = out["kernels"]["queries"]
     out["launches"] = out["kernels"]["launches"]
     for name in ("kernels", "auto"):
         q = out[name]["queries"]
+        runs = [r for r in ("cold", "warm") if r in q["F5"]]
         log(f"  functions under {name}: F10 udf_s "
-            f"{[q['F10'][r]['udf_s'] for r in ('cold', 'warm')]}, F5 unnest "
-            f"capacity {q['F5']['cold']['unnest_caps']} -> "
-            f"{q['F5']['warm']['unnest_caps']}, recompiles "
-            f"{q['F5']['cold']['recompiles']}/{q['F5']['warm']['recompiles']}")
+            f"{[q['F10'][r]['udf_s'] for r in runs]}, F5 unnest capacity "
+            f"{[q['F5'][r]['unnest_caps'] for r in runs]}, recompiles "
+            f"{[q['F5'][r]['recompiles'] for r in runs]}")
     rec["functions"] = out
     differ = _differ(FUNCTION_QUERIES, tables, "kernels", "auto",
                      FUNCTION_REL)
@@ -908,6 +955,197 @@ def phase_functions(rec, cat, sf):
     if differ or empty or missed:
         raise PhaseError(f"rows differ between strategies: {differ}; no "
                          f"rows: {empty}; kernels not launched: {missed}")
+
+
+# the spill path: a 2^23-row batch budget, so lineitem (60,004,659 rows at
+# SF 10) streams through the card in 8 batches and orders in 2; the f32
+# float cells of S1, S2 and B7 (segment_sum under `pallas`) agree with the
+# in-memory rows to a relative 1e-4 (B7's rounded cells to one unit)
+SPILL_ROWS = 1 << 23
+SPILL_REL = {"S1": STAT_REL, "S2": STAT_REL, **BREADTH_REL}
+# N1 runs once, cold, under the kernel strategies: a spilled sort launches
+# no kernel, and its host lexsort over 60M rows costs the same either way
+SPILL_ONCE = ("N1",)
+# a spill query's keys in the output: Q12 also runs under the grace join
+SPILL_GRACE = {"Q12g": "Q12"}
+UNORDERED = ("W1",)
+
+
+def spill_knobs(rows: int) -> dict:
+    return {"batch_rows_threshold": rows, "spill_batch_rows": rows}
+
+
+def _host_rss_gb() -> float:
+    """The process's resident host memory now (Linux /proc)."""
+    import os
+
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e9
+
+
+def _sorted_rows(table):
+    return sorted(table.to_pylist(), key=lambda r: tuple(map(str, r)))
+
+
+def _spill_agree(q, got, want, rel, units=None) -> bool:
+    if q in UNORDERED:
+        return got.num_rows == want.num_rows and \
+            _sorted_rows(got) == _sorted_rows(want)
+    return tables_agree(got, want, rel=rel, units=units)
+
+
+def phase_spill(rec, cat, sf):
+    """The spill path (see the module docstring, phase 6c): SPILL_QUERIES
+    over the TPC-H catalog at `sf` with a 2^23-row batch budget, each cold
+    and warm under the kernel strategies in a Session of its own, then
+    under `auto` in another (N1 cold under the kernel strategies only, Q12
+    also under the grace join); rows equal to the same query's rows
+    without the threshold; SPILL_PARTS_LIVE 0 after every query;
+    segment_sum must launch."""
+    import gc
+    import resource
+
+    import torch
+
+    from starrocks_tpu_torch.runtime.session import Session
+    from starrocks_tpu_torch.storage.tpch_queries import SPILL_QUERIES
+
+    texts = {**SPILL_QUERIES,
+             **{g: SPILL_QUERIES[q] for g, q in SPILL_GRACE.items()}}
+    out = {"sf": sf, "batch_rows": SPILL_ROWS,
+           "host_peak_rss_gb_before": resource.getrusage(
+               resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9}
+    failures = []
+    # the rows without the threshold, under `auto`, in a Session of its own
+    set_knobs(strategies("auto"))
+    s0 = Session(cat, device=CARD)
+    want, ref_s = {}, {}
+    for q, text in SPILL_QUERIES.items():
+        t = time.perf_counter()
+        want[q] = s0.sql(text).table
+        ref_s[q] = time.perf_counter() - t
+    out["in_memory_s"] = ref_s
+    del s0
+    gc.collect()
+    torch.cuda.empty_cache()
+    for g, q in SPILL_GRACE.items():
+        want[g] = want[q]
+    try:
+        _spill_runs(texts, want, cat, out, failures)
+    finally:
+        set_knobs({**spill_knobs(0), "join_hybrid_strategy": "auto"})
+    out["launches"] = out["kernels"]["launches"]
+    out["shapes"] = _path_shapes(out["kernels"]["queries"])
+    out["host_peak_rss_gb"] = (resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9)
+    log(f"spill: kernel shapes {out['shapes']}, host peak resident memory "
+        f"{out['host_peak_rss_gb']:.1f} GB (before the path "
+        f"{out['host_peak_rss_gb_before']:.1f})")
+    rec["spill"] = out
+    if out["launches"]["segment_sum"] < 1:
+        failures.append("segment_sum did not launch on the spill path")
+    if failures:
+        raise PhaseError(f"spill: {failures}")
+
+
+def _spill_runs(texts, want, cat, out, failures):
+    """The spill path's runs (phase_spill): each query in a Session of its
+    own, under the kernel strategies, then under `auto`."""
+    import gc
+
+    import torch
+
+    from starrocks_tpu_torch.ops import kernels
+    from starrocks_tpu_torch.runtime.batched import SPILL_PARTS_LIVE
+    from starrocks_tpu_torch.runtime.session import Session
+    from starrocks_tpu_torch.storage.tpch_queries import SPILL_EXECUTORS
+
+    for strategy in ("kernels", "auto"):
+        queries: dict = {}
+        launches = dict.fromkeys(kernels.WRAPPERS, 0)
+        traces = {}
+        for q, text in texts.items():
+            if q in SPILL_ONCE and strategy == "auto":
+                continue
+            executor = SPILL_EXECUTORS[SPILL_GRACE.get(q, q)]
+            hybrid = "auto"
+            if q in SPILL_GRACE:
+                executor, hybrid = "grace", "grace"
+            s = Session(cat, device=CARD)
+            set_knobs({**strategies(strategy), **spill_knobs(SPILL_ROWS),
+                       "join_hybrid_strategy": hybrid})
+            for run in ("cold", "warm"):
+                if run == "warm" and (q in SPILL_ONCE
+                                      or q in SPILL_COLD_ONLY):
+                    continue
+                kernels.reset_counts()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated() / 1e9
+                t = time.perf_counter()
+                res = s.sql(text)
+                table = res.table
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                peak = torch.cuda.max_memory_allocated() / 1e9
+                got = _snapshot(kernels)
+                for n, v in got.items():
+                    launches[n] += v
+                prof = res.profile
+                node = dict(prof.get(executor) or {})
+                shapes = {n: sorted(kernels.WRAPPERS[n].shapes)
+                          for n, v in got.items() if v}
+                r = queries.setdefault(q, {})[run] = {
+                    "wall_s": wall, "rows": table.num_rows,
+                    "peak_mem_gb": peak, "base_mem_gb": base,
+                    "host_rss_gb": _host_rss_gb(),
+                    "launches": {n: v for n, v in got.items() if v},
+                    "shapes": shapes, "executor": executor, "node": node,
+                    "counters": {k: v for k, v in prof.get(
+                        "counters", {}).items() if k.startswith("join_")},
+                    "recompiles": prof.get("recompiles"),
+                    "optimize_s": prof.get("optimize_s"),
+                    "fetch_s": prof.get("fetch_s"),
+                    "parts_live": SPILL_PARTS_LIVE.value,
+                }
+                h2d = node.get("h2d_batches") or 0
+                log(f"  {q}@{strategy} {run}: {wall * 1e3:.1f} ms, "
+                    f"{table.num_rows} rows, peak {peak:.2f} GB (from "
+                    f"{base:.2f}), {executor} "
+                    + ", ".join(f"{k} {v:.3f}" if isinstance(v, float)
+                                else f"{k} {v}" for k, v in node.items())
+                    + (f", h2d {node['h2d_s'] / h2d * 1e3:.1f} ms a batch"
+                       if h2d else "")
+                    + f", launches {r['launches']}, shapes {shapes}")
+                if not node:
+                    failures.append(f"{q}@{strategy} {run}: {executor} "
+                                    "did not run")
+                if SPILL_PARTS_LIVE.value != 0:
+                    failures.append(f"{q}@{strategy} {run}: "
+                                    f"SPILL_PARTS_LIVE {SPILL_PARTS_LIVE.value}")
+                rel = SPILL_REL.get(q, 1e-6) if strategy == "kernels" else 1e-6
+                if not _spill_agree(q, table, want[q], rel,
+                                    BREADTH_UNITS.get(q)):
+                    failures.append(f"{q}@{strategy} {run}: rows differ "
+                                    "from the in-memory path's")
+            if strategy == "auto" and q in SPILL_TRACED:
+                traces.update(trace_queries(s, {q: text}))
+            del s
+            gc.collect()
+            torch.cuda.empty_cache()
+        out[strategy] = {"queries": queries, "launches": launches,
+                         "trace": traces or None}
+        log(f"spill under {strategy}: launches {launches}")
+
+
+# the spill queries traced (one warm run under `auto`): the batched
+# aggregations and N3; the partitioned joins and W1 are host-bound (idle
+# share 0.73-0.95 when traced) and their traces repeat seconds of
+# host partitioning
+SPILL_TRACED = ("Q1", "Q6", "S1", "S2", "B7", "N3")
+# these run cold only: no kernel launches in their plans under either
+# strategy set, and a warm run repeats the same host partitioning
+SPILL_COLD_ONLY = ("Q4", "Q12", "Q14", "Q19", "Q12g", "W1")
 
 
 # TPC-DS (the tpcds path): the generator's seed, and the window operator's
@@ -971,9 +1209,13 @@ def phase_tpcds(rec, sf):
             names = list(texts)
             for i in range(0, len(names), TPCDS_GROUP):
                 group = {q: texts[q] for q in names[i:i + TPCDS_GROUP]}
-                _run_each(s, name, group, queries, launches, tables, kernels)
+                # under `auto` the non-window queries run cold only (CUTS)
+                cold_only = () if name == "kernels" else [
+                    q for q in group if q not in WINDOW_QUERIES]
+                _run_each(s, name, group, queries, launches, tables, kernels,
+                          cold_only)
                 traced = {q: t for q, t in group.items()
-                          if name == "kernels" or q in WINDOW_QUERIES}
+                          if q in WINDOW_QUERIES}
                 if traced:
                     trace.update(trace_queries(s, traced, WINDOW_SPANS))
             peak = max(r["peak_mem_gb"] for q in queries.values()
@@ -995,7 +1237,8 @@ def phase_tpcds(rec, sf):
     differ = [f"{q} {run}" for q in KERNEL_RUN_QUERIES
               for run in ("cold", "warm")
               if not tables_agree(
-                  tables[("kernels", q, run)], tables[("auto", q, run)],
+                  tables[("kernels", q, run)],
+                  tables.get(("auto", q, run), tables[("auto", q, "cold")]),
                   rel=SEGMENT_SUM_REL if q in SEGMENT_SUM_QUERIES else 1e-6)]
     missed = [k for k in ("probe_searchsorted", "topn_select", "segment_sum")
               if out["launches"][k] < 1]
@@ -1073,6 +1316,51 @@ def _timed(s, text):
     return res, time.perf_counter() - t
 
 
+# the query cache's delta check over orders (the store path's upserts
+# change orders, not lineitem): a scan-aggregate the partial tier caches
+# per segment
+QC1 = ("select o_orderstatus, count(*) c, sum(o_totalprice) s, "
+       "avg(o_totalprice) a from orders group by o_orderstatus order by 1")
+
+
+def _segment_files(sess, table) -> dict:
+    """{data file: its delete-vector length} of a stored table."""
+    m = sess.store.read_manifest(table)
+    return {f["file"]: len(f.get("delvec") or ())
+            for rs in m["rowsets"] for f in rs["files"]}
+
+
+def _qcache_runs(sess, text, runs, want, failures, name) -> dict:
+    """`text` with `enable_query_cache` on, once per run: wall, the cache's
+    own counters, rows held to `want` (the rows with the cache off)."""
+    import torch
+
+    set_knobs({**strategies("auto"), "enable_query_cache": True})
+    out = {}
+    try:
+        for run in runs:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = sess.sql(text)
+            table = res.table
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counters = {k: v for k, v in res.profile.get(
+                "counters", {}).items() if k.startswith("qcache_")}
+            node = res.profile.get("qcache_partial") or {}
+            out[run] = {"wall_s": wall, "counters": counters,
+                        "segments_s": node.get("segments_s"),
+                        "merge_final_s": node.get("merge_final_s")}
+            log(f"  query cache {name} {run}: {wall * 1e3:.1f} ms, "
+                f"{counters}")
+            if not tables_agree(table, want):
+                failures.append(f"query cache {name} {run}: rows differ "
+                                "from the uncached rows")
+    finally:
+        set_knobs({"enable_query_cache": False})
+    return out
+
+
 def phase_store(rec, cat, sf):
     """The store path (see the module docstring, phase 8): TPC-H at `sf`
     persisted in a TabletStore under a temporary directory, which is
@@ -1144,7 +1432,6 @@ def phase_store(rec, cat, sf):
         # 3. the queries over the stored tables, cold then warm
         queries, tables = {}, {}
         launches = dict.fromkeys(kernels.WRAPPERS, 0)
-        trace = {}
         for label, knobs, q in STORE_RUNS:
             set_knobs(strategies("auto"))
             set_knobs(knobs)
@@ -1152,8 +1439,6 @@ def phase_store(rec, cat, sf):
             _run_each(s2, label, {q: texts[q]}, sub, launches, tables,
                       kernels)
             queries[f"{qname(q)}@{label}"] = sub[q]
-            trace[f"{qname(q)}@{label}"] = trace_queries(
-                s2, {q: texts[q]})[q]
         out["queries"] = queries
         # host seconds each stored table took to load from its files (in
         # the first query that read it: its cold wall includes them)
@@ -1163,7 +1448,7 @@ def phase_store(rec, cat, sf):
             f"{n} {v:.2f} s" for n, v in out["file_load_s"].items()))
         out["launches"] = launches
         out["shapes"] = _path_shapes(queries)
-        out["trace"] = trace
+        out["trace"] = None  # cut: see CUTS
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         log(f"  store queries: launches {launches}, peak device memory "
             f"{out['peak_mem_gb']:.2f} GB")
@@ -1183,6 +1468,22 @@ def phase_store(rec, cat, sf):
                                     "differ from the in-memory catalog's")
         del m
         torch.cuda.empty_cache()
+
+        # 3b. the query cache over the stored tables: Q1 cold then warm (a
+        # full-result hit), QC1 over orders before the upsert (every
+        # segment aggregated and cached)
+        qc = out["query_cache"] = {}
+        qc_want = {}
+        set_knobs(strategies("auto"))
+        for q, text in (("Q1", texts["1"]), ("QC1", QC1)):
+            qc_want[q] = s2.sql(text).table
+        qc["Q1"] = _qcache_runs(s2, texts["1"], ("cold", "warm"),
+                                qc_want["Q1"], failures, "Q1")
+        if qc["Q1"]["warm"]["counters"].get("qcache_hits") != 1:
+            failures.append("query cache: Q1's warm run was not a hit")
+        qc["QC1_before"] = _qcache_runs(s2, QC1, ("cold",), qc_want["QC1"],
+                                        failures, "QC1")
+        segs_before = _segment_files(s2, "orders")
 
         # 4. DML on the stored tables and on an in-memory twin, each
         # answer held to numpy over the generated arrays
@@ -1258,6 +1559,28 @@ def phase_store(rec, cat, sf):
                 failures.append(f"{label} upsert: {n} rows")
             res["after_upsert"] = check_orders(sess, "upsert",
                                                f"{label} upsert")
+            if label == "stored":
+                # QC1 after the upsert: only the segments it touched (new
+                # delete vectors, the new rowset's files) aggregate again
+                set_knobs({"enable_query_cache": False})
+                after_want = s2.sql(QC1).table
+                r = qc["QC1_after"] = _qcache_runs(
+                    s2, QC1, ("cold", "warm"), after_want, failures, "QC1")
+                segs_after = _segment_files(s2, "orders")
+                touched = sum(1 for f, dv in segs_after.items()
+                              if segs_before.get(f) != dv)
+                qc["segments"] = {"before": len(segs_before),
+                                  "after": len(segs_after),
+                                  "touched": touched}
+                c = r["cold"]["counters"]
+                if (c.get("qcache_partial_recomputed") != touched
+                        or c.get("qcache_partial_hits")
+                        != len(segs_after) - touched):
+                    failures.append(f"query cache after the upsert: "
+                                    f"{c}, {touched} of {len(segs_after)} "
+                                    "segments touched")
+                log(f"  query cache: QC1 after the upsert {c}; "
+                    f"{touched} of {len(segs_after)} segments touched")
             n, wall = _timed(sess, stmts["delete"])
             res["delete"] = {"rows": n, "wall_s": wall}
             if n != want["delete"]:
@@ -1636,8 +1959,8 @@ def phase_kernels(rec, seed, only=None):
 
     dev = torch.device(CARD)
     shapes = {n: [] for n in kernels.WRAPPERS}
-    for path in ("hash_topn", "tpch", "topn", "breadth", "functions", "ssb",
-                 "store", "tpcds"):
+    for path in ("hash_topn", "tpch", "topn", "breadth", "functions",
+                 "spill", "ssb", "store", "tpcds"):
         for n, v in (rec.get(path) or {}).get("shapes", {}).items():
             shapes[n] += [tuple(x) for x in v]
     build_shape = max(shapes["hash_build"] or [DEFAULT_SHAPES["hash_build"]])
@@ -1675,7 +1998,7 @@ def phase_kernels(rec, seed, only=None):
             traceback.print_exc()
             failures.append(f"{name}: {type(e).__name__}: {e}")
     if not only or {"probe_searchsorted", "segment_sum"} & set(only):
-        for path in ("functions", "tpcds"):
+        for path in ("spill",):
             try:
                 _time_path_shapes(dev, path, (rec.get(path) or {}).get(
                     "shapes", {}), seed, results)
@@ -1697,7 +2020,7 @@ def phase_kernels(rec, seed, only=None):
 
 def _time_path_shapes(dev, path, shapes, seed, results):
     """The sorted probe and the segment sum timed at each shape `path` (the
-    tpcds or the functions path) launched them with (random inputs of that
+    tpcds, the functions or the spill path) launched them with (random inputs of that
     shape: sorted distinct build keys, uniform probes; four live groups of
     discount-like values): the kernel and the library call with CUDA
     events, beside the bound (the checks' formulas), kept under
@@ -2360,7 +2683,7 @@ def phase_card_vs_cpu(rec, sf, seed):
     from starrocks_tpu_torch.storage.ssb_queries import (
         FLAT_QUERIES, NATIVE_QUERIES)
     from starrocks_tpu_torch.storage.tpch_queries import (
-        BREADTH_QUERIES, FUNCTION_QUERIES)
+        BREADTH_QUERIES, FUNCTION_QUERIES, SPILL_QUERIES)
 
     from starrocks_tpu_torch.storage.datagen.tpcds import tpcds_catalog
     from starrocks_tpu_torch.storage.tpcds_queries import (
@@ -2390,6 +2713,13 @@ def phase_card_vs_cpu(rec, sf, seed):
     runs += [("kernels", strategies("kernels"), q) for q in WINDOW_QUERIES]
     texts.update(FUNCTION_QUERIES)
     runs += [("kernels", strategies("kernels"), q) for q in FUNCTION_QUERIES]
+    # the spill queries with lineitem streamed in at least 4 batches (SF
+    # 0.1: 600,572 rows, 5 batches of 2^17), on both sides
+    spill = spill_knobs(CPU_SPILL_ROWS)
+    for q, text in SPILL_QUERIES.items():
+        texts[f"spill:{q}"] = text
+        runs.append(("spill", {**strategies("kernels"), **spill},
+                     f"spill:{q}"))
     register_function_udf()
     want = {}
     bad = []
@@ -2400,15 +2730,21 @@ def phase_card_vs_cpu(rec, sf, seed):
             else "tpcds" if q in WINDOW_QUERIES else "tpch"]
         if q not in want:
             set_knobs(strategies("auto"))
+            if label == "spill":
+                set_knobs(spill)
             want[q] = cpu.sql(texts[q]).table
         set_knobs(strategies("auto"))
+        set_knobs(spill_knobs(0))
         set_knobs(knobs)
         res = card.sql(texts[q])
         got = res.table
         torch.cuda.synchronize()
-        rel = (STAT_REL if q.startswith("S")
-               else {**BREADTH_REL, **FUNCTION_REL}.get(q, 1e-6))
-        ok = tables_agree(got, want[q], rel=rel, units=BREADTH_UNITS.get(q))
+        set_knobs(spill_knobs(0))
+        base = q.split(":")[-1]
+        rel = (STAT_REL if base.startswith("S")
+               else {**BREADTH_REL, **FUNCTION_REL}.get(base, 1e-6))
+        ok = _spill_agree(base, got, want[q], rel,
+                          BREADTH_UNITS.get(base))
         if label == "native":
             ok = ok and res.profile.get("native_fused") == "filter_sum"
         out[f"{q}@{label}"] = {"rows": got.num_rows, "agree": ok}
@@ -2475,6 +2811,7 @@ def main(argv=None) -> int:
         ("topn", lambda: phase_topn(rec, data["cat"], args.sf)),
         ("breadth", lambda: phase_breadth(rec, data["cat"], args.sf)),
         ("functions", lambda: phase_functions(rec, data["cat"], args.sf)),
+        ("spill", lambda: phase_spill(rec, data["cat"], args.sf)),
         ("ssb", lambda: phase_ssb(rec, args.ssb_sf, args.seed)),
         ("store", lambda: phase_store(rec, data["cat"], args.sf)),
         ("tpcds", lambda: (data.pop("cat", None), _settle(),
@@ -2486,7 +2823,7 @@ def main(argv=None) -> int:
     if args.phases:
         wanted = {"device", "build", *args.phases.split(",")}
         if wanted & {"tpch", "hash_topn", "topn", "breadth", "functions",
-                     "store"}:
+                     "spill", "store"}:
             wanted.add("generate")
         unknown = wanted - {name for name, _ in phases}
         if unknown:
@@ -2504,7 +2841,8 @@ def main(argv=None) -> int:
             status = f"FAILED: {type(e).__name__}: {e}"
             failed.append(name)
         finally:
-            set_knobs(strategies("auto"))
+            set_knobs({**strategies("auto"), **spill_knobs(0),
+                       "join_hybrid_strategy": "auto"})
         dt = time.perf_counter() - t0
         rec["phases"][name] = {"status": status, "s": dt,
                                "mem_before_gb": mem}
@@ -2531,7 +2869,8 @@ def main(argv=None) -> int:
             "replaces": replaces,
             "launches": rec[path]["launches"][name]
             + rec["tpcds"]["launches"][name]
-            + rec["functions"]["launches"][name],
+            + rec["functions"]["launches"][name]
+            + rec["spill"]["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

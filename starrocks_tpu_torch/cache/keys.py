@@ -1,0 +1,77 @@
+"""Cache-key construction for the two-tier query cache.
+
+Every function here is a KEY BUILDER: the values it folds into a key are
+the complete set of inputs that may change the cached artifact: config
+knobs enter keys only through `config.trace_key()` (declared trace=True at
+their define site) or OPT_KEY_KNOBS, and data versions are validated ON HIT
+against the catalog's data epochs + storage content tokens
+(storage/catalog.py `data_version`), so a table mutated through ANY path —
+session DML or direct TabletStore calls — misses instead of serving stale
+bytes.
+
+A port of the JAX package's cache/keys.py. OPT_KEY_KNOBS is the port's own
+copy of the reference's `analysis/key_check.OPT_KEY_KNOBS` (the static
+key-completeness checks are slice 8's); the distributed fragment key
+belongs to slice 7.
+"""
+
+from __future__ import annotations
+
+import os
+
+from ..runtime.config import config
+
+# plan-shaping optimizer knobs: the optimized-plan cache, the full-result
+# cache and the plan-feedback fingerprint all key on their values (a copy
+# of the reference's analysis/key_check.OPT_KEY_KNOBS)
+OPT_KEY_KNOBS = ("enable_window_topn", "enable_mv_rewrite", "plan_feedback")
+
+
+def full_result_key(plan) -> tuple:
+    """Structural key of the full-result tier: the analyzed logical plan
+    (frozen hashable tree), every trace-declared knob value, the plan-
+    shaping optimizer knobs, and the UDF registry epoch. Data versions are
+    deliberately NOT part of the key — they are validated at lookup time
+    (see QueryCache.lookup_result), which lets one INSERT invalidate
+    without enumerating every cached plan shape."""
+    from ..runtime.udf import registry_epoch
+
+    opt_vals = tuple((k, config.get(k)) for k in OPT_KEY_KNOBS)
+    return (plan, config.trace_key(), opt_vals, registry_epoch())
+
+
+def version_map(catalog, tables) -> dict:
+    """{table: data version token} for the given table names — stored with
+    a full-result entry and re-validated on every hit."""
+    return {t: catalog.data_version(t) for t in sorted(tables)}
+
+
+def fragment_key(agg, scan_chain, scan) -> tuple:
+    """Fingerprint of a cacheable scan->filter/project->aggregate fragment
+    (partial-aggregation tier). The fragment nodes are frozen plan
+    dataclasses; trace knobs join because partial-state VALUES are produced
+    by traced kernels those knobs steer."""
+    from ..runtime.udf import registry_epoch
+
+    return (agg, tuple(scan_chain), scan, config.trace_key(),
+            registry_epoch())
+
+
+def segment_version(store, table: str, fmeta: dict):
+    """Identity token of one manifest data file, or None when the file is
+    unreadable (a vanished segment is never cached against). Rowset files
+    are immutable, so (name, rows, delete-vector, live columns, stat
+    signature) pins the content: upserts move the delvec, linked schema
+    changes move the cols list, and a recreated table reusing a file name
+    changes the mtime/size signature."""
+    path = os.path.join(store._tdir(table), fmeta["file"])
+    try:
+        st = os.stat(path)
+    except OSError:
+        return None
+    return (
+        fmeta["file"], fmeta["rows"],
+        tuple(fmeta.get("delvec") or ()),
+        tuple(fmeta.get("cols") or ()),
+        st.st_mtime_ns, st.st_size,
+    )

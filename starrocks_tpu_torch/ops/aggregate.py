@@ -20,9 +20,19 @@ and array_agg on the sort path with its capacity check) and the sketch
 aggregates over ops/sketch.py (approx_count_distinct, hll_sketch,
 hll_union[_agg], bitmap_agg, bitmap_union[_count], intersect_count), which
 is what the single-device plans emit; DECIMAL(38) values (`dec128.py`
-limbs) take sum, min, max and count, as in the reference. PARTIAL/FINAL
-two-phase aggregation raises; group_concat runs in the executor
-(`runtime/executor.py`), never here.
+limbs) take sum, min, max and count, as in the reference; group_concat
+runs in the executor (`runtime/executor.py`), never here.
+
+Modes, as in the reference (the spill executors of runtime/batched.py and
+the query cache's partial tier split an aggregation in two):
+- COMPLETE: raw rows in, final values out.
+- PARTIAL:  raw rows in, merge-able state columns out (avg -> sum + count,
+            the moment families -> their power/product sums + count).
+- FINAL:    state columns in (PARTIAL outputs concatenated), final values
+            out.
+The percentiles, array_agg and the sketch aggregates are holistic here, as
+in the reference (`_HOLISTIC_FNS`): they run COMPLETE only, and
+`decomposable` says no to them.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import torch
 from .. import types as T
 from ..column.column import Chunk, Field, Schema
 from ..exprs.compile import EVal, ExprCompiler, as_tensor, div_scalar
+from ..exprs.ir import AggExpr, Col
 from . import dec128 as d128
 from .common import argsort_stable, boundaries, eval_keys, key_sort_arrays, lexsort
 from .segment import (
@@ -49,7 +60,13 @@ FINAL = "final"
 # moment families: sums of powers / products of the float64 values
 _VAR_FNS = {"var_pop", "var_samp", "stddev_pop", "stddev_samp"}
 _COVAR_FNS = {"covar_pop", "covar_samp", "corr"}
-# need the full value multiset, or run COMPLETE only
+# need the full value multiset -> cannot be split into partial/final
+_HOLISTIC_FNS = {"percentile_cont", "percentile_disc", "array_agg",
+                 # sketch aggregates run COMPLETE (the distributed planner
+                 # gathers rows), as in the reference
+                 "approx_count_distinct", "hll_sketch", "hll_union",
+                 "hll_union_agg", "bitmap_agg", "bitmap_union",
+                 "bitmap_union_count", "intersect_count"}
 _SKETCH_FNS = {"approx_count_distinct", "hll_sketch", "hll_union",
                "hll_union_agg", "bitmap_agg", "bitmap_union",
                "bitmap_union_count", "intersect_count"}
@@ -57,6 +74,61 @@ _PERCENTILE_FNS = {"percentile_cont", "percentile_disc"}
 _SUPPORTED = {"count", "count_star", "sum", "min", "max", "avg",
               "array_agg"} | _VAR_FNS | _COVAR_FNS | _SKETCH_FNS \
     | _PERCENTILE_FNS
+
+
+def decomposable(aggs: tuple) -> bool:
+    """True when every aggregate supports the PARTIAL/FINAL two-phase split
+    (the spill executors and the query cache's partial tier decline the
+    rest)."""
+    return all(a.fn not in _HOLISTIC_FNS for _, a in aggs)
+
+
+def _state_fields(name: str, agg, arg_t: Optional[T.LogicalType]):
+    """State columns a PARTIAL aggregation emits for `agg` (name -> type)."""
+    if agg.fn == "count" or agg.fn == "count_star":
+        return [(f"{name}", T.BIGINT)]
+    if agg.fn == "sum":
+        return [(f"{name}", _sum_out_type(arg_t))]
+    if agg.fn in ("min", "max"):
+        return [(f"{name}", arg_t)]
+    if agg.fn == "avg":
+        return [(f"{name}__sum", _sum_out_type(arg_t)),
+                (f"{name}__cnt", T.BIGINT)]
+    if agg.fn in _VAR_FNS:
+        return [(f"{name}__sum", T.DOUBLE), (f"{name}__ssq", T.DOUBLE),
+                (f"{name}__cnt", T.BIGINT)]
+    if agg.fn in _COVAR_FNS:
+        return [(f"{name}__sx", T.DOUBLE), (f"{name}__sy", T.DOUBLE),
+                (f"{name}__sxy", T.DOUBLE), (f"{name}__sxx", T.DOUBLE),
+                (f"{name}__syy", T.DOUBLE), (f"{name}__cnt", T.BIGINT)]
+    raise NotImplementedError(f"aggregate {agg.fn}")
+
+
+def _read_state(cc, col_name, live_rows, reorder):
+    """A PARTIAL state column, permuted into group order, 0 on dead rows."""
+    st = cc.eval(Col(col_name))
+    return torch.where(live_rows, reorder(st.data), 0)
+
+
+def final_agg_exprs(aggs: tuple) -> tuple:
+    """Rewrite agg specs for the FINAL stage over PARTIAL state columns."""
+    out = []
+    for name, agg in aggs:
+        if agg.fn in ("count", "count_star"):
+            out.append((name, AggExpr("count", Col(name))))
+        elif agg.fn == "sum":
+            out.append((name, AggExpr("sum", Col(name))))
+        elif agg.fn == "min":
+            out.append((name, AggExpr("min", Col(name))))
+        elif agg.fn == "max":
+            out.append((name, AggExpr("max", Col(name))))
+        elif agg.fn == "avg":
+            out.append((name, AggExpr("avg", None)))
+        elif agg.fn in _VAR_FNS or agg.fn in _COVAR_FNS:
+            out.append((name, AggExpr(agg.fn, None)))
+        else:
+            raise NotImplementedError(agg.fn)
+    return tuple(out)
 
 
 def _as_f64(a: EVal, device):
@@ -450,12 +522,15 @@ def _emit_agg_columns(cc, aggs, mode, cap, live_rows, reorder, gid,
         return x.expand(cap) if x.ndim == 0 else x
 
     out_fields, out_data, out_valid = [], [], []
+    final = mode == FINAL
     for name, agg in aggs:
-        if agg.fn not in _SUPPORTED or mode != COMPLETE:
-            raise NotImplementedError(
-                f"aggregate {agg.fn} ({mode}) is not in the port yet")
+        if agg.fn not in _SUPPORTED:
+            raise NotImplementedError(f"aggregate {agg.fn}")
         if agg.fn in _SKETCH_FNS or agg.fn in _PERCENTILE_FNS \
                 or agg.fn == "array_agg":
+            if mode != COMPLETE:
+                raise NotImplementedError(
+                    f"{agg.fn} cannot be split into partial/final")
             if agg.fn in _SKETCH_FNS:
                 f, d, v = _emit_sketch_agg(cc, name, agg, cap, live_rows,
                                            reorder, gid, num_groups)
@@ -474,20 +549,40 @@ def _emit_agg_columns(cc, aggs, mode, cap, live_rows, reorder, gid,
             out_valid.append(v)
             continue
         if agg.fn == "count_star" or (agg.fn == "count" and agg.arg is None):
+            if final:
+                cnt = _seg_sum(_read_state(cc, name, live_rows, reorder).to(
+                    torch.int64))
+            else:
+                cnt = _seg_sum(live_rows, nbits=1)
             out_fields.append(Field(name, T.BIGINT, False))
-            out_data.append(_seg_sum(live_rows, nbits=1))
+            out_data.append(cnt)
             out_valid.append(None)
             continue
 
         if agg.fn in _VAR_FNS:
-            a = cc.eval(agg.arg)
-            _no_wide(a, agg.fn)
-            d = reorder(_full(_as_f64(a, dev)))
-            m = live_rows if a.valid is None else (
-                live_rows & reorder(_full(a.valid)))
-            gs1 = _seg_sum(torch.where(m, d, 0.0))
-            gs2 = _seg_sum(torch.where(m, d * d, 0.0))
-            gn = _seg_sum(m.to(torch.int64), nbits=1)
+            if final:
+                s1 = _read_state(cc, f"{name}__sum", live_rows, reorder)
+                s2 = _read_state(cc, f"{name}__ssq", live_rows, reorder)
+                cnts = _read_state(cc, f"{name}__cnt", live_rows, reorder)
+            else:
+                a = cc.eval(agg.arg)
+                _no_wide(a, agg.fn)
+                d = reorder(_full(_as_f64(a, dev)))
+                m = live_rows if a.valid is None else (
+                    live_rows & reorder(_full(a.valid)))
+                s1 = torch.where(m, d, 0.0)
+                s2 = torch.where(m, d * d, 0.0)
+                cnts = m.to(torch.int64)
+            gs1 = _seg_sum(s1)
+            gs2 = _seg_sum(s2)
+            gn = _seg_sum(cnts, nbits=64 if final else 1)
+            if mode == PARTIAL:
+                out_fields += [Field(f"{name}__sum", T.DOUBLE, False),
+                               Field(f"{name}__ssq", T.DOUBLE, False),
+                               Field(f"{name}__cnt", T.BIGINT, False)]
+                out_data += [gs1, gs2, gn]
+                out_valid += [None, None, None]
+                continue
             samp = agg.fn.endswith("_samp")
             denom = torch.clamp(gn - (1 if samp else 0), min=1)
             var = torch.clamp(
@@ -499,22 +594,41 @@ def _emit_agg_columns(cc, aggs, mode, cap, live_rows, reorder, gid,
             continue
 
         if agg.fn in _COVAR_FNS:
-            ax = cc.eval(agg.arg)
-            ay = cc.eval(agg.extra[0])
-            _no_wide(ax, agg.fn)
-            _no_wide(ay, agg.fn)
-            dx = reorder(_full(_as_f64(ax, dev)))
-            dy = reorder(_full(_as_f64(ay, dev)))
-            m = live_rows
-            for v in (ax.valid, ay.valid):
-                if v is not None:
-                    m = m & reorder(_full(v))
-            gx = _seg_sum(torch.where(m, dx, 0.0))
-            gy = _seg_sum(torch.where(m, dy, 0.0))
-            gxy = _seg_sum(torch.where(m, dx * dy, 0.0))
-            gxx = _seg_sum(torch.where(m, dx * dx, 0.0))
-            gyy = _seg_sum(torch.where(m, dy * dy, 0.0))
-            gn = _seg_sum(m.to(torch.int64), nbits=1)
+            if final:
+                sx, sy, sxy, sxx, syy, cnts = (
+                    _read_state(cc, f"{name}__{sfx}", live_rows, reorder)
+                    for sfx in ("sx", "sy", "sxy", "sxx", "syy", "cnt"))
+            else:
+                ax = cc.eval(agg.arg)
+                ay = cc.eval(agg.extra[0])
+                _no_wide(ax, agg.fn)
+                _no_wide(ay, agg.fn)
+                dx = reorder(_full(_as_f64(ax, dev)))
+                dy = reorder(_full(_as_f64(ay, dev)))
+                m = live_rows
+                for v in (ax.valid, ay.valid):
+                    if v is not None:
+                        m = m & reorder(_full(v))
+                sx = torch.where(m, dx, 0.0)
+                sy = torch.where(m, dy, 0.0)
+                sxy = torch.where(m, dx * dy, 0.0)
+                sxx = torch.where(m, dx * dx, 0.0)
+                syy = torch.where(m, dy * dy, 0.0)
+                cnts = m.to(torch.int64)
+            gx, gy, gxy = _seg_sum(sx), _seg_sum(sy), _seg_sum(sxy)
+            gxx, gyy = _seg_sum(sxx), _seg_sum(syy)
+            gn = _seg_sum(cnts, nbits=64 if final else 1)
+            if mode == PARTIAL:
+                for suffix, dat in [("sx", gx), ("sy", gy), ("sxy", gxy),
+                                    ("sxx", gxx), ("syy", gyy)]:
+                    out_fields.append(
+                        Field(f"{name}__{suffix}", T.DOUBLE, False))
+                    out_data.append(dat)
+                    out_valid.append(None)
+                out_fields.append(Field(f"{name}__cnt", T.BIGINT, False))
+                out_data.append(gn)
+                out_valid.append(None)
+                continue
             nf = torch.clamp(gn, min=1)
             if agg.fn == "corr":
                 num = gn * gxy - gx * gy
@@ -535,9 +649,42 @@ def _emit_agg_columns(cc, aggs, mode, cap, live_rows, reorder, gid,
             out_valid.append(ok)
             continue
 
-        a = cc.eval(agg.arg)
         if agg.fn == "avg":
-            _no_wide(a, agg.fn)
+            if final:
+                sv = cc.eval(Col(f"{name}__sum"))
+                sum_t = sv.type
+                vals = _read_state(cc, f"{name}__sum", live_rows, reorder)
+                cnts = _read_state(cc, f"{name}__cnt", live_rows, reorder)
+            else:
+                a = cc.eval(agg.arg)
+                _no_wide(a, agg.fn)
+                sum_t = _sum_out_type(a.type)
+                d = reorder(_full(_to_rep(a, sum_t, dev)))
+                m = live_rows if a.valid is None else (
+                    live_rows & reorder(_full(a.valid)))
+                vals = torch.where(m, d, 0)
+                cnts = m.to(torch.int64)
+            gsum = _seg_sum(vals)
+            gcnt = _seg_sum(cnts, nbits=64 if final else 1)
+            if mode == PARTIAL:
+                out_fields += [Field(f"{name}__sum", sum_t, False),
+                               Field(f"{name}__cnt", T.BIGINT, False)]
+                out_data += [gsum, gcnt]
+                out_valid += [None, None]
+                continue
+            denom = torch.clamp(gcnt, min=1)
+            if sum_t.is_decimal:
+                res = div_scalar(gsum.to(torch.float64),
+                                 10 ** sum_t.scale) / denom
+            else:
+                res = gsum.to(torch.float64) / denom
+            out_fields.append(Field(name, T.DOUBLE, True))
+            out_data.append(res)
+            out_valid.append(gcnt > 0)
+            continue
+
+        # sum / min / max / count(x); FINAL reads the state column by name
+        a = cc.eval(Col(name)) if final else cc.eval(agg.arg)
         m = live_rows if a.valid is None else (
             live_rows & reorder(_full(a.valid)))
 
@@ -580,26 +727,18 @@ def _emit_agg_columns(cc, aggs, mode, cap, live_rows, reorder, gid,
             out_fields.append(Field(name, a.type, True))
             out_data.append(torch.stack(out_limbs, dim=1))
             out_valid.append(_seg_sum(m, nbits=1) > 0)
-        elif agg.fn == "avg":
-            sum_t = _sum_out_type(a.type)
-            d = reorder(_full(_to_rep(a, sum_t, dev)))
-            gsum = _seg_sum(torch.where(m, d, 0))
-            gcnt = _seg_sum(m.to(torch.int64), nbits=1)
-            denom = torch.clamp(gcnt, min=1)
-            if sum_t.is_decimal:
-                res = div_scalar(gsum.to(torch.float64),
-                                 10 ** sum_t.scale) / denom
-            else:
-                res = gsum.to(torch.float64) / denom
-            out_fields.append(Field(name, T.DOUBLE, True))
-            out_data.append(res)
-            out_valid.append(gcnt > 0)
         elif agg.fn == "count":
+            if final:
+                res = _seg_sum(torch.where(
+                    m, reorder(_full(as_tensor(a.data, torch.int64, dev))),
+                    0))
+            else:
+                res = _seg_sum(m, nbits=1)
             out_fields.append(Field(name, T.BIGINT, False))
-            out_data.append(_seg_sum(m, nbits=1))
+            out_data.append(res)
             out_valid.append(None)
         elif agg.fn == "sum":
-            out_t = _sum_out_type(a.type)
+            out_t = a.type if final else _sum_out_type(a.type)
             d = reorder(_full(_to_rep(a, out_t, dev)))
             res = _seg_sum(torch.where(m, d, 0))
             nonempty = _seg_sum(m, nbits=1) > 0

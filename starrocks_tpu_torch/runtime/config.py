@@ -248,6 +248,72 @@ config.define("join_multiway_strategy", "auto", True,
               "capacity — no per-binary-join intermediate "
               "rematerialization. off = chained binary joins (A/B anchor)",
               trace=True)
+
+# --- spill execution, plan feedback and the query cache (slice 6) -----------
+config.define("default_agg_groups", 1024, True, "initial group capacity before adaptive recompile")
+config.define("batch_rows_threshold", 0, True,
+              "stream scan-aggregations in host batches when a table exceeds "
+              "this many rows (0 = off); the spill/host-offload path")
+config.define("spill_batch_rows", 0, True,
+              "rows per streamed batch for the spill path (0 = use the "
+              "activation threshold as the batch size)")
+config.define("join_hybrid_strategy", "auto", True,
+              "auto | grace: executor for equi joins past the spill "
+              "threshold. auto = skew-aware hybrid hash join (dynamic "
+              "build-side partitioning per arXiv 2112.02480: heavy-hitter "
+              "keys route to a replicated-broadcast lane, in-budget "
+              "partitions stay device-resident, only overflow partitions "
+              "spill; per-partition decisions feed the memory accountant "
+              "and join_* profile counters); grace = the legacy "
+              "all-or-nothing Grace partition loop (A/B anchor)",
+              trace=True)
+config.define("join_skew_factor", 8, True,
+              "hybrid-join heavy-hitter gate: a build key whose exact "
+              "partition-time row count exceeds spill-batch-rows / this "
+              "factor is routed to the broadcast lane (plan-time NDV "
+              "stats only decide whether the detection scan runs at "
+              "all). Smaller = more aggressive skew routing",
+              trace=True)
+config.define("join_skew_keys_max", 64, True,
+              "max heavy-hitter keys the hybrid join routes to its "
+              "replicated-broadcast lane (top-k by build row count; "
+              "the rest stay in hash partitions)",
+              trace=True)
+config.define("plan_feedback", True, True,
+              "plan-feedback loop (runtime/feedback.py): record observed "
+              "join cardinalities, final adaptive capacities, and "
+              "heavy-hitter keys per plan fingerprint after each "
+              "execution, and consume them on repeats — observed "
+              "cardinalities into the DP join-order cost, pre-tightened "
+              "capacities seeding the program bucket, learned hot keys "
+              "into hybrid-join lane routing. off = byte-identity A/B "
+              "anchor (estimates only, cold capacities). Declared in "
+              "OPT_KEY_KNOBS: both the optimized-plan cache and the "
+              "full-result cache key on it")
+config.define("join_recursive_repartition", True, True,
+              "hybrid join: re-hash an overflow partition whose build "
+              "side alone exceeds the spill batch budget into salted "
+              "sub-partitions (recursive destaging per arXiv 2112.02480) "
+              "instead of streaming one oversized pass. Host-side "
+              "partitioning decision only — compiled partition programs "
+              "key on the resulting capacities, so this needs no trace "
+              "channel (HOST_LOOP_KNOBS)")
+config.define("enable_query_cache", False, True,
+              "two-tier query result cache (starrocks_tpu/cache/): a "
+              "full-result tier serving byte-identical repeats without "
+              "touching the executor, keyed by (plan, per-table data "
+              "version, config.trace_key()), plus a per-segment partial-"
+              "aggregation tier for scan->filter->agg fragments over "
+              "stored tables — after an append only NEW segments are "
+              "scanned/aggregated (the reference's be/src/exec/query_cache "
+              "multi-version delta reuse). off = bit-identical to the "
+              "uncached engine",
+              cache_key=True)
+config.define("query_cache_capacity_mb", 256, True,
+              "host memory budget for the query cache's LRU (full results "
+              "+ per-segment partial-aggregation states share it; least-"
+              "recently-used entries evict past the budget)",
+              cache_key=True)
 config.load_env()
 
 # The knob values that route the main path through the hand kernels: the

@@ -20,16 +20,32 @@ around the program implements
   a probe scan whose join's build side bounds its keys loads only the
   files whose zonemaps may hold them (sql/scan_rf.py).
 
-The program runs eagerly, so nothing is compiled; every overflow check of
-an attempt is read in ONE device-to-host copy. Not ported yet: the query
-cache, plan feedback, batched/spill execution, profiling spans and the
-distributed executor.
+- the two-tier query cache (cache/): a full-result tier in front of the
+  optimizer (`_execute_plain`) and a per-segment partial-aggregation tier
+  over stored tables (`_try_partial_cache`);
+- execution beyond device memory (`_try_batched`, runtime/batched.py):
+  with `batch_rows_threshold` set, a scan-aggregation, a partitioned join,
+  an ORDER BY or a window over a table past the threshold streams through
+  the device in host batches;
+- plan feedback (runtime/feedback.py): per-fingerprint observations feed
+  the optimizer's join ordering, pre-seed cold program buckets
+  (`_fb_seed`, `_fb_recorder`) and route the hybrid join's learned hot
+  keys (`_fb_known_hot`).
+
+`_run` tries the partial cache, then `_try_batched`, then the in-memory
+program, in the reference's order. The program runs eagerly, so nothing is
+compiled: a program bucket per (tag, plan) holds the capacities that last
+worked (adopt-last) and, for the spill loops, their cached callables; every
+overflow check of an attempt is read in ONE device-to-host copy. Not
+ported yet: profiling spans (slice 8) and the distributed executor
+(slice 7).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import decimal
+import threading
 import time
 from collections import OrderedDict
 
@@ -47,8 +63,18 @@ from ..sql.logical import (
 )
 from ..sql.optimizer import _replace_children, expr_cols, optimize
 from ..sql.physical import Caps, compile_plan
+from . import lifecycle
 from .config import config
+from .failpoint import fail_point
+from .metrics import metrics
 from .udf import registry_epoch, udf_seconds
+
+RECOMPILES = metrics.counter(
+    "sr_tpu_recompiles_total", "adaptive capacity retries (overflow)")
+PROGRAM_COMPILES = metrics.counter(
+    "sr_tpu_program_compiles_total",
+    "partition/batch programs built by the spill loops (bucket misses)")
+QUERIES_TOTAL = metrics.counter("sr_tpu_queries_total", "queries executed")
 
 
 class ExecError(RuntimeError):
@@ -58,43 +84,134 @@ class ExecError(RuntimeError):
 class DeviceCache:
     """Per-(table, column) device tensors + valid masks on one device (the
     page-cache analog), cached build-side sort orders, RF-pruned table
-    snapshots, optimized plans, and the last capacities that worked for
-    each plan. One per Session. Every entry keys on its table's name first,
-    so `invalidate(table)` drops exactly what a change to that table made
-    stale."""
+    snapshots, optimized plans, the program buckets (per (tag, plan): the
+    last capacities that worked and the spill loops' cached callables), the
+    two-tier query cache, the text -> analyzed-plan cache and the plan-
+    feedback store. One per Session. Column entries key on their table's
+    name first, so `invalidate(table)` drops exactly what a change to that
+    table made stale."""
+
+    MAX_CACHED_PLANS = 64
 
     def __init__(self, device):
+        from ..cache.plan_cache import PlanCache
+        from ..cache.query_cache import QueryCache
+        from .feedback import FeedbackStore
+
         self.device = torch.device(device)
         self._cols: dict = {}    # (table, column, tag) -> (data, valid|None)
         self._sel: dict = {}     # (table, tag) -> (capacity, sel|None)
         self._border: dict = {}  # (table, key_cols, bit_widths) -> order
         # (table, tag, columns) -> (pruned handle, scan stats, tag)
         self._rfscan: dict = {}
+        self._lock = threading.RLock()
         self.opt_plans: OrderedDict = OrderedDict()
-        self.last_caps: OrderedDict = OrderedDict()
+        # (key, udf epoch, knob values) -> {"last": caps, "progs": {}}
+        self.programs: OrderedDict = OrderedDict()
+        self.qcache = QueryCache()
+        self.plan_cache = PlanCache()
+        self.feedback = FeedbackStore()
+
+    # --- program buckets ----------------------------------------------------
+    def program_bucket(self, key):
+        """The bucket of one (tag, plan): a UDF create/replace/drop and
+        every trace-declared knob (config.trace_key(): the knobs that shape
+        the program) join the key, so such a SET never serves capacities
+        or callables made under the old value."""
+        key = (key, registry_epoch(), config.trace_key())
+        with self._lock:
+            b = self.programs.get(key)
+            if b is None:
+                b = self.programs[key] = {"last": None, "progs": {}}
+                while len(self.programs) > self.MAX_CACHED_PLANS:
+                    self.programs.popitem(last=False)
+            else:
+                self.programs.move_to_end(key)
+            return b
+
+    def bucket_adopt_last(self, bucket, caps):
+        """Seed empty caps from the bucket's last successful capacities."""
+        with self._lock:
+            if not caps.values and bucket["last"]:
+                caps.values.update(bucket["last"])
+
+    def bucket_last_set(self, bucket, vals):
+        with self._lock:
+            bucket["last"] = dict(vals)
+
+    def bucket_seed_last(self, bucket, vals) -> bool:
+        """Pre-tighten a COLD bucket from plan-feedback capacities: set
+        "last" only when no execution has published one yet (a live
+        bucket's own observations always outrank the journal's). Returns
+        whether the seed took."""
+        with self._lock:
+            if bucket["last"] is None and vals:
+                bucket["last"] = dict(vals)
+                return True
+            return False
+
+    def bucket_prog_get(self, bucket, key):
+        with self._lock:
+            return bucket["progs"].get(key)
+
+    def bucket_prog_put(self, bucket, key, val):
+        """Insert-if-absent; returns the entry that won (first writer)."""
+        with self._lock:
+            return bucket["progs"].setdefault(key, val)
+
+    def opt_plan_lookup(self, key):
+        with self._lock:
+            opt = self.opt_plans.get(key)
+            if opt is not None:
+                self.opt_plans.move_to_end(key)
+            return opt
+
+    def opt_plan_store(self, key, opt):
+        with self._lock:
+            self.opt_plans[key] = opt
+            while len(self.opt_plans) > self.MAX_CACHED_PLANS:
+                self.opt_plans.popitem(last=False)
 
     def clear_plans(self):
-        """Drop optimized plans and their capacities (an MV freshness flip,
-        anything that re-shapes planning wholesale)."""
-        self.opt_plans.clear()
-        self.last_caps.clear()
+        """Drop optimized plans and program buckets (an MV freshness flip, a
+        UDF change: anything that re-shapes planning wholesale)."""
+        with self._lock:
+            self.opt_plans.clear()
+            self.programs.clear()
 
     def invalidate(self, table: str):
         """Evict everything derived from `table`: its device columns,
-        selection masks, build orders and RF-pruned snapshots, and every
-        optimized plan and capacity set whose plan scans it (plans bake
+        selection masks, build orders and RF-pruned snapshots, every
+        optimized plan and program bucket whose plan scans it (plans bake
         stats-derived choices: dense-aggregation domains, LUT-join
-        eligibility, packed bit widths, which new rows can outgrow)."""
-        def scans_table(plan) -> bool:
-            return any(isinstance(node, LScan) and node.table == table
-                       for node in walk_plan(plan))
+        eligibility, packed bit widths, which new rows can outgrow), the
+        full-result cache entries that observed it and the plan-feedback
+        entries learned over it."""
+        fail_point("devicecache::invalidate")
 
-        for d in (self._cols, self._sel, self._border, self._rfscan):
-            for k in [k for k in d if k[0] == table]:
-                del d[k]
-        for od in (self.opt_plans, self.last_caps):
-            for k in [k for k in od if scans_table(k[0])]:
-                del od[k]
+        def scans_table(key) -> bool:
+            for part in key:
+                if isinstance(part, tuple):  # nested keys
+                    if scans_table(part):
+                        return True
+                elif isinstance(part, LogicalPlan):
+                    if any(isinstance(node, LScan) and node.table == table
+                           for node in walk_plan(part)):
+                        return True
+            return False
+
+        with self._lock:
+            for d in (self._cols, self._sel, self._border, self._rfscan):
+                for k in [k for k in d if k[0] == table]:
+                    del d[k]
+            for k in [k for k in self.opt_plans if scans_table((k[0],))]:
+                del self.opt_plans[k]
+            for k in [k for k in self.programs if scans_table(k)]:
+                del self.programs[k]
+        # per-segment partial states validate by file identity and survive
+        # appends by design (cache/query_cache.py)
+        self.qcache.invalidate_table(table)
+        self.feedback.invalidate_table(table)
 
     def pruned_handle_for(self, handle, columns, bounds):
         """(handle, scan_stats, tag) for an RF-pruned snapshot of a stored
@@ -201,12 +318,32 @@ class QueryResult:
         return [f.name for f in self.table.schema]
 
 
-def _lru_put(od: OrderedDict, key, val, limit: int = 64):
-    """Insert into a bounded LRU map (per-plan caches)."""
-    od[key] = val
-    od.move_to_end(key)
-    while len(od) > limit:
-        od.popitem(last=False)
+class _BucketProgs:
+    """Dict-like view over one program bucket's cached callables (the
+    batched/grace/hybrid/spill loops get-or-create entries through it);
+    every insert is one fresh program build."""
+
+    def __init__(self, cache: DeviceCache, bucket):
+        self._cache = cache
+        self._bucket = bucket
+
+    def __contains__(self, key):
+        return self._cache.bucket_prog_get(self._bucket, key) is not None
+
+    def __getitem__(self, key):
+        val = self._cache.bucket_prog_get(self._bucket, key)
+        if val is None:
+            raise KeyError(key)
+        return val
+
+    def __setitem__(self, key, val):
+        PROGRAM_COMPILES.inc()
+        self._cache.bucket_prog_put(self._bucket, key, val)
+
+
+def _count(profile: dict, key: str, v=1):
+    counters = profile.setdefault("counters", {})
+    counters[key] = counters.get(key, 0) + v
 
 
 def read_checks(checks: dict) -> dict:
@@ -232,6 +369,10 @@ class Executor:
     def __init__(self, catalog, device_cache: DeviceCache):
         self.catalog = catalog
         self.cache = device_cache
+        # plan-feedback context of the query being executed ({fp, entry,
+        # tables, seeded} or None) — set by _execute_plain_uncached after
+        # subquery resolution, consumed by the _fb_* glue below
+        self._fb_ctx = None
 
     def execute_logical(self, plan: LogicalPlan,
                         profile: dict | None = None) -> QueryResult:
@@ -348,24 +489,94 @@ class Executor:
 
     def _execute_plain(self, plan: LogicalPlan,
                        profile: dict | None = None) -> QueryResult:
+        """Full-result cache gate around the real execution path: a
+        validated hit returns the materialized table without touching the
+        optimizer or the device; a cacheable miss executes and stores the
+        result keyed by (plan, trace knobs, opt knobs, udf epoch) with the
+        per-table data versions it observed. With enable_query_cache off
+        this is one boolean check."""
         profile = {} if profile is None else profile
+        if not config.get("enable_query_cache"):
+            return self._execute_plain_uncached(plan, profile)
+        from ..cache import keys as cache_keys
+        from ..sql.optimizer import plan_tables, plan_uncacheable_reason
+
+        reason = plan_uncacheable_reason(plan)
+        if reason is not None:
+            profile["qcache_uncacheable"] = reason
+            return self._execute_plain_uncached(plan, profile)
+        skey = cache_keys.full_result_key(plan)
+        hit = self.cache.qcache.lookup_result(skey, self.catalog)
+        if hit is not None:
+            QUERIES_TOTAL.inc()
+            _count(profile, "qcache_hits")
+            return QueryResult(hit.table, hit.plan, profile)
+        _count(profile, "qcache_misses")
+        res = self._execute_plain_uncached(plan, profile)
+        ctx = lifecycle.current()
+        if ctx is not None and ctx.degraded:
+            # soft-mem degradation: decline cache admission
+            profile["qcache_declined"] = "mem-soft-degraded"
+            return res
+        tables = plan_tables(plan) | plan_tables(res.plan)
+        versions = cache_keys.version_map(self.catalog, tables)
+        self.cache.qcache.store_result(skey, res.table, res.plan, versions)
+        return res
+
+    def _execute_plain_uncached(self, plan: LogicalPlan,
+                                profile: dict) -> QueryResult:
+        QUERIES_TOTAL.inc()
         t0 = time.perf_counter()
+        fail_point("optimizer::before_optimize")
+        lifecycle.checkpoint("optimizer::before_optimize")
+        fb_fp = fb_entry = None
+        if config.get("plan_feedback"):
+            from .feedback import plan_fingerprint
+
+            fb_fp = plan_fingerprint(plan)
+            fb_entry = self.cache.feedback.consult(fb_fp, self.catalog)
         # a UDF create/replace/drop must not serve a plan made before it
         opt_key = (plan, _config_key(), registry_epoch())
-        opt = self.cache.opt_plans.get(opt_key)
+        if fb_entry is not None:
+            # fresh observations must never serve the previously learned
+            # plan: the entry's consult token extends the key (a fixpoint
+            # once observations stop changing)
+            opt_key += (fb_entry["token"],)
+            _count(profile, "feedback_hits")
+        opt = self.cache.opt_plan_lookup(opt_key)
         if opt is None:
-            opt = optimize(plan, self.catalog)
-            _lru_put(self.cache.opt_plans, opt_key, opt)
+            opt = optimize(plan, self.catalog, fb_entry)
+            self.cache.opt_plan_store(opt_key, opt)
+        analyzed = plan
         # subquery resolution executes data-dependent sub-plans — never cached
         plan = self._resolve_scalar_subqueries(opt)
         profile["optimize_s"] = time.perf_counter() - t0
+        # record-side feedback context — set AFTER subquery resolution
+        # (nested sub-plan executions run through this same executor and
+        # must not leave their context on the outer query)
+        if fb_fp is not None:
+            from ..sql.optimizer import plan_tables
+
+            self._fb_ctx = {
+                "fp": fb_fp, "entry": fb_entry, "seeded": set(),
+                "tables": plan_tables(analyzed) | plan_tables(plan),
+            }
+        else:
+            self._fb_ctx = None
         udf0 = udf_seconds()
         out_chunk = self._run(plan, profile)
         if udf_seconds() > udf0:
             profile["udf_s"] = udf_seconds() - udf0
+        fail_point("executor::fetch_results")
+        lifecycle.checkpoint("executor::fetch_results")
         t1 = time.perf_counter()
-        ht = _prettify_names(HostTable.from_chunk(out_chunk))
+        # spilled sorts and windows return host-materialized results
+        ht = (out_chunk if isinstance(out_chunk, HostTable)
+              else HostTable.from_chunk(out_chunk))
+        ht = _prettify_names(ht)
         profile["fetch_s"] = time.perf_counter() - t1
+        lifecycle.account(ht, "executor::fetch_results")
+        fail_point("executor::result_ready")
         return QueryResult(ht, plan, profile)
 
     # --- group_concat orchestration -----------------------------------------
@@ -566,17 +777,127 @@ class Executor:
 
         return rec(plan)
 
-    def _adaptive(self, profile: dict, attempt_fn, caps: Caps) -> Chunk:
+    # --- plan-feedback glue (runtime/feedback.py) -----------------------------
+    def _fb_seed(self, tag: str, plan):
+        """Pre-tighten a cold program bucket from learned capacities: the
+        first execution of a repeat shape after a restart adopts the
+        previous process's tightened caps and burns zero adaptive retries.
+        A bucket that already published its own "last" outranks the
+        journal."""
+        ctx = self._fb_ctx
+        if ctx is None or ctx["entry"] is None:
+            return
+        vals = ctx["entry"].get("caps", {}).get(tag)
+        if vals and self.cache.bucket_seed_last(
+                self.cache.program_bucket((tag, plan)), vals):
+            ctx["seeded"].add(tag)
+
+    def _fb_recorder(self, tag: str, profile: dict, node_ord_box=None,
+                     extra_fn=None):
+        """on_success callback for _adaptive: records this execution's
+        observations (tightened caps, retries burned, observed join
+        cardinalities when the run exposed node ordinals, and whatever
+        `extra_fn` contributes — the hybrid join's heavy hitters and
+        partition outcomes) under the query's plan fingerprint."""
+        ctx = self._fb_ctx
+        if ctx is None:
+            return None
+
+        def record(caps_vals, keyed_checks, attempts):
+            from .feedback import (
+                FEEDBACK_RECOMPILES_AVOIDED, FEEDBACK_RETRIES_AVOIDED,
+            )
+
+            entry = ctx["entry"]
+            if attempts == 0 and tag in ctx["seeded"] and entry is not None:
+                saved = int(entry.get("attempts", {}).get(tag, 0))
+                if saved:
+                    FEEDBACK_RETRIES_AVOIDED.inc(saved)
+                    FEEDBACK_RECOMPILES_AVOIDED.inc(saved)
+                    _count(profile, "feedback_retries_avoided", saved)
+            cards = self._fb_cards(
+                (node_ord_box or {}).get("node_ord"), dict(keyed_checks))
+            kwargs = extra_fn() if extra_fn is not None else {}
+            self.cache.feedback.record(
+                ctx["fp"], self.catalog, ctx["tables"], tag, caps_vals,
+                attempts, cards=cards, **kwargs)
+
+        return record
+
+    def _fb_known_hot(self, gp):
+        """Learned build-side heavy-hitter keys for a hybrid join's build
+        column (hybrid_partitions re-verifies their counts against the live
+        build before broadcasting)."""
+        ctx = self._fb_ctx
+        if ctx is None or ctx["entry"] is None:
+            return None
+        col = f"{gp.right_scan.table}.{gp.build_key}"
+        pairs = ctx["entry"].get("build_hot", {}).get(col)
+        if not pairs:
+            return None
+        return [int(k) for k, _ in pairs]
+
+    def _fb_cards(self, node_ord, checks) -> dict | None:
+        """Observed join cardinalities keyed by the subtree's scanset
+        (sql/optimizer.join_scanset_key): the `join_{ordinal}` overflow
+        totals of the surviving attempt, mapped back through the program's
+        node-ordinal table."""
+        if not node_ord:
+            return None
+        from ..sql.optimizer import estimate_rows, join_scanset_key
+        from .feedback import FEEDBACK_EST_ERRSUM, FEEDBACK_EST_JOINS
+
+        # a join whose two inputs scan the same table:alias (copies of one
+        # CTE, as TPC-DS q47's v1, v1_lag and v1_lead) makes the scanset
+        # key ambiguous: one copy's observed rows would stand for the
+        # copies joined together, and the next run's DP joins two copies
+        # first (reference defect, ROADMAP). Such a query records no cards.
+        for node in node_ord:
+            if isinstance(node, LJoin) and set(
+                    join_scanset_key(node.left).split("|")) & set(
+                    join_scanset_key(node.right).split("|")) - {""}:
+                return None
+        cards: dict = {}
+        for node, o in node_ord.items():
+            if not (isinstance(node, LJoin)
+                    and node.kind in ("inner", "cross", "left")):
+                continue  # semi/anti totals count the inner EXPANSION
+            total = checks.get(f"join_{o}")
+            if total is None:
+                continue
+            key = join_scanset_key(node)
+            if not key:
+                continue
+            cards[key] = float(int(total))
+            try:
+                est = float(estimate_rows(node, self.catalog))
+            except Exception:  # noqa: BLE001 — stats must never fail a query
+                continue
+            FEEDBACK_EST_ERRSUM.inc(
+                abs(est - float(total)) / max(float(total), 1.0))
+            FEEDBACK_EST_JOINS.inc()
+        return cards or None
+
+    # --- execution with adaptive retries ------------------------------------
+    def _adaptive(self, profile: dict, attempt_fn, publish=None,
+                  on_success=None) -> Chunk:
         """The reference's overflow-retry loop. attempt_fn(caps) ->
         (chunk, {check key: int}); a check above its capacity raises that
         capacity (extrapolating the growth rate between attempts) and the
         plan runs again. After a success, grossly over-seeded capacities
-        tighten for the next run of the same plan."""
+        tighten; `publish(caps_values)` then stores them as the bucket's
+        "last", and `on_success(caps_values, keyed_checks, attempts)` (the
+        plan-feedback recorder) fires once."""
+        caps = Caps({})
         max_recompiles = config.get("max_recompiles")
         headroom = config.get("join_expand_headroom")
+        fail_point("executor::before_run")
         prev_counts: dict = {}
         for attempt in range(max_recompiles):
+            lifecycle.checkpoint("executor::attempt")
             out, checked = attempt_fn(caps)
+            lifecycle.checkpoint("executor::after_attempt")
+            lifecycle.account(out, "executor::attempt")
             floors = {k[len("~floor_"):]: v for k, v in checked.items()
                       if k.startswith("~floor_")}
             ctrs = {k: v for k, v in checked.items() if k.startswith("~ctr_")}
@@ -600,10 +921,8 @@ class Executor:
             prev_counts.update(keyed)
             if not overflow:
                 profile["recompiles"] = profile.get("recompiles", 0) + attempt
-                counters = profile.setdefault("counters", {})
                 for k, v in ctrs.items():
-                    base = k[len("~ctr_"):].partition("@")[0]
-                    counters[base] = counters.get(base, 0) + v
+                    _count(profile, k[len("~ctr_"):].partition("@")[0], v)
                 for key, v in keyed.items():
                     if key.startswith("agg_") and key not in floors:
                         continue
@@ -611,7 +930,14 @@ class Executor:
                                 floors.get(key, 0))
                     if tight * 2 <= caps.values.get(key, 0):
                         caps.values[key] = tight
+                if publish is not None:
+                    publish(caps.values)
+                if on_success is not None:
+                    on_success(dict(caps.values), list(keyed.items()),
+                               attempt)
                 return out
+            RECOMPILES.inc()
+            fail_point("executor::before_recompile")
         raise ExecError(
             f"capacity did not converge after {max_recompiles} recompiles")
 
@@ -645,9 +971,19 @@ class Executor:
         return scan_rf
 
     def _run(self, plan: LogicalPlan, profile: dict) -> Chunk:
-        caps_key = (plan, _config_key())
-        caps = Caps(dict(self.cache.last_caps.get(caps_key, {})))
+        out = self._try_partial_cache(plan, profile)
+        if out is not None:
+            return out
+        batch_threshold = config.get("batch_rows_threshold")
+        if batch_threshold:
+            out = self._try_batched(plan, profile, batch_threshold)
+            if out is not None:
+                return out
+
         scan_rf = self._scan_runtime_filters(plan, profile)
+        self._fb_seed("local", plan)
+        bucket = self.cache.program_bucket(("local", plan))
+        trace_box: dict = {}
 
         def scan_input(t, a, cols):
             rf = scan_rf.get((t, a))
@@ -657,23 +993,175 @@ class Executor:
             return self.cache.chunk_for(self.catalog.get_table(t), a, cols)
 
         def attempt(caps):
+            # adopt-last: a repeated query starts at the capacities that
+            # worked (and usually runs once)
+            self.cache.bucket_adopt_last(bucket, caps)
             t0 = time.perf_counter()
             compiled = compile_plan(plan, self.catalog, caps)
+            trace_box["node_ord"] = compiled.node_ord
             inputs = [scan_input(t, a, cols) for t, a, cols in compiled.scans]
             for table, a, key_cols, bw in compiled.aux:
                 inputs.append(self.cache.build_order_for(
                     self.catalog.get_table(table), a, key_cols, bw))
             t1 = time.perf_counter()
+            fail_point("executor::before_dispatch")
             out, checks = compiled.fn(tuple(inputs))
             checked = read_checks(checks)  # the attempt's only host sync
             profile.setdefault("attempts", []).append({
                 "scan_s": t1 - t0, "run_s": time.perf_counter() - t1,
                 "capacities": dict(caps.values)})
+            self.cache.bucket_last_set(bucket, caps.values)
             return out, checked
 
-        out = self._adaptive(profile, attempt, caps)
-        _lru_put(self.cache.last_caps, caps_key, dict(caps.values))
-        return out
+        def publish(vals):
+            self.cache.bucket_last_set(bucket, vals)
+
+        return self._adaptive(profile, attempt, publish,
+                              self._fb_recorder("local", profile, trace_box))
+
+    def _try_partial_cache(self, plan, profile):
+        """Per-segment partial-aggregation tier (cache/partial.py): for a
+        cacheable scan->filter->agg fragment over a STORED table, aggregate
+        each manifest segment on its own and reuse cached partial states —
+        after an append only NEW segments scan. None = not a match."""
+        if not config.get("enable_query_cache"):
+            return None
+        from ..cache.partial import try_partial_cached
+
+        return try_partial_cached(self, plan, profile)
+
+    def _try_batched(self, plan, profile, batch_threshold):
+        """Streaming through the device in host batches (the spill analog)
+        for scan-aggregations, partitioned joins, ORDER BY and windows over
+        a table past `batch_rows_threshold`. Rides the shared _adaptive
+        loop and caches each plan's callables in its program bucket."""
+        from .batched import (
+            execute_batched, execute_grace_join, execute_hybrid_join,
+            execute_spill_sort, execute_spill_window, grace_partitions,
+            hybrid_partitions, match_batchable, match_grace_join,
+            match_spill_sort, match_spill_window, profile_node,
+        )
+
+        dev = self.cache.device
+        bp = match_batchable(plan)
+        batch_rows = config.get("spill_batch_rows") or batch_threshold
+        if bp is None:
+            # spilled ORDER BY: device keys, host global order (a beyond-
+            # memory sort returns a HostTable)
+            sp = match_spill_sort(plan)
+            if sp is not None:
+                h = self.catalog.get_table(sp.scan.table)
+                if h is not None and h.row_count > batch_threshold:
+                    bucket = self.cache.program_bucket(("spillsort", plan))
+                    return execute_spill_sort(
+                        sp, self.catalog, batch_rows,
+                        _BucketProgs(self.cache, bucket),
+                        profile_node(profile, "spill_sort"), dev)
+            # spilled WINDOW: partitions hash-split to batch-sized groups
+            wp = match_spill_window(plan)
+            if wp is not None:
+                h = self.catalog.get_table(wp.scan.table)
+                if h is not None and any(
+                        np.asarray(h.table.arrays[c]).ndim != 1
+                        for c in wp.hash_cols):
+                    wp = None  # wide keys (DECIMAL128/ARRAY): device path
+            if wp is not None:
+                h = self.catalog.get_table(wp.scan.table)
+                if h is not None and h.row_count > batch_threshold:
+                    bucket = self.cache.program_bucket(("spillwin", plan))
+                    return execute_spill_window(
+                        wp, self.catalog, batch_rows,
+                        _BucketProgs(self.cache, bucket),
+                        profile_node(profile, "spill_window"), dev)
+            # partitioned join: both sides host-routed by the join key when
+            # either exceeds the threshold. `join_hybrid_strategy` picks the
+            # executor: auto = skew-aware hybrid, grace = the all-or-nothing
+            # partition loop
+            gp = match_grace_join(plan, self.catalog)
+            if gp is None:
+                return None
+            lh = self.catalog.get_table(gp.left_scan.table)
+            rh = self.catalog.get_table(gp.right_scan.table)
+            if lh is None or rh is None or max(
+                lh.row_count, rh.row_count
+            ) <= batch_threshold:
+                return None
+            if config.get("join_hybrid_strategy") == "grace":
+                tag = "grace"
+                node = profile_node(profile, tag)
+                self._fb_seed(tag, plan)
+                bucket = self.cache.program_bucket((tag, plan))
+                parts = grace_partitions(gp, self.catalog, batch_rows, node)
+                runner = execute_grace_join
+                extra_fn = None
+            else:
+                tag = "hybrid"
+                node = profile_node(profile, tag)
+                self._fb_seed(tag, plan)
+                bucket = self.cache.program_bucket((tag, plan))
+                parts = hybrid_partitions(
+                    gp, self.catalog, batch_rows,
+                    known_hot=self._fb_known_hot(gp), node=node)
+                runner = execute_hybrid_join
+
+                def extra_fn():
+                    # heavy hitters + partition outcomes learned at
+                    # partition time, keyed by base table.column
+                    probe_col = f"{gp.left_scan.table}.{gp.probe_key}"
+                    build_col = f"{gp.right_scan.table}.{gp.build_key}"
+                    out = {"parts": {
+                        "n_parts": parts.n_parts,
+                        "resident": parts.resident_parts,
+                        "spilled": len(parts.spilled),
+                        "sub_parts": parts.sub_parts,
+                        "oversized": parts.oversized_passes,
+                    }}
+                    if parts.probe_hot:
+                        out["probe_hot"] = {
+                            probe_col: [[int(k), int(c)]
+                                        for k, c in parts.probe_hot]}
+                    if parts.build_hot:
+                        out["build_hot"] = {
+                            build_col: [[int(k), int(c)]
+                                        for k, c in parts.build_hot]}
+                    return out
+
+            def attempt(caps):
+                # adopt-last: cached partition programs return checks for
+                # capacity keys that only exist in the caps they ran with
+                self.cache.bucket_adopt_last(bucket, caps)
+                out, checks = runner(
+                    gp, self.catalog, caps, node, parts,
+                    _BucketProgs(self.cache, bucket), self)
+                self.cache.bucket_last_set(bucket, caps.values)
+                return out, checks
+
+            def publish(vals):
+                self.cache.bucket_last_set(bucket, vals)
+
+            return self._adaptive(profile, attempt, publish,
+                                  self._fb_recorder(tag, profile,
+                                                    extra_fn=extra_fn))
+        handle = self.catalog.get_table(bp.scan.table)
+        if handle is None or handle.row_count <= batch_threshold:
+            return None
+        self._fb_seed("batched", plan)
+        b_bucket = self.cache.program_bucket(("batched", plan))
+        prog_cache = _BucketProgs(self.cache, b_bucket)
+        node = profile_node(profile, "batched")
+
+        def attempt(caps):
+            # adopt-last: repeated (or feedback-seeded) spilled aggregations
+            # start at the tightened group capacity
+            self.cache.bucket_adopt_last(b_bucket, caps)
+            return execute_batched(bp, self.catalog, caps, node, batch_rows,
+                                   prog_cache, dev)
+
+        def publish(vals):
+            self.cache.bucket_last_set(b_bucket, vals)
+
+        return self._adaptive(profile, attempt, publish,
+                              self._fb_recorder("batched", profile))
 
 
 def _extract_group_concat(plan: LogicalPlan):

@@ -26,6 +26,7 @@ directory rebuilds the catalog from the manifests and the journal.
 from __future__ import annotations
 
 import datetime
+import os
 from dataclasses import replace as dataclasses_replace
 
 import numpy as np
@@ -97,14 +98,6 @@ def _writable(name: str):
         raise ValueError(f"table name {name!r} is reserved")
 
 
-def _check_wide_column(t: T.LogicalType, where: str):
-    """ARRAY/HLL/BITMAP columns live in memory only: stored tables and
-    ALTER TABLE ADD COLUMN wait for slice 5c."""
-    if t.is_array or t.is_hll or t.is_bitmap:
-        raise NotImplementedError(
-            f"{t!r} columns {where} are not in the port yet (slice 5c)")
-
-
 class Session:
     """data_dir=None -> in-memory tables only; with a data_dir, DDL and loads
     persist through the TabletStore (bucketed numpy rowsets + edit log) and
@@ -140,6 +133,10 @@ class Session:
             # compact_table) advance the catalog's data epoch too
             self.store.add_listener(
                 lambda t, op: self.catalog.bump_data_epoch(t))
+            # the plan-feedback journal lives beside the manifests, so
+            # learned capacities and hot keys survive a restart
+            self.cache.feedback.attach(
+                os.path.join(self.store.root, "plan_feedback.json"))
         # data-epoch bumps invalidate this session's device cache (DML paths
         # also call cache.invalidate directly — idempotent; the listener
         # covers epochs advanced by other sessions on a shared catalog and
@@ -215,13 +212,21 @@ class Session:
                     pass  # disk hiccup: keep serving; next statement retries
 
     def _sql_inner(self, text: str):
+        # prepared-statement fast path: statement text -> analyzed plan
+        # (cache/plan_cache.py); only SELECT plans are stored, so other
+        # statements always miss
+        text_key = text.strip().rstrip(";")
+        if config.get("enable_plan_cache"):
+            hit = self.cache.plan_cache.lookup(text_key, self.catalog)
+            if hit is not None:
+                return self._query_planned(hit, from_plan_cache=True)
         stmt = parse(text)
         if isinstance(stmt, _PLANE_STATEMENTS):
             raise _not_yet(f"{type(stmt).__name__} statements", 8)
         if isinstance(stmt, ast.Explain):
             return self._explain(stmt)
         if isinstance(stmt, (ast.Select, ast.SetOp)):
-            return self._query(stmt)
+            return self._query(stmt, cache_text=text_key)
         if isinstance(stmt, ast.CreateTable):
             return self._create(stmt)
         if isinstance(stmt, ast.DropTable):
@@ -329,8 +334,6 @@ class Session:
         handle = self.catalog.get_table(name)
         if handle is None:
             raise ValueError(f"unknown table {name}")
-        if stmt.action == "add":
-            _check_wide_column(stmt.type, "added by ALTER TABLE")
         if self.store is not None and isinstance(handle, StoredTableHandle):
             new_schema = self.store.alter_table(
                 name, stmt.action, stmt.column, stmt.type, stmt.nullable)
@@ -350,7 +353,14 @@ class Session:
                 fields = tuple(ht.schema.fields) + (
                     Field(stmt.column, t, stmt.nullable, d),)
                 arrays = dict(ht.arrays)
-                shape = (ht.num_rows, 4) if t.is_decimal128 else ht.num_rows
+                if t.is_array:
+                    shape = (ht.num_rows, 2)
+                elif t.is_decimal128:
+                    shape = (ht.num_rows, 4)
+                elif t.is_hll or t.is_bitmap:
+                    shape = (ht.num_rows, t.wide_width)
+                else:
+                    shape = ht.num_rows
                 arrays[stmt.column] = np.zeros(shape, dtype=t.np_dtype)
                 valids = dict(ht.valids)
                 if ht.num_rows:
@@ -472,9 +482,22 @@ class Session:
         return out
 
     # --- SELECT / EXPLAIN ------------------------------------------------------
-    def _query(self, sel) -> QueryResult:
+    def _query(self, sel, cache_text: str | None = None) -> QueryResult:
         plan = Analyzer(self.catalog).analyze(sel)
-        res = Executor(self.catalog, self.cache).execute_logical(plan)
+        if cache_text is not None and config.get("enable_plan_cache"):
+            # only top-level statement texts store (internal plans — view
+            # expansions, MV refresh bodies — have no client-visible text)
+            self.cache.plan_cache.store(cache_text, plan, self.catalog)
+        return self._query_planned(plan)
+
+    def _query_planned(self, plan, from_plan_cache: bool = False):
+        """Execute an already-analyzed plan (the plan cache's hits enter
+        here, skipping parse and analysis)."""
+        profile: dict = {}
+        if from_plan_cache:
+            profile["counters"] = {"plan_cache_hits": 1}
+        res = Executor(self.catalog, self.cache).execute_logical(
+            plan, profile)
         self.last_profile = res.profile
         return res
 
@@ -621,8 +644,6 @@ class Session:
         fields, arrays = [], {}
         for c in stmt.columns:
             t = c.type
-            if self.store is not None:
-                _check_wide_column(t, "in a stored table")
             d = StringDict.from_values([]) if t.is_string else None
             fields.append(Field(c.name, t, c.nullable, d))
             if t.is_decimal128:

@@ -36,6 +36,23 @@ class ColumnStats:
     n_distinct: Optional[int] = None
 
 
+# the widest value range whose distinct values are counted by a bincount
+# (an int64 count per value: 1 GB) instead of a sort of every value
+_NDV_BINCOUNT_RANGE = 1 << 27
+
+
+def _distinct_count(a: np.ndarray) -> int:
+    """len(np.unique(a)): by a bincount over the value range when the
+    values are integers spanning at most _NDV_BINCOUNT_RANGE (dictionary
+    codes, surrogate keys, dates), else by numpy's sort."""
+    if a.ndim == 1 and a.dtype.kind in "iu" and len(a):
+        lo, hi = int(a.min()), int(a.max())
+        if hi - lo < _NDV_BINCOUNT_RANGE:
+            return int(np.count_nonzero(np.bincount(
+                (a.astype(np.int64) - lo), minlength=hi - lo + 1)))
+    return int(len(np.unique(a)))
+
+
 class TableHandle:
     def __init__(self, name: str, table: HostTable, unique_keys=(),
                  distribution=()):
@@ -83,7 +100,7 @@ class TableHandle:
                 v = self.table.valids.get(col)
                 if v is not None:
                     a = a[np.asarray(v)]
-                st.n_distinct = int(len(np.unique(a)))
+                st.n_distinct = _distinct_count(a)
         return st.n_distinct
 
     def data_version(self) -> tuple:

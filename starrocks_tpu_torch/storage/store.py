@@ -422,15 +422,27 @@ class TabletStore:
         """Write one data file atomically (temporary name, then rename)."""
         out = {"names": np.asarray([f.name for f in data.schema], dtype=str)}
         for j, f in enumerate(data.schema):
-            if f.type.is_array or f.type.is_hll or f.type.is_bitmap:
-                raise NotImplementedError(
-                    f"{f.type!r} columns in a stored table are not in the "
-                    "port yet (slice 5c)")
             a = np.asarray(data.arrays[f.name])
             v = data.valids.get(f.name)
             if v is not None and v.all():
                 v = None
-            if f.type.is_string:
+            if f.type.is_array:
+                # the [rows, K+1] lanes (length, then the elements); string
+                # elements re-coded against the file's own dictionary
+                a = np.array(a, dtype=f.type.np_dtype)
+                if v is not None:
+                    a[~v] = 0  # NULL rows read back as empty lanes
+                if f.type.elem.is_string:
+                    a, fdict = _file_elem_dict(a, f.dict)
+                    out[f"d{j}"] = fdict
+                out[f"c{j}"] = a
+            elif f.type.is_hll or f.type.is_bitmap:
+                # the rank-2 int8 registers / planes, as they are
+                a = np.array(a, dtype=np.int8)
+                if v is not None:
+                    a[~v] = 0
+                out[f"c{j}"] = a
+            elif f.type.is_string:
                 codes, fdict = _file_dict(a, v, f.dict)
                 out[f"c{j}"] = codes
                 out[f"d{j}"] = fdict
@@ -527,10 +539,6 @@ class TabletStore:
         self.validate_alter(schema, action, column, nullable, has_rows,
                             protected)
         if action == "add":
-            if ctype.is_array or ctype.is_hll or ctype.is_bitmap:
-                raise NotImplementedError(
-                    f"{ctype!r} columns in a stored table are not in the "
-                    "port yet (slice 5c)")
             d = StringDict.from_values([]) if ctype.is_string else None
             fields = tuple(schema.fields) + (
                 Field(column, ctype, nullable, d),)
@@ -790,13 +798,13 @@ class TabletStore:
                     j = names.index(c)
                     a = z[f"c{j}"]
                     v = z[f"v{j}"] if f"v{j}" in z.files else None
-                    d = z[f"d{j}"] if f.type.is_string else None
+                    d = z[f"d{j}"] if f"d{j}" in z.files else None
                 else:
-                    shape = (n, 4) if f.type.is_decimal128 else (n,)
-                    a = np.zeros(shape, dtype=(np.int32 if f.type.is_string
-                                               else f.type.np_dtype))
+                    a = _null_column(f.type, n)
                     v = np.zeros(n, dtype=np.bool_)
-                    d = np.zeros(0, dtype="<U1") if f.type.is_string else None
+                    d = None
+                if d is None and _has_text(f.type):
+                    d = np.zeros(0, dtype="<U1")
                 if len(a) != n:
                     raise ValueError(
                         f"{fmeta['file']}: column {c!r} holds {len(a)} rows, "
@@ -1082,6 +1090,79 @@ def _file_dict(codes: np.ndarray, valid, d):
     return out, fdict
 
 
+def _has_text(t: T.LogicalType) -> bool:
+    """A column whose file holds a dictionary: VARCHAR, ARRAY<VARCHAR>."""
+    return t.is_string or (t.is_array and t.elem.is_string)
+
+
+def _null_column(t: T.LogicalType, n: int) -> np.ndarray:
+    """The zero values of `n` NULL rows in a column's in-memory layout (a
+    column a file does not hold)."""
+    if t.is_string:
+        return np.zeros(n, dtype=np.int32)
+    if t.is_array:
+        return np.zeros((n, 2), dtype=t.np_dtype)
+    if t.is_decimal128:
+        return np.zeros((n, 4), dtype=np.int64)
+    if t.is_hll or t.is_bitmap:
+        return np.zeros((n, t.wide_width), dtype=np.int8)
+    return np.zeros(n, dtype=t.np_dtype)
+
+
+def _file_elem_dict(lanes: np.ndarray, d):
+    """An ARRAY<VARCHAR> column's [rows, K+1] lanes with the element codes
+    re-coded against the file's own dictionary (the values its elements
+    use, sorted), and that dictionary. Padding lanes read back as 0."""
+    nd = 0 if d is None else len(d)
+    lens = lanes[:, 0].astype(np.int64)
+    k = lanes.shape[1] - 1
+    live = np.arange(k)[None, :] < lens[:, None]
+    if nd == 0 or not live.any():
+        out = lanes.copy()
+        out[:, 1:] = 0
+        return out, np.zeros(0, dtype="<U1")
+    codes = np.clip(lanes[:, 1:].astype(np.int64), 0, nd - 1)
+    used = np.flatnonzero(np.bincount(codes[live], minlength=nd))
+    lut = np.zeros(nd, dtype=np.int64)
+    lut[used] = np.arange(len(used))
+    out = lanes.copy()
+    out[:, 1:] = np.where(live, lut[codes], 0).astype(lanes.dtype)
+    return out, np.asarray(d.values[used], dtype=str)
+
+
+def _concat_array_parts(cols: list, t: T.LogicalType):
+    """One [rows, K+1] array column from per-file reads: the lanes padded to
+    the widest file's K; string elements re-coded into the union of the
+    files' dictionaries. Returns (lanes, dictionary or None)."""
+    k = max(max((a.shape[1] for a, _, _ in cols), default=2), 2)
+    padded = []
+    for a, _, _ in cols:
+        if a.shape[1] < k:
+            a = np.concatenate(
+                [a, np.zeros((len(a), k - a.shape[1]), dtype=a.dtype)],
+                axis=1)
+        padded.append(a)
+    if not t.elem.is_string:
+        return (np.concatenate(padded).astype(t.np_dtype, copy=False),
+                None)
+    texts = [d for _, _, d in cols if d is not None and len(d)]
+    union = (np.unique(np.concatenate(texts)) if texts
+             else np.zeros(0, dtype="<U1"))
+    out = []
+    for a, (_, _, d) in zip(padded, cols):
+        a = a.astype(np.int64)
+        if d is not None and len(d) and len(union):
+            lut = np.searchsorted(union, d)
+            live = np.arange(k - 1)[None, :] < a[:, :1]
+            a[:, 1:] = np.where(live, lut[np.clip(a[:, 1:], 0, len(d) - 1)],
+                                0)
+        else:
+            a[:, 1:] = 0
+        out.append(a)
+    return (np.concatenate(out).astype(t.np_dtype, copy=False),
+            StringDict(union.astype(object)))
+
+
 def _concat_parts(parts: list, want, schema: Schema) -> HostTable:
     """One HostTable of the declared schema from per-file column reads
     (`_read_file` results, in file order)."""
@@ -1097,7 +1178,27 @@ def _concat_parts(parts: list, want, schema: Schema) -> HostTable:
                 for (_, v, _), n in zip(cols, n_each)])
         else:
             valid = None
-        if f.type.is_string:
+        if f.type.is_array:
+            arr, dct = _concat_array_parts(cols, f.type)
+            fields.append(Field(c, f.type, f.nullable, dct))
+        elif f.type.is_hll or f.type.is_bitmap:
+            w = f.type.wide_width
+            out = []
+            for (a, _, _) in cols:
+                if a.shape[1] > w:
+                    raise ValueError(
+                        f"{c}: stored sketch width {a.shape[1]} exceeds "
+                        f"declared {f.type!r}")
+                if a.shape[1] < w:
+                    # files written before a precision change: pad the
+                    # registers up to the declared width
+                    a = np.concatenate(
+                        [a, np.zeros((len(a), w - a.shape[1]), np.int8)],
+                        axis=1)
+                out.append(a)
+            arr = np.concatenate(out).astype(np.int8, copy=False)
+            fields.append(Field(c, f.type, f.nullable, None))
+        elif f.type.is_string:
             used = []
             for (a, v, d) in cols:
                 if not len(d) or not len(a):

@@ -457,3 +457,35 @@ select l_shipmode,
 from lineitem group by l_shipmode order by l_shipmode
 """,
 }
+
+
+# Execution beyond device memory (runtime/batched.py): with
+# `batch_rows_threshold` set below a table's rows, each of these takes a
+# spill executor. Batched aggregation: Q1, Q6, S1, S2, B7 (B7's DOUBLE sums
+# and S1/S2's moment sums reach segment_sum under the kernel strategies);
+# the hybrid partitioned join (one integer equi key, a scan on each side):
+# Q4, Q12, Q14, Q19; the spilled sort (host lexsort of device-evaluated
+# operands): N1, N3; the spilled window (rows hash-split by PARTITION BY):
+# W1, ~100 rows a unit of scale factor.
+SPILL_WINDOW_QUERIES = {
+"W1": """
+SELECT l_orderkey, l_linenumber, row_number() OVER (PARTITION BY l_orderkey ORDER BY l_extendedprice DESC, l_linenumber) rn, sum(l_quantity) OVER (PARTITION BY l_orderkey ORDER BY l_linenumber) rq FROM lineitem WHERE l_shipdate >= DATE '1998-06-01'
+""",
+}
+
+SPILL_QUERIES = {
+    **{f"Q{q}": QUERIES[q] for q in (1, 6)},
+    "S1": STAT_QUERIES["S1"],
+    "S2": STAT_QUERIES["S2"],
+    "B7": BREADTH_QUERIES["B7"],
+    **{f"Q{q}": QUERIES[q] for q in (4, 12, 14, 19)},
+    "N1": TOPN_QUERIES["N1"],
+    "N3": TOPN_QUERIES["N3"],
+    **SPILL_WINDOW_QUERIES,
+}
+# the executor each spill query takes (its profile node)
+SPILL_EXECUTORS = {
+    **{q: "batched" for q in ("Q1", "Q6", "S1", "S2", "B7")},
+    **{q: "hybrid" for q in ("Q4", "Q12", "Q14", "Q19")},
+    "N1": "spill_sort", "N3": "spill_sort", "W1": "spill_window",
+}

@@ -316,15 +316,47 @@ def test_raw_map_result_column_raises(array_sessions):
 
 
 def test_stored_array_columns_wait_for_slice_5c(tmp_path):
-    """The reference persists ARRAY columns in its rowsets; the port's
-    TabletStore does not yet and names the slice."""
-    ts = TSession(device="cpu", data_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="slice 5c"):
-        ts.sql("CREATE TABLE at (id BIGINT, a ARRAY<INT>, s ARRAY<VARCHAR>)")
+    """The reference's ARRAY storage round trip
+    (tests/test_array_decimal128.py::test_array_storage_roundtrip) through
+    both Sessions, each over its own data_dir: the TabletStore persists
+    ARRAY<INT> and ARRAY<VARCHAR> columns ([rows, K+1] lanes, per-file
+    element dictionaries) and a restart reads them back. (The name is
+    kept from when the port raised here.)"""
+    from starrocks_tpu.runtime.session import Session as JSession
+
+    dirs = (str(tmp_path / "jax"), str(tmp_path / "port"))
+    pair = (JSession(data_dir=dirs[0]),
+            TSession(device="cpu", data_dir=dirs[1]))
+    run_pair(pair, "CREATE TABLE at (id BIGINT, a ARRAY<INT>, "
+                   "s ARRAY<VARCHAR>)")
+    run_pair(pair, "INSERT INTO at VALUES (1, array(1, 2), array('p', 'q')),"
+                   "(2, array(7), array('r'))")
+    run_pair(pair, "INSERT INTO at VALUES (3, array(4, 5, 6), "
+                   "array('q', 'z', 'a'))")
+    restarted = (JSession(data_dir=dirs[0]),
+                 TSession(device="cpu", data_dir=dirs[1]))
+    got = run_pair(restarted, "SELECT id, a, s FROM at ORDER BY id")
+    assert got == ("rows", [(1, [1, 2], ["p", "q"]), (2, [7], ["r"]),
+                            (3, [4, 5, 6], ["q", "z", "a"])])
+    got = run_pair(restarted,
+                   "SELECT id, x FROM at, unnest(s) u(x) ORDER BY id, x")
+    assert got[1][:3] == [(1, "p"), (1, "q"), (2, "r")]
 
 
-def test_alter_add_array_column_waits_for_slice_5c():
-    _, ts = session_pair()
-    ts.sql("CREATE TABLE q (id BIGINT)")
-    with pytest.raises(NotImplementedError, match="slice 5c"):
-        ts.sql("ALTER TABLE q ADD COLUMN a ARRAY<BIGINT>")
+def test_alter_add_array_column_waits_for_slice_5c(tmp_path):
+    """The reference's tests/test_storage.py::test_alter_add_array_column
+    through both Sessions: ALTER TABLE ADD COLUMN of an ARRAY, stored
+    (old files read the column back NULL) and in memory. (The name is kept
+    from when the port raised here.)"""
+    from starrocks_tpu.runtime.session import Session as JSession
+
+    stored = (JSession(data_dir=str(tmp_path / "jax")),
+              TSession(device="cpu", data_dir=str(tmp_path / "port")))
+    for pair, t in ((stored, "v"), (session_pair(), "w")):
+        run_pair(pair, f"CREATE TABLE {t} (a BIGINT)")
+        run_pair(pair, f"INSERT INTO {t} VALUES (1)")
+        run_pair(pair, f"ALTER TABLE {t} ADD COLUMN arr ARRAY<BIGINT>")
+        run_pair(pair, f"INSERT INTO {t} VALUES (2, array(7, 8))")
+        got = run_pair(pair, f"SELECT a, arr FROM {t} ORDER BY a")
+        assert got == ("rows", [(1, None), (2, [7, 8])])
+    run_pair(stored, "SELECT a, array_length(arr) FROM v ORDER BY a")

@@ -50,7 +50,11 @@ installed:
 - the function surface: HLL registers and BITMAP planes at 2^22 rows bit
   for bit, unnest and lambda bodies at 2^20 rows exactly, F1's
   transcendentals to 6 significant digits, and F1-F11 at SF 0.01 through
-  `Session.sql`, each against the CPU.
+  `Session.sql`, each against the CPU;
+- execution beyond device memory at 2^20 rows in 2^18-row batches: the
+  batched aggregation (segment_sum in every batch and the merge, f32 sums
+  to 1e-4), the hybrid join with spilled partitions and a heavy hitter,
+  the spilled sort and the spilled window, each against the CPU.
 """
 
 import numpy as np
@@ -1056,3 +1060,95 @@ def test_function_queries_on_card_match_cpu(cuda):
     finally:
         _set(AUTO_STRATEGIES)
         udf._REGISTRY.clear()
+
+
+# --- execution beyond device memory (slice 6) -------------------------------
+
+
+SPILL_N = 1 << 20
+
+
+def _spill_catalog():
+    """2^20 rows of facts (groups, float and decimal values, NULLs) and a
+    2^19-row build side whose key 7 holds a quarter of it."""
+    from starrocks_tpu_torch.column import HostTable
+    from starrocks_tpu_torch.storage.catalog import Catalog
+
+    rng = np.random.default_rng(41)
+    n, m = SPILL_N, SPILL_N // 2
+    x = rng.random(n) * 100
+    bk = rng.integers(0, 60_000, m)
+    bk[: m // 4] = 7
+    cat = Catalog()
+    fact = HostTable.from_pydict({
+        "k": rng.integers(0, 70_000, n), "g": rng.integers(0, 12, n),
+        "x": x, "v": rng.integers(-1000, 1000, n)})
+    fact.valids["x"] = rng.random(n) > 0.05
+    cat.register("fact", fact)
+    cat.register("dim", HostTable.from_pydict({
+        "k": bk, "w": rng.integers(0, 100, m)}))
+    return cat
+
+
+SPILL_GPU_QUERIES = {
+    "batched": "select g, count(*) c, sum(v) sv, sum(x) sx, avg(x) ax, "
+               "stddev_samp(x) sd from fact group by g order by g",
+    "hybrid": "select count(*) c, sum(v + w) s from fact, dim "
+              "where fact.k = dim.k",
+    "spill_sort": "select k, g, v from fact order by v desc, k, g "
+                  "limit 5000",
+    "spill_window": "select k, g, v, row_number() over (partition by k "
+                    "order by v, g) rn, sum(v) over (partition by k order "
+                    "by v, g) rs from fact where g < 3",
+}
+
+
+@pytest.mark.parametrize("executor", sorted(SPILL_GPU_QUERIES))
+def test_spill_executors_on_card_match_cpu(cuda, executor):
+    """Each spill executor on the card (lineitem-like 2^20 rows streamed in
+    2^18-row batches) against the CPU: batched aggregation (warm, under the
+    kernel strategies: segment_sum in every PARTIAL batch and the FINAL
+    merge, f32 sums to 1e-4), the hybrid join with spilled partitions, the
+    spilled sort and the spilled window, exactly."""
+    from chip_smoke import tables_agree
+    from starrocks_tpu_torch.runtime import batched
+
+    cat = _spill_catalog()
+    q = SPILL_GPU_QUERIES[executor]
+    knobs = {"batch_rows_threshold": 1 << 18, "spill_batch_rows": 1 << 18}
+    try:
+        _set({**AUTO_STRATEGIES, **knobs})
+        want = Session(cat, device="cpu").sql(q).table
+        _set({**KERNEL_STRATEGIES, **knobs})
+        card = Session(cat, device=cuda)
+        card.sql(q)  # cold: the batched aggregation learns its capacity
+        kernels.reset_counts()
+        got = card.sql(q).table
+        node = card.last_profile[executor]
+        if executor == "batched":
+            assert node["batches"] == 4
+            assert kernels.counts()["segment_sum"]["launches"] > 0
+            assert tables_agree(got, want, rel=1e-4)
+        else:
+            if executor == "hybrid":
+                assert node["hybrid_spilled"] >= 1
+                assert node["hybrid_skew_keys"] >= 1
+            if executor == "spill_window":
+                got, want = (_sorted_table(t) for t in (got, want))
+            assert tables_agree(got, want)
+        assert batched.SPILL_PARTS_LIVE.value == 0
+    finally:
+        for k in knobs:
+            config.set(k, 0)
+        _set(AUTO_STRATEGIES)
+
+
+def _sorted_table(t):
+    """A HostTable's rows in a canonical order (a spilled window's groups
+    come back in hash order)."""
+    from starrocks_tpu_torch.column import HostTable
+
+    rows = sorted(t.to_pylist(), key=str)
+    cols = list(zip(*rows)) if rows else [[] for _ in t.schema]
+    return HostTable.from_pydict(
+        {f.name: list(c) for f, c in zip(t.schema, cols)})

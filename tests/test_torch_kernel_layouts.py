@@ -49,6 +49,17 @@ I64MIN = -(1 << 63)
 SEG_REL = 1e-6  # |sum - f64 sum| <= SEG_REL * sum |x|, per (group, column)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain hash build's claim rounds are thousands of small torch ops
+    over the table: with the CPU's whole thread pool per op, six test
+    workers oversubscribe the cores and one case took 663 s instead of 7."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # --- the probe's search tree ---------------------------------------------------
 
 

@@ -274,9 +274,68 @@ def test_in_memory_sketch_columns(kind):
     assert ts.sql("select count(*) from agg_t").rows() == [(3,)]
 
 
-def test_stored_sketch_columns_wait_for_slice_5c(tmp_path):
-    from starrocks_tpu_torch.runtime.session import Session
+@pytest.mark.parametrize("kind", ["hll", "bitmap"])
+def test_stored_sketch_columns_wait_for_slice_5c(tmp_path, kind):
+    """The reference's HLL and BITMAP storage round trips
+    (tests/test_sketch_types.py::test_hll_storage_roundtrip,
+    test_bitmap_storage_roundtrip) through both Sessions, each over its own
+    data_dir: the sketch rows go through the write path as rank-2 int8
+    registers / planes, a restart reads them back, and every estimate and
+    count equals the JAX package's; ALTER TABLE ADD COLUMN of the type
+    reads NULL for the old rows. (The name is kept from when the port
+    raised here.)"""
+    from starrocks_tpu import types as JT
+    from starrocks_tpu.column import HostTable as JHostTable
+    from starrocks_tpu.runtime.session import Session as JSession
+    from starrocks_tpu_torch.runtime.session import Session as TSession
 
-    s = Session(device="cpu", data_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="slice 5c"):
-        s.sql("create table agg_t (k int, users hll(12))")
+    rng = np.random.default_rng(8 if kind == "hll" else 12)
+    dirs = (str(tmp_path / "jax"), str(tmp_path / "port"))
+    pair = (JSession(data_dir=dirs[0]),
+            TSession(device="cpu", data_dir=dirs[1]))
+    if kind == "hll":
+        raw = {"raw": {"k": rng.integers(0, 3, 20_000),
+                       "u": rng.integers(0, 9_000, 20_000)}}
+        ddl = "create table agg_t (k int, users hll(12))"
+        rows = run_pair(session_pair(raw),
+                        "select k, hll_sketch(u) as users from raw "
+                        "group by k order by k")[1]
+        types = (JT.HLL(12), TT.HLL(12))
+        queries = ["select hll_union_agg(users) from agg_t",
+                   "select k, hll_cardinality(users) from agg_t order by k"]
+    else:
+        def planes(vs):
+            b = np.zeros(512, dtype=np.uint8)
+            for x in vs:
+                b[x >> 3] |= 1 << (x & 7)
+            return b.astype(np.int8).tobytes()
+
+        vals = [sorted(set(rng.integers(0, 4096, 50).tolist()))
+                for _ in range(3)]
+        ddl = "create table agg_t (k int, users bitmap(4096))"
+        rows = [(i, planes(v)) for i, v in enumerate(vals)]
+        types = (JT.BITMAP(4096), TT.BITMAP(4096))
+        queries = ["select k, bitmap_count(users) from agg_t order by k",
+                   "select bitmap_union_count(users) from agg_t"]
+    run_pair(pair, ddl)
+    data = {"k": [r[0] for r in rows], "users": [r[1] for r in rows]}
+    for sess, HT, typ, IT in ((pair[0], JHostTable, types[0], JT.INT),
+                              (pair[1], THostTable, types[1], TT.INT)):
+        sess._append(sess.catalog.get_table("agg_t"),
+                     HT.from_pydict(data, types={"k": IT, "users": typ}))
+    restarted = (JSession(data_dir=dirs[0]),
+                 TSession(device="cpu", data_dir=dirs[1]))
+    for q in queries:
+        got = run_pair(restarted, q)
+        assert got[0] == "rows" and got[1]
+    if kind == "bitmap":
+        assert run_pair(restarted, queries[0])[1] == [
+            (i, len(vals[i])) for i in range(3)]
+    # ALTER TABLE ADD COLUMN of the sketch type on a stored table
+    col = "more hll(12)" if kind == "hll" else "more bitmap(4096)"
+    fn = "hll_cardinality" if kind == "hll" else "bitmap_count"
+    run_pair(restarted, f"alter table agg_t add column {col}")
+    got = run_pair(restarted, f"select k, {fn}(more) from agg_t order by k")
+    # bitmap_count of a NULL bitmap is 0 in both packages (as in StarRocks)
+    empty = None if kind == "hll" else 0
+    assert got == ("rows", [(r[0], empty) for r in rows])

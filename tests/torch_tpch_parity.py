@@ -55,10 +55,12 @@ def set_knobs(cfg, knobs: dict):
 
 
 def reset_knobs():
-    """Both registries' copies of the port's knobs at their defaults."""
+    """Both registries' copies of the port's knobs at their defaults (a knob
+    a module defines when it loads, such as `enable_plan_cache`, may not be
+    in the JAX registry yet)."""
     for cfg in (tcfg, jcfg):
         for name, _, _, mutable, _ in tcfg.items():
-            if mutable:
+            if mutable and name in cfg._fields:
                 cfg.set(name, cfg._fields[name].default)
 
 

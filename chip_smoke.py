@@ -117,6 +117,23 @@ allocated when it started. Phases, each of which must pass:
    after them equal the twin's. A second restart must give the same
    answers; then a second 1% upsert and `compact_table('orders')` (one
    rowset, no delete vectors left), and the answers again.
+8b. dist (distribution): the earlier paths' device memory released, a
+   fresh Session(dist_shards=8) over the --sf catalog (the default
+   thresholds shard every table but nation and region, and the large
+   group-bys take the shuffle; no module global is patched) runs
+   DIST_QUERIES (Q1, Q3, Q5, Q6, Q10, Q12, Q14, Q18, Q19, S1, S2, N1, the
+   PARTITION BY window W2 and the range-exchange sort O1) cold and warm
+   under the kernel strategies, then under `auto`, then Q3 and Q5 cold
+   under the hash kernels; the 8 shards run in lockstep in this process,
+   on the one card. Counts set to 0 and peak memory reset before each
+   run; each keeps its wall, peak, launches, fragments, exchanges and
+   exchange rows and bytes. Rows must equal the single-shard Session's
+   (exactly, floats to 6 significant digits, S1/S2's f32 cells to a
+   relative 1e-4; tied ORDER BY rows as a multiset); all five kernels must
+   launch; the fragment stats must be non-zero. Then the cluster
+   sub-phase at SF 1: ClusterRuntime(n_workers=2, shards=2) with its
+   worker processes on the same card runs Q3 and Q18 cold and warm, rows
+   equal to the in-process path's, at least 3 fragments on the workers.
 9. tpcds (windows and TPC-DS): the TPC-H catalog is dropped, then TPC-DS
    is generated at --tpcds-sf (default 10: store_sales 28.8M rows,
    inventory 295.8M; seed 11; every query fits the card at SF 10, so the
@@ -184,7 +201,8 @@ allocated when it started. Phases, each of which must pass:
    sums in f64.
 
 The last lines of output are the `kernels` JSON line (each kernel's
-`launches` over its first path, the functions, spill and tpcds paths) and
+`launches` over its first path, the functions, spill, dist and tpcds
+paths) and
 then
 {"ok": true, "device": {...}}; the full record goes to DIR/chip_smoke.json.
 `--phases kernels` (a comma list) runs those phases only, after `device`
@@ -282,6 +300,10 @@ CUTS = ["tpch, breadth, functions and ssb: no traced warm runs (earlier "
         "kernels: every check at every shape stays; the extra timings at "
         "the functions and tpcds paths' shapes are not repeated (earlier "
         "timings are in PERF.md); the spill path's shapes are timed",
+        "dist: no traced runs; the `auto` runs share the kernel runs' "
+        "Session (the shards' placements already on the card); Q1 and W2 "
+        "cold only (DIST_COLD_ONLY), and Q3/Q5 under the hash kernels; "
+        "the kernels timed at the largest per-shard shape of each",
         "the untraced cold and warm runs and every kernel check stay"]
 TOPN_SF = 1.0  # Q2's top-N scale (see phase_hash_topn)
 CPU_SF = 0.1   # the card-vs-CPU phase's scale (the CPU runs it too)
@@ -1673,6 +1695,212 @@ def phase_store(rec, cat, sf):
         raise PhaseError(f"store: {failures}")
 
 
+DIST_SHARDS = 8
+DIST_REL = {"S1": STAT_REL, "S2": STAT_REL}
+# run once more, cold, under the hash kernels (`join_probe_strategy =
+# 'pallas'`): their local joins build and probe the open-addressing table
+DIST_HASH = ("Q3", "Q5")
+# the cluster sub-phase: TPC-H at this scale, Q3 and Q18 scheduled onto
+# two worker processes of two shards each, on the same card
+CLUSTER_SF = 1.0
+CLUSTER_QUERIES = ("Q3", "Q18")
+# cold only (CUTS): Q1 launches no kernel and its one-hot operands under
+# `pallas` take ~7 s a run; W2's window over 7.5M-row shards ~2 s a run
+DIST_COLD_ONLY = ("Q1", "W2")
+
+
+# the one dist query with no ORDER BY: its rows are compared in a
+# canonical order; every other query is held to its row order
+DIST_UNORDERED = ("W2",)
+
+
+def _canonical(table):
+    """`table` with its rows in order of their printed forms (types and
+    NULLs kept)."""
+    import numpy as np
+
+    from starrocks_tpu_torch.column import HostTable
+
+    rows = [str(r) for r in table.to_pylist()]
+    order = np.array(sorted(range(len(rows)), key=rows.__getitem__),
+                     dtype=np.int64)
+    return HostTable(table.schema,
+                     {k: v[order] for k, v in table.arrays.items()},
+                     {k: v[order] for k, v in table.valids.items()})
+
+
+def _dist_agree(q, got, want, rel) -> bool:
+    """tables_agree in row order; a DIST_UNORDERED query's tables first
+    put in canonical order."""
+    if q in DIST_UNORDERED:
+        got, want = _canonical(got), _canonical(want)
+    return tables_agree(got, want, rel=rel)
+
+
+def phase_dist(rec, cat, sf):
+    """The distributed path (see the module docstring, phase 8b): a fresh
+    Session(dist_shards=8) over the TPC-H catalog at `sf`, DIST_QUERIES
+    cold and warm under the kernel strategies then under `auto`, then
+    DIST_HASH cold under the hash kernels; rows equal to the single-shard
+    Session's; all five kernels must launch; the fragment stats must be
+    non-zero. Then the cluster sub-phase."""
+    import gc
+
+    import torch
+
+    from starrocks_tpu_torch.ops import kernels
+    from starrocks_tpu_torch.runtime.session import Session
+    from starrocks_tpu_torch.storage.tpch_queries import DIST_QUERIES
+
+    out = {"sf": sf, "shards": DIST_SHARDS}
+    failures = []
+    # the single-shard path's rows under `auto`, in a Session of its own
+    set_knobs(strategies("auto"))
+    s1 = Session(cat, device=CARD)
+    want, ref_s = {}, {}
+    for q, text in DIST_QUERIES.items():
+        t = time.perf_counter()
+        want[q] = s1.sql(text).table
+        ref_s[q] = time.perf_counter() - t
+    out["single_shard_cold_s"] = ref_s
+    del s1
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = dict.fromkeys(kernels.WRAPPERS, 0)
+    shapes = {n: set() for n in kernels.WRAPPERS}
+    queries: dict = {}
+    s8 = Session(cat, device=CARD, dist_shards=DIST_SHARDS)
+    runs = [(st, run, q) for st in ("kernels", "auto")
+            for run in ("cold", "warm") for q in DIST_QUERIES
+            if run == "cold" or q not in DIST_COLD_ONLY]
+    runs += [("hash", "cold", q) for q in DIST_HASH]
+    try:
+        for strategy, run, q in runs:
+            knobs = (strategies("kernels") if strategy != "auto"
+                     else strategies("auto"))
+            if strategy == "hash":
+                knobs = {**knobs, "join_probe_strategy": "pallas"}
+            set_knobs(knobs)
+            kernels.reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated() / 1e9
+            t = time.perf_counter()
+            res = s8.sql(DIST_QUERIES[q])
+            table = res.table
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            got = _snapshot(kernels)
+            for n, v in got.items():
+                launches[n] += v
+                if v:
+                    shapes[n].update(kernels.WRAPPERS[n].shapes)
+            prof = res.profile
+            ctr = prof.get("counters", {})
+            r = queries.setdefault(f"{q}@{strategy}", {})[run] = {
+                "wall_s": wall, "rows": table.num_rows, "peak_mem_gb": peak,
+                "base_mem_gb": base,
+                "launches": {n: v for n, v in got.items() if v},
+                "fragments": prof.get("fragments"),
+                "exchanges": prof.get("exchanges"),
+                "exchange_rows": ctr.get("exchange_rows"),
+                "exchange_bytes": ctr.get("exchange_bytes"),
+                "recompiles": prof.get("recompiles"),
+                "scan_s": sum(a["scan_s"] for a in prof.get("attempts", ())),
+                "run_s": sum(a["run_s"] for a in prof.get("attempts", ())),
+                "optimize_s": prof.get("optimize_s"),
+                "fetch_s": prof.get("fetch_s")}
+            log(f"  {q}@dist-{strategy} {run}: {wall * 1e3:.1f} ms, "
+                f"{table.num_rows} rows, peak {peak:.2f} GB (from "
+                f"{base:.2f}), fragments {r['fragments']}, exchanges "
+                f"{r['exchanges']}, exchange rows {r['exchange_rows']} "
+                f"bytes {r['exchange_bytes']}, launches {r['launches']}, "
+                f"recompiles {r['recompiles']}")
+            rel = DIST_REL.get(q, 1e-6) if strategy != "auto" else 1e-6
+            if not _dist_agree(q, table, want[q], rel):
+                failures.append(f"{q}@{strategy} {run}: rows differ from "
+                                "the single-shard path's")
+            if not (r["fragments"] and r["exchange_rows"]
+                    and r["exchange_bytes"]):
+                failures.append(f"{q}@{strategy} {run}: no fragment stats")
+    finally:
+        set_knobs(strategies("auto"))
+    out["queries"] = queries
+    out["launches"] = launches
+    out["shapes"] = {n: sorted(v) for n, v in shapes.items()}
+    log(f"dist: launches {launches}, kernel shapes {out['shapes']}")
+    for n, v in launches.items():
+        if not v:
+            failures.append(f"{n} did not launch on the dist path")
+    del s8
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        out["cluster"] = _dist_cluster(failures)
+    except Exception as e:  # the phase fails below, with the reason
+        traceback.print_exc()
+        failures.append(f"cluster: {type(e).__name__}: {e}")
+    rec["dist"] = out
+    if failures:
+        raise PhaseError(f"dist: {failures}")
+
+
+def _dist_cluster(failures) -> dict:
+    """The cluster sub-phase: TPC-H at CLUSTER_SF, a coordinator Session of
+    two shards and ClusterRuntime(n_workers=2, shards=2) with its worker
+    processes on the same card (the device travels in their bootstrap);
+    CLUSTER_QUERIES through the workers, rows equal to the in-process
+    path's, and at least 3 fragments run on the workers. The fleet stops
+    in a finally."""
+    import gc
+
+    import torch
+
+    from starrocks_tpu_torch.runtime.cluster_exec import ClusterRuntime
+    from starrocks_tpu_torch.runtime.session import Session
+    from starrocks_tpu_torch.storage.catalog import tpch_catalog
+    from starrocks_tpu_torch.storage.tpch_queries import DIST_QUERIES
+
+    out = {"sf": CLUSTER_SF, "workers": 2, "shards": 2}
+    cat = tpch_catalog(sf=CLUSTER_SF, seed=42)
+    s = Session(cat, device=CARD, dist_shards=2)
+    want = {q: s.sql(DIST_QUERIES[q]).table for q in CLUSTER_QUERIES}
+    t = time.perf_counter()
+    # a CUDA context and the engine's imports hold a worker's interpreter
+    # for seconds at bootstrap: a heartbeat deadline of 10 s rides it out
+    cr = ClusterRuntime(n_workers=2, shards=2, hb_interval_s=1.0,
+                        hb_miss_limit=10).start(s)
+    out["start_s"] = time.perf_counter() - t
+    try:
+        cr.attach(s)
+        for q in CLUSTER_QUERIES:
+            for run in ("cold", "warm"):
+                t = time.perf_counter()
+                table = s.sql(DIST_QUERIES[q]).table
+                wall = time.perf_counter() - t
+                out.setdefault(q, {})[run] = {
+                    "wall_s": wall, "rows": table.num_rows,
+                    "cluster_workers": s.last_profile.get("cluster_workers")}
+                log(f"  {q}@cluster {run}: {wall * 1e3:.1f} ms, "
+                    f"{table.num_rows} rows")
+                if not _dist_agree(q, table, want[q], 1e-6):
+                    failures.append(f"{q}@cluster {run}: rows differ from "
+                                    "the in-process path's")
+        out["stats"] = cr.stats()
+    finally:
+        s.catalog.cluster_runtime = None
+        cr.stop()
+    log(f"  cluster: started in {out['start_s']:.1f} s, {out['stats']}")
+    if out["stats"]["fragments_total"] < 3:
+        failures.append(f"cluster: {out['stats']['fragments_total']} "
+                        "fragments ran on the workers")
+    del s, cat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _ns(event, what: str) -> int:
     """A raw profiler event's start or duration in ns (`start_ns()`, or
     `start_us()` where a torch build has only that)."""
@@ -1960,7 +2188,7 @@ def phase_kernels(rec, seed, only=None):
     dev = torch.device(CARD)
     shapes = {n: [] for n in kernels.WRAPPERS}
     for path in ("hash_topn", "tpch", "topn", "breadth", "functions",
-                 "spill", "ssb", "store", "tpcds"):
+                 "spill", "ssb", "store", "dist", "tpcds"):
         for n, v in (rec.get(path) or {}).get("shapes", {}).items():
             shapes[n] += [tuple(x) for x in v]
     build_shape = max(shapes["hash_build"] or [DEFAULT_SHAPES["hash_build"]])
@@ -1997,6 +2225,12 @@ def phase_kernels(rec, seed, only=None):
         except Exception as e:  # report it, run the other kernels' checks
             traceback.print_exc()
             failures.append(f"{name}: {type(e).__name__}: {e}")
+    if not only and rec.get("dist"):
+        try:
+            _time_dist_shapes(dev, rec["dist"]["shapes"], seed, results)
+        except Exception as e:  # report it with the checks' failures
+            traceback.print_exc()
+            failures.append(f"dist timing: {type(e).__name__}: {e}")
     if not only or {"probe_searchsorted", "segment_sum"} & set(only):
         for path in ("spill",):
             try:
@@ -2018,14 +2252,36 @@ def phase_kernels(rec, seed, only=None):
         raise PhaseError(f"kernel/plain mismatches: {failures}")
 
 
+def _time_dist_shapes(dev, shapes, seed, results):
+    """Each kernel at the largest per-shard shape the dist path gave it,
+    kept in results[kernel]["dist"] as every path's timings are: the sorted
+    probe and the segment sum through _time_path_shapes, the hash pair
+    through _time_hash (the build at the largest build shape, the probe at
+    the largest probe's count). The top-N select's checks time it at every
+    path shape already, and the checks hold every kernel to its plain
+    version at every one of these shapes."""
+    import numpy as np
+
+    largest = {n: [max(map(tuple, v), key=lambda x: (int(np.prod(x)), x))]
+               for n, v in shapes.items() if v}
+    _time_path_shapes(dev, "dist", largest, seed, results)
+    if "hash_build" in largest and "hash_probe" in largest:
+        [build], [(_, m)] = largest["hash_build"], largest["hash_probe"]
+        _, keys, t, probe = _hash_main_case(dev, build, m, seed)
+        timed = {"hash_build": {}, "hash_probe": {}}
+        _time_hash(keys, t, probe, [m], timed)
+        for name, r in timed.items():
+            results[name].setdefault("dist", []).append(r)
+
+
 def _time_path_shapes(dev, path, shapes, seed, results):
     """The sorted probe and the segment sum timed at each shape `path` (the
-    tpcds, the functions or the spill path) launched them with (random inputs of that
+    spill or the dist path) launched them with (random inputs of that
     shape: sorted distinct build keys, uniform probes; four live groups of
-    discount-like values): the kernel and the library call with CUDA
-    events, beside the bound (the checks' formulas), kept under
-    results[kernel][path]. The top-N select's checks time it at every
-    path shape already."""
+    discount-like values): the kernel, its plain version and the library
+    call with CUDA events, beside the bound (the checks' formulas), kept
+    in a list under results[kernel][path]. The top-N select's checks time
+    it at every path shape already."""
     import numpy as np
     import torch
 
@@ -2039,6 +2295,8 @@ def _time_path_shapes(dev, path, shapes, seed, results):
         b = bound_ms(k * 8 + n * 8 + n * 4, n * max(k, 1).bit_length() * 3)
         r = {"shape": [k, n], "bound_ms": b[0], "bound_by": b[1],
              "ms": cuda_ms(lambda: kernels.probe_searchsorted(build, probe)),
+             "plain_ms": cuda_ms(lambda: kernels.probe_searchsorted_plain(
+                 build, probe), reps=2),
              "library_ms": cuda_ms(lambda: torch.searchsorted(
                  build, probe, out_int32=True))}
         results["probe_searchsorted"].setdefault(path, []).append(r)
@@ -2055,13 +2313,16 @@ def _time_path_shapes(dev, path, shapes, seed, results):
 
         r = {"shape": [n, m, g, block], "bound_ms": b[0], "bound_by": b[1],
              "ms": cuda_ms(lambda: kernels.segment_sum(gid, vals, g, block)),
+             "plain_ms": cuda_ms(lambda: kernels.segment_sum_plain(
+                 gid, vals, g, block), reps=2),
              "library_ms": cuda_ms(library)}
         results["segment_sum"].setdefault(path, []).append(r)
     for name in ("probe_searchsorted", "segment_sum"):
         for r in results[name].get(path, ()):
             log(f"  {name} at the {path} shape {r['shape']}: {r['ms']:.4f} "
                 f"ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
-                f"library {r['library_ms']:.4f} ms")
+                f"plain {r['plain_ms']:.4f} ms, library "
+                f"{r['library_ms']:.4f} ms")
 
 
 def _time_hash(keys, t, probe, probe_ms, results):
@@ -2814,6 +3075,7 @@ def main(argv=None) -> int:
         ("spill", lambda: phase_spill(rec, data["cat"], args.sf)),
         ("ssb", lambda: phase_ssb(rec, args.ssb_sf, args.seed)),
         ("store", lambda: phase_store(rec, data["cat"], args.sf)),
+        ("dist", lambda: phase_dist(rec, data["cat"], args.sf)),
         ("tpcds", lambda: (data.pop("cat", None), _settle(),
                            phase_tpcds(rec, args.tpcds_sf))),
         ("kernels", lambda: phase_kernels(
@@ -2823,7 +3085,7 @@ def main(argv=None) -> int:
     if args.phases:
         wanted = {"device", "build", *args.phases.split(",")}
         if wanted & {"tpch", "hash_topn", "topn", "breadth", "functions",
-                     "spill", "store"}:
+                     "spill", "store", "dist"}:
             wanted.add("generate")
         unknown = wanted - {name for name, _ in phases}
         if unknown:
@@ -2870,7 +3132,8 @@ def main(argv=None) -> int:
             "launches": rec[path]["launches"][name]
             + rec["tpcds"]["launches"][name]
             + rec["functions"]["launches"][name]
-            + rec["spill"]["launches"][name],
+            + rec["spill"]["launches"][name]
+            + rec["dist"]["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

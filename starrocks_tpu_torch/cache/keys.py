@@ -11,8 +11,7 @@ bytes.
 
 A port of the JAX package's cache/keys.py. OPT_KEY_KNOBS is the port's own
 copy of the reference's `analysis/key_check.OPT_KEY_KNOBS` (the static
-key-completeness checks are slice 8's); the distributed fragment key
-belongs to slice 7.
+key-completeness checks are slice 8's).
 """
 
 from __future__ import annotations
@@ -55,6 +54,27 @@ def fragment_key(agg, scan_chain, scan) -> tuple:
 
     return (agg, tuple(scan_chain), scan, config.trace_key(),
             registry_epoch())
+
+
+def fragment_program_key(n_shards: int, plan, frag) -> tuple:
+    """Program-bucket key of ONE fragment of a fragment-IR plan. The whole
+    logical plan pins the query shape; the fingerprint pins the fragment's
+    identity WITHIN it: its ordinal, the declared placements (its own
+    out_mode plus the boundary mode each upstream feed arrives in), the
+    sink flag, and the output-edge exchange declaration. Placement is part
+    of the key — not just the fid — because the recorder may legally emit
+    a different exchange plan for the same subtree when scan layouts
+    change, and capacities learned for the old placement must miss. Trace
+    knobs and the UDF epoch join in DeviceCache.program_bucket."""
+    ex = frag.exchange
+    placement = (
+        frag.out_mode,
+        tuple(sorted(
+            (slot, mode) for slot, mode in frag.boundary.values())),
+        frag.sink,
+        None if ex is None else (ex.kind, ex.payload, ex.out_mode),
+    )
+    return ("frag", n_shards, plan, frag.fid, placement)
 
 
 def segment_version(store, table: str, fmeta: dict):

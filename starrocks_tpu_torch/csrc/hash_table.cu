@@ -647,8 +647,15 @@ unsigned int grid_for(long long n, int per_block) {
   return (unsigned int)blocks;
 }
 
+// Opt `kernel` in to `bytes` of dynamic shared memory. The 48 KB a launch
+// gets without the opt-in covers the kernel's static shared memory too: a
+// slice of 4096 slots (48 KB of keys and rows) plus build_insert_kernel's
+// `ndef` is over it.
 cudaError_t allow_smem(const void* kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return e;
+  if (bytes + a.sharedSizeBytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);

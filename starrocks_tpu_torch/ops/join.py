@@ -124,44 +124,119 @@ def pack_key_pair(probe: Chunk, build: Chunk, probe_keys, build_keys,
     return pk, p_ok, bk, b_ok
 
 
+def align_chunk_dicts(lc: Chunk, rc: Chunk, probe_keys, build_keys):
+    """Rewrite dict-encoded join-key COLUMNS of both chunks onto merged
+    dictionaries (Col keys only). Needed where the two sides are routed
+    independently — the distributed hash shuffle packs each side's codes
+    separately, so equal strings must carry equal codes BEFORE the
+    exchange, not just inside the join."""
+    from ..exprs.ir import Col
+
+    for pk, bk in zip(probe_keys, build_keys):
+        if not (isinstance(pk, Col) and isinstance(bk, Col)):
+            continue
+        fi = lc.schema.index(pk.name)
+        gi = rc.schema.index(bk.name)
+        fp, fb = lc.schema.fields[fi], rc.schema.fields[gi]
+        if fp.dict is None or fb.dict is None or fp.dict is fb.dict:
+            continue
+        m, rp, rb = fp.dict.merge(fb.dict)
+
+        def remap(chunk, i, f, lut, old_len, merged):
+            codes = chunk.data[i]
+            if old_len:
+                codes = _remap_codes(codes, lut, old_len)
+            data = chunk.data[:i] + (codes,) + chunk.data[i + 1:]
+            fields = list(chunk.schema.fields)
+            fields[i] = dataclasses.replace(f, dict=merged)
+            return Chunk(Schema(tuple(fields)), data, chunk.valid, chunk.sel,
+                         chunk.device)
+
+        lc = remap(lc, fi, fp, rp, len(fp.dict), m)
+        rc = remap(rc, gi, fb, rb, len(fb.dict), m)
+    return lc, rc
+
+
 def _presence(bk, b_ok, lo: int, size: int):
     """Dense presence bitmap of the build keys over [lo, lo + size)."""
     return scatter_set(size, torch.where(b_ok, bk - lo, size), 1, 0,
                        torch.uint8)
 
 
+def _shard_pairs(probe, build):
+    """(probe, build) chunk pairs of a runtime filter over a mesh: `build`
+    is a tuple of per-shard chunks; `probe` a tuple too, or one REPLICATED
+    chunk, which then pairs with every build shard."""
+    ps = probe if isinstance(probe, tuple) else (probe,) * len(build)
+    return list(zip(ps, build))
+
+
+def _per_probe(probe, masks):
+    """Per-shard masks back in the probe's placement."""
+    return tuple(masks) if isinstance(probe, tuple) else masks[0]
+
+
 def runtime_filter_mask(probe: Chunk, build: Chunk, probe_keys, build_keys,
-                        bit_widths=None, dense_range: tuple | None = None):
+                        bit_widths=None, axis=None,
+                        dense_range: tuple | None = None):
     """Build-side runtime filter applied to the probe (reference:
-    be/src/exec_primitive/runtime_filter/). EXACT membership through a dense
-    presence bitmap when the planner bounds the key range
-    (`dense_range=(lo, hi)`), else the build's min/max range. Only valid for
-    INNER/LEFT SEMI joins (probe rows may be dropped)."""
-    pk, p_ok, bk, b_ok = pack_key_pair(
-        probe, build, probe_keys, build_keys, bit_widths)
+    be/src/exec_primitive/runtime_filter/ + the global merge of
+    orchestration/runtime_filter_worker.h:41). EXACT membership through a
+    dense presence bitmap when the planner bounds the key range
+    (`dense_range=(lo, hi)`), else the build's min/max range. With `axis`
+    (a parallel.mesh.Mesh) the build is a tuple of per-shard chunks whose
+    summaries merge across the shards before any probe uses them — pmin/
+    pmax for the range, bitwise OR (pmax) for the bitmap — and the probe is
+    a tuple of shards or one REPLICATED chunk; the masks come back in the
+    probe's placement. Only valid for INNER/LEFT SEMI joins."""
+    if axis is None:
+        pairs = [(probe, build)]
+    else:
+        pairs = _shard_pairs(probe, build)
+    packed = [pack_key_pair(p, b, probe_keys, build_keys, bit_widths)
+              for p, b in pairs]
     if dense_range is not None:
         lo, hi = dense_range
         size = int(hi - lo + 1)
-        present = _presence(bk, b_ok, lo, size)
-        idx = pk - lo
-        in_range = (idx >= 0) & (idx < size)
-        hit = present[idx.clamp(0, size - 1)] == 1
-        return in_range & hit
-    bmin = torch.where(b_ok, bk, _I64MAX).min()
-    bmax = torch.where(b_ok, bk, _I64MIN).max()
-    # An all-NULL (or empty) build leaves bmin > bmax: the mask is all-false,
-    # the intended INNER/SEMI semantics (an empty key set matches nothing).
-    return (pk >= bmin) & (pk <= bmax)
+        present = [_presence(bk, b_ok, lo, size) for _, _, bk, b_ok in packed]
+        present = present[0] if axis is None else axis.pmax(present)
+        masks = []
+        for pk, _, _, _ in packed:
+            idx = pk - lo
+            in_range = (idx >= 0) & (idx < size)
+            masks.append(in_range & (present[idx.clamp(0, size - 1)] == 1))
+    else:
+        bmin = [torch.where(b_ok, bk, _I64MAX).min()
+                for _, _, bk, b_ok in packed]
+        bmax = [torch.where(b_ok, bk, _I64MIN).max()
+                for _, _, bk, b_ok in packed]
+        if axis is None:
+            bmin, bmax = bmin[0], bmax[0]
+        else:
+            bmin, bmax = axis.pmin(bmin), axis.pmax(bmax)
+        # An all-NULL (or empty) build leaves bmin > bmax: the mask is
+        # all-false, the intended INNER/SEMI semantics (an empty key set
+        # matches nothing).
+        masks = [(pk >= bmin) & (pk <= bmax) for pk, _, _, _ in packed]
+    if axis is None:
+        return masks[0]
+    return _per_probe(probe, masks)
 
 
 _BLOOM_SALT = GOLDEN  # golden-ratio odd constant (2nd probe)
 
 
-def bloom_build_bitset(bk, b_ok, bits: int):
+def bloom_build_bitset(bk, b_ok, bits: int, axis=None):
     """Build-side half of the bloom runtime filter: hash packed keys into a
-    power-of-2 bit array (one uint8 lane per bit) via TWO splitmix64 probes."""
+    power-of-2 bit array (one uint8 lane per bit) via TWO splitmix64 probes.
+    With `axis` (a parallel.mesh.Mesh) `bk`/`b_ok` are sequences of
+    per-shard tensors whose bitsets OR-merge across the shards (pmax) —
+    the global-RF collective."""
     if bits & (bits - 1):
         raise ValueError("bloom bit count must be a power of 2")
+    if axis is not None:
+        return axis.pmax([bloom_build_bitset(k, ok, bits)
+                          for k, ok in zip(bk, b_ok)])
     h1 = mix64(bk)
     h2 = mix64(h1 ^ _BLOOM_SALT)
     i1 = torch.where(b_ok, h1 & (bits - 1), bits)
@@ -184,13 +259,21 @@ def bloom_probe_bitset(bitset, pk, p_ok):
 
 
 def bloom_filter_mask(probe: Chunk, build: Chunk, probe_keys, build_keys,
-                      bit_widths=None, bits: int = 1 << 20):
+                      bit_widths=None, axis=None, bits: int = 1 << 20):
     """Bloom-bitset runtime filter: near-exact membership for ANY key range,
-    on the SAME packed keys the join compares. INNER/LEFT SEMI only."""
-    pk, p_ok, bk, b_ok = pack_key_pair(
-        probe, build, probe_keys, build_keys, bit_widths)
-    bitset = bloom_build_bitset(bk, b_ok, bits)
-    return bloom_probe_bitset(bitset, pk, p_ok)
+    on the SAME packed keys the join compares. With `axis` the per-shard
+    build bitsets OR-merge across the mesh first (runtime_filter_mask's
+    placements). INNER/LEFT SEMI only."""
+    if axis is None:
+        pk, p_ok, bk, b_ok = pack_key_pair(
+            probe, build, probe_keys, build_keys, bit_widths)
+        return bloom_probe_bitset(bloom_build_bitset(bk, b_ok, bits), pk, p_ok)
+    packed = [pack_key_pair(p, b, probe_keys, build_keys, bit_widths)
+              for p, b in _shard_pairs(probe, build)]
+    bitset = bloom_build_bitset([k[2] for k in packed],
+                                [k[3] for k in packed], bits, axis)
+    return _per_probe(probe, [bloom_probe_bitset(bitset, pk, p_ok)
+                              for pk, p_ok, _, _ in packed])
 
 
 def dense_semi_anti_mask(probe: Chunk, build: Chunk, probe_keys, build_keys,

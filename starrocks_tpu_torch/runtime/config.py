@@ -41,6 +41,7 @@ class ConfigRegistry:
         self._fields: dict = {}
         self._hooks: dict = {}
         self._reads = threading.local()  # per-thread stack of read-sets
+        self._scoped = threading.local()  # per-thread values read instead
 
     def define(self, name, default, mutable=True, description="",
                trace=False, cache_key=False):
@@ -52,7 +53,25 @@ class ConfigRegistry:
     def get(self, name: str):
         for s in getattr(self._reads, "stack", ()):
             s.add(name)
+        over = getattr(self._scoped, "values", None)
+        if over and name in over:
+            return over[name]
         return self._fields[name].value
+
+    @contextlib.contextmanager
+    def scoped(self, values: dict):
+        """Read `values` in place of those knobs' settings on THIS thread
+        while the context is open. The settings, and what other threads
+        read, stay as they are."""
+        for name in values:
+            if name not in self._fields:
+                raise KeyError(f"unknown config {name!r}")
+        prev = getattr(self._scoped, "values", None)
+        self._scoped.values = {**(prev or {}), **values}
+        try:
+            yield
+        finally:
+            self._scoped.values = prev
 
     @contextlib.contextmanager
     def record_reads(self):
@@ -314,6 +333,26 @@ config.define("query_cache_capacity_mb", 256, True,
               "+ per-segment partial-aggregation states share it; least-"
               "recently-used entries evict past the budget)",
               cache_key=True)
+config.define("dist_fragments", True, True,
+              "execute distributed plans as fragment-IR programs (one "
+              "program per fragment over the shard tuple, explicit exchange "
+              "edges) instead of one monolithic program (the A/B anchor)",
+              trace=True)
+config.define("cluster_fragment_retries", 2, True,
+              "fragment re-placement budget when a cluster worker is lost "
+              "mid-query (runtime/cluster_exec.py): each lost attempt "
+              "re-schedules the SAME fragment on another ALIVE worker; "
+              "exhaustion fails the query with WorkerLostError")
+config.define("cluster_exec_timeout_s", 30.0, True,
+              "per-fragment coordinator deadline on the cluster exchange "
+              "plane: a worker that neither answers nor dies (network "
+              "partition / blackholed socket) is declared lost for THIS "
+              "fragment after this many seconds and the fragment re-places")
+config.define("cluster_route_min_fragments", 2, True,
+              "route a query to the cluster runtime only when its fragment "
+              "IR has at least this many fragments; smaller plans run "
+              "locally — the exchange plane's IPC cost only pays for "
+              "itself on real exchanges")
 config.load_env()
 
 # The knob values that route the main path through the hand kernels: the

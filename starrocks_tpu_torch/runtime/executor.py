@@ -104,6 +104,8 @@ class DeviceCache:
         self._border: dict = {}  # (table, key_cols, bit_widths) -> order
         # (table, tag, columns) -> (pruned handle, scan stats, tag)
         self._rfscan: dict = {}
+        # (table, tag) -> (row order, rows per shard) of a hash placement
+        self._layouts: dict = {}
         self._lock = threading.RLock()
         self.opt_plans: OrderedDict = OrderedDict()
         # (key, udf epoch, knob values) -> {"last": caps, "progs": {}}
@@ -201,7 +203,8 @@ class DeviceCache:
             return False
 
         with self._lock:
-            for d in (self._cols, self._sel, self._border, self._rfscan):
+            for d in (self._cols, self._sel, self._border, self._rfscan,
+                      self._layouts):
                 for k in [k for k in d if k[0] == table]:
                     del d[k]
             for k in [k for k in self.opt_plans if scans_table((k[0],))]:
@@ -235,25 +238,81 @@ class DeviceCache:
             e = self._rfscan[key] = (ph, dict(stats), tag)
         return e
 
-    def chunk_for(self, handle, alias: str, columns, cache_tag=None) -> Chunk:
+    def chunk_for(self, handle, alias: str, columns, cache_tag=None,
+                  placement=None):
         """Device chunk of the requested columns, renamed alias-qualified and
         padded to the 1024-aligned capacity; bounds from catalog stats ride
         on the fields (they drive the dense aggregation and packed sorts).
         `cache_tag` names the column-cache namespace (RF-pruned scans must
         not collide with the full table's entries); information_schema
-        relations are rebuilt per read and never cached."""
+        relations are rebuilt per read and never cached.
+
+        `placement=(mesh, mode)` places the table on a mesh
+        (parallel/mesh.py) and returns the shard tuple this process holds:
+        "sharded" splits the rows in order into equal shards of
+        pad_capacity(ceil(rows / n)); ("hash", col) puts the rows whose
+        splitmix64 bucket of col is i on shard i (the device shuffle's
+        recipe: colocate joins), each shard padded to the largest; the
+        selection mask marks the real rows. "replicated" is one Chunk. The
+        full layout is copied to the device once and every shard is a
+        view of it."""
         ht = handle.table
         n = ht.num_rows
-        cap = pad_capacity(n)
         dev = self.device
-        tag = cache_tag or "local"
         cacheable = not handle.name.startswith("information_schema.")
+        mesh, mode = placement if placement is not None else (None, None)
+        reorder = per_shard = None
+        n_shards = 1
+        if mode is None:
+            tag = cache_tag or "local"
+            cap = pad_capacity(n)
+        elif mode == "replicated":
+            tag, cap = "replicated", pad_capacity(n)
+        else:
+            from ..parallel.mesh import hash_layout
+
+            n_shards = mesh.n
+            if isinstance(mode, tuple) and mode[0] == "hash":
+                keycol = mode[1].split(".", 1)[-1]  # qualified -> base name
+                tag = f"hash{n_shards}:{keycol}"
+                lay = (self._layouts.get((handle.name, tag)) if cacheable
+                       else None)
+                if lay is None:
+                    lay = hash_layout(ht.arrays[keycol], n_shards)
+                    if cacheable:
+                        self._layouts[(handle.name, tag)] = lay
+                reorder, per_shard = lay
+                cap = pad_capacity(int(per_shard.max()) if n else 1) * n_shards
+            else:
+                tag = f"sharded{n_shards}"
+                cap = pad_capacity((n + n_shards - 1) // n_shards) * n_shards
+        shard_cap = cap // n_shards
+        # a multi-process mesh materializes only this process's shards
+        local = tuple(mesh.local) if n_shards > 1 else (0,)
+        lo_row, hi_row = local[0] * shard_cap, (local[-1] + 1) * shard_cap
+
+        def layout(a, fill):
+            """Host layout: padded (range mode) or bucket-slotted (hash
+            mode), cut to this process's shards; rank-2 wide columns
+            (ARRAY/DECIMAL128) row-wise."""
+            tail = a.shape[1:]
+            if reorder is not None:
+                out = np.full((cap,) + tail, fill, dtype=a.dtype)
+                srt = a[reorder]
+                off = 0
+                for b in range(n_shards):
+                    cnt = int(per_shard[b])
+                    out[b * shard_cap:b * shard_cap + cnt] = srt[off:off + cnt]
+                    off += cnt
+                a = out
+            elif len(a) < cap:
+                a = np.concatenate([a, np.full(
+                    (cap - len(a),) + tail, fill, dtype=a.dtype)])
+            return a[lo_row:hi_row]
 
         def put(a, fill):
-            if len(a) < cap:
-                a = np.concatenate([a, np.full(
-                    (cap - len(a),) + a.shape[1:], fill, dtype=a.dtype)])
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            return torch.from_numpy(
+                np.ascontiguousarray(layout(a, fill))).to(dev)
 
         fields, data, valid = [], [], []
         for c in columns:
@@ -279,13 +338,25 @@ class DeviceCache:
         skey = (handle.name, tag)
         sentry = self._sel.get(skey) if cacheable else None
         if sentry is None or sentry[0] != cap:
-            sel = None if n == cap else (
-                torch.arange(cap, device=dev) < n)
+            if placement is None:
+                sel = None if n == cap else (
+                    torch.arange(cap, device=dev) < n)
+            else:
+                sel = put(np.ones(n, dtype=bool), False)
             sentry = (cap, sel)
             if cacheable:
                 self._sel[skey] = sentry
-        return Chunk(Schema(tuple(fields)), tuple(data), tuple(valid),
-                     sentry[1], dev)
+        schema = Schema(tuple(fields))
+        if n_shards == 1:
+            return Chunk(schema, tuple(data), tuple(valid), sentry[1], dev)
+
+        def view(x, j):
+            return None if x is None else x[j * shard_cap:(j + 1) * shard_cap]
+
+        return tuple(
+            Chunk(schema, tuple(view(d, j) for d in data),
+                  tuple(view(v, j) for v in valid), view(sentry[1], j), dev)
+            for j in range(len(local)))
 
     def build_order_for(self, handle, alias: str, key_cols, bit_widths):
         """Cached stable argsort of a scan's packed join keys: computed once

@@ -109,12 +109,16 @@ class Session:
     CHECKPOINT_OPS = 256
 
     def __init__(self, catalog: Catalog | None = None, device=None,
-                 data_dir: str | None = None):
+                 data_dir: str | None = None, dist_shards: int | None = None):
         self.device = _resolve_device(device)
         self.catalog = catalog or Catalog()
         self.cache = DeviceCache(self.device)
         self.last_profile = None  # most recent query's profile dict
         self.store = None
+        # dist_shards=n: queries run over an n-shard mesh on this device
+        # (runtime/dist_executor.py), sharing this Session's DeviceCache
+        self.dist_shards = dist_shards
+        self._dist_executor = None
         self._in_sql = False
         if data_dir is not None:
             self.store = TabletStore(data_dir)
@@ -496,10 +500,20 @@ class Session:
         profile: dict = {}
         if from_plan_cache:
             profile["counters"] = {"plan_cache_hits": 1}
-        res = Executor(self.catalog, self.cache).execute_logical(
-            plan, profile)
+        res = self._executor().execute_logical(plan, profile)
         self.last_profile = res.profile
         return res
+
+    def _executor(self):
+        if not self.dist_shards:
+            return Executor(self.catalog, self.cache)
+        if self._dist_executor is None:
+            from .dist_executor import DistExecutor
+
+            self._dist_executor = DistExecutor(
+                self.catalog, n_shards=self.dist_shards,
+                device_cache=self.cache)
+        return self._dist_executor
 
     def _explain(self, stmt: ast.Explain) -> str:
         assert isinstance(stmt.stmt, (ast.Select, ast.SetOp)), "EXPLAIN supports SELECT"

@@ -489,3 +489,31 @@ SPILL_EXECUTORS = {
     **{q: "hybrid" for q in ("Q4", "Q12", "Q14", "Q19")},
     "N1": "spill_sort", "N3": "spill_sort", "W1": "spill_window",
 }
+
+# The distributed path (Session(dist_shards=n)): the JAX package's
+# distributed TPC-H set (tests/test_distributed_sql.py DIST_TPCH), the
+# float-moment and top-N queries that reach the kernels per shard, its
+# PARTITION BY window (shuffled by partition key) and a full ORDER BY over
+# a filtered lineitem (the range exchange)
+DIST_WINDOW_QUERIES = {
+    "W2": """
+select l_orderkey, l_linenumber,
+       sum(l_quantity) over (partition by l_orderkey
+                             order by l_linenumber) rq,
+       row_number() over (partition by l_orderkey
+                          order by l_extendedprice desc) rn
+from lineitem where l_orderkey < 1000
+""",
+}
+DIST_QUERIES = {
+    **{f"Q{q}": QUERIES[q] for q in (1, 3, 5, 6, 10, 12, 14, 18, 19)},
+    "S1": STAT_QUERIES["S1"],
+    "S2": STAT_QUERIES["S2"],
+    "N1": TOPN_QUERIES["N1"],
+    **DIST_WINDOW_QUERIES,
+    "O1": """
+select l_extendedprice from lineitem
+where l_quantity = 50 and l_discount = 0.10
+order by l_extendedprice desc
+""",
+}

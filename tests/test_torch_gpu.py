@@ -54,7 +54,11 @@ installed:
 - execution beyond device memory at 2^20 rows in 2^18-row batches: the
   batched aggregation (segment_sum in every batch and the merge, f32 sums
   to 1e-4), the hybrid join with spilled partitions and a heavy hitter,
-  the spilled sort and the spilled window, each against the CPU.
+  the spilled sort and the spilled window, each against the CPU;
+- distribution: Session(dist_shards=8) at SF 0.01 on the card against
+  the same 8-shard Session on the CPU, with all five kernels launched;
+  and the hash build of a 4096-slot table as a fresh process's first
+  launch (its shared-memory opt-in).
 """
 
 import numpy as np
@@ -1152,3 +1156,75 @@ def _sorted_table(t):
     cols = list(zip(*rows)) if rows else [[] for _ in t.schema]
     return HostTable.from_pydict(
         {f.name: list(c) for f, c in zip(t.schema, cols)})
+
+
+DIST_GPU_RUNS = [("kernels", "Q1"), ("kernels", "Q5"), ("kernels", "Q18"),
+                 ("kernels", "S1"), ("kernels", "S2"), ("kernels", "N1"),
+                 ("kernels", "W2"), ("kernels", "O1"), ("hash", "Q3"),
+                 ("hash", "Q10")]
+
+
+def test_dist_path_on_card_matches_cpu(cuda):
+    """Session(dist_shards=8) at SF 0.01 on the card (the shards' tables
+    under the lowered thresholds of the CPU tests) against the same
+    8-shard Session on the CPU under `auto`: the same rows (S1/S2's f32
+    sums to 1e-4), and every one of the five kernels launched on the card
+    (segment_sum by S1/S2's per-shard PARTIAL, topn_select by N1's
+    per-shard top-N, probe_searchsorted and the hash pair by the local
+    joins)."""
+    import starrocks_tpu_torch.sql.distributed as D
+    from chip_smoke import tables_agree
+    from starrocks_tpu_torch.storage.tpch_queries import DIST_QUERIES
+
+    old = D.SHARD_THRESHOLD_ROWS, D.SHUFFLE_AGG_MIN_GROUPS
+    D.SHARD_THRESHOLD_ROWS, D.SHUFFLE_AGG_MIN_GROUPS = 10_000, 4_000
+    cat = tpch_catalog(sf=0.01)
+    launched = dict.fromkeys(kernels.WRAPPERS, 0)
+    try:
+        _set(AUTO_STRATEGIES)
+        cpu = Session(cat, device="cpu", dist_shards=8)
+        want = {q: cpu.sql(DIST_QUERIES[q]).table for _, q in DIST_GPU_RUNS}
+        card = Session(cat, device=cuda, dist_shards=8)
+        for strategy, q in DIST_GPU_RUNS:
+            _set({**KERNEL_STRATEGIES, **(
+                {"join_probe_strategy": "pallas"} if strategy == "hash"
+                else {})})
+            kernels.reset_counts()
+            got = card.sql(DIST_QUERIES[q]).table
+            for n, c in kernels.counts().items():
+                launched[n] += c["launches"]
+            rel = 1e-4 if q in ("S1", "S2") else 1e-6
+            assert tables_agree(_sorted_table(got), _sorted_table(want[q]),
+                                rel=rel), q
+            assert card.last_profile["fragments"] >= 2, q
+    finally:
+        _set(AUTO_STRATEGIES)
+        D.SHARD_THRESHOLD_ROWS, D.SHUFFLE_AGG_MIN_GROUPS = old
+    assert all(v > 0 for v in launched.values()), launched
+
+
+def test_hash_build_of_4096_slots_first_in_a_process(cuda):
+    """A table of 4096 slots is one slice of 48 KB of keys and rows in
+    shared memory, and the insert kernel has 4 bytes of static shared
+    memory besides: the launch needs the opt-in past 48 KB. Launched first
+    in a fresh process (before any larger table set the opt-in) it failed
+    with `invalid argument` (the dist path's Q3 at SF 0.01, 8 shards)."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import torch\n"
+        "from starrocks_tpu_torch.ops import kernels\n"
+        "k = torch.arange(2048, dtype=torch.int64, device='cuda') * 7919\n"
+        "t, r = kernels.hash_build(k, 4096)\n"
+        "row = kernels.hash_probe(t, r, k)\n"
+        "assert torch.equal(row.long().cpu(), torch.arange(2048)), row\n"
+        "print('ok')\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=root)
+    assert out.returncode == 0 and "ok" in out.stdout, out.stderr[-2000:]

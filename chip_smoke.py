@@ -134,6 +134,49 @@ allocated when it started. Phases, each of which must pass:
    sub-phase at SF 1: ClusterRuntime(n_workers=2, shards=2) with its
    worker processes on the same card runs Q3 and Q18 cold and warm, rows
    equal to the in-process path's, at least 3 fragments on the workers.
+8c. serve (the serving planes), in a child process of its own (this
+   script with --serve-child) started with the port's lock-order witness
+   on (SR_TPU_LOCK_WITNESS=1), so that every other phase runs and is
+   timed with plain locks; the child generates the --sf catalog anew
+   while the generate phase runs, waits until this phase tells it to go,
+   and hands its record back as JSON. The catalog sits behind one ServingTier
+   and its MySQL and HTTP front doors on loopback ports, beside a stored
+   PRIMARY KEY table, orders_pk (orders at --sf, written through the
+   store path's DDL into a temporary data_dir, auto-compaction off for the
+   phase). The clients are real sockets: a protocol-10 MySQL client kept
+   here (MySQLClient: COM_QUERY; COM_STMT_PREPARE/EXECUTE with binary
+   rows) and
+   http.client POST /query. An admin connection SETs the kernel
+   strategies over the wire. Rounds: (1) the reference answers through
+   the template Session, after which every kernel count is set to 0, so
+   that the launches read at the end are the doors' alone; (2) cold (no
+   result cache), SERVE_MYSQL_CLIENTS +
+   SERVE_HTTP_CLIENTS clients each run SERVE_ANALYTIC once, rotated by
+   client, at pool size 1 and then at SERVE_POOL: QPS and client-observed
+   p50/p99 of each, the pool's queue waits and peak device memory; (3)
+   the point lane: each MySQL client SERVE_POINT_UPDATES point UPDATEs of
+   o_comment and SERVE_POINT_SELECTS prepared point SELECTs over its own
+   seeded slice of the keys, each row held to a numpy lookup of the
+   generated orders with that client's updates; (4) warm (result cache
+   on): the analytic set twice per client, the second pass all on the
+   inline fast path; then Q9 and Q20 under `join_probe_strategy =
+   'pallas'`; (5) the lifecycle: KILL QUERY of S2 from the admin
+   connection while S2 is held by a failpoint at its fetch checkpoint
+   (its device memory back to its value before it, read once the
+   server's threads are done with it, with no garbage collection), a
+   query past
+   `query_timeout_s` (its clock moved at dispatch), one past
+   `query_mem_limit_bytes`, one queued behind a resource group of one
+   slot, EXPLAIN ANALYZE of Q3, SHOW PROCESSLIST and the HTTP endpoints
+   (/metrics, /api/queries, /api/query/<id>/profile, /api/audit; the
+   ingest plane's /api/ingest answers 501). Checks: every answer over
+   either door equals round 1's in row order (tables_agree's float rule);
+   the typed errors arrive on the wire; the audit log holds one record
+   per statement sent; after the tier's shutdown no query is registered,
+   queued, admitted or charged, the card's allocated memory is back to
+   its value after round 1 but for the DeviceCache's own placements, and
+   the port's lock-order witness (on in the child) has no cycle;
+   all five kernels launched on the path.
 9. tpcds (windows and TPC-DS): the TPC-H catalog is dropped, then TPC-DS
    is generated at --tpcds-sf (default 10: store_sales 28.8M rows,
    inventory 295.8M; seed 11; every query fits the card at SF 10, so the
@@ -201,8 +244,8 @@ allocated when it started. Phases, each of which must pass:
    sums in f64.
 
 The last lines of output are the `kernels` JSON line (each kernel's
-`launches` over its first path, the functions, spill, dist and tpcds
-paths) and
+`launches` over its first path, the functions, spill, dist, serve and
+tpcds paths) and
 then
 {"ok": true, "device": {...}}; the full record goes to DIR/chip_smoke.json.
 `--phases kernels` (a comma list) runs those phases only, after `device`
@@ -217,6 +260,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import struct
 import subprocess
 import sys
 import time
@@ -499,6 +544,33 @@ def _snapshot(kernels):
     return {n: c["launches"] for n, c in kernels.counts().items()}
 
 
+def _prof_view(prof) -> dict:
+    """The flat record the phases keep of a query's RuntimeProfile: its
+    counters by name (seconds where the unit is "s"), the phase seconds
+    (`optimize_s`, `fetch_s`, the UDF bodies' `udf_s`, the native lane's
+    `native_s`), `recompiles`, its infos, one dict per attempt (`scan_s`
+    host->device copies, `run_s` operators + the attempt's one check
+    read, `capacities`) and one per spill executor or cache child (its
+    infos and counters)."""
+    ctr = {k: v for k, (v, _u) in prof.counters.items()}
+    view = dict(prof.infos)
+    view.update({"counters": ctr, "recompiles": ctr.get("recompiles"),
+                 "optimize_s": ctr.get("optimize"),
+                 "fetch_s": ctr.get("fetch_results"),
+                 "udf_s": ctr.get("udf"), "native_s": ctr.get("native")})
+    attempts = []
+    for c in prof.children:
+        cc = {k: v for k, (v, _u) in c.counters.items()}
+        if c.name.startswith("attempt_"):
+            attempts.append({"scan_s": cc.get("scan_to_device", 0.0),
+                             "run_s": cc.get("run", 0.0),
+                             "capacities": c.infos.get("capacities", {})})
+        else:
+            view[c.name] = {**c.infos, **cc}
+    view["attempts"] = attempts
+    return {k: v for k, v in view.items() if v is not None}
+
+
 def set_knobs(knobs: dict):
     from starrocks_tpu_torch.runtime.config import config
 
@@ -544,7 +616,7 @@ def _run_queries(s, label, texts, out, shapes, kernels):
             for n, w in kernels.WRAPPERS.items():
                 if delta[n]:
                     shapes[n] += sorted(w.shapes)
-            prof = res.profile
+            prof = _prof_view(res.profile)
             out.setdefault(f"{qname(q)}@{label}", {})[run] = {
                 "wall_s": wall, "rows": len(got),
                 "launches": {n: v for n, v in delta.items() if v},
@@ -700,7 +772,7 @@ def _run_each(s, label, texts, out, launches, tables, kernels,
             for n, v in got.items():
                 launches[n] += v
             tables[(label, q, run)] = table
-            prof = res.profile
+            prof = _prof_view(res.profile)
             shapes = {n: sorted(kernels.WRAPPERS[n].shapes)
                       for n, v in got.items() if v}
             attempts = prof.get("attempts", ())
@@ -1113,7 +1185,7 @@ def _spill_runs(texts, want, cat, out, failures):
                 got = _snapshot(kernels)
                 for n, v in got.items():
                     launches[n] += v
-                prof = res.profile
+                prof = _prof_view(res.profile)
                 node = dict(prof.get(executor) or {})
                 shapes = {n: sorted(kernels.WRAPPERS[n].shapes)
                           for n, v in got.items() if v}
@@ -1367,9 +1439,10 @@ def _qcache_runs(sess, text, runs, want, failures, name) -> dict:
             table = res.table
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
-            counters = {k: v for k, v in res.profile.get(
-                "counters", {}).items() if k.startswith("qcache_")}
-            node = res.profile.get("qcache_partial") or {}
+            prof = _prof_view(res.profile)
+            counters = {k: v for k, v in prof["counters"].items()
+                        if k.startswith("qcache_")}
+            node = prof.get("qcache_partial") or {}
             out[run] = {"wall_s": wall, "counters": counters,
                         "segments_s": node.get("segments_s"),
                         "merge_final_s": node.get("merge_final_s")}
@@ -1414,7 +1487,7 @@ def phase_store(rec, cat, sf):
             s.sql(_store_ddl(name, h.schema))
             s.catalog.register(f"stage_{name}", h.table)
             n, wall = _timed(s, f"INSERT INTO {name} SELECT * FROM stage_{name}")
-            prof = s.last_profile
+            prof = _prof_view(s.last_profile)
             attempts = prof.get("attempts", ())
             step = {"rows": n, "wall_s": wall,
                     "select_s": (prof.get("optimize_s", 0.0)
@@ -1796,7 +1869,7 @@ def phase_dist(rec, cat, sf):
                 launches[n] += v
                 if v:
                     shapes[n].update(kernels.WRAPPERS[n].shapes)
-            prof = res.profile
+            prof = _prof_view(res.profile)
             ctr = prof.get("counters", {})
             r = queries.setdefault(f"{q}@{strategy}", {})[run] = {
                 "wall_s": wall, "rows": table.num_rows, "peak_mem_gb": peak,
@@ -1881,7 +1954,8 @@ def _dist_cluster(failures) -> dict:
                 wall = time.perf_counter() - t
                 out.setdefault(q, {})[run] = {
                     "wall_s": wall, "rows": table.num_rows,
-                    "cluster_workers": s.last_profile.get("cluster_workers")}
+                    "cluster_workers": s.last_profile.infos.get(
+                        "cluster_workers")}
                 log(f"  {q}@cluster {run}: {wall * 1e3:.1f} ms, "
                     f"{table.num_rows} rows")
                 if not _dist_agree(q, table, want[q], 1e-6):
@@ -1899,6 +1973,1109 @@ def _dist_cluster(failures) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# --- the serving planes: the port's front doors under concurrent clients ------
+
+SERVE_POOL = 4            # the tier's executor pool (serve_pool_size)
+SERVE_MYSQL_CLIENTS = 4   # and as many HTTP clients
+SERVE_HTTP_CLIENTS = 4
+SERVE_ANALYTIC = ("Q3", "Q5", "Q6", "Q10", "Q12", "Q14", "Q18", "Q19", "N1",
+                  "S1")
+SERVE_HASH = ("Q9", "Q20")  # the short round under the hash kernels
+SERVE_POINT_SELECTS = 200  # per MySQL client, over its own key slice
+SERVE_POINT_UPDATES = 20   # per MySQL client, o_comment of its own keys
+SERVE_WARM_PASSES = 2
+SERVE_REL = {"S1": STAT_REL}
+
+
+class MySQLClient:
+    """A minimal MySQL protocol-10 client over one socket, the one the
+    port's tests use too: the handshake (mysql_native_password), COM_QUERY
+    with text resultsets, COM_STMT_PREPARE / EXECUTE / CLOSE with binary
+    resultsets, COM_PING and COM_QUIT, and `query_raw` / `execute_raw`:
+    one command's response packets as bytes, to compare two servers' wire
+    encodings. An ERR packet raises RuntimeError("ERR <code>: <message>"),
+    a refused login PermissionError."""
+
+    def __init__(self, port: int, user: str = "root", password: str = "",
+                 host: str = "127.0.0.1", timeout: float = 600):
+        import socket
+
+        from starrocks_tpu_torch.runtime.auth import scramble_password
+
+        self.sock = socket.create_connection((host, port), timeout=timeout)
+        self.seq = 0
+        greet = self._read_packet()
+        if greet[0] != 0x0A:
+            raise RuntimeError(f"protocol version {greet[0]}")
+        end = greet.index(b"\x00", 1)
+        self.server_version = greet[1:end].decode()
+        # the salt: 8 bytes after the thread id, 12 more after the caps
+        pos = end + 1 + 4
+        salt = greet[pos:pos + 8]
+        pos2 = pos + 8 + 1 + 2 + 1 + 2 + 2 + 1 + 10
+        salt += greet[pos2:pos2 + 12]
+        token = scramble_password(password, salt)
+        # HandshakeResponse41: PROTOCOL_41 | SECURE_CONNECTION | WITH_DB
+        caps = 0x0200 | 0x8000 | 0x0008
+        self._send_packet(struct.pack("<II", caps, 1 << 24) + bytes([45])
+                          + b"\x00" * 23 + user.encode() + b"\x00"
+                          + bytes([len(token)]) + token + b"default\x00")
+        ok = self._read_packet()
+        if ok[0] == 0xFF:
+            raise PermissionError(f"auth failed: {self._err_text(ok)}")
+        if ok[0] != 0x00:
+            raise RuntimeError(f"handshake failed: {ok[:64]!r}")
+
+    # --- framing
+    def _read_packet(self) -> bytes:
+        head = self._read_n(4)
+        (n,) = struct.unpack("<I", head[:3] + b"\x00")
+        self.seq = (head[3] + 1) & 0xFF
+        return self._read_n(n)
+
+    def _read_n(self, n: int) -> bytes:
+        buf = b""
+        while len(buf) < n:
+            chunk = self.sock.recv(n - len(buf))
+            if not chunk:
+                raise RuntimeError("server closed the connection")
+            buf += chunk
+        return buf
+
+    def _send_packet(self, payload: bytes):
+        self.sock.sendall(struct.pack("<I", len(payload))[:3]
+                          + bytes([self.seq]) + payload)
+        self.seq = (self.seq + 1) & 0xFF
+
+    @staticmethod
+    def _lenenc(buf: bytes, pos: int):
+        c = buf[pos]
+        if c < 0xFB:
+            return c, pos + 1
+        if c == 0xFC:
+            return struct.unpack_from("<H", buf, pos + 1)[0], pos + 3
+        if c == 0xFD:
+            return struct.unpack("<I", buf[pos + 1:pos + 4] + b"\x00")[0], \
+                pos + 4
+        return struct.unpack_from("<Q", buf, pos + 1)[0], pos + 9
+
+    @staticmethod
+    def _err_text(p: bytes) -> str:
+        code = struct.unpack_from("<H", p, 1)[0]
+        return f"ERR {code}: {p[9:].decode('utf-8', 'replace')}"
+
+    # --- commands
+    def _exchange(self, payload: bytes) -> list:
+        """Send one command; its response packets, up to the resultset's
+        final EOF, an OK or an ERR."""
+        self.seq = 0
+        self._send_packet(payload)
+        out = [self._read_packet()]
+        if out[0][0] in (0x00, 0xFF):
+            return out
+        eofs = 0
+        while eofs < 2:
+            p = self._read_packet()
+            out.append(p)
+            if p[0] == 0xFE and len(p) < 9:
+                eofs += 1
+        return out
+
+    def _result(self, packets: list, binary: bool):
+        """(column names, rows) of a resultset, or ("OK", affected rows)."""
+        first = packets[0]
+        if first[0] == 0xFF:
+            raise RuntimeError(self._err_text(first))
+        if first[0] == 0x00:
+            return "OK", self._lenenc(first, 1)[0]
+        ncols, _ = self._lenenc(first, 0)
+        names, types = [], []
+        for p in packets[1:1 + ncols]:
+            pos, parts = 0, []
+            for _ in range(6):
+                n, pos = self._lenenc(p, pos)
+                parts.append(p[pos:pos + n])
+                pos += n
+            _, pos = self._lenenc(p, pos)  # the fixed-length block's size
+            names.append(parts[4].decode())
+            types.append(p[pos + 6])
+        if packets[1 + ncols][0] != 0xFE:
+            raise RuntimeError("no EOF after the column definitions")
+        rows = [self._binary_row(p, types) if binary else self._text_row(p)
+                for p in packets[2 + ncols:-1]]
+        return names, rows
+
+    def _text_row(self, p: bytes) -> tuple:
+        pos, row = 0, []
+        while pos < len(p):
+            if p[pos] == 0xFB:
+                row.append(None)
+                pos += 1
+                continue
+            n, pos = self._lenenc(p, pos)
+            row.append(p[pos:pos + n].decode())
+            pos += n
+        return tuple(row)
+
+    def _binary_row(self, p: bytes, types) -> tuple:
+        if p[0] != 0x00:
+            raise RuntimeError(f"binary row header {p[0]}")
+        nul = p[1:1 + (len(types) + 9) // 8]
+        pos = 1 + len(nul)
+        row = []
+        for i, t in enumerate(types):
+            if nul[(i + 2) // 8] & (1 << ((i + 2) % 8)):
+                row.append(None)
+            elif t == 1:  # TINY
+                row.append(struct.unpack_from("<b", p, pos)[0])
+                pos += 1
+            elif t == 3:  # LONG
+                row.append(struct.unpack_from("<i", p, pos)[0])
+                pos += 4
+            elif t == 8:  # LONGLONG
+                row.append(struct.unpack_from("<q", p, pos)[0])
+                pos += 8
+            elif t == 5:  # DOUBLE
+                row.append(struct.unpack_from("<d", p, pos)[0])
+                pos += 8
+            elif t in (10, 12):  # DATE / DATETIME: y m d [h m s]
+                n = p[pos]
+                y = struct.unpack_from("<H", p, pos + 1)[0]
+                s = f"{y:04d}-{p[pos + 3]:02d}-{p[pos + 4]:02d}"
+                if n >= 7:
+                    s += (f" {p[pos + 5]:02d}:{p[pos + 6]:02d}"
+                          f":{p[pos + 7]:02d}")
+                row.append(s)
+                pos += 1 + n
+            else:  # lenenc text: VARCHAR, DECIMAL
+                n, pos = self._lenenc(p, pos)
+                row.append(p[pos:pos + n].decode())
+                pos += n
+        return tuple(row)
+
+    def query_raw(self, sql: str) -> list:
+        return self._exchange(b"\x03" + sql.encode())
+
+    def query(self, sql: str):
+        """(column names, text rows), or ("OK", affected rows)."""
+        return self._result(self.query_raw(sql), binary=False)
+
+    def stmt_prepare(self, sql: str):
+        """(statement id, columns, parameters)."""
+        self.seq = 0
+        self._send_packet(b"\x16" + sql.encode())
+        first = self._read_packet()
+        if first[0] == 0xFF:
+            raise RuntimeError(self._err_text(first))
+        sid, ncols, nparams = struct.unpack_from("<IHH", first, 1)
+        for _ in range(nparams):
+            self._read_packet()
+        if nparams:
+            self._read_packet()  # EOF
+        return sid, ncols, nparams
+
+    def execute_raw(self, sid: int, params) -> list:
+        """COM_STMT_EXECUTE's response packets; the parameters bound as
+        LONGLONG (int), DOUBLE (float), NULL (None) or VAR_STRING."""
+        nul = bytearray((len(params) + 7) // 8)
+        types, vals = b"", b""
+        for i, v in enumerate(params):
+            if v is None:
+                nul[i // 8] |= 1 << (i % 8)
+                types += bytes([6, 0])
+            elif isinstance(v, int):
+                types += bytes([8, 0])
+                vals += struct.pack("<q", v)
+            elif isinstance(v, float):
+                types += bytes([5, 0])
+                vals += struct.pack("<d", v)
+            else:
+                b = str(v).encode()
+                if len(b) >= 0xFB:
+                    raise ValueError("string parameter too long")
+                types += bytes([253, 0])
+                vals += bytes([len(b)]) + b
+        pkt = b"\x17" + struct.pack("<I", sid) + b"\x00" + struct.pack("<I", 1)
+        if params:
+            pkt += bytes(nul) + b"\x01" + types + vals
+        return self._exchange(pkt)
+
+    def stmt_execute(self, sid: int, params):
+        """(column names, binary rows), or ("OK", affected rows)."""
+        return self._result(self.execute_raw(sid, params), binary=True)
+
+    def stmt_close(self, sid: int):
+        self.seq = 0
+        self._send_packet(b"\x19" + struct.pack("<I", sid))
+
+    def ping(self) -> bool:
+        self.seq = 0
+        self._send_packet(b"\x0e")
+        return self._read_packet()[0] == 0x00
+
+    def quit(self):
+        try:
+            self.seq = 0
+            self._send_packet(b"\x01")
+        finally:
+            self.sock.close()
+
+
+def _http_query(port: int, sql: str) -> dict:
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        c.request("POST", "/query", json.dumps({"sql": sql}))
+        r = c.getresponse()
+        body = json.loads(r.read())
+    finally:
+        c.close()
+    if r.status != 200:
+        raise RuntimeError(f"HTTP {r.status}: {body}")
+    return body
+
+
+def _http_get(port: int, path: str):
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        c.request("GET", path)
+        r = c.getresponse()
+        return r.status, r.read()
+    finally:
+        c.close()
+
+
+def _wire_text(v) -> str | None:
+    """A result value as the MySQL text protocol encodes it
+    (runtime/mysql_service._cell)."""
+    if v is None:
+        return None
+    if isinstance(v, bool):
+        v = int(v)
+    return repr(v) if isinstance(v, float) else str(v)
+
+
+def _wire_agree(rows, want: list, rel: float) -> bool:
+    """Wire rows (text or JSON values) against a HostTable's python rows in
+    row order: floats to a relative `rel` (tables_agree's rule), every
+    other value by its text, NULLs as NULLs."""
+    if len(rows) != len(want):
+        return False
+    for g, w in zip(rows, want):
+        if len(g) != len(w):
+            return False
+        for a, b in zip(g, w):
+            if a is None or b is None:
+                if a is not b:
+                    return False
+            elif isinstance(b, float):
+                if not _floats_agree(float(a), b, rel):
+                    return False
+            elif str(a) != _wire_text(b):
+                return False
+    return True
+
+
+def _pcts(ms: list) -> dict:
+    import numpy as np
+
+    if not ms:
+        return {"n": 0}
+    a = np.asarray(ms, dtype=np.float64)
+    return {"n": len(ms), "p50_ms": float(np.percentile(a, 50)),
+            "p99_ms": float(np.percentile(a, 99)),
+            "mean_ms": float(a.mean())}
+
+
+def _cache_bytes(cache) -> int:
+    """Bytes of the device tensors a DeviceCache holds (its placements)."""
+    import torch
+
+    seen, total = set(), 0
+
+    def add(x):
+        nonlocal total
+        if isinstance(x, torch.Tensor) and x.device.type == "cuda":
+            key = (x.untyped_storage().data_ptr())
+            if key not in seen:
+                seen.add(key)
+                total += x.untyped_storage().nbytes()
+        elif isinstance(x, (tuple, list)):
+            for y in x:
+                add(y)
+
+    with cache._lock:
+        for d in (cache._cols, cache._sel, cache._border):
+            for v in d.values():
+                add(v)
+    return total
+
+
+def _settled_allocated(kernels) -> int:
+    """Bytes allocated on the card by the engine: garbage collected, the
+    cuBLAS workspaces torch caches per calling thread released (each new
+    pool thread's first matmul allocates one, 32 MiB on this card), and
+    the kernel wrappers' last-call diagnostics left out."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated() - _diag_bytes(kernels)
+
+
+def _allocated_down_to(kernels, target: int, wait_s: float = 5.0) -> int:
+    """The engine's bytes allocated on the card (the kernels' last-call
+    diagnostics left out), read until they fall to `target` or `wait_s`
+    passes; no garbage collection, so a statement's tensors count as
+    freed only once their owners let go of them."""
+    import torch
+
+    t_end = time.monotonic() + wait_s
+    while True:
+        torch.cuda.synchronize()
+        now = torch.cuda.memory_allocated() - _diag_bytes(kernels)
+        if now <= target or time.monotonic() > t_end:
+            return now
+        time.sleep(0.01)
+
+
+def _diag_bytes(kernels) -> int:
+    """Bytes the kernel wrappers' last-call diagnostics hold on the card
+    (`hash_build.last_deferred`, `topn_select.last_listed`): the whole
+    scratch buffer each is a view of, rounded up to the caching
+    allocator's 512-byte blocks as memory_allocated counts them."""
+    return sum(-(-int(t.untyped_storage().nbytes()) // 512) * 512 for t in (
+        getattr(kernels.hash_build, "last_deferred", None),
+        getattr(kernels.topn_select, "last_listed", None))
+        if t is not None and t.device.type == "cuda")
+
+
+def _orders_expected(orders, keys, comments: dict) -> dict:
+    """{key: the row a point SELECT of orders_pk returns} by a numpy
+    lookup of the generated orders table, the client's own updates of
+    o_comment applied: values as the binary protocol decodes them."""
+    import datetime
+    import decimal
+
+    import numpy as np
+
+    ok = np.asarray(orders.arrays["o_orderkey"])
+    pos = np.searchsorted(ok, np.asarray(keys, dtype=np.int64))
+    out = {}
+    epoch = datetime.date(1970, 1, 1)
+    for k, i in zip(keys, pos):
+        if i >= len(ok) or ok[i] != k:
+            out[int(k)] = None
+            continue
+        row = []
+        for f in orders.schema:
+            a = orders.arrays[f.name]
+            v = orders.valids.get(f.name)
+            if v is not None and not v[i]:
+                row.append(None)
+            elif f.name == "o_comment" and int(k) in comments:
+                row.append(comments[int(k)])
+            elif f.type.is_string:
+                row.append(str(f.dict.values[int(a[i])]))
+            elif f.type.is_decimal:
+                row.append(decimal.Decimal(int(a[i])).scaleb(-f.type.scale))
+            elif repr(f.type) == "DATE":
+                row.append(str(epoch + datetime.timedelta(days=int(a[i]))))
+            else:
+                row.append(int(a[i]))
+        out[int(k)] = tuple(row)
+    return out
+
+
+def _point_agree(got: tuple, want: tuple) -> bool:
+    import decimal
+
+    if want is None:
+        return got is None
+    if got is None or len(got) != len(want):
+        return False
+    for a, b in zip(got, want):
+        if isinstance(b, decimal.Decimal):
+            if a is None or decimal.Decimal(str(a)) != b:
+                return False
+        elif a != b:
+            return False
+    return True
+
+
+def phase_serve(rec, cat, sf, seed):
+    """The serving planes (see the module docstring, phase 8c): the TPC-H
+    catalog behind one ServingTier and its MySQL and HTTP front doors on
+    loopback ports, driven by real sockets, round by round; every check
+    below fails the phase."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from starrocks_tpu_torch import lockdep
+    from starrocks_tpu_torch.ops import kernels
+    from starrocks_tpu_torch.runtime import config as cfgmod
+    from starrocks_tpu_torch.runtime import failpoint, lifecycle
+    from starrocks_tpu_torch.runtime import serving as serving_mod
+    from starrocks_tpu_torch.runtime.audit import AUDIT
+    from starrocks_tpu_torch.runtime.http_service import SqlHttpServer
+    from starrocks_tpu_torch.runtime.lifecycle import ACCOUNTANT, REGISTRY
+    from starrocks_tpu_torch.runtime.mysql_service import MySQLServer
+    from starrocks_tpu_torch.runtime.serving import ServingTier
+    from starrocks_tpu_torch.runtime.session import Session
+    from starrocks_tpu_torch.storage.tpch_queries import (
+        QUERIES, STAT_QUERIES, TOPN_QUERIES)
+
+    config = cfgmod.config
+    texts = {**{f"Q{i}": t for i, t in QUERIES.items()}, **STAT_QUERIES,
+             **TOPN_QUERIES}
+    out = {"sf": sf, "pool": SERVE_POOL, "mysql_clients": SERVE_MYSQL_CLIENTS,
+           "http_clients": SERVE_HTTP_CLIENTS, "analytic": SERVE_ANALYTIC,
+           "compaction_trigger_rowsets": 0}
+    rec["serve"] = out
+    failures = []
+    knobs0 = {k: config.get(k) for k in (
+        "enable_query_cache", "compaction_trigger_rowsets",
+        "query_timeout_s", "query_mem_limit_bytes",
+        *cfgmod.KERNEL_STRATEGIES)}
+    tmp = tempfile.mkdtemp(prefix="serve_")
+    servers, clients = [], []
+    tier = None
+    phase_t0 = time.perf_counter()
+    try:
+        template = Session(cat, device=CARD, data_dir=tmp)
+        # the point lane's table: orders at --sf, PRIMARY KEY(o_orderkey),
+        # written through the store path's DDL; auto-compaction off for the
+        # phase (it would rewrite 15M rows every 8 point updates)
+        config.set("compaction_trigger_rowsets", 0)
+        orders = cat.get_table("orders").table
+        t = time.perf_counter()
+        template.sql(_store_ddl("orders", orders.schema).replace(
+            "CREATE TABLE orders ", "CREATE TABLE orders_pk ", 1))
+        cat.register("stage_orders_pk", orders)
+        template.sql("INSERT INTO orders_pk SELECT * FROM stage_orders_pk")
+        template.sql("DROP TABLE stage_orders_pk")
+        out["orders_pk_load_s"] = time.perf_counter() - t
+        log(f"  orders_pk: {orders.num_rows} rows stored in "
+            f"{out['orders_pk_load_s']:.1f} s")
+
+        def start_doors(pool):
+            tr = ServingTier(template, pool_size=pool)
+            my = MySQLServer(template, port=0, tier=tr).start()
+            ht = SqlHttpServer(template, port=0, tier=tr).start()
+            servers.extend([my, ht])
+            return tr, my, ht
+
+        def stop_doors(my, ht):
+            ht.stop()
+            my.shutdown()
+            servers.remove(my)
+            servers.remove(ht)
+
+        # the strategies, set over the wire by an admin connection: SET
+        # takes the gate's exclusive side (pool 1 tier: the first doors)
+        tier1, my1, ht1 = start_doors(1)
+        admin = MySQLClient(my1.port)
+        clients.append(admin)
+        for k, v in cfgmod.KERNEL_STRATEGIES.items():
+            admin.query(f"SET {k} = '{v}'")
+        admin.query("SET enable_query_cache = false")
+        if any(config.get(k) != v
+               for k, v in cfgmod.KERNEL_STRATEGIES.items()):
+            raise PhaseError("SET over the wire did not set the strategies")
+
+        # round 1: the reference answers through the template Session
+        t = time.perf_counter()
+        want = {}
+        for q in (*SERVE_ANALYTIC, *SERVE_HASH, "S2"):
+            want[q] = template.sql(texts[q]).table.to_pylist()
+        out["round1_s"] = time.perf_counter() - t
+        # the launches read at the end are those of the statements sent
+        # through the doors, not round 1's
+        kernels.reset_counts()
+        mem_before = _settled_allocated(kernels)
+        cache_before = _cache_bytes(template.cache)
+        log(f"  round 1 (reference answers, cold): {out['round1_s']:.1f} s; "
+            f"{mem_before / 1e9:.2f} GB allocated, "
+            f"{cache_before / 1e9:.2f} GB of it the DeviceCache's")
+        audit0 = AUDIT.stats()["registered"]
+        sent = [0]  # statements that reach Session.sql over the doors
+        sent_lock = threading.Lock()
+
+        def count(n=1):
+            with sent_lock:
+                sent[0] += n
+
+        def analytic_round(my, ht, passes, lat):
+            """Every client runs the analytic set `passes` times, rotated
+            by client; each answer held to round 1's."""
+            errors = []
+            names = list(SERVE_ANALYTIC)
+
+            def mysql_client(i):
+                c = MySQLClient(my.port)
+                try:
+                    for _ in range(passes):
+                        for k in range(len(names)):
+                            q = names[(i + k) % len(names)]
+                            t0 = time.perf_counter()
+                            _, rows = c.query(texts[q])
+                            lat.append((time.perf_counter() - t0) * 1e3)
+                            count()
+                            if not _wire_agree(rows, want[q],
+                                               SERVE_REL.get(q, 1e-6)):
+                                errors.append(f"mysql {q}")
+                finally:
+                    c.quit()
+
+            def http_client(i):
+                for _ in range(passes):
+                    for k in range(len(names)):
+                        q = names[(i + k) % len(names)]
+                        t0 = time.perf_counter()
+                        body = _http_query(ht.port, texts[q])
+                        lat.append((time.perf_counter() - t0) * 1e3)
+                        count()
+                        if not _wire_agree(body["rows"], want[q],
+                                           SERVE_REL.get(q, 1e-6)):
+                            errors.append(f"http {q}")
+
+            def guard(fn, i):
+                try:
+                    fn(i)
+                except Exception as e:  # noqa: BLE001 — a failed check
+                    errors.append(f"{fn.__name__} {i}: "
+                                  f"{type(e).__name__}: {e}")
+
+            ths = [threading.Thread(target=guard, args=(mysql_client, i))
+                   for i in range(SERVE_MYSQL_CLIENTS)]
+            ths += [threading.Thread(
+                target=guard, args=(http_client, SERVE_MYSQL_CLIENTS + i))
+                for i in range(SERVE_HTTP_CLIENTS)]
+            t0 = time.perf_counter()
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join()
+            wall = time.perf_counter() - t0
+            n = passes * len(names) * len(ths)
+            return {"statements": n, "wall_s": wall, "qps": n / wall,
+                    **_pcts(lat)}, errors
+
+        # round 2: cold (no result cache), pool 1, then pool 4
+        for pool in (1, SERVE_POOL):
+            if pool == SERVE_POOL:
+                stop_doors(my1, ht1)
+                tier, my, ht = start_doors(SERVE_POOL)
+            else:
+                tier, my, ht = tier1, my1, ht1
+            w0 = serving_mod.SERVE_QUEUE_WAIT_MS.value
+            torch.cuda.reset_peak_memory_stats()
+            lat = []
+            r, errors = analytic_round(my, ht, 1, lat)
+            r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            r["pool_wait_ms"] = serving_mod.SERVE_QUEUE_WAIT_MS.value - w0
+            out[f"cold_pool{pool}"] = r
+            failures += [f"cold pool {pool}: {e}" for e in errors]
+            log(f"  round 2, pool {pool}: {r['statements']} statements in "
+                f"{r['wall_s']:.1f} s, {r['qps']:.2f} QPS, p50 "
+                f"{r['p50_ms']:.1f} ms, p99 {r['p99_ms']:.1f} ms, pool wait "
+                f"{r['pool_wait_ms']} ms, peak {r['peak_mem_gb']:.2f} GB")
+        out["qps_ratio_pool4_over_pool1"] = (
+            out[f"cold_pool{SERVE_POOL}"]["qps"] / out["cold_pool1"]["qps"])
+        admin.quit()
+        clients.remove(admin)
+        admin = MySQLClient(my.port)
+        clients.append(admin)
+
+        # round 3: the point lane (COM_STMT_PREPARE/EXECUTE) on orders_pk
+        fast0 = serving_mod.SERVE_POINT_INLINE.value
+        from starrocks_tpu_torch.runtime import point as point_mod
+
+        lookups0 = point_mod.POINT_LOOKUPS.value
+        keys = np.asarray(orders.arrays["o_orderkey"])
+        rng = np.random.default_rng(seed)
+        slices = np.array_split(rng.permutation(len(keys)),
+                                SERVE_MYSQL_CLIENTS)
+        point_lat, update_lat, perrors = [], [], []
+
+        def point_client(i):
+            c = MySQLClient(my.port)
+            try:
+                mine = keys[slices[i][:SERVE_POINT_SELECTS]]
+                comments = {}
+                for j, k in enumerate(mine[:SERVE_POINT_UPDATES]):
+                    text = f"serve client {i} update {j}"
+                    t0 = time.perf_counter()
+                    c.query(f"UPDATE orders_pk SET o_comment = '{text}' "
+                            f"WHERE o_orderkey = {int(k)}")
+                    update_lat.append((time.perf_counter() - t0) * 1e3)
+                    count()
+                    comments[int(k)] = text
+                expect = _orders_expected(orders, mine, comments)
+                sid, _, _ = c.stmt_prepare(
+                    "SELECT * FROM orders_pk WHERE o_orderkey = ?")
+                for k in mine:
+                    t0 = time.perf_counter()
+                    _, rows = c.stmt_execute(sid, [int(k)])
+                    point_lat.append((time.perf_counter() - t0) * 1e3)
+                    count()
+                    got = rows[0] if len(rows) == 1 else None
+                    if len(rows) > 1 or not _point_agree(got,
+                                                        expect[int(k)]):
+                        perrors.append(f"client {i} key {int(k)}: {rows} "
+                                       f"!= {expect[int(k)]}")
+            finally:
+                c.quit()
+
+        def guard_point(i):
+            try:
+                point_client(i)
+            except Exception as e:  # noqa: BLE001 — a failed check
+                perrors.append(f"point client {i}: {type(e).__name__}: {e}")
+
+        ths = [threading.Thread(target=guard_point, args=(i,))
+               for i in range(SERVE_MYSQL_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join()
+        out["point"] = {
+            "wall_s": time.perf_counter() - t0,
+            "select": _pcts(point_lat), "update": _pcts(update_lat),
+            "lane_statements": point_mod.POINT_LOOKUPS.value - lookups0,
+            "inline": serving_mod.SERVE_POINT_INLINE.value - fast0}
+        failures += perrors[:10]
+        n_point = SERVE_MYSQL_CLIENTS * (
+            SERVE_POINT_SELECTS + min(SERVE_POINT_UPDATES,
+                                      SERVE_POINT_SELECTS))
+        if out["point"]["lane_statements"] != n_point:
+            failures.append(f"point lane served "
+                            f"{out['point']['lane_statements']} of {n_point}")
+        log(f"  round 3, point lane: selects {out['point']['select']}, "
+            f"updates {out['point']['update']}, "
+            f"{out['point']['lane_statements']} on the lane, "
+            f"{out['point']['inline']} inline")
+
+        # round 4: warm, the result cache on; the second pass must ride the
+        # inline fast path, every statement of it
+        admin.query("SET enable_query_cache = true")
+        count()
+        if not config.get("enable_query_cache"):
+            raise PhaseError("SET enable_query_cache over the wire failed")
+        torch.cuda.reset_peak_memory_stats()
+        lat1 = []
+        r1, errors = analytic_round(my, ht, 1, lat1)
+        failures += [f"warm pass 1: {e}" for e in errors]
+        fp0 = serving_mod.SERVE_FAST_PATH.value
+        lat2 = []
+        r2, errors = analytic_round(my, ht, SERVE_WARM_PASSES - 1, lat2)
+        failures += [f"warm pass 2: {e}" for e in errors]
+        fast_hits = serving_mod.SERVE_FAST_PATH.value - fp0
+        out["warm"] = {"pass1": r1, "fast_path": r2,
+                       "fast_path_hits": fast_hits,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if fast_hits != r2["statements"]:
+            failures.append(f"warm pass 2: {fast_hits} of "
+                            f"{r2['statements']} on the fast path")
+        log(f"  round 4, warm: pass 1 {r1['qps']:.2f} QPS; pass 2 "
+            f"{fast_hits} fast-path hits, p50 {r2.get('p50_ms', 0):.3f} ms, "
+            f"p99 {r2.get('p99_ms', 0):.3f} ms; peak "
+            f"{out['warm']['peak_mem_gb']:.2f} GB")
+        admin.query("SET enable_query_cache = false")
+        count()
+
+        # the hash kernels: Q9 and Q20 under join_probe_strategy 'pallas'
+        admin.query("SET join_probe_strategy = 'pallas'")
+        count()
+        herr = []
+
+        def hash_client(i):
+            c = MySQLClient(my.port)
+            try:
+                for q in SERVE_HASH:
+                    _, rows = c.query(texts[q])
+                    count()
+                    if not _wire_agree(rows, want[q], 1e-6):
+                        herr.append(f"{q}@pallas client {i}")
+            except Exception as e:  # noqa: BLE001 — a failed check
+                herr.append(f"hash client {i}: {type(e).__name__}: {e}")
+            finally:
+                c.quit()
+
+        ths = [threading.Thread(target=hash_client, args=(i,))
+               for i in range(SERVE_MYSQL_CLIENTS)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join()
+        failures += herr
+        admin.query("SET join_probe_strategy = 'pallas_sorted'")
+        count()
+
+        # round 5: the lifecycle over the wire
+        life = out["lifecycle"] = {}
+
+        def hold_at(site):
+            reached, release = threading.Event(), threading.Event()
+
+            def action():
+                reached.set()
+                release.wait(120)
+
+            failpoint.arm(site, action=action, times=1)
+            return reached, release
+
+        def run_in_thread(client, sql, box):
+            def body():
+                try:
+                    box["rows"] = client.query(sql)
+                except Exception as e:  # noqa: BLE001 — recorded
+                    box["err"] = f"{type(e).__name__}: {e}"
+            th = threading.Thread(target=body)
+            th.start()
+            return th
+
+        def processlist_id(snippet, stage=None):
+            _, rows = admin.query("SHOW PROCESSLIST")
+            for r in rows:
+                if snippet in r[-1] and (stage is None or r[-2] == stage):
+                    return int(r[0])
+            return None
+
+        # KILL QUERY of S2, held after its program ran (fetch checkpoint)
+        victim = MySQLClient(my.port)
+        clients.append(victim)
+        victim.query(texts["S2"])  # warm: its columns placed
+        count()
+        torch.cuda.synchronize()
+        before_kill = torch.cuda.memory_allocated() - _diag_bytes(kernels)
+        reached, release = hold_at("executor::fetch_results")
+        box = {}
+        th = run_in_thread(victim, texts["S2"], box)
+        count()
+        try:
+            if not reached.wait(300):
+                raise PhaseError("S2 never reached its fetch checkpoint")
+            qid = processlist_id("stddev")
+            t0 = time.perf_counter()
+            admin.query(f"KILL QUERY {qid}")
+        finally:
+            release.set()
+            th.join()
+            failpoint.disarm("executor::fetch_results")
+        unwind_ms = (time.perf_counter() - t0) * 1e3
+        # the client holds the ERR packet; the server's threads may still
+        # be leaving the statement's frames: COM_PING returns once the
+        # connection thread is done, the reading waits out the worker
+        victim.ping()
+        t1 = time.perf_counter()
+        after_kill = _allocated_down_to(kernels, before_kill)
+        life["kill"] = {"qid": qid, "error": box.get("err", ""),
+                        "unwind_ms": unwind_ms,
+                        "settle_ms": (time.perf_counter() - t1) * 1e3,
+                        "mem_before_gb": before_kill / 1e9,
+                        "mem_after_gb": after_kill / 1e9}
+        if "QueryCancelledError" not in box.get("err", ""):
+            failures.append(f"KILL of S2: {box}")
+        if after_kill != before_kill:
+            failures.append(f"KILL of S2 left {after_kill - before_kill} "
+                            "bytes allocated")
+
+        # query_timeout_s: Q3's clock moves past the deadline at dispatch
+        admin.query("SET query_timeout_s = 30")
+        count()
+
+        def advance():
+            ctx = lifecycle.current()
+            ctx.t0 -= 60.0
+            ctx.deadline -= 60.0
+
+        failpoint.arm("executor::before_dispatch", action=advance, times=1)
+        try:
+            victim.query(texts["Q3"])
+            err = ""
+        except RuntimeError as e:
+            err = str(e)
+        finally:
+            failpoint.disarm("executor::before_dispatch")
+        count()
+        admin.query("SET query_timeout_s = 0")
+        count()
+        life["timeout_error"] = err
+        if "QueryTimeoutError" not in err:
+            failures.append(f"query_timeout_s: {err!r}")
+
+        # query_mem_limit_bytes: Q6's scan alone passes 1 MiB
+        admin.query(f"SET query_mem_limit_bytes = {1 << 20}")
+        count()
+        try:
+            victim.query(texts["Q6"])
+            err = ""
+        except RuntimeError as e:
+            err = str(e)
+        count()
+        admin.query("SET query_mem_limit_bytes = 0")
+        count()
+        life["mem_limit_error"] = err
+        if "MemLimitExceeded" not in err:
+            failures.append(f"query_mem_limit_bytes: {err!r}")
+
+        # a query queued behind a resource group with one slot
+        admin.query("CREATE RESOURCE GROUP rg_serve WITH "
+                    "(concurrency_limit = 1)")
+        count()
+        a, b = MySQLClient(my.port), MySQLClient(my.port)
+        clients += [a, b]
+        for c in (a, b):
+            c.query("SET resource_group = 'rg_serve'")
+            count()
+        reached, release = hold_at("executor::before_dispatch")
+        box_a, box_b = {}, {}
+        th_a = run_in_thread(a, texts["Q6"], box_a)
+        count()
+        try:
+            if not reached.wait(300):
+                raise PhaseError("the slot holder never reached dispatch")
+            th_b = run_in_thread(b, texts["Q6"], box_b)
+            count()
+            qid_b = None
+            t_end = time.monotonic() + 60
+            while qid_b is None and time.monotonic() < t_end:
+                qid_b = processlist_id("l_discount", "workgroup::queued")
+        finally:
+            release.set()
+            th_a.join()
+            failpoint.disarm("executor::before_dispatch")
+        th_b.join()
+        entry = next((e for e in reversed(template.catalog.query_log)
+                      if e["query_id"] == qid_b), None)
+        life["queued"] = {"qid": qid_b, "queue_wait_ms":
+                          entry and entry["queue_wait_ms"],
+                          "a": "rows" in box_a, "b": "rows" in box_b}
+        if qid_b is None:
+            failures.append("the second rg_serve query never queued")
+        for tag, bx in (("holder", box_a), ("queued", box_b)):
+            if "rows" not in bx or not _wire_agree(bx["rows"][1], want["Q6"],
+                                                   1e-6):
+                failures.append(f"rg_serve {tag}: {bx}")
+        for c in (a, b):
+            c.query("SET resource_group = ''")
+            count()
+        admin.query("DROP RESOURCE GROUP rg_serve")
+        count()
+
+        # EXPLAIN ANALYZE of Q3: the annotated tree, one row per line
+        _, rows = admin.query("EXPLAIN ANALYZE " + texts["Q3"])
+        count()
+        lines = [r[0] for r in rows]
+        life["explain_analyze_lines"] = len(lines)
+        if not any("[#" in ln and "rows=" in ln for ln in lines):
+            failures.append("EXPLAIN ANALYZE: no observed rows annotated")
+        cols, _ = admin.query("SHOW PROCESSLIST")
+        life["processlist_columns"] = cols
+        if cols[:2] != ["Id", "User"]:
+            failures.append(f"SHOW PROCESSLIST columns {cols}")
+        # the HTTP observability endpoints
+        http_status = {}
+        for path in ("/metrics", "/api/queries", "/api/audit"):
+            st, body = _http_get(ht.port, path)
+            http_status[path] = st
+            if st != 200 or not body:
+                failures.append(f"GET {path}: {st}")
+        last = AUDIT.snapshot(limit=1)[-1]["query_id"]
+        st, body = _http_get(ht.port, f"/api/query/{last}/profile")
+        http_status["/api/query/<id>/profile"] = st
+        if st != 200 or b"profile" not in body:
+            failures.append(f"GET /api/query/{last}/profile: {st}")
+        st, body = _http_get(ht.port, "/api/ingest")
+        http_status["/api/ingest"] = st
+        if st != 501 or b"slice 9" not in body:
+            failures.append(f"GET /api/ingest: {st} {body[:80]!r}")
+        life["http"] = http_status
+        metrics_text = _http_get(ht.port, "/metrics")[1].decode()
+        out["metrics"] = {k: v for k, v in (
+            ln.rsplit(" ", 1) for ln in metrics_text.splitlines()
+            if ln.startswith(("sr_tpu_serve_", "sr_tpu_point_",
+                              "sr_tpu_admission_", "sr_tpu_queries_"))
+            and "{" not in ln)}
+
+        # the audit log: one record per statement sent
+        AUDIT.flush()
+        out["audit_records"] = AUDIT.stats()["registered"] - audit0
+        out["statements_sent"] = sent[0]
+        if out["audit_records"] != sent[0]:
+            failures.append(f"audit: {out['audit_records']} records for "
+                            f"{sent[0]} statements")
+        log(f"  round 5, lifecycle: {life}")
+    finally:
+        failpoint.disarm("executor::fetch_results")
+        failpoint.disarm("executor::before_dispatch")
+        for c in clients:
+            try:
+                c.quit()
+            except OSError:
+                pass
+        for srv in list(servers):
+            if isinstance(srv, MySQLServer):
+                srv.shutdown()
+            else:
+                srv.stop()
+        try:
+            template.sql("DROP TABLE IF EXISTS orders_pk")
+        except Exception:  # noqa: BLE001 — the phase already failed
+            traceback.print_exc()
+        set_knobs(knobs0)
+        shutil.rmtree(tmp, ignore_errors=True)
+    # after the tier's shutdown: nothing running, queued or charged
+    torch.cuda.synchronize()
+    wm = template.catalog.workgroups
+    qs = wm.queue_stats() if wm is not None else {"running": 0, "queued": 0}
+    acct = ACCOUNTANT.snapshot()
+    mem_after = _settled_allocated(kernels)
+    cache_after = _cache_bytes(template.cache)
+    cycles = lockdep.WITNESS.order_cycles()
+    out["teardown"] = {
+        "registry": len(REGISTRY.snapshot()), "running": qs["running"],
+        "queued": qs["queued"], "accountant_bytes": acct["process_bytes"],
+        "mem_before_gb": mem_before / 1e9, "mem_after_gb": mem_after / 1e9,
+        "kernel_diagnostics_bytes": _diag_bytes(kernels),
+        "cache_growth_gb": (cache_after - cache_before) / 1e9,
+        "lock_witness": lockdep.enabled(), "lock_cycles": len(cycles)}
+    if REGISTRY.snapshot() or qs["running"] or qs["queued"]:
+        failures.append(f"teardown: {out['teardown']}")
+    if acct["process_bytes"] or acct["group_bytes"]:
+        failures.append(f"accountant not empty: {acct}")
+    if mem_after - mem_before > max(cache_after - cache_before, 0):
+        failures.append(f"device memory {mem_after - mem_before} bytes "
+                        "above its value before the rounds, past the "
+                        "DeviceCache's own placements (the kernels' "
+                        "last-call diagnostics aside)")
+    if cycles:
+        failures.append(lockdep.WITNESS.render(cycles))
+    got = _snapshot(kernels)
+    out["launches"] = got
+    out["shapes"] = {n: sorted(w.shapes) for n, w in kernels.WRAPPERS.items()}
+    out["phase_s"] = time.perf_counter() - phase_t0
+    log(f"  serve: launches {got}, teardown {out['teardown']}, "
+        f"{out['phase_s']:.1f} s")
+    missing = [n for n, v in got.items() if not v]
+    if missing:
+        failures.append(f"kernels not launched on the serve path: {missing}")
+    del template
+    if failures:
+        raise PhaseError(f"serve: {failures[:12]}")
+
+
+SERVE_CHILD_TIMEOUT_S = 600
+
+
+def start_serve_child(args) -> dict:
+    """Start the serve phase's process: this script with --serve-child
+    and SR_TPU_LOCK_WITNESS=1, since the witness's factories read the
+    variable when the package first loads and every other phase is timed
+    with plain locks. The child generates its catalog at once (beside the
+    generate phase, so the card's phases never share the host with it),
+    then waits for a line on its stdin before it touches the card."""
+    import tempfile
+
+    d = Path(tempfile.mkdtemp(prefix="serve_child_"))
+    cmd = [sys.executable, str(Path(__file__).resolve()),
+           "--sf", repr(args.sf), "--seed", str(args.seed),
+           "--serve-child", str(d / "serve.json")]
+    proc = subprocess.Popen(cmd, stdin=subprocess.PIPE, env={
+        **os.environ, "SR_TPU_LOCK_WITNESS": "1"})
+    return {"proc": proc, "dir": d}
+
+
+def run_serve_child(rec, child: dict):
+    """Tell the serve child to go and wait for it: its record becomes
+    rec["serve"]; a child that fails, or outlives SERVE_CHILD_TIMEOUT_S
+    (then killed), fails the phase."""
+    import shutil
+
+    proc = child["proc"]
+    try:
+        proc.stdin.write(b"go\n")
+        proc.stdin.close()
+    except OSError:
+        pass  # the child already ended: its record says why
+    try:
+        rc = proc.wait(timeout=SERVE_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise PhaseError(f"serve child killed after "
+                         f"{SERVE_CHILD_TIMEOUT_S} s") from None
+    path = child["dir"] / "serve.json"
+    got = json.loads(path.read_text()) if path.exists() else {}
+    shutil.rmtree(child["dir"], ignore_errors=True)
+    if got.get("serve") is not None:
+        rec["serve"] = {**got["serve"], "gen_s": got["gen_s"]}
+    if rc != 0 or got.get("status") != "ok":
+        raise PhaseError(f"serve child exit {rc}: "
+                         f"{got.get('status', 'no record')}")
+
+
+def stop_serve_child(child: dict):
+    """Reap a serve child that was never told to go (a phase before it
+    failed): it ends at the end of its stdin, or is killed."""
+    import shutil
+
+    proc = child.get("proc")
+    if proc is None:
+        return
+    if proc.poll() is None:
+        try:
+            proc.stdin.close()
+        except OSError:
+            pass
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    shutil.rmtree(child["dir"], ignore_errors=True)
+
+
+def serve_child(args) -> int:
+    """--serve-child: generate the catalog, wait for "go" on stdin (end of
+    input: exit without running), run phase_serve under the lock witness
+    and write {"status", "gen_s", "serve"} to the named file."""
+    from starrocks_tpu_torch import lockdep
+    from starrocks_tpu_torch.storage.catalog import tpch_catalog
+
+    rec, status, gen_s = {}, "ok", None
+    t0 = time.perf_counter()
+    try:
+        if not lockdep.enabled():
+            raise PhaseError("the lock witness is off (SR_TPU_LOCK_WITNESS)")
+        cat = tpch_catalog(sf=args.sf, seed=args.seed)
+        gen_s = time.perf_counter() - t0
+        log(f"  serve child: TPC-H SF {args.sf:g} generated in {gen_s:.1f} s")
+        if sys.stdin.readline().strip() != "go":
+            return 0
+        phase_serve(rec, cat, args.sf, args.seed)
+    except Exception as e:  # noqa: BLE001 — reported to the parent
+        traceback.print_exc()
+        status = f"FAILED: {type(e).__name__}: {e}"
+    Path(args.serve_child).write_text(json.dumps({
+        "status": status, "gen_s": gen_s, "serve": rec.get("serve")}))
+    return 0 if status == "ok" else 1
 
 
 def _ns(event, what: str) -> int:
@@ -2188,7 +3365,7 @@ def phase_kernels(rec, seed, only=None):
     dev = torch.device(CARD)
     shapes = {n: [] for n in kernels.WRAPPERS}
     for path in ("hash_topn", "tpch", "topn", "breadth", "functions",
-                 "spill", "ssb", "store", "dist", "tpcds"):
+                 "spill", "ssb", "store", "dist", "serve", "tpcds"):
         for n, v in (rec.get(path) or {}).get("shapes", {}).items():
             shapes[n] += [tuple(x) for x in v]
     build_shape = max(shapes["hash_build"] or [DEFAULT_SHAPES["hash_build"]])
@@ -3007,7 +4184,7 @@ def phase_card_vs_cpu(rec, sf, seed):
         ok = _spill_agree(base, got, want[q], rel,
                           BREADTH_UNITS.get(base))
         if label == "native":
-            ok = ok and res.profile.get("native_fused") == "filter_sum"
+            ok = ok and res.profile.infos.get("native_fused") == "filter_sum"
         out[f"{q}@{label}"] = {"rows": got.num_rows, "agree": ok}
         log(f"  card ({label}) vs cpu (auto) SF {sf} {qname(q)}: {got.num_rows} "
             f"rows, agree {ok}")
@@ -3017,6 +4194,32 @@ def phase_card_vs_cpu(rec, sf, seed):
     rec["card_vs_cpu"] = {"sf": sf, "queries": out}
     if bad:
         raise PhaseError(f"card and CPU rows differ for {bad}")
+
+
+def run_phases(rec, phases, failed):
+    """Run each (name, fn) phase, record its status and seconds in rec,
+    and append the names of the failed ones to `failed`; stop after a
+    failed device or generate phase."""
+    for name, fn in phases:
+        t0 = time.perf_counter()
+        log(f"== phase {name}")
+        mem = _settle() if name not in ("device", "build") else None
+        try:
+            fn()
+            status = "ok"
+        except Exception as e:  # report every phase, fail at the end
+            traceback.print_exc()
+            status = f"FAILED: {type(e).__name__}: {e}"
+            failed.append(name)
+        finally:
+            set_knobs({**strategies("auto"), **spill_knobs(0),
+                       "join_hybrid_strategy": "auto"})
+        dt = time.perf_counter() - t0
+        rec["phases"][name] = {"status": status, "s": dt,
+                               "mem_before_gb": mem}
+        log(f"== phase {name}: {status} ({dt:.1f} s)")
+        if name in ("device", "generate") and failed:
+            break
 
 
 def main(argv=None) -> int:
@@ -3033,6 +4236,11 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=None,
                     help="comma list of phases to run after device and build "
                          "(default: all, and only then the ok line)")
+    ap.add_argument("--serve-child", default=None, metavar="JSON",
+                    help="generate the catalog, wait for a line 'go' on "
+                         "stdin, run the serve phase alone in this process "
+                         "and write its record to JSON (the serve phase "
+                         "starts the script so, with the lock witness on)")
     ap.add_argument("--kernels", default=None,
                     help="comma list of the kernels phase's checks to run "
                          "(hash, topn_select, probe_searchsorted, "
@@ -3048,12 +4256,18 @@ def main(argv=None) -> int:
     from starrocks_tpu_torch.ops import kernels
     from starrocks_tpu_torch.storage.catalog import tpch_catalog
 
+    if args.serve_child:
+        return serve_child(args)
     rec = {"args": vars(args), "phases": {}, "cuts": CUTS}
     t_start = time.perf_counter()
     failed = []
     data = {}
 
+    serve = {}  # the serve child, started beside the generate phase
+
     def generate():
+        if any(name == "serve" for name, _ in phases):
+            serve.update(start_serve_child(args))
         t0 = time.perf_counter()
         data["cat"] = tpch_catalog(sf=args.sf, seed=args.seed)
         dt = time.perf_counter() - t0
@@ -3076,6 +4290,8 @@ def main(argv=None) -> int:
         ("ssb", lambda: phase_ssb(rec, args.ssb_sf, args.seed)),
         ("store", lambda: phase_store(rec, data["cat"], args.sf)),
         ("dist", lambda: phase_dist(rec, data["cat"], args.sf)),
+        ("serve", lambda: run_serve_child(
+            rec, serve or start_serve_child(args))),
         ("tpcds", lambda: (data.pop("cat", None), _settle(),
                            phase_tpcds(rec, args.tpcds_sf))),
         ("kernels", lambda: phase_kernels(
@@ -3091,26 +4307,10 @@ def main(argv=None) -> int:
         if unknown:
             ap.error(f"unknown phases {sorted(unknown)}")
         phases = [(name, fn) for name, fn in phases if name in wanted]
-    for name, fn in phases:
-        t0 = time.perf_counter()
-        log(f"== phase {name}")
-        mem = _settle() if name not in ("device", "build") else None
-        try:
-            fn()
-            status = "ok"
-        except Exception as e:  # report every phase, fail at the end
-            traceback.print_exc()
-            status = f"FAILED: {type(e).__name__}: {e}"
-            failed.append(name)
-        finally:
-            set_knobs({**strategies("auto"), **spill_knobs(0),
-                       "join_hybrid_strategy": "auto"})
-        dt = time.perf_counter() - t0
-        rec["phases"][name] = {"status": status, "s": dt,
-                               "mem_before_gb": mem}
-        log(f"== phase {name}: {status} ({dt:.1f} s)")
-        if name in ("device", "generate") and failed:
-            break
+    try:
+        run_phases(rec, phases, failed)
+    finally:
+        stop_serve_child(serve)
     data.clear()
     rec["total_s"] = time.perf_counter() - t_start
     out_dir = Path(args.out)
@@ -3133,7 +4333,8 @@ def main(argv=None) -> int:
             + rec["tpcds"]["launches"][name]
             + rec["functions"]["launches"][name]
             + rec["spill"]["launches"][name]
-            + rec["dist"]["launches"][name],
+            + rec["dist"]["launches"][name]
+            + rec["serve"]["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -32,7 +32,7 @@ memory-budgeted host LRU (`SET enable_query_cache = on`,
 Invalidation is hook-driven (storage/store.py mutation listeners +
 storage/catalog.py data epochs). A port of the JAX package's cache/: the
 static key-completeness audit of a cached execution's knob reads
-(analysis/key_check.py) is slice 8's, with the other static passes.
+(analysis/key_check.py) is slice 9's, with the other static passes.
 """
 
 from .query_cache import QueryCache  # noqa: F401

@@ -11,7 +11,7 @@ bytes.
 
 A port of the JAX package's cache/keys.py. OPT_KEY_KNOBS is the port's own
 copy of the reference's `analysis/key_check.OPT_KEY_KNOBS` (the static
-key-completeness checks are slice 8's).
+key-completeness checks are slice 9's).
 """
 
 from __future__ import annotations

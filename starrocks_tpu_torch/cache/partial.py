@@ -68,7 +68,7 @@ def match_cacheable_fragment(plan, catalog):
     return bp, handle
 
 
-def try_partial_cached(executor, plan, profile: dict):
+def try_partial_cached(executor, plan, profile):
     """Execute `plan` through the per-segment partial-aggregation cache.
     Returns the result chunk, or None when the plan is not a cacheable
     fragment (caller falls through to the normal paths)."""
@@ -84,7 +84,6 @@ def try_partial_cached(executor, plan, profile: dict):
     if not seg_metas:
         return None  # empty table: nothing to cache against
     from ..runtime.batched import profile_node
-    from ..runtime.executor import _count
 
     fkey = cache_keys.fragment_key(bp.agg, bp.scan_chain, bp.scan)
     qc = executor.cache.qcache
@@ -94,7 +93,7 @@ def try_partial_cached(executor, plan, profile: dict):
     dev = executor.cache.device
     stats = {}
 
-    def attempt(caps):
+    def attempt(caps, p):
         from ..runtime import lifecycle
         from ..runtime.batched import make_programs, slice_scan_chunk
         from ..runtime.failpoint import fail_point
@@ -114,7 +113,7 @@ def try_partial_cached(executor, plan, profile: dict):
         # failure mid-loop must not leave a half-populated set of partial
         # entries behind
         pending_puts = []
-        with node.timer("segments"):
+        with node.timer("segments_s"):
             for fmeta in seg_metas:
                 fail_point("qcache::partial_segment")
                 lifecycle.checkpoint("qcache::partial_segment")
@@ -148,7 +147,7 @@ def try_partial_cached(executor, plan, profile: dict):
                     pending_puts.append((ver, st, live))
 
         lifecycle.checkpoint("qcache::partial_merge")
-        with node.timer("merge_final"):
+        with node.timer("merge_final_s"):
             merged = states[0]
             for st in states[1:]:
                 merged = concat_tables(merged, st,
@@ -169,8 +168,8 @@ def try_partial_cached(executor, plan, profile: dict):
     node.set_info("qcache_partial_hits", stats.get("hits", 0))
     node.set_info("qcache_rows_saved", stats.get("saved", 0))
     node.set_info("qcache_fresh_rows", stats.get("fresh", 0))
-    _count(profile, "qcache_partial_hits", stats.get("hits", 0))
-    _count(profile, "qcache_rows_saved", stats.get("saved", 0))
-    _count(profile, "qcache_partial_recomputed",
-           len(seg_metas) - stats.get("hits", 0))
+    profile.add_counter("qcache_partial_hits", stats.get("hits", 0))
+    profile.add_counter("qcache_rows_saved", stats.get("saved", 0))
+    profile.add_counter("qcache_partial_recomputed",
+                        len(seg_metas) - stats.get("hits", 0))
     return out

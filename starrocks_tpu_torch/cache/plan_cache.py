@@ -18,15 +18,17 @@ cache drops on any mismatch-shaped event. DML never invalidates plans
 cache that DML DOES evict).
 
 A port of the JAX package's cache/plan_cache.py (one lock, O(1)
-critical sections). Its serving-tier probe and the wire protocols'
-parameterized statements belong to slice 8.
+critical sections), shared by every session of a serving tier. `peek` is
+the tier's counter-free fast-path probe (runtime/serving.py); MySQL
+COM_STMT_EXECUTE splices its parameters into the text first, so each
+parameter vector is its own entry.
 """
 
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict
 
+from .. import lockdep
 from ..runtime.config import config
 from ..runtime.metrics import metrics
 
@@ -48,7 +50,7 @@ class PlanCache:
     MAX_ENTRIES = 512
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("PlanCache._lock")
         # text -> (plan, schema_epoch, udf_epoch)
         self._entries: OrderedDict = OrderedDict()  # guarded_by: _lock
         self.hits = 0                               # guarded_by: _lock
@@ -73,6 +75,20 @@ class PlanCache:
                 del self._entries[text]  # stale shape: drop eagerly
             self.misses += 1
             PLAN_CACHE_MISSES.inc()
+            return None
+
+    def peek(self, text: str, catalog):
+        """Counter-free validity probe (the serving tier decides whether a
+        statement can take the inline fast path without skewing hit/miss
+        accounting). Returns the plan or None; never evicts."""
+        from ..runtime.udf import registry_epoch
+
+        sep = getattr(catalog, "schema_epoch", 0)
+        uep = registry_epoch()
+        with self._lock:
+            e = self._entries.get(text)
+            if e is not None and e[1] == sep and e[2] == uep:
+                return e[0]
             return None
 
     def store(self, text: str, plan, catalog):

@@ -20,9 +20,8 @@ payloads); eviction pops least-recently-used entries of EITHER tier past
 metric registry (information_schema.metrics) and per-query RuntimeProfile
 counters.
 
-A port of the JAX package's cache/query_cache.py: the same tiers, keys and
-accounting; the locks are threading locks and an eviction is not journaled
-(the event journal is slice 8's).
+A port of the JAX package's cache/query_cache.py: the same tiers, keys,
+accounting, lock names and eviction events.
 """
 
 from __future__ import annotations
@@ -30,8 +29,7 @@ from __future__ import annotations
 import dataclasses
 from collections import OrderedDict
 
-import threading
-
+from .. import lockdep
 from ..runtime.config import config
 from ..runtime.failpoint import fail_point
 from ..runtime.metrics import metrics
@@ -90,7 +88,7 @@ class QueryCache:
     the shared catalog's data epochs."""
 
     def __init__(self):
-        self._lock = threading.RLock()
+        self._lock = lockdep.rlock("QueryCache._lock")
         self._entries: OrderedDict = OrderedDict()  # guarded_by: _lock
         self._bytes = 0                             # guarded_by: _lock
         self.evictions = 0                          # guarded_by: _lock
@@ -115,6 +113,17 @@ class QueryCache:
             self._entries.move_to_end(k)
             QCACHE_HITS.inc()
             return e
+
+    def has_result(self, skey, catalog) -> bool:
+        """Counter-free validity probe (the serving tier's fast-path
+        sniff): True when a lookup_result RIGHT NOW would hit. Stale
+        entries are left for the real lookup to drop."""
+        with self._lock:
+            e = self._entries.get(("r", skey))
+            if e is None:
+                return False
+            return all(catalog.data_version(t) == v
+                       for t, v in e.versions.items())
 
     def store_result(self, skey, table, plan, versions):
         fail_point("qcache::store_result")
@@ -163,21 +172,29 @@ class QueryCache:
         with self._lock:
             return self._bytes
 
-    def _put(self, k, e):  # holds _lock
+    def _put(self, k, e):  # lint: holds _lock
         old = self._entries.pop(k, None)
         if old is not None:
             self._bytes -= old.nbytes
         self._entries[k] = e
         self._bytes += e.nbytes
         budget = config.get("query_cache_capacity_mb") << 20
+        evicted = 0
         while self._bytes > budget and self._entries:
             _, victim = self._entries.popitem(last=False)
             self._bytes -= victim.nbytes
             self.evictions += 1
+            evicted += 1
             QCACHE_EVICTIONS.inc()
         QCACHE_BYTES.set(self._bytes)
+        if evicted:
+            from ..runtime import events
 
-    def _drop(self, k):  # holds _lock
+            # the journal lock is a leaf, safe under the cache lock
+            events.emit("cache_evict_pressure", evicted=evicted,
+                        resident_bytes=self._bytes)
+
+    def _drop(self, k):  # lint: holds _lock
         e = self._entries.pop(k, None)
         if e is not None:
             self._bytes -= e.nbytes

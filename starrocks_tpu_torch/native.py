@@ -23,10 +23,11 @@ import ctypes
 import hashlib
 import os
 import subprocess
-import threading
 from pathlib import Path
 
 import numpy as np
+
+from . import lockdep
 
 _PKG = Path(__file__).resolve().parent
 HOST_DIR = _PKG / "csrc" / "host"
@@ -39,7 +40,7 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 FS_OPS = {"eq": 0, "ne": 1, "lt": 2, "le": 3, "gt": 4, "ge": 5}
 
 _libs: dict = {}
-_lock = threading.Lock()
+_lock = lockdep.lock("native._lock")
 
 
 def _lib_path(name: str) -> Path:

@@ -25,6 +25,14 @@ per-slice count of keys inserted past their slice, and
 `topn_select.last_listed` the latest launch's count of blocks sent to the
 top-N kernel's 64-bit pass and to its pair kernel (device tensors).
 
+The serving tier runs statements from several threads at once, so every
+count (`calls`, `launches`, `shapes`, `routes`) moves under one lock and
+stays exact under concurrency. The `last_*` diagnostics (`last_shape`,
+`hash_build.last_deferred`, `topn_select.last_listed`) are last-writer:
+under concurrent statements they describe whichever call finished its
+bookkeeping last. The two device diagnostics are views of their launch's
+scratch buffer and keep that buffer allocated until the next launch.
+
 The kernels are compiled with nvcc for sm_90a into plain-C shared libraries
 (one per source, built in parallel) at first use, under `_build/` next to
 this package, and loaded with ctypes. Building needs the CUDA toolkit
@@ -38,12 +46,12 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
+from .. import lockdep
 from .common import exact_f32_matmul, mix64, onehot_blocked
 from .segment import SLAB_BYTES
 
@@ -86,7 +94,7 @@ _SIGNATURES = {
 }
 
 _libs: dict = {}
-_libs_lock = threading.Lock()
+_libs_lock = lockdep.lock("kernels._libs_lock")
 
 
 def _nvcc() -> str:
@@ -195,27 +203,44 @@ def _counted(fn):
     return fn
 
 
+# guards every wrapper's counts: read-modify-writes from the serving
+# tier's worker threads must not lose increments
+_count_lock = lockdep.lock("kernels._count_lock")
+
+
 def _called(fn, shape):
-    fn.calls += 1
-    fn.last_shape = shape
-    fn.shapes.add(shape)
+    with _count_lock:
+        fn.calls += 1
+        fn.last_shape = shape
+        fn.shapes.add(shape)
+
+
+def _launched(fn, route=None):
+    """Count one kernel launch of wrapper `fn` (and of `route`, for the
+    hash probe's per-route counts)."""
+    with _count_lock:
+        fn.launches += 1
+        if route is not None:
+            fn.routes[route] += 1
 
 
 def reset_counts():
-    for w in WRAPPERS.values():
-        w.calls = 0
-        w.launches = 0
-        w.last_shape = None
-        w.shapes = set()
-    hash_build.last_deferred = None
-    hash_probe.routes = dict.fromkeys(HASH_PROBE_ROUTES, 0)
-    topn_select.last_listed = None
+    with _count_lock:
+        for w in WRAPPERS.values():
+            w.calls = 0
+            w.launches = 0
+            w.last_shape = None
+            w.shapes = set()
+        hash_build.last_deferred = None
+        hash_probe.routes = dict.fromkeys(HASH_PROBE_ROUTES, 0)
+        topn_select.last_listed = None
 
 
 def counts() -> dict:
     """{wrapper name: {"calls": n, "launches": n}}."""
-    return {n: {"calls": w.calls, "launches": w.launches}
-            for n, w in WRAPPERS.items()}
+    with _count_lock:
+        return {n: {"calls": w.calls, "launches": w.launches}
+                for n, w in WRAPPERS.items()}
 
 
 # --- the hash kernels' partitioned layout ------------------------------------
@@ -375,7 +400,7 @@ def hash_build(keys: torch.Tensor, table_size: int):
                            int(lay.hist_smem > 0), skey.data_ptr(),
                            srow.data_ptr(), work.data_ptr(), _stream(keys))
     _check_launch(lib, rc, "hash_build")
-    hash_build.launches += 1
+    _launched(hash_build)
     hash_build.last_deferred = work[3 * lay.partitions:4 * lay.partitions]
     return tkey, trow
 
@@ -452,8 +477,7 @@ def hash_probe(table_key: torch.Tensor, table_row: torch.Tensor,
             skey.data_ptr(), sints.data_ptr(), fill.data_ptr(),
             _stream(probe))
     _check_launch(lib, rc, "hash_probe")
-    hash_probe.launches += 1
-    hash_probe.routes[lay.probe_route] += 1
+    _launched(hash_probe, lay.probe_route)
     return out
 
 
@@ -497,7 +521,7 @@ def topn_select(neg: torch.Tensor, k: int):
     rc = lib.sr_topn_select(neg.data_ptr(), n, k, vals.data_ptr(),
                             idx.data_ptr(), wide.data_ptr(), _stream(neg))
     _check_launch(lib, rc, "topn_select")
-    topn_select.launches += 1
+    _launched(topn_select)
     topn_select.last_listed = wide[:2]
     return vals, idx
 
@@ -594,7 +618,7 @@ def probe_searchsorted(sorted_build: torch.Tensor, probe: torch.Tensor):
                                    index.data_ptr(), offs, len(levels),
                                    levels[-1][1], _stream(probe))
     _check_launch(lib, rc, "probe_searchsorted")
-    probe_searchsorted.launches += 1
+    _launched(probe_searchsorted)
     return out
 
 
@@ -693,7 +717,7 @@ def segment_sum(gid: torch.Tensor, vals: torch.Tensor, num_groups: int,
                             num_groups, ctas, rows, warps,
                             partial.data_ptr(), out.data_ptr(), _stream(vals))
     _check_launch(lib, rc, "segment_sum")
-    segment_sum.launches += 1
+    _launched(segment_sum)
     return out
 
 

@@ -29,7 +29,7 @@ Where the port's idiom differs from the reference's:
 - the reference wraps each per-batch program in `audited_jit` (jax.jit
   plus a one-time jaxpr audit). The port runs eagerly: a program is the
   plain callable, and the jaxpr audit has no eager counterpart (recorded as
-  not applicable for slice 8's static passes);
+  not applicable for slice 9's static passes);
 - `slice_scan_chunk` copies one batch of host columns to the device; its
   seconds and bytes land in the profile node (`h2d_s`, `h2d_bytes`): that
   copy is the cost this path exists to pay;
@@ -45,7 +45,6 @@ keyed by the capacities, so a repeated query skips `compile_plan`.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 
@@ -75,33 +74,13 @@ SPILL_PARTS_LIVE = _metrics.gauge(
     "hybrid-join spilled partitions materialized but not yet consumed")
 
 
-class ProfileNode(dict):
-    """One spill executor's entry in the query's profile dict: info values,
-    counters and accumulated seconds (`<name>_s`)."""
-
-    def set_info(self, key: str, value):
-        self[key] = value
-
-    def add(self, key: str, value):
-        self[key] = self.get(key, 0) + value
-
-    @contextlib.contextmanager
-    def timer(self, key: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.add(f"{key}_s", time.perf_counter() - t0)
+def profile_node(profile, name: str):
+    """The spill executor's child of the query's RuntimeProfile (made on
+    first use): its infos, counters and accumulated seconds (`<name>_s`)."""
+    return profile.find(name) or profile.child(name)
 
 
-def profile_node(profile: dict, name: str) -> ProfileNode:
-    node = profile.get(name)
-    if not isinstance(node, ProfileNode):
-        node = profile[name] = ProfileNode()
-    return node
-
-
-def read_max(check_dicts, node: ProfileNode | None = None) -> dict:
+def read_max(check_dicts, node=None) -> dict:
     """{key: max int over the dicts} of several attempts' or passes' checks,
     read in ONE device-to-host copy."""
     from .executor import read_checks
@@ -113,7 +92,7 @@ def read_max(check_dicts, node: ProfileNode | None = None) -> dict:
     keys = list(flat)
     vals = read_checks({j: flat[k] for j, k in enumerate(keys)})
     if node is not None:
-        node.add("d2h_syncs", 1)
+        node.add_counter("d2h_syncs", 1)
     out: dict = {}
     for j, (_, k) in enumerate(keys):
         out[k] = max(out.get(k, 0), int(vals[j]))
@@ -137,7 +116,7 @@ def _to_device(a: np.ndarray, sel, dtype, cap: int, device):
 
 
 def slice_scan_chunk(ht, alias: str, cols, sel, cap: int, device,
-                     node: ProfileNode | None = None) -> Chunk:
+                     node=None) -> Chunk:
     """Device chunk of `ht[sel]` with alias-qualified names (shared by the
     batched-agg, spill-sort, spill-window and partition loops): each
     column gathered on the host and copied into its padded device tensor,
@@ -170,9 +149,9 @@ def slice_scan_chunk(ht, alias: str, cols, sel, cap: int, device,
     chunk = Chunk(Schema(fields), [d for d, _ in out], [v for _, v in out],
                   sel_mask, device)
     if node is not None:
-        node.add("h2d_s", time.perf_counter() - t0)
-        node.add("h2d_bytes", lifecycle._nbytes(chunk))
-        node.add("h2d_batches", 1)
+        node.add_counter("h2d_s", time.perf_counter() - t0, "s")
+        node.add_counter("h2d_bytes", lifecycle._nbytes(chunk))
+        node.add_counter("h2d_batches", 1)
     return chunk
 
 
@@ -275,7 +254,7 @@ def make_programs(bp: BatchablePlan, group_cap: int):
 
 
 def execute_batched(
-    bp: BatchablePlan, catalog, caps, node: ProfileNode, batch_rows: int,
+    bp: BatchablePlan, catalog, caps, node, batch_rows: int,
     programs_cache, device,
 ):
     """One attempt: stream batches, merge, finalize. Returns (chunk,
@@ -429,7 +408,7 @@ def _grace_part_plan(gp: GraceJoinPlan):
 
 
 def grace_partitions(gp: GraceJoinPlan, catalog, batch_rows: int,
-                     node: ProfileNode | None = None):
+                     node=None):
     """Host co-partitioning of both inputs by the join key (independent of
     capacities — computed ONCE per query, not per adaptive attempt)."""
     from ..native import bucket_order, hash_partition_i64
@@ -448,7 +427,7 @@ def grace_partitions(gp: GraceJoinPlan, catalog, batch_rows: int,
     lcap = pad_capacity(max(int(np.diff(loffs).max()), 1))
     rcap = pad_capacity(max(int(np.diff(roffs).max()), 1))
     if node is not None:
-        node.add("partition_s", time.perf_counter() - t0)
+        node.add_counter("partition_s", time.perf_counter() - t0, "s")
     return (lht, rht, n_parts, lorder, loffs, rorder, roffs, lcap, rcap)
 
 
@@ -482,7 +461,7 @@ def _partition_program(gp: GraceJoinPlan, part_plan, catalog, caps,
 
 
 def execute_grace_join(
-    gp: GraceJoinPlan, catalog, caps, node: ProfileNode, parts,
+    gp: GraceJoinPlan, catalog, caps, node, parts,
     programs_cache, executor,
 ):
     """One adaptive attempt: stream each host partition pair through one
@@ -606,7 +585,7 @@ class HybridParts:
 
 def hybrid_partitions(gp: GraceJoinPlan, catalog, batch_rows: int,
                       known_hot=None,
-                      node: ProfileNode | None = None) -> HybridParts:
+                      node=None) -> HybridParts:
     """Partition-time half of the hybrid join: heavy-hitter detection plus
     build-side hash partitioning with a greedy residency budget.
 
@@ -744,7 +723,7 @@ def hybrid_partitions(gp: GraceJoinPlan, catalog, batch_rows: int,
     rcap_cold = pad_capacity(max(max_pass_build, 1))
     lcap = pad_capacity(max(min(batch_rows, max(len(lk), 1)), 1))
     if node is not None:
-        node.add("partition_s", time.perf_counter() - t0)
+        node.add_counter("partition_s", time.perf_counter() - t0, "s")
     return HybridParts(
         skew_keys=skew_keys, hot=hot, resident=resident, spilled=spilled,
         n_parts=n_parts, resident_parts=int(resident_mask.sum()),
@@ -812,7 +791,7 @@ def _salted_split(lk, rk, pi, bi, batch_rows, kind, thresh, salt, depth,
 
 
 def execute_hybrid_join(
-    gp: GraceJoinPlan, catalog, caps, node: ProfileNode, parts: HybridParts,
+    gp: GraceJoinPlan, catalog, caps, node, parts: HybridParts,
     programs_cache, executor,
 ):
     """One adaptive attempt of the hybrid join: broadcast lane, resident
@@ -847,7 +826,7 @@ def execute_hybrid_join(
     outs, pass_checks = [], []
 
     def run_lane(probe_idx, build_idx, rcap: int, site: str):
-        with node.timer(site.partition("::")[2] or site):
+        with node.timer((site.partition("::")[2] or site) + "_s"):
             _run_lane(probe_idx, build_idx, rcap, site)
 
     def _run_lane(probe_idx, build_idx, rcap: int, site: str):
@@ -978,7 +957,7 @@ def make_sort_spill_program(sp: SpillSortPlan):
 
 
 def execute_spill_sort(sp: SpillSortPlan, catalog, batch_rows: int,
-                       programs_cache, node: ProfileNode, device):
+                       programs_cache, node, device):
     """Stream batches; return the globally ordered result as a HostTable
     (the spilled result lives in host memory — it exceeds the device by
     assumption)."""
@@ -1004,12 +983,12 @@ def execute_spill_sort(sp: SpillSortPlan, catalog, batch_rows: int,
         chunk = slice_scan_chunk(ht, alias, cols, slice(lo, hi), cap,
                                  device, node)
         c, ops, live = jprog(chunk)
-        with node.timer("d2h"):
+        with node.timer("d2h_s"):
             idx = torch.nonzero(live, as_tuple=True)[0]
             out_tables.append(HostTable.from_chunk(c))  # drops dead rows
             batch_ops = [(o[idx] if o.ndim else o.expand(cap)[idx]).cpu()
                          .numpy() for o in ops]
-        node.add("d2h_syncs", 2 + len(c.schema) + len(ops))
+        node.add_counter("d2h_syncs", 2 + len(c.schema) + len(ops))
         lifecycle.account(out_tables[-1], "spill_sort::batch")
         if out_ops is None:
             out_ops = [[o] for o in batch_ops]
@@ -1020,7 +999,7 @@ def execute_spill_sort(sp: SpillSortPlan, catalog, batch_rows: int,
     fail_point("spill_sort::merge")
     lifecycle.checkpoint("spill_sort::merge")
     schema, merged_arrays, merged_valids = host_concat_tables(out_tables)
-    with node.timer("lexsort"):
+    with node.timer("lexsort_s"):
         order = np.lexsort(tuple(np.concatenate(a) for a in out_ops))
     lo = 0
     hi = len(order)
@@ -1174,7 +1153,7 @@ def _window_program(sp: SpillWindowPlan, windows, top_chain):
 
 
 def execute_streaming_window(sp: SpillWindowPlan, catalog, batch_rows: int,
-                             programs_cache, node: ProfileNode, okeys,
+                             programs_cache, node, okeys,
                              device):
     """Windows whose PARTITIONS don't fit the batch budget (the skewed-
     partition spill case): ONE global host sort by (partition keys, order
@@ -1231,7 +1210,7 @@ def execute_streaming_window(sp: SpillWindowPlan, catalog, batch_rows: int,
             nxt = int(peer_starts[j2]) if j2 < len(peer_starts) else total
         cuts.append(nxt)
     cap = pad_capacity(max(b - a for a, b in zip(cuts, cuts[1:])))
-    node.add("partition_s", time.perf_counter() - t0)
+    node.add_counter("partition_s", time.perf_counter() - t0, "s")
 
     prog_key = ("stream_window", tuple(sp.windows), tuple(sp.scan_chain),
                 cap)
@@ -1357,7 +1336,7 @@ def _window_buckets(ht, key_cols, total: int, n_groups: int):
 
 
 def execute_spill_window(sp: SpillWindowPlan, catalog, batch_rows: int,
-                         programs_cache, node: ProfileNode, device):
+                         programs_cache, node, device):
     """Host-partition rows by the window's PARTITION BY keys, run the full
     window program per group on the device, concatenate on the host."""
     handle = catalog.get_table(sp.scan.table)
@@ -1380,7 +1359,7 @@ def execute_spill_window(sp: SpillWindowPlan, catalog, batch_rows: int,
     order, offs = bucket_order(bucket, n_groups)
     counts = np.diff(offs)
     cap = pad_capacity(int(counts.max()) if total else 1)
-    node.add("partition_s", time.perf_counter() - t0)
+    node.add_counter("partition_s", time.perf_counter() - t0, "s")
 
     # a SKEWED partition can exceed the hash-split budget (every row of
     # one PARTITION BY group lands in one bucket): switch to the streaming
@@ -1412,7 +1391,7 @@ def execute_spill_window(sp: SpillWindowPlan, catalog, batch_rows: int,
         fail_point("spill_window::group")
         lifecycle.checkpoint("spill_window::group")
         chunk = slice_scan_chunk(ht, alias, cols, idx, cap, device, node)
-        with node.timer("d2h"):
+        with node.timer("d2h_s"):
             outs.append(HostTable.from_chunk(jprog(chunk)))
         lifecycle.account(outs[-1], "spill_window::group")
 

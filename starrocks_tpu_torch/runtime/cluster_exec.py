@@ -262,13 +262,15 @@ class ClusterWorker:
         dev = self.sess.device
         bnd = tuple(chunk_from_host(b, dev) for b in payload.get("bnd", ()))
 
-        def attempt(caps):
+        def attempt(caps, p):
             inputs = self.de._place(scans_meta)
             out, checks = self.de.run_fragment(
                 plan, frag, caps, inputs, bnd, scans_meta)
             return out, self.de._read(checks)
 
-        out = self.de._adaptive({}, attempt)
+        from .profile import RuntimeProfile
+
+        out = self.de._adaptive(RuntimeProfile("fragment"), attempt)
         return {"ok": True, "out": chunk_to_host(out),
                 "stats": {"fid": fid, "worker": self.worker_id}}
 
@@ -672,9 +674,7 @@ class ClusterRuntime:
                 self.retries_total += 1  # lint: unguarded-ok — stats counter: a torn read only mis-sizes one bench summary line
                 RETRIES_TOTAL.inc()
                 if profile is not None:
-                    counters = profile.setdefault("counters", {})
-                    counters["cluster_retries"] = (
-                        counters.get("cluster_retries", 0) + 1)
+                    profile.add_counter("cluster_retries", 1)
             try:
                 return self._exec_on(w, plan_blob, fp, fid, bnd, tables)
             except _WorkerGone as e:

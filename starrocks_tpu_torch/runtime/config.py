@@ -353,6 +353,36 @@ config.define("cluster_route_min_fragments", 2, True,
               "IR has at least this many fragments; smaller plans run "
               "locally — the exchange plane's IPC cost only pays for "
               "itself on real exchanges")
+
+# --- the query lifecycle and the point lane (slice 8) -------------------------
+config.define("enable_short_circuit", True, True,
+              "planner-free point-query lane: SELECT/UPDATE/DELETE "
+              "statements whose WHERE pins every PRIMARY KEY column to "
+              "literals (= / small IN lists) on stored PK tables run as a "
+              "host-side pk-index probe -> delvec check -> direct row "
+              "gather (runtime/point.py) — no optimizer, no device program. "
+              "Admission-exempt but registered/killable/accounted via "
+              "lifecycle.query_scope; records under its own 'point' "
+              "statement class. off = every statement takes the full "
+              "analytic path, identical results")
+config.define("query_timeout_s", 0.0, True,
+              "per-query deadline in seconds, enforced cooperatively at "
+              "host-side stage boundaries (program attempts, batched/grace/"
+              "spill iterations, segment-cache merges, scan loads) with "
+              "QueryTimeoutError (runtime/lifecycle.py). 0 = off")
+config.define("query_mem_limit_bytes", 0, True,
+              "hard per-query cap on cumulative materialized-buffer bytes "
+              "(device chunks, host partial states, spill tables) fed to "
+              "the hierarchical memory accountant at stage boundaries; "
+              "breach raises MemLimitExceeded naming the stage. 0 = off")
+config.define("query_mem_soft_limit_bytes", 0, True,
+              "soft per-query memory threshold: crossing it degrades "
+              "gracefully (query-cache admission declined, spill batch "
+              "capacity shrinks) instead of failing. 0 = off")
+config.define("process_mem_limit_bytes", 0, True,
+              "hard process-wide cap on accountant-tracked bytes across "
+              "all running queries (the process-level MemTracker analog). "
+              "0 = off")
 config.load_env()
 
 # The knob values that route the main path through the hand kernels: the

@@ -20,7 +20,6 @@ stages are summed over the shards inside the program.
 
 from __future__ import annotations
 
-import time
 
 import torch
 
@@ -31,7 +30,7 @@ from ..sql.distributed import REPLICATED, compile_distributed, plan_scan_modes
 from ..sql.physical import Caps
 from . import lifecycle
 from .config import AUTO_STRATEGIES, config
-from .executor import Executor, _count, read_checks
+from .executor import Executor, read_checks
 from .failpoint import fail_point
 
 
@@ -72,7 +71,7 @@ class DistExecutor(Executor):
         # fragment IRs per (plan, scan-mode vector); see _fragment_ir
         self._frag_ir_memo: dict = {}
 
-    def _run(self, plan, profile: dict):
+    def _run(self, plan, profile):
         if config.get("dist_fragments"):
             return self._run_fragments(plan, profile)
         return self._run_monolithic(plan, profile)
@@ -89,7 +88,7 @@ class DistExecutor(Executor):
             for (t, a, cols), m in scans_meta
         )
 
-    def _run_monolithic(self, plan, profile: dict):
+    def _run_monolithic(self, plan, profile):
         # the per-segment partial-aggregation tier is host-orchestrated over
         # manifest segments, so a cacheable stored-table fragment takes the
         # same path on every topology (the Session shares one cache)
@@ -98,28 +97,47 @@ class DistExecutor(Executor):
             return out
         bucket = self.cache.program_bucket(("dist", self.n, plan))
 
-        def attempt(caps):
+        def attempt(caps, p):
             self.cache.bucket_adopt_last(bucket, caps)
-            t0 = time.perf_counter()
+            fail_point("executor::before_compile")
+            lifecycle.checkpoint("executor::before_compile")
             compiled = compile_distributed(plan, self.catalog, caps,
                                            self.mesh)
-            inputs = self._place(
-                tuple(zip(compiled.scans, compiled.scan_modes)))
-            t1 = time.perf_counter()
+            with p.timer("scan_to_device"):
+                inputs = self._place(
+                    tuple(zip(compiled.scans, compiled.scan_modes)))
             fail_point("executor::before_dispatch")
-            out, checks = compiled.fn(inputs)
-            checked = self._read(checks)
-            profile.setdefault("attempts", []).append({
-                "scan_s": t1 - t0, "run_s": time.perf_counter() - t1,
-                "capacities": dict(caps.values)})
+            lifecycle.checkpoint("executor::before_dispatch")
+            def run():
+                out, checks = compiled.fn(inputs)
+                return out, self._read(checks)
+
+            with p.timer("run"):
+                out, checked = self._profiled(p, run)
             self.cache.bucket_last_set(bucket, caps.values)
             return out, checked
 
         def publish(vals):
             self.cache.bucket_last_set(bucket, vals)
 
-        profile["n_shards"] = self.n
-        return self._adaptive(profile, attempt, publish)
+        profile.set_info("n_shards", self.n)
+        out = self._adaptive(profile, attempt, publish)
+        self._bind_operators(profile, self._dist_node_ord(plan))
+        return out
+
+    @staticmethod
+    def _dist_node_ord(plan) -> dict:
+        """The distributed compiler's node-ordinal table, rebuilt on the
+        host: compile_distributed assigns pre-order ordinals over
+        walk_plan (sql/distributed.py), so EXPLAIN ANALYZE attributes the
+        same way on every run and on both the fragment and the monolithic
+        path."""
+        from ..sql.logical import walk_plan
+
+        node_ord: dict = {}
+        for nd in walk_plan(plan):
+            node_ord.setdefault(nd, len(node_ord))
+        return node_ord
 
     # --- fragment-IR execution path ----------------------------------------
 
@@ -161,17 +179,29 @@ class DistExecutor(Executor):
         self._frag_ir_memo[key] = (ir, scans_meta)
         return ir, scans_meta
 
-    def run_fragment(self, plan, frag, caps, inputs, bnd, scans_meta):
+    def run_fragment(self, plan, frag, caps, inputs, bnd, scans_meta,
+                     p=None):
         """One fragment's program over this process's shards: (value,
-        {check key: device scalar})."""
-        compiled = compile_distributed(
-            plan, self.catalog, caps, self.mesh,
-            self._scan_mode_dict(scans_meta, plan), fragment=frag)
+        {check key: device scalar}). With an attempt profile `p`, the
+        program's build and its run are timed as `fragment_<fid>_compile`
+        and `fragment_<fid>_execute`."""
+        import contextlib
+
+        def timer(name):
+            return p.timer(name) if p is not None else contextlib.nullcontext()
+
+        fail_point("executor::before_compile")
+        lifecycle.checkpoint("executor::before_compile")
+        with timer(f"fragment_{frag.fid}_compile"):
+            compiled = compile_distributed(
+                plan, self.catalog, caps, self.mesh,
+                self._scan_mode_dict(scans_meta, plan), fragment=frag)
         fail_point("executor::before_dispatch")
         lifecycle.checkpoint("executor::before_dispatch")
-        return compiled.fn(inputs, bnd)
+        with timer(f"fragment_{frag.fid}_execute"):
+            return compiled.fn(inputs, bnd)
 
-    def _run_fragments(self, plan, profile: dict):
+    def _run_fragments(self, plan, profile):
         out = self._try_partial_cache(plan, profile)
         if out is not None:
             return out
@@ -181,12 +211,12 @@ class DistExecutor(Executor):
         # against that same object
         plan = ir.plan
         st = ir.stats()
-        profile["fragments"] = st["fragments"]
-        profile["exchanges"] = st["exchanges"]
-        _count(profile, "exchange_rows", st["exchange_rows"])
-        _count(profile, "exchange_bytes", st["exchange_bytes"])
-        profile["fragment_topology"] = st["per_fragment"]
-        profile["n_shards"] = self.n
+        profile.set_info("fragments", st["fragments"])
+        profile.set_info("exchanges", st["exchanges"])
+        profile.add_counter("exchange_rows", st["exchange_rows"])
+        profile.add_counter("exchange_bytes", st["exchange_bytes"])
+        profile.set_info("fragment_topology", st["per_fragment"])
+        profile.set_info("n_shards", self.n)
 
         cluster = getattr(self.catalog, "cluster_runtime", None)
         if cluster is not None and self._cluster_eligible(ir, scans_meta):
@@ -195,24 +225,26 @@ class DistExecutor(Executor):
         buckets = [self.cache.program_bucket(
             fragment_program_key(self.n, plan, f)) for f in ir.fragments]
 
-        def attempt(caps):
+        def attempt(caps, p):
             # the capacity dict is SHARED across the fragments (keys carry
             # global plan ordinals); the first fragment's bucket seeds it
             self.cache.bucket_adopt_last(buckets[0], caps)
-            t0 = time.perf_counter()
-            inputs = self._place(scans_meta)
-            t1 = time.perf_counter()
+            with p.timer("scan_to_device"):
+                inputs = self._place(scans_meta)
+            fail_point("executor::before_dispatch")
+            lifecycle.checkpoint("executor::before_dispatch")
             outputs: dict = {}
             merged: dict = {}
-            for frag in ir.fragments:
-                bnd = tuple(outputs[d] for d in frag.deps)
-                outputs[frag.fid], checks = self.run_fragment(
-                    plan, frag, caps, inputs, bnd, scans_meta)
-                merged.update(checks)
-            checked = self._read(merged)
-            profile.setdefault("attempts", []).append({
-                "scan_s": t1 - t0, "run_s": time.perf_counter() - t1,
-                "capacities": dict(caps.values)})
+            def run():
+                for frag in ir.fragments:
+                    bnd = tuple(outputs[d] for d in frag.deps)
+                    outputs[frag.fid], checks = self.run_fragment(
+                        plan, frag, caps, inputs, bnd, scans_meta, p)
+                    merged.update(checks)
+                return None, self._read(merged)
+
+            with p.timer("run"):
+                _, checked = self._profiled(p, run)
             for b in buckets:
                 self.cache.bucket_last_set(b, caps.values)
             return outputs[ir.fragments[-1].fid], checked
@@ -221,7 +253,9 @@ class DistExecutor(Executor):
             for b in buckets:
                 self.cache.bucket_last_set(b, vals)
 
-        return self._adaptive(profile, attempt, publish)
+        out = self._adaptive(profile, attempt, publish)
+        self._bind_operators(profile, self._dist_node_ord(plan))
+        return out
 
     @staticmethod
     def _cluster_eligible(ir, scans_meta) -> bool:
@@ -247,16 +281,15 @@ class DistExecutor(Executor):
         blob = pickle.dumps(plan, protocol=4)
         fp = plan_fingerprint(blob)
         tables = tuple(t for (t, _a, _c), _m in scans_meta)
-        profile["cluster_workers"] = cluster.stats()["alive"]
+        profile.set_info("cluster_workers", cluster.stats()["alive"])
         outputs: dict = {}
         for frag in ir.fragments:
             lifecycle.checkpoint("cluster::fragment")
             bnd = tuple(outputs[d] for d in frag.deps)
-            t0 = time.perf_counter()
-            outputs[frag.fid] = cluster.exec_fragment(
-                blob, fp, frag.fid, bnd, tables, profile)
-            profile[f"fragment_{frag.fid}_cluster_s"] = (
-                time.perf_counter() - t0)
+            with profile.timer(f"fragment_{frag.fid}_cluster"):
+                outputs[frag.fid] = cluster.exec_fragment(
+                    blob, fp, frag.fid, bnd, tables, profile)
+        self._bind_operators(profile, self._dist_node_ord(plan))
         return chunk_from_host(outputs[ir.fragments[-1].fid],
                                self.cache.device)
 

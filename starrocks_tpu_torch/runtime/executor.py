@@ -36,22 +36,29 @@ around the program implements
 program, in the reference's order. The program runs eagerly, so nothing is
 compiled: a program bucket per (tag, plan) holds the capacities that last
 worked (adopt-last) and, for the spill loops, their cached callables; every
-overflow check of an attempt is read in ONE device-to-host copy. Not
-ported yet: profiling spans (slice 8) and the distributed executor
-(slice 7).
+overflow check of an attempt is read in ONE device-to-host copy.
+
+Every query carries a RuntimeProfile (runtime/profile.py): phase timers
+(optimize, fetch_results; per attempt compile_and_run, scan_to_device,
+run), counters, one child per attempt and per spill executor, and the
+per-operator records EXPLAIN ANALYZE renders — observed rows from the
+capacity checks (`join_<ordinal>`, `agg_<ordinal>`, ...) and counter
+groups from the `~ctr_<name>@<ordinal>` checks. Host stage boundaries call
+`lifecycle.checkpoint`, so a KILL or a deadline lands between attempts,
+and materialized buffers feed the memory accountant.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import decimal
-import threading
 import time
 from collections import OrderedDict
 
 import numpy as np
 import torch
 
+from .. import lockdep
 from .. import types as T
 from ..column import Chunk, Field, HostTable, Schema, StringDict
 from ..column.column import pad_capacity
@@ -66,19 +73,49 @@ from ..sql.physical import Caps, compile_plan
 from . import lifecycle
 from .config import config
 from .failpoint import fail_point
+from .metrics import (
+    PROGRAM_COMPILES, QUERIES_TOTAL, QUERY_ERRORS, RECOMPILES, ROWS_RETURNED,
+)
 from .metrics import metrics
+from .profile import RuntimeProfile
 from .udf import registry_epoch, udf_seconds
 
-RECOMPILES = metrics.counter(
-    "sr_tpu_recompiles_total", "adaptive capacity retries (overflow)")
-PROGRAM_COMPILES = metrics.counter(
-    "sr_tpu_program_compiles_total",
-    "partition/batch programs built by the spill loops (bucket misses)")
-QUERIES_TOTAL = metrics.counter("sr_tpu_queries_total", "queries executed")
+COMPILE_MS = metrics.histogram(
+    "sr_tpu_compile_ms",
+    "milliseconds of building one attempt's eager program "
+    "(sql/physical.compile_plan)")
 
 
 class ExecError(RuntimeError):
     pass
+
+
+def _device_profile(p: RuntimeProfile, device, run):
+    """`SET enable_device_profile`: run one attempt's program between two
+    CUDA events and with the device's peak-memory gauge reset, and attach
+    the attempt's device milliseconds and peak allocated bytes to its
+    profile. The reference attaches XLA's cost and memory analysis of the
+    compiled program; an eager program has none, so the port records what
+    the card measured instead. On the CPU the facts do not apply and the
+    profile says so."""
+    if device.type != "cuda":
+        p.set_info("device_profile", "not applicable: cpu tensors")
+        return run()
+    torch.cuda.synchronize(device)
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = run()
+    end.record()
+    end.synchronize()
+    p.set_info("device_time_ms", start.elapsed_time(end))
+    p.set_info("device_memory", {
+        "allocated_before_bytes": int(before),
+        "peak_allocated_bytes": int(torch.cuda.max_memory_allocated(device)),
+    })
+    return out
 
 
 class DeviceCache:
@@ -106,7 +143,7 @@ class DeviceCache:
         self._rfscan: dict = {}
         # (table, tag) -> (row order, rows per shard) of a hash placement
         self._layouts: dict = {}
-        self._lock = threading.RLock()
+        self._lock = lockdep.rlock("DeviceCache._lock")
         self.opt_plans: OrderedDict = OrderedDict()
         # (key, udf epoch, knob values) -> {"last": caps, "progs": {}}
         self.programs: OrderedDict = OrderedDict()
@@ -256,6 +293,10 @@ class DeviceCache:
         selection mask marks the real rows. "replicated" is one Chunk. The
         full layout is copied to the device once and every shard is a
         view of it."""
+        # scan-load stage boundary: cancellable, failpoint-injectable, and
+        # the placed buffers feed the memory accountant below
+        fail_point("scan::chunk_to_device")
+        lifecycle.checkpoint("scan::chunk_to_device")
         ht = handle.table
         n = ht.num_rows
         dev = self.device
@@ -348,15 +389,19 @@ class DeviceCache:
                 self._sel[skey] = sentry
         schema = Schema(tuple(fields))
         if n_shards == 1:
-            return Chunk(schema, tuple(data), tuple(valid), sentry[1], dev)
+            out = Chunk(schema, tuple(data), tuple(valid), sentry[1], dev)
+            lifecycle.account(out, "scan::chunk_to_device")
+            return out
 
         def view(x, j):
             return None if x is None else x[j * shard_cap:(j + 1) * shard_cap]
 
-        return tuple(
+        out = tuple(
             Chunk(schema, tuple(view(d, j) for d in data),
                   tuple(view(v, j) for v in valid), view(sentry[1], j), dev)
             for j in range(len(local)))
+        lifecycle.account(out, "scan::chunk_to_device")
+        return out
 
     def build_order_for(self, handle, alias: str, key_cols, bit_widths):
         """Cached stable argsort of a scan's packed join keys: computed once
@@ -379,7 +424,7 @@ class DeviceCache:
 class QueryResult:
     table: HostTable
     plan: LogicalPlan
-    profile: dict = None
+    profile: object = None
 
     def rows(self):
         return self.table.to_pylist()
@@ -412,11 +457,6 @@ class _BucketProgs:
         self._cache.bucket_prog_put(self._bucket, key, val)
 
 
-def _count(profile: dict, key: str, v=1):
-    counters = profile.setdefault("counters", {})
-    counters[key] = counters.get(key, 0) + v
-
-
 def read_checks(checks: dict) -> dict:
     """{key: int} of an attempt's checks with ONE device-to-host copy: the
     0-d tensors are stacked on the device and copied together."""
@@ -446,8 +486,8 @@ class Executor:
         self._fb_ctx = None
 
     def execute_logical(self, plan: LogicalPlan,
-                        profile: dict | None = None) -> QueryResult:
-        profile = {} if profile is None else profile
+                        profile: RuntimeProfile | None = None) -> QueryResult:
+        profile = profile or RuntimeProfile("query")
         if config.get("segment_strategy") == "native":
             res = self._try_native_scan_agg(plan, profile)
             if res is not None:
@@ -457,7 +497,8 @@ class Executor:
             return self._execute_group_concat(plan, gc, profile)
         return self._execute_plain(plan, profile)
 
-    def _try_native_scan_agg(self, plan: LogicalPlan, profile: dict):
+    def _try_native_scan_agg(self, plan: LogicalPlan,
+                             profile: RuntimeProfile):
         """`SET segment_strategy='native'`: the scan-agg shape
         Project?(Agg(Filter(Scan))) with one ungrouped non-distinct
         sum(a*b | a) under a conjunctive compare of integer columns with
@@ -551,22 +592,21 @@ class Executor:
         )
         out = HostTable.from_pydict(
             {out_name: [total if cnt else None]}, types={out_name: T.BIGINT})
-        counters = profile.setdefault("counters", {})
-        counters["native_fused_rows"] = (
-            counters.get("native_fused_rows", 0) + int(ht.num_rows))
-        profile["native_fused"] = "filter_sum"
-        profile["native_s"] = time.perf_counter() - t0
+        profile.add_counter("native_fused_rows", int(ht.num_rows))
+        profile.set_info("native_fused", "filter_sum")
+        profile.add_counter("native", time.perf_counter() - t0, "s")
+        lifecycle.account(out, "native::fused_agg")
         return QueryResult(out, plan, profile)
 
     def _execute_plain(self, plan: LogicalPlan,
-                       profile: dict | None = None) -> QueryResult:
+                       profile: RuntimeProfile | None = None) -> QueryResult:
         """Full-result cache gate around the real execution path: a
         validated hit returns the materialized table without touching the
         optimizer or the device; a cacheable miss executes and stores the
         result keyed by (plan, trace knobs, opt knobs, udf epoch) with the
         per-table data versions it observed. With enable_query_cache off
         this is one boolean check."""
-        profile = {} if profile is None else profile
+        profile = profile or RuntimeProfile("query")
         if not config.get("enable_query_cache"):
             return self._execute_plain_uncached(plan, profile)
         from ..cache import keys as cache_keys
@@ -574,20 +614,20 @@ class Executor:
 
         reason = plan_uncacheable_reason(plan)
         if reason is not None:
-            profile["qcache_uncacheable"] = reason
+            profile.set_info("qcache_uncacheable", reason)
             return self._execute_plain_uncached(plan, profile)
         skey = cache_keys.full_result_key(plan)
         hit = self.cache.qcache.lookup_result(skey, self.catalog)
         if hit is not None:
             QUERIES_TOTAL.inc()
-            _count(profile, "qcache_hits")
+            profile.add_counter("qcache_hits", 1)
             return QueryResult(hit.table, hit.plan, profile)
-        _count(profile, "qcache_misses")
+        profile.add_counter("qcache_misses", 1)
         res = self._execute_plain_uncached(plan, profile)
         ctx = lifecycle.current()
         if ctx is not None and ctx.degraded:
             # soft-mem degradation: decline cache admission
-            profile["qcache_declined"] = "mem-soft-degraded"
+            profile.set_info("qcache_declined", "mem-soft-degraded")
             return res
         tables = plan_tables(plan) | plan_tables(res.plan)
         versions = cache_keys.version_map(self.catalog, tables)
@@ -595,60 +635,78 @@ class Executor:
         return res
 
     def _execute_plain_uncached(self, plan: LogicalPlan,
-                                profile: dict) -> QueryResult:
+                                profile: RuntimeProfile) -> QueryResult:
         QUERIES_TOTAL.inc()
-        t0 = time.perf_counter()
-        fail_point("optimizer::before_optimize")
-        lifecycle.checkpoint("optimizer::before_optimize")
-        fb_fp = fb_entry = None
-        if config.get("plan_feedback"):
-            from .feedback import plan_fingerprint
+        try:
+            fail_point("optimizer::before_optimize")
+            lifecycle.checkpoint("optimizer::before_optimize")
+            with profile.timer("optimize"):
+                fb_fp = fb_entry = None
+                if config.get("plan_feedback"):
+                    from .feedback import plan_fingerprint
 
-            fb_fp = plan_fingerprint(plan)
-            fb_entry = self.cache.feedback.consult(fb_fp, self.catalog)
-        # a UDF create/replace/drop must not serve a plan made before it
-        opt_key = (plan, _config_key(), registry_epoch())
-        if fb_entry is not None:
-            # fresh observations must never serve the previously learned
-            # plan: the entry's consult token extends the key (a fixpoint
-            # once observations stop changing)
-            opt_key += (fb_entry["token"],)
-            _count(profile, "feedback_hits")
-        opt = self.cache.opt_plan_lookup(opt_key)
-        if opt is None:
-            opt = optimize(plan, self.catalog, fb_entry)
-            self.cache.opt_plan_store(opt_key, opt)
-        analyzed = plan
-        # subquery resolution executes data-dependent sub-plans — never cached
-        plan = self._resolve_scalar_subqueries(opt)
-        profile["optimize_s"] = time.perf_counter() - t0
-        # record-side feedback context — set AFTER subquery resolution
-        # (nested sub-plan executions run through this same executor and
-        # must not leave their context on the outer query)
-        if fb_fp is not None:
-            from ..sql.optimizer import plan_tables
+                    fb_fp = plan_fingerprint(plan)
+                    fb_entry = self.cache.feedback.consult(fb_fp,
+                                                           self.catalog)
+                # a UDF create/replace/drop must not serve a plan made
+                # before it
+                opt_key = (plan, _config_key(), registry_epoch())
+                if fb_entry is not None:
+                    # fresh observations must never serve the previously
+                    # learned plan: the entry's consult token extends the
+                    # key (a fixpoint once observations stop changing)
+                    opt_key += (fb_entry["token"],)
+                    profile.add_counter("feedback_hits", 1)
+                opt = self.cache.opt_plan_lookup(opt_key)
+                if opt is None:
+                    opt = optimize(plan, self.catalog, fb_entry)
+                    self.cache.opt_plan_store(opt_key, opt)
+                analyzed = plan
+                # subquery resolution executes data-dependent sub-plans —
+                # never cached
+                plan = self._resolve_scalar_subqueries(opt)
+            # record-side feedback context — set AFTER subquery resolution
+            # (nested sub-plan executions run through this same executor
+            # and must not leave their context on the outer query)
+            if fb_fp is not None:
+                from ..sql.optimizer import plan_tables
 
-            self._fb_ctx = {
-                "fp": fb_fp, "entry": fb_entry, "seeded": set(),
-                "tables": plan_tables(analyzed) | plan_tables(plan),
-            }
-        else:
-            self._fb_ctx = None
-        udf0 = udf_seconds()
-        out_chunk = self._run(plan, profile)
-        if udf_seconds() > udf0:
-            profile["udf_s"] = udf_seconds() - udf0
-        fail_point("executor::fetch_results")
-        lifecycle.checkpoint("executor::fetch_results")
-        t1 = time.perf_counter()
-        # spilled sorts and windows return host-materialized results
-        ht = (out_chunk if isinstance(out_chunk, HostTable)
-              else HostTable.from_chunk(out_chunk))
-        ht = _prettify_names(ht)
-        profile["fetch_s"] = time.perf_counter() - t1
-        lifecycle.account(ht, "executor::fetch_results")
-        fail_point("executor::result_ready")
-        return QueryResult(ht, plan, profile)
+                self._fb_ctx = {
+                    "fp": fb_fp, "entry": fb_entry, "seeded": set(),
+                    "tables": plan_tables(analyzed) | plan_tables(plan),
+                }
+            else:
+                self._fb_ctx = None
+            # sentinel coordinates on the query context (same placement as
+            # _fb_ctx: the OUTER query's assignment lands last) — the
+            # terminal hook keys its latency baseline to the consult token
+            # and reaches the store for quarantine/readmit
+            ctx = lifecycle.current()
+            if ctx is not None and fb_fp is not None:
+                ctx.fb_fp = fb_fp
+                ctx.fb_token = (None if fb_entry is None
+                                else fb_entry["token"])
+                ctx.fb_store = self.cache.feedback
+            udf0 = udf_seconds()
+            out_chunk = self._run(plan, profile)
+            if udf_seconds() > udf0:
+                profile.add_counter("udf", udf_seconds() - udf0, "s")
+            fail_point("executor::fetch_results")
+            lifecycle.checkpoint("executor::fetch_results")
+            with profile.timer("fetch_results"):
+                # spilled sorts and windows return host-materialized results
+                ht = (out_chunk if isinstance(out_chunk, HostTable)
+                      else HostTable.from_chunk(out_chunk))
+                ht = _prettify_names(ht)
+            lifecycle.account(ht, "executor::fetch_results")
+            ROWS_RETURNED.inc(ht.num_rows)
+            # deliberately AFTER the last checkpoint: a kill landing here
+            # finds a completed query (the documented KILL-race no-op)
+            fail_point("executor::result_ready")
+            return QueryResult(ht, plan, profile)
+        except Exception:
+            QUERY_ERRORS.inc()
+            raise
 
     # --- group_concat orchestration -----------------------------------------
     def _execute_group_concat(self, plan, gc, profile):
@@ -777,6 +835,8 @@ class Executor:
                     raise ExecError(
                         "correlated scalar subquery not rewritten by optimizer"
                     )
+                fail_point("executor::subquery_resolve")
+                lifecycle.checkpoint("executor::subquery_resolve")
                 sub = self.execute_logical(e.plan)
                 ht = sub.table
                 rows = ht.to_pylist()
@@ -863,7 +923,7 @@ class Executor:
                 self.cache.program_bucket((tag, plan)), vals):
             ctx["seeded"].add(tag)
 
-    def _fb_recorder(self, tag: str, profile: dict, node_ord_box=None,
+    def _fb_recorder(self, tag: str, profile, node_ord_box=None,
                      extra_fn=None):
         """on_success callback for _adaptive: records this execution's
         observations (tightened caps, retries burned, observed join
@@ -885,7 +945,7 @@ class Executor:
                 if saved:
                     FEEDBACK_RETRIES_AVOIDED.inc(saved)
                     FEEDBACK_RECOMPILES_AVOIDED.inc(saved)
-                    _count(profile, "feedback_retries_avoided", saved)
+                    profile.add_counter("feedback_retries_avoided", saved)
             cards = self._fb_cards(
                 (node_ord_box or {}).get("node_ord"), dict(keyed_checks))
             kwargs = extra_fn() if extra_fn is not None else {}
@@ -950,10 +1010,11 @@ class Executor:
         return cards or None
 
     # --- execution with adaptive retries ------------------------------------
-    def _adaptive(self, profile: dict, attempt_fn, publish=None,
+    def _adaptive(self, profile: RuntimeProfile, attempt_fn, publish=None,
                   on_success=None) -> Chunk:
-        """The reference's overflow-retry loop. attempt_fn(caps) ->
-        (chunk, {check key: int}); a check above its capacity raises that
+        """The reference's overflow-retry loop. attempt_fn(caps, p) ->
+        (chunk, {check key: int}), `p` the attempt's child profile
+        (`attempt_<i>`); a check above its capacity raises that
         capacity (extrapolating the growth rate between attempts) and the
         plan runs again. After a success, grossly over-seeded capacities
         tighten; `publish(caps_values)` then stores them as the bucket's
@@ -966,9 +1027,14 @@ class Executor:
         prev_counts: dict = {}
         for attempt in range(max_recompiles):
             lifecycle.checkpoint("executor::attempt")
-            out, checked = attempt_fn(caps)
+            p = profile.child(f"attempt_{attempt}")
+            with p.timer("compile_and_run"):
+                out, checked = attempt_fn(caps, p)
+            # post-attempt boundary: a deadline that expired during this
+            # attempt fails the query HERE, before the next dispatch
             lifecycle.checkpoint("executor::after_attempt")
             lifecycle.account(out, "executor::attempt")
+            p.set_info("capacities", dict(caps.values))
             floors = {k[len("~floor_"):]: v for k, v in checked.items()
                       if k.startswith("~floor_")}
             ctrs = {k: v for k, v in checked.items() if k.startswith("~ctr_")}
@@ -991,9 +1057,22 @@ class Executor:
                     overflow = True
             prev_counts.update(keyed)
             if not overflow:
-                profile["recompiles"] = profile.get("recompiles", 0) + attempt
-                for k, v in ctrs.items():
-                    _count(profile, k[len("~ctr_"):].partition("@")[0], v)
+                profile.add_counter("recompiles", attempt)
+                for k, v in ctrs.items():  # the surviving attempt's only
+                    base, _, o = k[len("~ctr_"):].partition("@")
+                    profile.add_counter(base, int(v))
+                    if o.isdigit():
+                        # ordinal-suffixed device counters feed the per-
+                        # operator counter groups EXPLAIN ANALYZE renders
+                        profile.op_counter(int(o), base, int(v))
+                # the surviving attempt's capacity-check totals ARE the
+                # per-operator observed rows (join_/agg_/wtop_/unnest_
+                # keys carry the plan ordinal)
+                for key, v in keyed.items():
+                    fam, _, o = key.rpartition("_")
+                    if fam and o.isdigit():
+                        profile.op_rows(int(o), fam, int(v),
+                                        caps.values.get(key))
                 for key, v in keyed.items():
                     if key.startswith("agg_") and key not in floors:
                         continue
@@ -1036,12 +1115,10 @@ class Executor:
             scan_rf[(t, a)] = (ph, tag)
             rf_segs += stats.get("rf_pruned", 0)
         if scan_rf:
-            counters = profile.setdefault("counters", {})
-            counters["rf_segments_pruned"] = (
-                counters.get("rf_segments_pruned", 0) + rf_segs)
+            profile.add_counter("rf_segments_pruned", rf_segs)
         return scan_rf
 
-    def _run(self, plan: LogicalPlan, profile: dict) -> Chunk:
+    def _run(self, plan: LogicalPlan, profile: RuntimeProfile) -> Chunk:
         out = self._try_partial_cache(plan, profile)
         if out is not None:
             return out
@@ -1063,34 +1140,59 @@ class Executor:
                 return self.cache.chunk_for(ph, a, cols, cache_tag=tag)
             return self.cache.chunk_for(self.catalog.get_table(t), a, cols)
 
-        def attempt(caps):
+        def attempt(caps, p):
             # adopt-last: a repeated query starts at the capacities that
             # worked (and usually runs once)
             self.cache.bucket_adopt_last(bucket, caps)
+            # the eager program is built here, where the reference compiles
+            fail_point("executor::before_compile")
+            lifecycle.checkpoint("executor::before_compile")
             t0 = time.perf_counter()
             compiled = compile_plan(plan, self.catalog, caps)
+            COMPILE_MS.observe((time.perf_counter() - t0) * 1000.0)
             trace_box["node_ord"] = compiled.node_ord
-            inputs = [scan_input(t, a, cols) for t, a, cols in compiled.scans]
-            for table, a, key_cols, bw in compiled.aux:
-                inputs.append(self.cache.build_order_for(
-                    self.catalog.get_table(table), a, key_cols, bw))
-            t1 = time.perf_counter()
+            with p.timer("scan_to_device"):
+                inputs = [scan_input(t, a, cols)
+                          for t, a, cols in compiled.scans]
+                for table, a, key_cols, bw in compiled.aux:
+                    inputs.append(self.cache.build_order_for(
+                        self.catalog.get_table(table), a, key_cols, bw))
             fail_point("executor::before_dispatch")
-            out, checks = compiled.fn(tuple(inputs))
-            checked = read_checks(checks)  # the attempt's only host sync
-            profile.setdefault("attempts", []).append({
-                "scan_s": t1 - t0, "run_s": time.perf_counter() - t1,
-                "capacities": dict(caps.values)})
+            lifecycle.checkpoint("executor::before_dispatch")
+
+            def run():
+                out, checks = compiled.fn(tuple(inputs))
+                return out, read_checks(checks)  # the attempt's only sync
+
+            with p.timer("run"):
+                out, checked = self._profiled(p, run)
             self.cache.bucket_last_set(bucket, caps.values)
             return out, checked
 
         def publish(vals):
             self.cache.bucket_last_set(bucket, vals)
 
-        return self._adaptive(profile, attempt, publish,
-                              self._fb_recorder("local", profile, trace_box))
+        out = self._adaptive(profile, attempt, publish,
+                             self._fb_recorder("local", profile, trace_box))
+        self._bind_operators(profile, trace_box.get("node_ord"))
+        return out
 
-    def _try_partial_cache(self, plan, profile):
+    def _profiled(self, p, run):
+        """`run()` under `SET enable_device_profile` (the attempt's CUDA
+        events and peak bytes on its profile), or plainly."""
+        if config.get("enable_device_profile"):
+            return _device_profile(p, self.cache.device, run)
+        return run()
+
+    @staticmethod
+    def _bind_operators(profile, node_ord):
+        """Publish the executed program's node-ordinal table on the
+        profile: EXPLAIN ANALYZE joins it against the per-ordinal operator
+        records _adaptive collected (observed rows, counter groups)."""
+        if node_ord:
+            profile.node_ord = dict(node_ord)
+
+    def _try_partial_cache(self, plan, profile: RuntimeProfile):
         """Per-segment partial-aggregation tier (cache/partial.py): for a
         cacheable scan->filter->agg fragment over a STORED table, aggregate
         each manifest segment on its own and reuse cached partial states —
@@ -1197,7 +1299,7 @@ class Executor:
                                         for k, c in parts.build_hot]}
                     return out
 
-            def attempt(caps):
+            def attempt(caps, p):
                 # adopt-last: cached partition programs return checks for
                 # capacity keys that only exist in the caps they ran with
                 self.cache.bucket_adopt_last(bucket, caps)
@@ -1221,7 +1323,7 @@ class Executor:
         prog_cache = _BucketProgs(self.cache, b_bucket)
         node = profile_node(profile, "batched")
 
-        def attempt(caps):
+        def attempt(caps, p):
             # adopt-last: repeated (or feedback-seeded) spilled aggregations
             # start at the tightened group capacity
             self.cache.bucket_adopt_last(b_bucket, caps)

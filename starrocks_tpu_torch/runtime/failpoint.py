@@ -5,19 +5,13 @@ toggled at runtime via RPC, scripted by SQL regression suites). Here: a
 process-wide registry; `fail_point(name)` is compiled into host-side code
 paths and raises / calls the injected action when armed. Tests use
 `scoped(name, ...)`.
-
-A copy of the JAX package's runtime/failpoint.py. Two differences: the
-registry lock is a plain threading.Lock (the port has no lock-order
-witness), and a trigger is not journaled (the event journal belongs to the
-observability plane, slice 8). The spill loops and the query cache call
-`fail_point(...)`; `ADMIN SET FAILPOINT` is a slice-8 statement.
 """
 
 from __future__ import annotations
 
 from contextlib import contextmanager
 
-import threading
+from .. import lockdep
 
 
 class FailPointError(RuntimeError):
@@ -26,7 +20,7 @@ class FailPointError(RuntimeError):
 
 class _Registry:
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("failpoint._Registry._lock")
         self._armed: dict = {}  # guarded_by: _lock
         self._hits: dict = {}   # guarded_by: _lock
 
@@ -49,6 +43,11 @@ class _Registry:
                 if ent["times"] <= 0:
                     return
                 ent["times"] -= 1
+        # armed path only (disarmed sites return above): journal the
+        # trigger before the fault fires, outside the registry lock
+        from . import events
+
+        events.emit("failpoint_trigger", site=name)
         if ent["action"] is None:
             raise FailPointError(f"failpoint {name!r} triggered")
         ent["action"]()

@@ -39,10 +39,9 @@ Persistence: a JSON file next to the TabletStore manifests
 attached by Session when a persistent store exists. In-memory stores learn
 within the process only.
 
-A port of the JAX package's runtime/feedback.py. The store is plain Python
-and unchanged but for its locks (threading.Lock) and the band-move event,
-which the port has no journal for yet (slice 8). The quarantine hooks are
-kept: slice 8's plan-regression sentinel calls them.
+A port of the JAX package's runtime/feedback.py: the same store, lock
+name, band-move event (runtime/events.py) and quarantine hooks, which the
+plan-regression sentinel (runtime/sentinel.py) calls.
 """
 
 from __future__ import annotations
@@ -51,9 +50,9 @@ import dataclasses
 import hashlib
 import json
 import os
-import threading
 import time
 
+from .. import lockdep
 from .config import config
 from .metrics import metrics
 
@@ -146,7 +145,7 @@ class FeedbackStore:
     MAX_QUARANTINE = 64
 
     def __init__(self, path: str | None = None):
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("FeedbackStore._lock")
         self._entries: dict = {}  # guarded_by: _lock — fp -> entry dict
         # fingerprints the plan-regression sentinel (runtime/sentinel.py)
         # has pulled out of planning: fp -> {"baseline_ms", "ts"}. While
@@ -267,6 +266,7 @@ class FeedbackStore:
             # it resets with the entry when the data versions move
             obs_before = int(e.get("obs", 0))
             e["obs"] = obs_before + 1
+            obs_after = e["obs"]
             e["caps"][tag] = {k: int(v) for k, v in (caps or {}).items()}
             # attempts = the adaptive retries burned LEARNING this shape;
             # keep the max so a later seeded 0-retry run doesn't erase what
@@ -302,6 +302,13 @@ class FeedbackStore:
             if changed:
                 self._save_locked()
         FEEDBACK_RECORDS.inc()
+        if band_before != band_after:
+            from . import events
+
+            # journaled outside the store lock (record holds it through
+            # the sidecar save above)
+            events.emit("feedback_band_move", fingerprint=fp[:16],
+                        obs=obs_after, band=band_after)
 
     # --- invalidation ---------------------------------------------------------
     def invalidate_table(self, table: str):

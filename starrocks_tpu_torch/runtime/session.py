@@ -9,16 +9,27 @@ CREATE TABLE [AS SELECT] (PRIMARY KEY, DISTRIBUTED BY HASH .. BUCKETS,
 PARTITION BY RANGE), DROP TABLE/VIEW/MATERIALIZED VIEW, INSERT VALUES and
 INSERT .. SELECT, DELETE, UPDATE, CREATE VIEW, CREATE MATERIALIZED VIEW,
 REFRESH, SHOW TABLES [FULL], SHOW PARTITIONS, SHOW CREATE, DESCRIBE and
-ALTER TABLE ADD/DROP COLUMN; each returns what the reference's returns.
-The statements of the serving, security and observability planes (users
-and grants, UDFs, resource groups, external tables, KILL, PROCESSLIST,
-WORKLOAD, PROFILE, ADMIN, EXPLAIN ANALYZE) and `load_csv` raise
-NotImplementedError.
+ALTER TABLE ADD/DROP COLUMN, EXPLAIN ANALYZE, and the statements of the
+serving, security and observability planes: users and GRANT/REVOKE/SHOW
+GRANTS (runtime/auth.py), resource groups and SET resource_group
+(runtime/workgroup.py), KILL QUERY, SHOW PROCESSLIST/WORKLOAD/PROFILE,
+ADMIN SET FAILPOINT/ALERT and ADMIN DIAGNOSE; each returns what the
+reference's returns. External tables, ingest jobs and `load_csv` belong to
+the ingest plane and raise NotImplementedError.
+
+Every top-level statement runs inside a query lifecycle scope
+(runtime/lifecycle.py): it is registered for KILL QUERY and SHOW
+PROCESSLIST, carries the `query_timeout_s` deadline, feeds the memory
+accountant, passes resource-group admission, and leaves one query-log row
+and one audit record on every exit path. Nested statements ride the outer
+scope.
 
 A Session runs on the card unless the caller asks for the CPU:
 `Session(catalog)` and `Session(data_dir=...)` put their tensors on `cuda`
 and raise where there is none; `device="cpu"` runs every operator (and
-every kernel's plain torch version) on the CPU. With a `data_dir`, tables
+every kernel's plain torch version) on the CPU. A Session built over a
+shared DeviceCache (`cache=`, the serving tier's per-connection sessions)
+runs on that cache's device. With a `data_dir`, tables
 persist in a TabletStore (storage/store.py) and a new Session over the same
 directory rebuilds the catalog from the manifests and the journal.
 """
@@ -32,6 +43,7 @@ from dataclasses import replace as dataclasses_replace
 import numpy as np
 import torch
 
+from .. import lockdep
 from .. import types as T
 from ..column import Field, HostTable, Schema, StringDict
 from ..column.host_table import _dec128_to_int, _int_to_dec128
@@ -43,22 +55,24 @@ from ..sql.optimizer import optimize
 from ..sql.parser import parse
 from ..storage.catalog import Catalog, StoredTableHandle
 from ..storage.store import TabletStore, _empty_table, schema_from_json
+from . import lifecycle
 from .config import config
+from .profile import RuntimeProfile
 from .udf import create_udf, drop_udf
 from .executor import (
     DeviceCache, Executor, QueryResult, _extract_group_concat,
     group_concat_main_plan,
 )
 
-# statements of the serving, security and observability planes: slice 8
-_PLANE_STATEMENTS = (
-    ast.CreateUser, ast.DropUser, ast.Grant, ast.Revoke, ast.ShowGrants,
-    ast.CreateExternalTable,
-    ast.CreateResourceGroup, ast.DropResourceGroup, ast.ShowResourceGroups,
-    ast.KillQuery, ast.ShowProcesslist, ast.ShowWorkload, ast.ShowProfile,
-    ast.AdminSetFailpoint, ast.AdminSetAlert, ast.AdminSetIngestJob,
-    ast.AdminDiagnose,
-)
+# statements of the ingest plane (external tables, routine-load jobs):
+# slice 9
+_PLANE_STATEMENTS = (ast.CreateExternalTable, ast.AdminSetIngestJob)
+
+# serializes query-log append/trim across connection sessions sharing one
+# catalog (runtime/serving.py runs statements on many threads); the log is
+# the only catalog field mutated by CONCURRENT read statements — schema
+# maps mutate only under the serving tier's exclusive statement gate
+_QLOG_LOCK = lockdep.lock("session._qlog_lock")
 
 
 def _not_yet(what: str, slice_no: int):
@@ -109,18 +123,32 @@ class Session:
     CHECKPOINT_OPS = 256
 
     def __init__(self, catalog: Catalog | None = None, device=None,
-                 data_dir: str | None = None, dist_shards: int | None = None):
+                 data_dir: str | None = None, dist_shards: int | None = None,
+                 cache: DeviceCache | None = None, store=None):
+        if cache is not None and device is None:
+            device = cache.device
         self.device = _resolve_device(device)
         self.catalog = catalog or Catalog()
-        self.cache = DeviceCache(self.device)
-        self.last_profile = None  # most recent query's profile dict
-        self.store = None
+        # `cache`/`store` let the serving tier (runtime/serving.py) hand
+        # every connection session ONE shared DeviceCache + TabletStore:
+        # device columns, program buckets and the query cache then serve
+        # all connections, and the store's replay ran exactly once (in the
+        # tier's template session)
+        if cache is not None and cache.device != self.device:
+            raise ValueError(f"cache on {cache.device}, session on "
+                             f"{self.device}")
+        self.cache = cache or DeviceCache(self.device)
+        self.last_profile = None  # most recent query's RuntimeProfile
+        self.store = store
+        self.current_user = "root"  # front doors set this per connection
+        self.resource_group = None  # SET resource_group = '...'
         # dist_shards=n: queries run over an n-shard mesh on this device
         # (runtime/dist_executor.py), sharing this Session's DeviceCache
         self.dist_shards = dist_shards
         self._dist_executor = None
         self._in_sql = False
-        if data_dir is not None:
+        self._last_parse = None
+        if store is None and data_dir is not None:
             self.store = TabletStore(data_dir)
             # replay: the manifest set is authoritative for current tables
             for name in self.store.table_names():
@@ -137,8 +165,10 @@ class Session:
             # compact_table) advance the catalog's data epoch too
             self.store.add_listener(
                 lambda t, op: self.catalog.bump_data_epoch(t))
+        if self.store is not None:
             # the plan-feedback journal lives beside the manifests, so
-            # learned capacities and hot keys survive a restart
+            # learned capacities and hot keys survive a restart; attach()
+            # is idempotent for the serving tier's shared cache
             self.cache.feedback.attach(
                 os.path.join(self.store.root, "plan_feedback.json"))
         # data-epoch bumps invalidate this session's device cache (DML paths
@@ -148,13 +178,27 @@ class Session:
         self.catalog.add_invalidation_listener(self.cache.invalidate)
 
     def checkpoint_metadata(self) -> int | None:
-        """Snapshot catalog-level metadata (views, MV definitions) into the
-        store's image and truncate the edit log. Table state is NOT in the
-        image: manifests are authoritative for it."""
+        """Snapshot catalog-level metadata (views, MV definitions, users +
+        grants, resource groups) into the store's image and truncate the
+        edit log. Table state is NOT in the image: manifests are
+        authoritative for it."""
         if self.store is None:
             return None
+        a = self.catalog.auth
+        auth = None
+        if a is not None:
+            auth = {
+                "users": {u: h.hex() for u, h in a.users.items()},
+                "grants": {u: {t: sorted(p) for t, p in g.items()}
+                           for u, g in a.grants.items()},
+            }
+        wm = self.catalog.workgroups
         img = {"views": dict(self.catalog.views),
-               "mv_defs": dict(self.catalog.mv_defs)}
+               "mv_defs": dict(self.catalog.mv_defs),
+               "auth": auth,
+               "resource_groups": (
+                   {n: g.to_props() for n, g in wm.groups.items()}
+                   if wm is not None else {})}
         return self.store.checkpoint(img)
 
     def _restore_catalog_meta(self):
@@ -167,9 +211,35 @@ class Session:
         cat = (img or {}).get("catalog", {})
         self.catalog.views.update(cat.get("views", {}))
         mv_defs = dict(cat.get("mv_defs", {}))
+        auth_img = cat.get("auth")
+        if auth_img:
+            a = self.auth()
+            a.users = {u: bytes.fromhex(h)
+                       for u, h in auth_img["users"].items()}
+            a.grants = {u: {t: set(p) for t, p in g.items()}
+                        for u, g in auth_img["grants"].items()}
+        for name, props in cat.get("resource_groups", {}).items():
+            from .workgroup import ResourceGroup
+
+            self.workgroups().groups[name] = ResourceGroup.from_props(props)
         for op in self.store.replay(after_seq=base):
             k = op["op"]
-            if k == "create_view":
+            if k == "create_rg":
+                self.workgroups().create(op["name"], op["props"],
+                                         replace=True)
+            elif k == "drop_rg":
+                self.workgroups().drop(op["name"], if_exists=True)
+            elif k == "create_user":
+                a = self.auth()
+                a.users[op["user"]] = bytes.fromhex(op["hash"])
+                a.grants.setdefault(op["user"], {})
+            elif k == "drop_user":
+                self.auth().drop_user(op["user"])
+            elif k == "grant":
+                self.auth().grant(op["user"], op["table"], op["privs"])
+            elif k == "revoke":
+                self.auth().revoke(op["user"], op["table"], op["privs"])
+            elif k == "create_view":
                 self.catalog.views[op["name"]] = op["text"]
             elif k == "drop_view":
                 self.catalog.views.pop(op["name"], None)
@@ -194,20 +264,66 @@ class Session:
             self.store.log(op)
 
     def load_csv(self, table: str, path: str, **csv_opts) -> int:
-        raise _not_yet("load_csv", 8)
+        raise _not_yet("load_csv", 9)
+
+    def ingest_plane(self):
+        """The continuous ingest plane (HTTP stream load, routine-load
+        jobs) is not in the port yet."""
+        raise _not_yet("the ingest plane (stream load, routine load)", 9)
 
     def sql(self, text: str):
-        """Execute one statement. After a top-level statement, once the
-        journal tail outgrows CHECKPOINT_OPS, catalog metadata is
-        snapshotted and the log truncated (the FE CheckpointController
-        analog, leader/CheckpointController.java:85)."""
+        """Execute one statement. Top-level calls run inside a query
+        lifecycle scope (runtime/lifecycle.py) — registered for KILL QUERY
+        and SHOW PROCESSLIST, deadline-armed, memory-accounted — and append
+        to the catalog's query log (information_schema.query_log). Nested
+        internal statements (MV refresh bodies, INSERT..SELECT subqueries)
+        ride the outer scope and don't double-log. After a top-level
+        statement, once the journal tail outgrows CHECKPOINT_OPS, catalog
+        metadata is snapshotted and the log truncated (the FE
+        CheckpointController analog, leader/CheckpointController.java:85)."""
         if self._in_sql:
             return self._sql_inner(text)
+        import time as _time
+
+        group_limit = 0
+        if self.resource_group:
+            g = self.workgroups().get(self.resource_group)
+            if g is not None:
+                group_limit = g.mem_limit_bytes
         self._in_sql = True
+        t0 = _time.time()
+        entry = {"user": self.current_user, "sql": text.strip(),
+                 "state": "OK", "rows": 0, "ms": 0,
+                 "query_id": 0, "queue_wait_ms": 0, "slow": 0}
+        qctx = None
         try:
-            return self._sql_inner(text)
+            with lifecycle.query_scope(text.strip(), user=self.current_user,
+                                       group=self.resource_group,
+                                       group_limit=group_limit) as qctx:
+                res = self._sql_inner(text)
+            if isinstance(res, QueryResult):
+                entry["rows"] = res.table.num_rows
+            elif isinstance(res, int):
+                entry["rows"] = res
+            return res
+        except Exception:
+            entry["state"] = "ERR"
+            raise
         finally:
             self._in_sql = False
+            entry["ms"] = int((_time.time() - t0) * 1000)
+            if qctx is not None:
+                # joinable against information_schema.query_profiles: the
+                # audit row carries the lifecycle qid + admission wait
+                entry["query_id"] = qctx.qid
+                entry["queue_wait_ms"] = int(qctx.queue_wait_ms)
+            slow_ms = int(config.get("slow_query_ms") or 0)
+            entry["slow"] = int(bool(slow_ms and entry["ms"] >= slow_ms))
+            log = self.catalog.query_log
+            with _QLOG_LOCK:
+                log.append(entry)
+                if len(log) > 10_000:
+                    del log[:5000]
             if (self.store is not None
                     and (self.store.tail_count or 0) >= self.CHECKPOINT_OPS):
                 try:
@@ -216,21 +332,48 @@ class Session:
                     pass  # disk hiccup: keep serving; next statement retries
 
     def _sql_inner(self, text: str):
+        # short-circuit point lane: `WHERE pk = ?` shapes on stored PK
+        # tables answer from the primary index — no parse cache, no
+        # optimizer, no device (runtime/point.py). Detection is
+        # conservative: MISS falls through to the identical full path.
+        text_key = text.strip().rstrip(";")
+        if config.get("enable_short_circuit"):
+            from . import point
+
+            res = point.try_execute(self, text_key)
+            if res is not point.MISS:
+                return res
         # prepared-statement fast path: statement text -> analyzed plan
         # (cache/plan_cache.py); only SELECT plans are stored, so other
-        # statements always miss
-        text_key = text.strip().rstrip(";")
+        # statements always miss. Privileges re-check per execution on the
+        # plan (_check_select_privs).
         if config.get("enable_plan_cache"):
             hit = self.cache.plan_cache.lookup(text_key, self.catalog)
             if hit is not None:
                 return self._query_planned(hit, from_plan_cache=True)
+        import time as _time
+
+        _pw0, _pt0 = _time.time(), _time.perf_counter()
         stmt = parse(text)
+        # parse happens before any profile exists; _query attaches this
+        # measurement so the trace export covers parse -> ... -> fetch
+        self._last_parse = (_pw0, _time.perf_counter() - _pt0)
+        self._enforce_privileges(stmt)
+        _ctx = lifecycle.current()
+        if _ctx is not None and isinstance(getattr(stmt, "table", None), str):
+            # DML/DDL target table into the audit row's referenced set
+            # (SELECT plans contribute theirs in _query_planned)
+            _ctx.tables = tuple(sorted(
+                set(_ctx.tables) | {stmt.table.lower()}))
         if isinstance(stmt, _PLANE_STATEMENTS):
-            raise _not_yet(f"{type(stmt).__name__} statements", 8)
+            raise _not_yet(f"{type(stmt).__name__} statements", 9)
         if isinstance(stmt, ast.Explain):
             return self._explain(stmt)
         if isinstance(stmt, (ast.Select, ast.SetOp)):
             return self._query(stmt, cache_text=text_key)
+        if isinstance(stmt, (ast.CreateUser, ast.DropUser, ast.Grant,
+                             ast.Revoke, ast.ShowGrants)):
+            return self._auth_stmt(stmt)
         if isinstance(stmt, ast.CreateTable):
             return self._create(stmt)
         if isinstance(stmt, ast.DropTable):
@@ -252,9 +395,25 @@ class Session:
             return None
         if isinstance(stmt, ast.SetVar):
             if stmt.name.lower() == "resource_group":
-                raise _not_yet("SET resource_group", 8)
+                name = str(stmt.value or "").lower()
+                if name and self.workgroups().get(name) is None:
+                    raise ValueError(f"unknown resource group {name!r}")
+                self.resource_group = name or None
+                return None
             config.set(stmt.name, stmt.value)
             return None
+        if isinstance(stmt, ast.CreateResourceGroup):
+            self.workgroups().create(stmt.name, dict(stmt.props),
+                                     replace=stmt.replace)
+            self._log_meta({"op": "create_rg", "name": stmt.name.lower(),
+                            "props": dict(stmt.props)})
+            return None
+        if isinstance(stmt, ast.DropResourceGroup):
+            self.workgroups().drop(stmt.name, stmt.if_exists)
+            self._log_meta({"op": "drop_rg", "name": stmt.name.lower()})
+            return None
+        if isinstance(stmt, ast.ShowResourceGroups):
+            return self.workgroups().snapshot()
         if isinstance(stmt, ast.CreateView):
             return self._create_view(stmt)
         if isinstance(stmt, ast.RefreshView):
@@ -269,6 +428,54 @@ class Session:
             return self._show_partitions(stmt.table.lower())
         if isinstance(stmt, ast.AlterTable):
             return self._alter(stmt)
+        if isinstance(stmt, ast.KillQuery):
+            a = self.auth()
+            ok = lifecycle.REGISTRY.cancel(
+                stmt.query_id, requester=self.current_user,
+                admin=a.is_admin(self.current_user))
+            return (f"query {stmt.query_id} cancel delivered (cooperative: "
+                    "takes effect at the next stage boundary)" if ok else
+                    f"query {stmt.query_id} is not running; "
+                    "KILL is a no-op")
+        if isinstance(stmt, ast.ShowProcesslist):
+            return lifecycle.REGISTRY.snapshot()
+        if isinstance(stmt, ast.ShowWorkload):
+            from .workload import WORKLOAD
+
+            # heaviest shapes first, tuple rows in the
+            # information_schema.workload_summary column order
+            return [tuple(r.values()) for r in WORKLOAD.snapshot()]
+        if isinstance(stmt, ast.AdminSetFailpoint):
+            from . import failpoint
+
+            failpoint.set_from_sql(stmt.name, stmt.value)
+            return None
+        if isinstance(stmt, ast.AdminSetAlert):
+            from .alerts import ALERTS
+
+            ALERTS.set_from_sql(stmt.name, stmt.value)
+            return None
+        if isinstance(stmt, ast.AdminDiagnose):
+            import json as _json
+
+            from .audit import diagnostic_bundle
+
+            # one parseable JSON document — the flight-recorder dump
+            return _json.dumps(diagnostic_bundle(self), default=str)
+        if isinstance(stmt, ast.ShowProfile):
+            # SHOW PROFILE [FOR QUERY <id>]: the last query's RuntimeProfile
+            # tree, or a retained profile from the ProfileManager
+            if stmt.query_id is not None:
+                from .profile import PROFILE_MANAGER
+
+                e = PROFILE_MANAGER.get(stmt.query_id)
+                if e is None:
+                    return (f"no profile retained for query "
+                            f"{stmt.query_id}")
+                return (f"query {e['query_id']} [{e['state']}] "
+                        f"{e['ms']}ms stage={e['stage']}\n{e['text']}")
+            return (self.last_profile.render()
+                    if self.last_profile is not None else "no queries yet")
         if isinstance(stmt, ast.ShowCreate):
             return self._show_create(stmt.table)
         if isinstance(stmt, ast.Describe):
@@ -485,23 +692,197 @@ class Session:
             out += f" DISTRIBUTED BY HASH({', '.join(h.distribution)})"
         return out
 
+    # --- auth and admission --------------------------------------------------
+    def auth(self):
+        from .auth import AuthManager
+
+        if self.catalog.auth is None:
+            self.catalog.auth = AuthManager()
+        return self.catalog.auth
+
+    def workgroups(self):
+        """The catalog-wide admission manager (sessions sharing a catalog
+        share slots — the process is the BE; runtime/workgroup.py)."""
+        from .workgroup import WorkgroupManager
+
+        if self.catalog.workgroups is None:
+            self.catalog.workgroups = WorkgroupManager()
+        return self.catalog.workgroups
+
+    def _enforce_privileges(self, stmt):
+        """Statement-level checks (reference: authorization/Authorizer.java
+        checks in StmtExecutor). SELECT privileges are checked per base
+        table on the analyzed plan in _query_planned."""
+        a = self.auth()
+        user = self.current_user
+        if a.is_admin(user):
+            return
+        if isinstance(stmt, ast.Insert):
+            a.require(user, stmt.table, "insert")
+        elif isinstance(stmt, ast.Delete):
+            a.require(user, stmt.table, "delete")
+        elif isinstance(stmt, ast.Update):
+            a.require(user, stmt.table, "update")
+        elif isinstance(stmt, (ast.CreateTable, ast.DropTable,
+                               ast.CreateView, ast.RefreshView,
+                               ast.CreateUser, ast.DropUser, ast.Grant,
+                               ast.Revoke, ast.AlterTable,
+                               ast.CreateFunction, ast.DropFunction,
+                               ast.CreateExternalTable,
+                               ast.CreateResourceGroup,
+                               ast.DropResourceGroup,
+                               ast.AdminSetFailpoint,
+                               ast.AdminSetAlert,
+                               ast.AdminSetIngestJob,
+                               ast.AdminDiagnose)):
+            raise PermissionError(
+                f"user {user!r} lacks the admin privileges for DDL")
+
+    def _check_select_privs(self, plan):
+        a = self.auth()
+        user = self.current_user
+        if a.is_admin(user):
+            return
+        from ..exprs.ir import Expr, walk as walk_expr
+        from ..sql.analyzer import ScalarSubquery, SemiJoinMark
+        from ..sql.logical import LScan, walk_plan
+
+        def visit(p):
+            for node in walk_plan(p):
+                if isinstance(node, LScan) and not node.table.startswith("__"):
+                    # internal relations (__dual__, information_schema) are
+                    # world-readable, like the reference's system schemata
+                    a.require(user, node.table, "select")
+                # analyzed subquery markers carry their OWN plans inside
+                # expressions — a table read only by `IN (SELECT ...)` must
+                # be checked too
+                for attr in getattr(node, "__dataclass_fields__", {}):
+                    val = getattr(node, attr)
+                    exprs = []
+                    if isinstance(val, Expr):
+                        exprs = [val]
+                    elif isinstance(val, tuple):
+                        exprs = [x for item in val
+                                 for x in (item if isinstance(item, tuple)
+                                           else (item,))
+                                 if isinstance(x, Expr)]
+                    for e in exprs:
+                        for sub in walk_expr(e):
+                            if isinstance(sub, (ScalarSubquery,
+                                                SemiJoinMark)):
+                                visit(sub.plan)
+
+        visit(plan)
+
+    def _auth_stmt(self, stmt):
+        a = self.auth()
+        if isinstance(stmt, ast.CreateUser):
+            a.create_user(stmt.user, stmt.password)
+            # journal the stage2 hash, never the password (the mysql
+            # protocol only needs sha1(sha1(pw)) to authenticate)
+            self._log_meta({"op": "create_user", "user": stmt.user,
+                            "hash": a.users[stmt.user].hex()})
+            return None
+        if isinstance(stmt, ast.DropUser):
+            a.drop_user(stmt.user)
+            self._log_meta({"op": "drop_user", "user": stmt.user})
+            return None
+        if isinstance(stmt, ast.Grant):
+            a.grant(stmt.user, stmt.table, stmt.privs)
+            self._log_meta({"op": "grant", "user": stmt.user,
+                            "table": stmt.table,
+                            "privs": sorted(stmt.privs)})
+            return None
+        if isinstance(stmt, ast.Revoke):
+            a.revoke(stmt.user, stmt.table, stmt.privs)
+            self._log_meta({"op": "revoke", "user": stmt.user,
+                            "table": stmt.table,
+                            "privs": sorted(stmt.privs)})
+            return None
+        user = stmt.user or self.current_user
+        if user != self.current_user and not a.is_admin(self.current_user):
+            raise PermissionError("SHOW GRANTS for other users requires admin")
+        return a.show_grants(user)
+
     # --- SELECT / EXPLAIN ------------------------------------------------------
     def _query(self, sel, cache_text: str | None = None) -> QueryResult:
-        plan = Analyzer(self.catalog).analyze(sel)
+        profile = RuntimeProfile("query")
+        lp = self._last_parse
+        if lp is not None:
+            self._last_parse = None
+            profile.add_counter("parse", lp[1], "s")
+            profile.spans.append(("parse", lp[0], lp[1]))
+        with profile.timer("analyze"):
+            plan = Analyzer(self.catalog).analyze(sel)
         if cache_text is not None and config.get("enable_plan_cache"):
             # only top-level statement texts store (internal plans — view
             # expansions, MV refresh bodies — have no client-visible text)
             self.cache.plan_cache.store(cache_text, plan, self.catalog)
-        return self._query_planned(plan)
+        return self._query_planned(plan, profile=profile)
 
-    def _query_planned(self, plan, from_plan_cache: bool = False):
+    def _query_planned(self, plan, profile=None,
+                       from_plan_cache: bool = False) -> QueryResult:
         """Execute an already-analyzed plan (the plan cache's hits enter
         here, skipping parse and analysis)."""
-        profile: dict = {}
+        if profile is None:
+            profile = RuntimeProfile("query")
         if from_plan_cache:
-            profile["counters"] = {"plan_cache_hits": 1}
+            profile.add_counter("plan_cache_hits", 1)
+        ctx = lifecycle.current()
+        if ctx is not None:
+            # retained on every exit path by the scope's unwind — a killed
+            # query's profile reports the stage it died at
+            ctx.profile = profile
+            from ..sql.logical import LScan, walk_plan
+
+            # referenced-table union for the audit row; UNIONED (not
+            # replaced) so INSERT..SELECT's nested select adds to the
+            # outer statement's set instead of clobbering it
+            refs = {n.table for n in walk_plan(plan)
+                    if isinstance(n, LScan)
+                    and not n.table.startswith("__")}
+            if refs:
+                ctx.tables = tuple(sorted(set(ctx.tables) | refs))
+        self._check_select_privs(plan)
+        lifecycle.checkpoint("session::analyzed")
+        # admission() releases the slot on ANY exit path — including a KILL
+        # unwinding the lifecycle scope before this frame's finally runs
+        with self._admit(plan):
+            return self._query_admitted(plan, profile)
+
+    def _admit(self, plan):
+        """Resource-group admission (runtime/workgroup.py): estimate the
+        query's scan mass from the catalog and pass the gate. Queries
+        without a SET resource_group run unthrottled (default group) —
+        unless a global admission queue is configured
+        (`SET query_queue_concurrency`), which gates every statement.
+        Returns a context manager whose exit releases the slot on any
+        path (exception-safe; also registered on the query context)."""
+        from . import workgroup as _wg  # noqa: F401 — defines queue knobs
+
+        if self.resource_group is None \
+                and not config.get("query_queue_concurrency"):
+            import contextlib
+
+            return contextlib.nullcontext()
+        from ..sql.logical import LScan, walk_plan
+
+        est_rows = est_bytes = 0
+        for node in walk_plan(plan):
+            if isinstance(node, LScan) and not node.table.startswith("__"):
+                h = self.catalog.get_table(node.table)
+                if h is not None:
+                    est_rows += h.row_count
+                    est_bytes += h.row_count * 8 * max(len(node.columns), 1)
+        return self.workgroups().admission(self.resource_group, est_rows,
+                                           est_bytes)
+
+    def _query_admitted(self, plan, profile) -> QueryResult:
         res = self._executor().execute_logical(plan, profile)
         self.last_profile = res.profile
+        ctx = lifecycle.current()
+        if ctx is not None:
+            ctx.rows = res.table.num_rows
         return res
 
     def _executor(self):
@@ -518,8 +899,16 @@ class Session:
     def _explain(self, stmt: ast.Explain) -> str:
         assert isinstance(stmt.stmt, (ast.Select, ast.SetOp)), "EXPLAIN supports SELECT"
         if stmt.analyze:
-            raise _not_yet("EXPLAIN ANALYZE", 8)
+            from .profile import render_explain_analyze
+
+            res = self._query(stmt.stmt)
+            # res.plan is the executed optimized plan; each node annotates
+            # with est-vs-observed rows + its counter group via the
+            # profile's node-ordinal table
+            return render_explain_analyze(res.plan, res.profile,
+                                          self.catalog)
         plan = Analyzer(self.catalog).analyze(stmt.stmt)
+        self._check_select_privs(plan)  # EXPLAIN leaks schema/stats otherwise
         # mirror the executor's group_concat two-plan orchestration: EXPLAIN
         # must show the plan that would actually run
         header = ""

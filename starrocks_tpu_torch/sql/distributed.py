@@ -834,7 +834,10 @@ def compile_distributed(
             note(None, 0, root_node, "gather", (), REPLICATED, "rows",
                  mode, chunk)
             chunk = all_gather_chunk(chunk, mesh)
-        return chunk, checks
+        # the closures hold `checks` too: the caller gets its own dict
+        out_checks = dict(checks)
+        checks.clear()
+        return chunk, out_checks
 
     return DistCompiled(
         step, scans, scan_mode_list, root_node.output_names(), n_shards

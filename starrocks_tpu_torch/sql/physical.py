@@ -1069,9 +1069,13 @@ def compile_plan(plan: LogicalPlan, catalog, caps: Caps,
         # emit and _emit reference each other, so the closures and
         # emit_memo form a reference cycle that only Python's cyclic
         # collector frees: clear the memo here, or every intermediate
-        # chunk of the query stays on the device after it returns
+        # chunk of the query stays on the device after it returns. The
+        # closures hold `checks` too: the caller gets its own dict, and
+        # the 0-d check tensors die with it
         emit_memo.clear()
-        return chunk, checks
+        out_checks = dict(checks)
+        checks.clear()
+        return chunk, out_checks
 
     return Compiled(run, scans, plan.output_names(), tuple(aux),
                     node_ord=node_ord)

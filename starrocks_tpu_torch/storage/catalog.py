@@ -10,9 +10,11 @@ make the same plans from the same data. The clocks (``versions``,
 ``data_epochs``, ``schema_epoch``) and the invalidation listeners are the
 reference's: every register/drop bumps them, and a Session's DeviceCache
 listens. ``StoredTableHandle`` reads a TabletStore table lazily.
-information_schema serves the storage views; the views over planes the
-port does not have yet (query log, processlist, metrics, resource groups,
-privileges, fail points, ingest, alerts) raise NotImplementedError.
+information_schema serves the storage views and the views over the serving
+and observability planes (query log, processlist, profiles, metrics,
+resource groups, privileges, fail points, audit log, events, workload,
+alerts); the ingest plane's views (external tables, routine-load jobs)
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -174,17 +176,9 @@ def _live_rows(m: dict) -> int:
                for rs in m["rowsets"] for f in rs["files"])
 
 
-# information_schema views of the reference that read planes the port does
-# not have yet (query log, processlist, metrics, resource groups, UDFs,
-# privileges, fail points, ingest, alerts, config): slice 8 brings them
-_PLANE_VIEWS = frozenset({
-    "resource_groups", "routines", "session_variables", "global_variables",
-    "table_privileges", "user_privileges", "engines", "character_sets",
-    "collations", "external_tables", "queries", "processlist",
-    "fail_points", "query_log", "query_profiles", "be_configs", "metrics",
-    "audit_log", "events", "metrics_history", "workload_summary",
-    "ingest_jobs", "alerts",
-})
+# information_schema views of the ingest plane (external tables, routine-load
+# jobs), which the port does not have yet: slice 9 brings them
+_PLANE_VIEWS = frozenset({"external_tables", "ingest_jobs"})
 
 
 class Catalog:
@@ -210,6 +204,12 @@ class Catalog:
         # DeviceCache, with its device tensors, must not outlive the
         # Session because the catalog it read outlives it.
         self._listeners: list = []
+        # users + table-level grants (runtime/auth.py); created on demand
+        self.auth = None
+        # resource groups / admission (runtime/workgroup.py); on demand
+        self.workgroups = None
+        # recent statements (sessions append; information_schema.query_log)
+        self.query_log: list = []
         # catalog SHAPE clock: bumped by register/drop/ALTER/view DDL.
         # DML does NOT bump it: analysis depends on schemas, not data.
         self.schema_epoch = 0
@@ -299,7 +299,7 @@ class Catalog:
         if view in _PLANE_VIEWS:
             raise NotImplementedError(
                 f"information_schema.{view} reads a plane that is not in "
-                "the port yet (slice 8)")
+                "the port yet (slice 9)")
 
         def vtable(cols):
             # build even when empty (from_pydict can't infer types of [])
@@ -541,6 +541,276 @@ class Catalog:
                 ("table_name", T.VARCHAR, tn),
                 ("column_name", T.VARCHAR, cn),
                 ("ndv", T.BIGINT, ndv),
+            ])
+        if view == "resource_groups":
+            wm = getattr(self, "workgroups", None)
+            rows = wm.snapshot() if wm is not None else []
+            return vtable([
+                ("name", T.VARCHAR, [r[0] for r in rows]),
+                ("concurrency_limit", T.BIGINT, [r[1] for r in rows]),
+                ("max_scan_rows", T.BIGINT, [r[2] for r in rows]),
+                ("mem_limit_bytes", T.BIGINT, [r[3] for r in rows]),
+                ("cpu_weight", T.BIGINT, [r[4] for r in rows]),
+                ("priority", T.BIGINT, [r[5] for r in rows]),
+                ("running", T.BIGINT, [r[6] for r in rows]),
+                ("queued", T.BIGINT, [r[7] for r in rows]),
+            ])
+        if view == "routines":
+            from ..runtime.udf import get_udf, list_udfs
+
+            names = list_udfs()
+            defs = [get_udf(n) for n in names]
+            return vtable([
+                ("routine_name", T.VARCHAR, names),
+                ("routine_type", T.VARCHAR, ["FUNCTION"] * len(names)),
+                ("data_type", T.VARCHAR, [repr(d.ret) for d in defs]),
+                ("routine_definition", T.VARCHAR,
+                 [d.source[:512] for d in defs]),
+            ])
+        if view in ("session_variables", "global_variables"):
+            from ..runtime.config import config as cfg
+
+            items = cfg.items()
+            return vtable([
+                ("variable_name", T.VARCHAR, [i[0] for i in items]),
+                ("variable_value", T.VARCHAR, [str(i[1]) for i in items]),
+            ])
+        if view in ("table_privileges", "user_privileges"):
+            a = self.auth
+            gr, te, pr = [], [], []
+            if a is not None:
+                for user in sorted(a.grants):
+                    for table, privs in sorted(a.grants[user].items()):
+                        want_global = view == "user_privileges"
+                        if (table == "*") != want_global:
+                            continue
+                        for p in sorted(privs):
+                            gr.append(f"'{user}'@'%'")
+                            te.append(table)
+                            pr.append(p.upper())
+            cols = [("grantee", T.VARCHAR, gr)]
+            if view == "table_privileges":
+                cols.append(("table_name", T.VARCHAR, te))
+            cols.append(("privilege_type", T.VARCHAR, pr))
+            return vtable(cols)
+        if view == "engines":
+            return vtable([
+                ("engine", T.VARCHAR, ["OLAP_TPU"]),
+                ("support", T.VARCHAR, ["DEFAULT"]),
+                ("comment", T.VARCHAR,
+                 ["columnar chunks run as eager torch programs per query"]),
+            ])
+        if view == "character_sets":
+            return vtable([
+                ("character_set_name", T.VARCHAR, ["utf8mb4"]),
+                ("default_collate_name", T.VARCHAR, ["utf8mb4_bin"]),
+                ("maxlen", T.BIGINT, [4]),
+            ])
+        if view == "collations":
+            return vtable([
+                ("collation_name", T.VARCHAR, ["utf8mb4_bin"]),
+                ("character_set_name", T.VARCHAR, ["utf8mb4"]),
+                ("is_default", T.VARCHAR, ["Yes"]),
+            ])
+        if view in ("queries", "processlist"):
+            # the running-query registry (runtime/lifecycle.py): the SHOW
+            # PROCESSLIST / KILL QUERY id-discovery surface
+            from ..runtime.lifecycle import REGISTRY
+
+            rows = REGISTRY.snapshot()
+            return vtable([
+                ("query_id", T.BIGINT, [r[0] for r in rows]),
+                ("user", T.VARCHAR, [r[1] for r in rows]),
+                ("state", T.VARCHAR, [r[2] for r in rows]),
+                ("elapsed_ms", T.BIGINT, [r[3] for r in rows]),
+                ("resource_group", T.VARCHAR, [r[4] for r in rows]),
+                ("mem_bytes", T.BIGINT, [r[5] for r in rows]),
+                ("stage", T.VARCHAR, [r[6] for r in rows]),
+                ("statement", T.VARCHAR, [r[7] for r in rows]),
+            ])
+        if view == "fail_points":
+            # armed failpoints + lifetime hit counts (the chaos/ops
+            # surface of ADMIN SET failpoint; runtime/failpoint.py)
+            from ..runtime import failpoint as _fp
+
+            rows = _fp.snapshot()
+            return vtable([
+                ("name", T.VARCHAR, [r[0] for r in rows]),
+                ("armed", T.INT, [1 if r[1] else 0 for r in rows]),
+                ("times_remaining", T.BIGINT, [r[2] for r in rows]),
+                ("hits", T.BIGINT, [r[3] for r in rows]),
+            ])
+        if view == "query_log":
+            log = self.query_log[-1000:]
+            return vtable([
+                ("query_id", T.BIGINT,
+                 [e.get("query_id", 0) for e in log]),
+                ("user", T.VARCHAR, [e["user"] for e in log]),
+                ("statement", T.VARCHAR, [e["sql"][:512] for e in log]),
+                ("state", T.VARCHAR, [e["state"] for e in log]),
+                ("rows", T.BIGINT, [e["rows"] for e in log]),
+                ("ms", T.BIGINT, [e["ms"] for e in log]),
+                ("queue_wait_ms", T.BIGINT,
+                 [e.get("queue_wait_ms", 0) for e in log]),
+                ("slow", T.INT, [e.get("slow", 0) for e in log]),
+            ])
+        if view == "query_profiles":
+            from ..runtime.profile import PROFILE_MANAGER
+
+            rows = PROFILE_MANAGER.snapshot()
+            return vtable([
+                ("query_id", T.BIGINT, [e["query_id"] for e in rows]),
+                ("user", T.VARCHAR, [e["user"] for e in rows]),
+                ("statement", T.VARCHAR, [e["sql"][:512] for e in rows]),
+                ("state", T.VARCHAR, [e["state"] for e in rows]),
+                ("rows", T.BIGINT, [e["rows"] for e in rows]),
+                ("ms", T.BIGINT, [e["ms"] for e in rows]),
+                ("queue_wait_ms", T.BIGINT,
+                 [e["queue_wait_ms"] for e in rows]),
+                ("slow", T.INT, [1 if e["slow"] else 0 for e in rows]),
+                ("stage", T.VARCHAR, [e["stage"] for e in rows]),
+            ])
+        if view == "be_configs":
+            from ..runtime.config import config as cfg
+
+            items = cfg.items()
+            return vtable([
+                ("name", T.VARCHAR, [i[0] for i in items]),
+                ("value", T.VARCHAR, [str(i[1]) for i in items]),
+                ("default", T.VARCHAR, [str(i[2]) for i in items]),
+                ("mutable", T.INT, [1 if i[3] else 0 for i in items]),
+                ("description", T.VARCHAR, [i[4] for i in items]),
+            ])
+        if view == "metrics":
+            from ..runtime.metrics import metrics as mreg
+
+            names = sorted(mreg._metrics)
+            return vtable([
+                ("name", T.VARCHAR, names),
+                ("value", T.BIGINT, [mreg._metrics[n].value for n in names]),
+            ])
+        if view == "audit_log":
+            from ..runtime.audit import AUDIT
+
+            rows = AUDIT.snapshot()
+            return vtable([
+                ("seq", T.BIGINT, [e["seq"] for e in rows]),
+                ("query_id", T.BIGINT, [e["query_id"] for e in rows]),
+                ("ts", T.DOUBLE, [e["ts"] for e in rows]),
+                ("user", T.VARCHAR, [e["user"] for e in rows]),
+                ("statement", T.VARCHAR, [e["stmt"] for e in rows]),
+                ("stmt_class", T.VARCHAR, [e["stmt_class"] for e in rows]),
+                ("tables", T.VARCHAR, [e["tables"] for e in rows]),
+                ("state", T.VARCHAR, [e["state"] for e in rows]),
+                ("stage", T.VARCHAR, [e["stage"] for e in rows]),
+                ("ms", T.BIGINT, [e["ms"] for e in rows]),
+                ("queue_wait_ms", T.BIGINT,
+                 [e["queue_wait_ms"] for e in rows]),
+                ("rows", T.BIGINT, [e["rows"] for e in rows]),
+                ("mem_peak_bytes", T.BIGINT,
+                 [e["mem_peak_bytes"] for e in rows]),
+                ("degraded", T.INT, [e["degraded"] for e in rows]),
+                ("plan_cache_hit", T.INT,
+                 [e["plan_cache_hit"] for e in rows]),
+                ("result_cache_hit", T.INT,
+                 [e["result_cache_hit"] for e in rows]),
+                ("partial_cache_hit", T.INT,
+                 [e["partial_cache_hit"] for e in rows]),
+                ("feedback_hit", T.INT,
+                 [e["feedback_hit"] for e in rows]),
+                ("error", T.VARCHAR, [e["error"] for e in rows]),
+            ])
+        if view == "events":
+            import json as _json
+
+            from ..runtime.events import EVENTS
+
+            rows = EVENTS.snapshot()
+            return vtable([
+                ("seq", T.BIGINT, [e["seq"] for e in rows]),
+                ("ts", T.DOUBLE, [e["ts"] for e in rows]),
+                ("name", T.VARCHAR, [e["name"] for e in rows]),
+                ("detail", T.VARCHAR,
+                 [_json.dumps(e["detail"], sort_keys=True, default=str)
+                  for e in rows]),
+            ])
+        if view == "metrics_history":
+            from ..runtime.metrics import HISTORY
+
+            # flattened (sample_ts, metric, kind, value): histogram
+            # samples expand to _p50/_p95/_p99 rows
+            flat = []
+            for s in HISTORY.snapshot():
+                for name, v in sorted(s["counters"].items()):
+                    flat.append((s["ts"], name, "counter_delta", float(v)))
+                for name, v in sorted(s["gauges"].items()):
+                    flat.append((s["ts"], name, "gauge", float(v)))
+                for name, h in sorted(s["histograms"].items()):
+                    for q in ("p50", "p95", "p99"):
+                        flat.append((s["ts"], f"{name}_{q}", "histogram",
+                                     float(h[q])))
+            ts = [r[0] for r in flat]
+            nm = [r[1] for r in flat]
+            kd = [r[2] for r in flat]
+            vals = [r[3] for r in flat]
+            return vtable([
+                ("ts", T.DOUBLE, ts),
+                ("name", T.VARCHAR, nm),
+                ("kind", T.VARCHAR, kd),
+                ("value", T.DOUBLE, vals),
+            ])
+        if view == "workload_summary":
+            from ..runtime.workload import WORKLOAD
+
+            rows = WORKLOAD.snapshot()
+            return vtable([
+                ("fingerprint", T.VARCHAR,
+                 [e["fingerprint"] for e in rows]),
+                ("stmt_class", T.VARCHAR, [e["stmt_class"] for e in rows]),
+                ("count", T.BIGINT, [e["count"] for e in rows]),
+                ("p50_ms", T.DOUBLE, [e["p50_ms"] for e in rows]),
+                ("p95_ms", T.DOUBLE, [e["p95_ms"] for e in rows]),
+                ("p99_ms", T.DOUBLE, [e["p99_ms"] for e in rows]),
+                ("avg_ms", T.DOUBLE, [e["avg_ms"] for e in rows]),
+                ("avg_rows", T.DOUBLE, [e["avg_rows"] for e in rows]),
+                ("mem_peak_bytes", T.BIGINT,
+                 [e["mem_peak_bytes"] for e in rows]),
+                ("avg_queue_wait_ms", T.DOUBLE,
+                 [e["avg_queue_wait_ms"] for e in rows]),
+                ("errors", T.BIGINT, [e["errors"] for e in rows]),
+                ("cancelled", T.BIGINT, [e["cancelled"] for e in rows]),
+                ("timeouts", T.BIGINT, [e["timeouts"] for e in rows]),
+                ("memlimit", T.BIGINT, [e["memlimit"] for e in rows]),
+                ("degraded", T.BIGINT, [e["degraded"] for e in rows]),
+                ("last_ts", T.DOUBLE, [e["last_ts"] for e in rows]),
+                ("sample_sql", T.VARCHAR, [e["sample_sql"] for e in rows]),
+                ("plan_cache_hit_ratio", T.DOUBLE,
+                 [e["plan_cache_hit_ratio"] for e in rows]),
+                ("result_cache_hit_ratio", T.DOUBLE,
+                 [e["result_cache_hit_ratio"] for e in rows]),
+                ("partial_cache_hit_ratio", T.DOUBLE,
+                 [e["partial_cache_hit_ratio"] for e in rows]),
+                ("feedback_hit_ratio", T.DOUBLE,
+                 [e["feedback_hit_ratio"] for e in rows]),
+            ])
+        if view == "alerts":
+            from ..runtime.alerts import ALERTS
+
+            rows = ALERTS.snapshot()
+            return vtable([
+                ("name", T.VARCHAR, [e["name"] for e in rows]),
+                ("state", T.VARCHAR, [e["state"] for e in rows]),
+                ("metric", T.VARCHAR, [e["metric"] for e in rows]),
+                ("condition", T.VARCHAR, [e["condition"] for e in rows]),
+                ("for_s", T.DOUBLE, [e["for_s"] for e in rows]),
+                ("value", T.DOUBLE,
+                 [-1.0 if e["value"] is None else float(e["value"])
+                  for e in rows]),
+                ("fired_ts", T.DOUBLE,
+                 [0.0 if e["fired_ts"] is None else e["fired_ts"]
+                  for e in rows]),
+                ("fires", T.BIGINT, [e["fires"] for e in rows]),
+                ("help", T.VARCHAR, [e["help"] for e in rows]),
             ])
         if view == "columns":
             tn, cn, ty, nu = [], [], [], []

@@ -31,17 +31,19 @@ agree with the reference's, except for the data files' names.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
-import threading
 import time
 from typing import Optional
 
 import numpy as np
 
+from .. import lockdep
 from .. import types as T
 from ..column import Field, HostTable, Schema, StringDict
 from ..exprs.ir import Call, Col, Expr, InList, Lit
+from ..runtime.failpoint import fail_point
 
 FILE_EXT = ".npz"
 
@@ -124,8 +126,18 @@ class TabletStore:
         self.image_path = os.path.join(root, "image.json")
         # guards the index map, the listener list and the last-scan stats;
         # DML content stays single-writer
-        self._state_lock = threading.Lock()
+        self._state_lock = lockdep.lock("TabletStore._state_lock")
         self._pk_index: dict = {}   # table -> _PKIndex
+        # table -> (manifest, Schema) for point probes, cached until the
+        # next _write_manifest. Only the point path reads it (mutators read
+        # fresh copies via read_manifest and edit their own dict)
+        self._manifest_cache: dict = {}
+        # (table, file, columns) -> `_read_file` columns of ONE immutable
+        # data file, delete vector NOT applied: delvecs only mask rows at
+        # read, so raw positions stay valid across PK DML. The point gather
+        # slices rows out of these; entries drop when the table's file set
+        # changes (_drop_pk_index)
+        self._part_cache = collections.OrderedDict()
         self.last_scan_stats: dict = {}
         # host seconds of the last write (insert/upsert/rewrite), by step:
         # "bucket_s" (partition + bucket of each row, the stable group
@@ -136,7 +148,7 @@ class TabletStore:
         # serializes log() appends against checkpoint()'s snapshot+replace:
         # an append between the tail snapshot and os.replace would land on
         # the replaced inode and vanish from the journal
-        self._journal_lock = threading.RLock()
+        self._journal_lock = lockdep.rlock("TabletStore._journal_lock")
         self._next_seq = None   # lazily scanned (image seq + log tail)
         self.tail_count = None  # ops past the image (auto-checkpoint trigger)
         # mutation listeners: fn(table, op) fired after every storage-level
@@ -162,9 +174,16 @@ class TabletStore:
         with self._state_lock:
             return dict(self.last_scan_stats)
 
+    COL_CACHE_FILES = 64  # point-gather per-file LRU capacity
+
     def _drop_pk_index(self, name: str):
         with self._state_lock:
             self._pk_index.pop(name, None)
+            self._manifest_cache.pop(name, None)
+            # the table's file set changed (rewrite/compact/alter/drop):
+            # cached raw-file columns are dead with the positions
+            for k in [k for k in self._part_cache if k[0] == name]:
+                del self._part_cache[k]
 
     # --- edit log + image checkpoint -----------------------------------------
     # The journal is the FE EditLog/image pair (fe persist/EditLog.java:133 +
@@ -191,6 +210,9 @@ class TabletStore:
 
     def log(self, op: dict) -> int:
         with self._journal_lock:
+            # an injected failure here leaves the log un-torn: nothing is
+            # appended before this point
+            fail_point("journal::write")
             if self._next_seq is None:
                 self._next_seq = self._scan_seq()
             self.tail_count = (self.tail_count or 0) + 1
@@ -230,6 +252,7 @@ class TabletStore:
         the log — a crash between the two leaves covered ops in the log,
         and replay of an already-applied catalog op is idempotent."""
         with self._journal_lock:
+            fail_point("journal::checkpoint")
             if self._next_seq is None:
                 self._next_seq = self._scan_seq()
             seq = self._next_seq
@@ -251,6 +274,9 @@ class TabletStore:
                     f.write(json.dumps(op) + "\n")
             os.replace(tmp, self.log_path)
             self.tail_count = len(keep)
+        from ..runtime import events
+
+        events.emit("checkpoint", seq=seq, tail_ops=len(keep))
         return seq
 
     # --- table lifecycle ------------------------------------------------------
@@ -265,10 +291,13 @@ class TabletStore:
             return json.load(f)
 
     def _write_manifest(self, name: str, m: dict):
+        fail_point("store::manifest_write")
         tmp = self._manifest_path(name) + ".tmp"
         with open(tmp, "w") as f:
             json.dump(m, f, indent=1)
         os.replace(tmp, self._manifest_path(name))
+        with self._state_lock:
+            self._manifest_cache.pop(name, None)
 
     def create_table(
         self, name: str, schema: Schema, distribution=(), buckets: int = 1,
@@ -325,6 +354,7 @@ class TabletStore:
         """Append a rowset: hash-bucket rows, write one file per (partition,
         bucket), record zonemaps. Mirrors MemTable flush -> segment files
         (be/src/storage/memtable.h:77 -> rowset commit)."""
+        fail_point("store::insert")
         m = self.read_manifest(name)
         nb = m["buckets"]
         t0 = time.perf_counter()
@@ -465,6 +495,7 @@ class TabletStore:
         replacement rowset is written FIRST, then the manifest swaps via
         os.replace; old files are removed only after the swap. A crash
         mid-rewrite leaves either the old or the new state, never data loss."""
+        fail_point("store::rewrite")
         m = self.read_manifest(name)
         old_files = [
             f["file"] for rs in m["rowsets"] for f in rs["files"]
@@ -574,6 +605,7 @@ class TabletStore:
         """Merge every rowset into one per (partition, bucket), applying
         delete vectors (cumulative+base compaction collapsed into one pass —
         be/src/storage/compaction_manager.h:36). Atomic via manifest swap."""
+        fail_point("store::compact")
         m = self.read_manifest(name)
         if len(m["rowsets"]) <= 1 and not any(
             f.get("delvec") for rs in m["rowsets"] for f in rs["files"]
@@ -627,6 +659,10 @@ class TabletStore:
         if record:
             self.log({"op": "compact", "table": name, "rows": total_rows})
         self._notify(name, "compact")
+        from ..runtime import events
+
+        events.emit("compaction", table=name, rows=total_rows,
+                    rowsets_merged=len(old_files))
         return total_rows
 
     # --- primary-key delta path -------------------------------------------------
@@ -679,6 +715,7 @@ class TabletStore:
         O(delta) bytes written instead of rewriting the table
         (be/src/storage/tablet_updates.h:108 + del_vector.h). Within one
         batch, last write wins."""
+        fail_point("store::upsert")
         m = self.read_manifest(name)
         keys = [k for ks in m["unique_keys"] for k in ks]
         if not keys:
@@ -734,13 +771,124 @@ class TabletStore:
         return n
 
     # --- point-query plane ----------------------------------------------------
+    def _manifest_snapshot(self, name: str):
+        """(manifest, Schema) snapshot for point probes, cached until the
+        next manifest write — read_manifest re-parses JSON per call, which
+        alone would dominate a sub-millisecond lookup."""
+        with self._state_lock:
+            snap = self._manifest_cache.get(name)
+        if snap is not None:
+            return snap
+        m = self.read_manifest(name)
+        schema = schema_from_json(m["schema"])
+        with self._state_lock:
+            return self._manifest_cache.setdefault(name, (m, schema))
+
+    def _file_parts(self, name: str, fmeta: dict, want, schema: Schema):
+        """`_read_file` columns of ONE immutable data file, delete vector
+        not applied (raw row positions), LRU-cached: the point gather's row
+        source — a lookup slices rows out of these with numpy indexing."""
+        key = (name, fmeta["file"], tuple(want))
+        with self._state_lock:
+            parts = self._part_cache.get(key)
+            if parts is not None:
+                self._part_cache.move_to_end(key)
+                return parts
+        parts = self._read_file(name, fmeta, want, schema,
+                                apply_delvec=False)
+        with self._state_lock:
+            self._part_cache[key] = parts
+            self._part_cache.move_to_end(key)
+            while len(self._part_cache) > self.COL_CACHE_FILES:
+                self._part_cache.popitem(last=False)
+        return parts
+
+    def _probe_live(self, m: dict, schema: Schema, name: str, keys,
+                    key_tuples):
+        """(index, [(rowset, file, position, index slot)]) of the LIVE rows
+        the canonical key tuples name, duplicates collapsed, in storage
+        scan order."""
+        index = self._load_pk_index(name, m, keys)
+        uniq = list(dict.fromkeys(tuple(kv) for kv in key_tuples))
+        if not uniq or not len(index):
+            return index, []
+        kc = [_key_query_column([kv[j] for kv in uniq],
+                                schema.field(k).type)
+              for j, k in enumerate(keys)]
+        at, found = index.lookup(kc)
+        hits = []
+        dead_by_file: dict = {}
+        for slot in at[found]:
+            ri, fi, pos = (int(index.ri[slot]), int(index.fi[slot]),
+                           int(index.pos[slot]))
+            dead = dead_by_file.get((ri, fi))
+            if dead is None:
+                dead = set(m["rowsets"][ri]["files"][fi].get("delvec") or ())
+                dead_by_file[(ri, fi)] = dead
+            if pos in dead:
+                continue  # superseded after the index entry was built
+            hits.append((ri, fi, pos, int(slot)))
+        hits.sort()
+        return index, hits
+
     def point_lookup(self, name: str, key_tuples, columns=None) -> HostTable:
-        raise NotImplementedError(
-            "primary-key point lookups are not in the port yet (slice 8)")
+        """Primary-index point probe: pk index -> delvec check -> direct
+        row gather from the owning files, never a whole-table load (the
+        short-circuit read path; reference analog: be/src/exec/pipeline/
+        short_circuit + the primary-index point get in tablet_updates).
+        `key_tuples` are canonical pk tuples (text for VARCHAR, epoch
+        days/microseconds for DATE/DATETIME, ints); duplicates collapse,
+        IN-list style. Hit rows come back in storage scan order — the order
+        the full scan path yields them."""
+        fail_point("point::probe")
+        m, schema = self._manifest_snapshot(name)
+        keys = [k for ks in m["unique_keys"] for k in ks]
+        if not keys:
+            raise ValueError(f"table {name!r} has no PRIMARY KEY")
+        _, hits = self._probe_live(m, schema, name, keys, key_tuples)
+        want = list(columns) if columns else [f.name for f in schema]
+        if not hits:
+            return _empty_table(Schema(tuple(schema.field(c) for c in want)))
+        by_file: dict = {}
+        for ri, fi, pos, _ in hits:
+            by_file.setdefault((ri, fi), []).append(pos)
+        parts = []
+        for (ri, fi), poss in sorted(by_file.items()):
+            raw = self._file_parts(name, m["rowsets"][ri]["files"][fi],
+                                   want, schema)
+            idx = np.asarray(poss, dtype=np.int64)
+            parts.append({c: (a[idx], None if v is None else v[idx], d)
+                          for c, (a, v, d) in raw.items()})
+        return _concat_parts(parts, want, schema)
 
     def delete_rows(self, name: str, key_tuples, record: bool = True) -> int:
-        raise NotImplementedError(
-            "primary-key point deletes are not in the port yet (slice 8)")
+        """PRIMARY KEY point delete: mark the victims in their files'
+        delete vectors and drop them from the live index — O(keys) work and
+        O(manifest) bytes, never a table rewrite (the delvec write path
+        upsert already uses, be/src/storage/del_vector.h analog)."""
+        fail_point("store::delete_rows")
+        m = self.read_manifest(name)
+        schema = schema_from_json(m["schema"])
+        keys = [k for ks in m["unique_keys"] for k in ks]
+        if not keys:
+            raise ValueError(f"table {name!r} has no PRIMARY KEY")
+        index, hits = self._probe_live(m, schema, name, keys, key_tuples)
+        if not hits:
+            return 0
+        touched: dict = {}
+        for ri, fi, pos, _ in hits:
+            touched.setdefault((ri, fi), set()).add(pos)
+        for (ri, fi), dead in touched.items():
+            fmeta = m["rowsets"][ri]["files"][fi]
+            fmeta["delvec"] = sorted(set(fmeta.get("delvec") or ()) | dead)
+        self._write_manifest(name, m)
+        # the index mutation is single-writer (DML gate), like upsert's
+        index.remove(np.asarray([h[3] for h in hits], dtype=np.int64))
+        if record:
+            self.log({"op": "delete_rows", "table": name,
+                      "rows": len(hits)})
+        self._notify(name, "delete_rows")
+        return len(hits)
 
     def _bucket_of(self, m: dict, data: HostTable):
         """Per-row bucket under the manifest's hash distribution (the one
@@ -834,8 +982,11 @@ class TabletStore:
         A VARCHAR column read back from several files gets one dictionary:
         the sorted distinct values of the rows read (and "" where a row is
         NULL), as the reference builds it from parquet."""
+        from ..runtime import lifecycle
         from ..runtime.config import config
 
+        fail_point("scan::load_table")
+        lifecycle.checkpoint("scan::load_table")
         m = self.read_manifest(name)
         schema = schema_from_json(m["schema"])
         prune_enabled = config.get("enable_zonemap_pruning")
@@ -934,6 +1085,14 @@ class _PKIndex:
         inb = at < len(keys)
         found[inb] = keys[at[inb]] == q[inb]
         return at, found
+
+    def remove(self, slots: np.ndarray):
+        """Drop the entries at index positions `slots` (deleted rows)."""
+        keep = np.ones(len(self.keys), dtype=bool)
+        keep[slots] = False
+        self.keys = self.keys[keep]
+        self.ri, self.fi, self.pos = (self.ri[keep], self.fi[keep],
+                                      self.pos[keep])
 
     def upsert(self, kc: list, korder, at, found, ri: int, fi, pos):
         """Point every batch key (unique; `korder` sorts them) at its new
@@ -1048,6 +1207,16 @@ def _canon_array(a: np.ndarray, text, t: T.LogicalType) -> np.ndarray:
     if t.is_float:
         return np.asarray(a, dtype=np.float64)
     return np.asarray(a, dtype=np.int64)
+
+
+def _key_query_column(vals: list, t: T.LogicalType) -> np.ndarray:
+    """Canonical key values of probe tuples (one key column) in the
+    index's layout: text for VARCHAR, float64 for floats, else int64."""
+    if t.is_string:
+        return np.asarray([str(v) for v in vals], dtype=str)
+    if t.is_float:
+        return np.asarray(vals, dtype=np.float64)
+    return np.asarray(vals, dtype=np.int64)
 
 
 def _concat_canon(parts: list, t: T.LogicalType) -> np.ndarray:

@@ -21,8 +21,10 @@ What's under test, end to end with REAL worker processes:
     scope left behind (the lost worker must never wedge a query or
     corrupt the coordinator).
 
-The alert rules, the audit log and the admission/accountant bookkeeping
-the JAX tests also read are slice 8's planes: ROADMAP lists those halves.
+The observability plane sees it too: the stock heartbeat_loss alert
+fires on the dead-worker gauge and resolves after the respawn, and a
+query lost with every worker leaves no admission slot, accountant byte or
+registry entry behind and one `error` audit record.
 
 Monitor-side unit tests (no subprocesses) drive the ALIVE->DEAD->ALIVE
 round trip with a fake clock via ClusterMonitor._scan(now).
@@ -47,9 +49,18 @@ from starrocks_tpu_torch.runtime.cluster import (
 from starrocks_tpu_torch.runtime.cluster_exec import (
     ClusterRuntime, WorkerLostError,
 )
+from starrocks_tpu_torch.runtime.alerts import ALERTS
+from starrocks_tpu_torch.runtime.audit import AUDIT
 from starrocks_tpu_torch.runtime.config import config
 from starrocks_tpu_torch.runtime.events import EVENTS
+from starrocks_tpu_torch.runtime.lifecycle import ACCOUNTANT, REGISTRY
 from starrocks_tpu_torch.runtime.session import Session
+
+
+def _gauge_alert_sample(v: float) -> dict:
+    """History-ring-shaped sample for ALERTS.evaluate (gauges section)."""
+    return {"gauges": {"sr_tpu_cluster_workers_dead": float(v)}}
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -240,7 +251,7 @@ def test_cluster_query_matches_oracle(cluster):
     s, cr, oracle = cluster
     got = s.sql(_pad(SQL, 1)).rows()
     assert got == oracle
-    assert s.last_profile["cluster_workers"] == 2
+    assert s.last_profile.infos["cluster_workers"] == 2
     assert cr.stats()["fragments_total"] >= 2
 
 
@@ -303,6 +314,10 @@ def test_kill_worker_mid_fragment_retries_and_alerts(cluster):
         time.sleep(0.05)
     assert EVENTS.stats().get("heartbeat_loss", 0) > loss0
     assert WORKERS_DEAD.value >= 1
+    # the stock heartbeat_loss alert fires on the gauge
+    af0 = EVENTS.stats().get("alert_fire", 0)
+    ALERTS.evaluate(_gauge_alert_sample(WORKERS_DEAD.value))
+    assert EVENTS.stats().get("alert_fire", 0) == af0 + 1
 
 
 def test_respawn_reconnects_and_resolves(cluster):
@@ -318,6 +333,9 @@ def test_respawn_reconnects_and_resolves(cluster):
     assert WORKERS_DEAD.value == 0
     assert EVENTS.stats().get("heartbeat_reconnect", 0) == rec0 + 1
     assert "addr" in cr.monitor.registration("w0")
+    ar0 = EVENTS.stats().get("alert_resolve", 0)
+    ALERTS.evaluate(_gauge_alert_sample(0.0))
+    assert EVENTS.stats().get("alert_resolve", 0) == ar0 + 1
     s.catalog.cluster_runtime = None
     try:
         oracle = s.sql(_pad(SQL, 7)).rows()
@@ -352,8 +370,18 @@ def test_partition_blackhole_replaces_fragment(cluster):
 def test_total_worker_loss_raises_typed_error_without_leaks(cluster):
     """LAST (kills the whole fleet): retry exhaustion surfaces a typed
     WorkerLostError naming worker + fragment; no worker process and no
-    query scope is left behind, and the catalog still answers locally."""
+    query scope is left behind, the coordinator leaks NOTHING — no
+    admission slots, no accountant bytes, no registry entries — audit
+    records the statement as `error`, and the catalog still answers
+    locally."""
     s, cr, _ = cluster
+    # quiesce, then baseline the accountant with no query in flight
+    s.catalog.cluster_runtime = None
+    try:
+        s.sql(_pad(SQL, 11)).rows()
+    finally:
+        s.catalog.cluster_runtime = cr
+    base_bytes = ACCOUNTANT.snapshot()["process_bytes"]
     cr.kill_worker("w0")
     cr.kill_worker("w1")
     config.set("cluster_exec_timeout_s", 2.0)
@@ -367,6 +395,15 @@ def test_total_worker_loss_raises_typed_error_without_leaks(cluster):
     assert lifecycle.current() is None
     assert not any(w.alive_process() for w in cr.workers())
     assert cr.alive_workers() == []
+    wm = s.catalog.workgroups
+    slots = sum(wm.running.values()) if wm is not None else 0
+    assert slots == 0, f"leaked admission slots: {slots}"
+    assert len(REGISTRY.snapshot()) == 0
+    leak = ACCOUNTANT.snapshot()["process_bytes"] - base_bytes
+    assert leak == 0, f"leaked {leak} accountant bytes"
+    AUDIT.flush()
+    last = AUDIT.snapshot()[-1]
+    assert last["state"] == "error", last
     # catalog intact: a local (non-cluster) query still answers
     s.catalog.cluster_runtime = None
     assert s.sql(_pad(SQL, 13)).rows() == s.sql(_pad(SQL, 14)).rows()

@@ -13,7 +13,7 @@ port's counterpart of tests/test_dist_fragments.py.
   with its fragments in another process.
 
 The JAX package's `test_annotated_plan_passes_declared_check` needs
-analysis/plan_check (slice 8); its half that needs no verifier — one
+analysis/plan_check (slice 9); its half that needs no verifier — one
 LExchange per recorded event — is here."""
 
 import threading
@@ -134,7 +134,7 @@ def test_shuffle_agg_fragments(sess):
 
 def test_annotated_plan_declares_every_exchange(sess):
     """The annotated plan carries one explicit LExchange per recorded
-    exchange edge (the verifier half of the JAX test waits for slice 8)."""
+    exchange edge (the verifier half of the JAX test waits for slice 9)."""
     for sql in (QUERIES[10], QUERIES[18]):
         ir = _ir_of(sess, sql)
         n_ex = len({id(n) for n in walk_plan(ir.annotated)
@@ -191,11 +191,11 @@ def test_fragment_rows_byte_identical_to_monolithic(sess, qid):
 def test_fragment_stats_on_profile(sess):
     sess.sql(QUERIES[10])
     prof = sess.last_profile
-    assert prof["fragments"] >= 3
-    assert prof["exchanges"] >= 2
-    assert prof["n_shards"] == 8
-    assert prof["counters"]["exchange_rows"] > 0
-    assert prof["counters"]["exchange_bytes"] > 0
+    assert prof.infos["fragments"] >= 3
+    assert prof.infos["exchanges"] >= 2
+    assert prof.infos["n_shards"] == 8
+    assert prof.counters["exchange_rows"][0] > 0
+    assert prof.counters["exchange_bytes"][0] > 0
 
 
 def test_ir_derivation_writes_no_knob(sess, monkeypatch):

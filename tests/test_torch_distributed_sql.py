@@ -107,8 +107,8 @@ def test_distributed_topn_counter_sums_shards(sessions):
     s1, s8 = sessions
     q = "select l_orderkey from lineitem order by l_orderkey limit 7"
     assert s1.sql(q).rows() == s8.sql(q).rows()
-    c1 = s1.last_profile["counters"].get("topn_rows_pruned", 0)
-    c8 = s8.last_profile["counters"].get("topn_rows_pruned", 0)
+    c1 = s1.last_profile.counters.get("topn_rows_pruned", (0,))[0]
+    c8 = s8.last_profile.counters.get("topn_rows_pruned", (0,))[0]
     assert c1 > 0
     # per-shard pruned counts are SUMMED over the shards: a max would give
     # one shard's count (~1/8 of the single-node total)
@@ -124,7 +124,8 @@ def test_distributed_adaptive_recompile(sessions):
     r1, r8 = s1.sql(q).rows(), s8.sql(q).rows()
     assert [r[1] for r in r1] == [r[1] for r in r8]
     prof = s8.last_profile
-    assert prof["recompiles"] >= 1 and len(prof["attempts"]) >= 2
+    assert prof.counters["recompiles"][0] >= 1 and len(
+        [c for c in prof.children if c.name.startswith("attempt_")]) >= 2
 
 
 def test_colocate_join_no_shuffle(cat, thresholds):
@@ -230,7 +231,7 @@ def test_distributed_window_partition_shuffle(sessions):
     q = DIST_QUERIES["W2"]
     rows, moves = _moves(s8, q)
     _same(s1.sql(q).rows(), rows, "window-shuffle")
-    assert s8.last_profile["exchanges"] >= 1
+    assert s8.last_profile.infos["exchanges"] >= 1
 
 
 def _fuzz_session(t1, t2):
@@ -437,7 +438,7 @@ def test_dist_intermediates_free_without_the_cyclic_collector(sessions, qid):
         after = live_bytes()
     finally:
         gc.enable()
-    assert s8.last_profile["fragments"] >= 3
+    assert s8.last_profile.infos["fragments"] >= 3
     assert after - before < (1 << 18), (before, after)
 
 
@@ -459,7 +460,8 @@ def test_dist_path_takes_the_partial_cache(tmp_path):
         s8.sql("insert into t values " + ",".join(
             f"({i % 5},{float(i)})" for i in range(4000, 5000)))
         got = s8.sql(q).rows()
-        counters = s8.last_profile["counters"]
+        counters = {k: v for k, (v, _) in
+                    s8.last_profile.counters.items()}
         want = Session(s8.catalog, device="cpu").sql(q).rows()
     finally:
         s8.sql("set enable_query_cache = off")

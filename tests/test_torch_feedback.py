@@ -10,7 +10,7 @@ stale sidecar, the consult token reaches a fixpoint, `plan_feedback = off`
 answers the same rows; the store's LRU bound, observation counts and
 band-tier token moves; the recursive salted split. Rows and the feedback
 counters equal the reference's at every step. The fingerprint's cases are
-in tests/test_torch_feedback_fingerprint.py. Left to slice 8: the static
+in tests/test_torch_feedback_fingerprint.py. Left to slice 9: the static
 lint fixtures and the key-read audit.
 """
 
@@ -56,9 +56,7 @@ def _jctr(profile, name):
 
 
 def _tctr(profile, name):
-    if name == "recompiles":
-        return profile.get("recompiles", 0)
-    return profile.get("counters", {}).get(name, 0)
+    return profile.counters.get(name, (0,))[0]
 
 
 def _pair(tmp_path):
@@ -244,11 +242,11 @@ def test_hybrid_hot_key_runs_match_jax_with_feedback(tmp_path):
         assert rows_match(got, want)
         jc = {k: v for k, (v, _) in js.last_profile.counters.items()
               if k.startswith("join_")}
-        tc = {k: v for k, v in ts.last_profile["counters"].items()
+        tc = {k: v for k, (v, _) in ts.last_profile.counters.items()
               if k.startswith("join_")}
         assert tc == jc, (run, tc, jc)
         assert tc["join_skew_keys"] == 1
-    assert ts.last_profile["counters"]["feedback_hits"] == 1
+    assert ts.last_profile.counters["feedback_hits"][0] == 1
 
 
 # --- guard-band annealing ---------------------------------------------------------

@@ -70,7 +70,8 @@ def test_learned_caps_stay_with_their_own_query():
     kernels.reset_counts()
     s.sql(STAT_QUERIES["S2"])
     assert kernels.counts()["segment_sum"]["calls"] == 14
-    assert s.last_profile["attempts"][0]["capacities"]["agg_0"] == 1024
+    assert s.last_profile.find("attempt_0").infos["capacities"][
+        "agg_0"] == 1024
 
 
 def test_self_join_of_a_cte_records_no_cards():
@@ -91,6 +92,6 @@ def test_self_join_of_a_cte_records_no_cards():
     entry = next(iter(s.cache.feedback._entries.values()))
     assert entry["cards"] == {}
     second = s.sql(ALL_QUERIES["q47"])
-    assert second.profile["counters"]["feedback_hits"] == 1
+    assert second.profile.counters["feedback_hits"][0] == 1
     assert plan_tree_str(second.plan) == plan_tree_str(first.plan)
     assert second.rows() == first.rows()

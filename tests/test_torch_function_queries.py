@@ -112,6 +112,6 @@ def test_unnest_capacity_and_udf_seconds(port_session):
     """F5's unnest overflows its first capacity (4x the lineitem chunk) no
     more than the adaptive loop allows, and F10 records its host seconds."""
     port_session.sql(FUNCTION_QUERIES["F5"])
-    assert port_session.last_profile.get("recompiles", 0) <= 1
+    assert port_session.last_profile.counters["recompiles"][0] <= 1
     port_session.sql(FUNCTION_QUERIES["F10"])
-    assert port_session.last_profile["udf_s"] > 0
+    assert port_session.last_profile.counters["udf"][0] > 0

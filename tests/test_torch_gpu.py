@@ -58,7 +58,13 @@ installed:
 - distribution: Session(dist_shards=8) at SF 0.01 on the card against
   the same 8-shard Session on the CPU, with all five kernels launched;
   and the hash build of a 4096-slot table as a fresh process's first
-  launch (its shared-memory opt-in).
+  launch (its shared-memory opt-in);
+- the serving planes: a ServingTier over a card Session with four client
+  threads against the CPU's rows, a query killed after its program ran
+  returning the card's allocated memory to its value before it, and the
+  kernels' launch counts from four threads at once equal to four times
+  one thread's, and `enable_device_profile`'s per-attempt CUDA-event
+  time and peak bytes.
 """
 
 import numpy as np
@@ -522,7 +528,7 @@ def test_native_lane_with_card_resident_columns(cuda):
             assert all(d.is_cuda for d, _ in card.cache._cols.values())
             config.set("segment_strategy", "native")
             r = card.sql(text)
-            assert r.profile.get("native_fused") == "filter_sum", q
+            assert r.profile.infos.get("native_fused") == "filter_sum", q
             assert r.rows() == want == on_card, q
     finally:
         _set(AUTO_STRATEGIES)
@@ -1128,7 +1134,8 @@ def test_spill_executors_on_card_match_cpu(cuda, executor):
         card.sql(q)  # cold: the batched aggregation learns its capacity
         kernels.reset_counts()
         got = card.sql(q).table
-        node = card.last_profile[executor]
+        node = next({**c.infos, **{k: v for k, (v, _) in c.counters.items()}}
+                    for c in card.last_profile.children if c.name == executor)
         if executor == "batched":
             assert node["batches"] == 4
             assert kernels.counts()["segment_sum"]["launches"] > 0
@@ -1196,7 +1203,7 @@ def test_dist_path_on_card_matches_cpu(cuda):
             rel = 1e-4 if q in ("S1", "S2") else 1e-6
             assert tables_agree(_sorted_table(got), _sorted_table(want[q]),
                                 rel=rel), q
-            assert card.last_profile["fragments"] >= 2, q
+            assert card.last_profile.infos["fragments"] >= 2, q
     finally:
         _set(AUTO_STRATEGIES)
         D.SHARD_THRESHOLD_ROWS, D.SHUFFLE_AGG_MIN_GROUPS = old
@@ -1228,3 +1235,171 @@ def test_hash_build_of_4096_slots_first_in_a_process(cuda):
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, env=env, cwd=root)
     assert out.returncode == 0 and "ok" in out.stdout, out.stderr[-2000:]
+
+
+# --- the serving planes on the card ------------------------------------------
+
+SERVE_GPU_QUERIES = {"Q3": QUERIES[3], "Q9": QUERIES[9],
+                     "S1": STAT_QUERIES["S1"]}
+
+
+def _serve_texts():
+    from starrocks_tpu_torch.storage.tpch_queries import TOPN_QUERIES
+
+    return {**SERVE_GPU_QUERIES, "N1": TOPN_QUERIES["N1"]}
+
+
+def test_serving_tier_on_card_with_four_clients_matches_cpu(cuda):
+    """A ServingTier over a card Session at SF 0.01: four client threads
+    run Q3, Q9, S1 and N1 under the kernel strategies, each rotated, and
+    every answer equals the CPU's under `auto` (S1's f32 sums to 1e-4);
+    the kernels launched; nothing is left registered or queued."""
+    import threading
+
+    from chip_smoke import tables_agree
+    from starrocks_tpu_torch.runtime.lifecycle import REGISTRY
+    from starrocks_tpu_torch.runtime.serving import ServingTier
+
+    texts = _serve_texts()
+    cat = tpch_catalog(sf=0.01)
+    _set(AUTO_STRATEGIES)
+    cpu = Session(cat, device="cpu")
+    want = {q: cpu.sql(t).table for q, t in texts.items()}
+    _set(KERNEL_STRATEGIES)
+    tier = ServingTier(Session(cat, device=cuda), pool_size=4)
+    errors = []
+    try:
+        kernels.reset_counts()
+        names = sorted(texts)
+
+        def client(i):
+            sess = tier.new_session()
+            try:
+                for k in range(len(names)):
+                    q = names[(i + k) % len(names)]
+                    got = tier.execute(sess, texts[q]).table
+                    rel = 1e-4 if q == "S1" else 1e-6
+                    if not tables_agree(got, want[q], rel=rel):
+                        errors.append(q)
+            except Exception as e:  # noqa: BLE001 — surfaced below
+                errors.append(repr(e))
+
+        ths = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(timeout=300)
+        launched = {n: c["launches"] for n, c in kernels.counts().items()}
+    finally:
+        tier.shutdown()
+        _set(AUTO_STRATEGIES)
+    assert not errors, errors
+    for n in ("segment_sum", "probe_searchsorted", "topn_select"):
+        assert launched[n] > 0, launched
+    assert REGISTRY.snapshot() == [] and tier.pool.pending() == 0
+
+
+def test_killed_query_on_card_frees_its_device_memory(cuda):
+    """A KILL that lands after the program ran (at the fetch checkpoint,
+    its intermediates alive) unwinds with QueryCancelledError, and the
+    memory allocated on the card returns to its value before the query,
+    but for what the DeviceCache placed during it (a join's cached build
+    order) and the kernels' last-call diagnostics."""
+    import gc
+
+    from chip_smoke import _cache_bytes, _diag_bytes
+    from starrocks_tpu_torch.runtime import failpoint, lifecycle
+
+    cat = tpch_catalog(sf=0.01)
+    _set(KERNEL_STRATEGIES)
+    s = Session(cat, device=cuda)
+    q = QUERIES[9]
+    try:
+        s.sql(q)  # places the columns and learns the capacities
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated() - _diag_bytes(kernels)
+        cache_before = _cache_bytes(s.cache)
+
+        def kill_current():
+            ctx = lifecycle.current()
+            lifecycle.REGISTRY.cancel(ctx.qid, requester="root", admin=True)
+
+        killed = False
+        with failpoint.scoped("executor::fetch_results", action=kill_current):
+            try:
+                s.sql(q)
+            except lifecycle.QueryCancelledError:
+                killed = True
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated() - _diag_bytes(kernels)
+        grown = _cache_bytes(s.cache) - cache_before
+    finally:
+        _set(AUTO_STRATEGIES)
+    assert killed
+    assert after - before <= max(grown, 0), (before, after, grown)
+
+
+def test_launch_counts_under_four_threads_sum_the_single_counts(cuda):
+    """Q9 and S1 under the kernel strategies from four threads at once, on
+    four card Sessions over one catalog: every kernel's launches are four
+    times one thread's."""
+    import threading
+
+    texts = [QUERIES[9], STAT_QUERIES["S1"]]
+    cat = tpch_catalog(sf=0.01)
+    _set(KERNEL_STRATEGIES)
+    try:
+        sessions = [Session(cat, device=cuda) for _ in range(4)]
+        for s in sessions:
+            for t in texts:
+                s.sql(t)  # cold capacities learned in every session
+        kernels.reset_counts()
+        for t in texts:
+            sessions[0].sql(t)
+        one = {n: c["launches"] for n, c in kernels.counts().items()}
+        kernels.reset_counts()
+        errors = []
+
+        def run(i):
+            try:
+                for t in texts:
+                    sessions[i].sql(t)
+            except Exception as e:  # noqa: BLE001 — surfaced below
+                errors.append(repr(e))
+
+        ths = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(timeout=300)
+        four = {n: c["launches"] for n, c in kernels.counts().items()}
+    finally:
+        _set(AUTO_STRATEGIES)
+    assert not errors, errors
+    assert one["segment_sum"] > 0 and one["probe_searchsorted"] > 0
+    assert four == {n: 4 * v for n, v in one.items()}, (one, four)
+
+
+def test_device_profile_on_card(cuda):
+    """`SET enable_device_profile` on the card: each attempt of Q9 under
+    the kernel strategies carries its CUDA-event milliseconds and the peak
+    allocated bytes (at least what was allocated before it), and the rows
+    equal those with the knob off."""
+    cat = tpch_catalog(sf=0.01)
+    _set(KERNEL_STRATEGIES)
+    s = Session(cat, device=cuda)
+    try:
+        want = s.sql(QUERIES[9]).rows()
+        config.set("enable_device_profile", True)
+        got = s.sql(QUERIES[9]).rows()
+        tries = [c for c in s.last_profile.children
+                 if c.name.startswith("attempt_")]
+    finally:
+        config.set("enable_device_profile", False)
+        _set(AUTO_STRATEGIES)
+    assert got == want and tries
+    for c in tries:
+        mem = c.infos["device_memory"]
+        assert c.infos["device_time_ms"] > 0
+        assert mem["peak_allocated_bytes"] >= mem["allocated_before_bytes"] > 0

@@ -126,10 +126,10 @@ def test_native_lane_sql_matches_auto_and_jax(lane_sessions, k):
     r = ts.sql(LANE_SQL[k])
     jr = js.sql(LANE_SQL[k])
     assert r.rows() == base == want == jr.rows()
-    took = r.profile.get("native_fused") == "filter_sum"
+    took = r.profile.infos.get("native_fused") == "filter_sum"
     assert took == TAKES_LANE[k]
     if took:
-        assert r.profile["counters"]["native_fused_rows"] == 5000
+        assert r.profile.counters["native_fused_rows"][0] == 5000
         assert jr.profile.infos.get("native_fused") == "filter_sum"
     if k == 2:
         assert base == [(None,)]
@@ -163,7 +163,7 @@ def test_ssb_lane_takes_nl_and_declines_q1(ssb_sessions, q):
     jr = js.sql(text)
     assert r.rows() == base == jr.rows()
     assert base[0][0] is not None
-    took = r.profile.get("native_fused") == "filter_sum"
+    took = r.profile.infos.get("native_fused") == "filter_sum"
     assert took == q.startswith("NL")
     assert (jr.profile is not None and jr.profile.infos.get(
         "native_fused") == "filter_sum") == took

@@ -11,7 +11,7 @@ knob that misses, nondeterministic queries never cached, LRU eviction past
 partial tier's delta reuse after an append, its string-dictionary merge,
 the recompute after an upsert and after a compaction. Left to later
 slices: the distributed partial merge (slice 7), external tables and the
-static key audits (slice 8).
+static key audits (slice 9).
 """
 
 import numpy as np
@@ -64,7 +64,7 @@ def _counters(pair):
     js, ts = pair
     j = {k: v for k, (v, _) in js.last_profile.counters.items()
          if k in COUNTERS}
-    t = {k: v for k, v in ts.last_profile.get("counters", {}).items()
+    t = {k: v for k, (v, _) in ts.last_profile.counters.items()
          if k in COUNTERS}
     return j, t
 
@@ -115,7 +115,7 @@ def test_full_result_hit_identical():
     r2, c = _q(pair, AGG)
     assert c.get("qcache_hits") == 1 and r2 == r1
     # the hit path never touched the optimizer
-    assert "optimize_s" not in pair[1].last_profile
+    assert "optimize" not in pair[1].last_profile.counters
 
 
 def test_insert_drops_stale_entry():
@@ -146,7 +146,7 @@ def test_nondeterministic_never_cached(q):
     for _ in range(2):
         ts.sql(q)
         js.sql(q)
-        assert "qcache_uncacheable" in ts.last_profile
+        assert "qcache_uncacheable" in ts.last_profile.infos
         assert "qcache_uncacheable" in js.last_profile.infos
         j, t = _counters((js, ts))
         assert t == j == {}
@@ -184,7 +184,7 @@ def test_partial_tier_delta_reuse(tmp_path):
     r, c = _q(pair, AGG)
     assert c.get("qcache_partial_hits") == 2
     assert c.get("qcache_rows_saved") == 4000
-    assert pair[1].last_profile["counters"]["qcache_partial_recomputed"] \
+    assert pair[1].last_profile.counters["qcache_partial_recomputed"][0] \
         == 1
     got = {row[0]: (row[1], row[2]) for row in r}
     for k in range(5):
@@ -225,7 +225,7 @@ def test_upsert_delvec_recomputes_segment(tmp_path):
     assert r[0][1] == 200
     assert abs(r[0][0] - (sum(range(200)) - 5.0 + 500.0)) < 1e-6
     assert c.get("qcache_partial_hits") == 1
-    assert pair[1].last_profile["counters"]["qcache_partial_recomputed"] \
+    assert pair[1].last_profile.counters["qcache_partial_recomputed"][0] \
         == 2
 
 

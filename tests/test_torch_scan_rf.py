@@ -17,10 +17,7 @@ from torch_sql_scripts import (  # noqa: F401 (fixture)
 
 def _pruned(s):
     """rf_segments_pruned of the session's last query, or None."""
-    prof = s.last_profile
-    if isinstance(prof, dict):  # the port's profile
-        return prof.get("counters", {}).get("rf_segments_pruned")
-    c = prof.counters.get("rf_segments_pruned")
+    c = s.last_profile.counters.get("rf_segments_pruned")
     return None if c is None else c[0]
 
 

@@ -33,6 +33,7 @@ from starrocks_tpu_torch.runtime.config import config as tcfg
 from starrocks_tpu_torch.runtime.session import Session as TSession
 from starrocks_tpu_torch.storage.catalog import Catalog as TCatalog
 
+from torch_spill_parity import node_view
 from torch_tpch_parity import reset_knobs, rows_match
 
 JOIN_COUNTERS = ("join_skew_keys", "join_spilled_partitions",
@@ -98,7 +99,8 @@ def _both(pair, q, ordered=True, executor=None):
         got = sorted(got, key=str)
     assert rows_match(got, want), (q, got[:3], want[:3])
     if executor is not None:
-        assert executor in ts.last_profile, sorted(ts.last_profile)
+        assert node_view(ts.last_profile, executor) is not None, [
+            c.name for c in ts.last_profile.children]
     return got
 
 
@@ -133,7 +135,7 @@ def test_spill_sort_matches_jax_and_the_device_sort(sort_tables):
     for q, b in zip(SORT_QUERIES, base):
         got = _both(pair, q, executor="spill_sort")
         assert got == b  # the in-memory sort, row for row
-        node = pair[1].last_profile["spill_sort"]
+        node = node_view(pair[1].last_profile, "spill_sort")
         assert node["batches"] == 8 and node["lexsort_s"] > 0
 
 
@@ -165,7 +167,8 @@ def test_spill_window_matches_jax_and_the_device_window():
     for q, b in zip(WINDOW_QUERIES, base):
         got = _both(pair, q, ordered=False, executor="spill_window")
         assert rows_match(sorted(got, key=str), b)
-        assert pair[1].last_profile["spill_window"]["partition_groups"] == 7
+        assert node_view(pair[1].last_profile,
+                         "spill_window")["partition_groups"] == 7
 
 
 def test_spill_window_null_partition_keys_one_group():
@@ -200,7 +203,8 @@ def test_streaming_window_skewed_partition_beyond_budget():
     _knobs(batch_rows_threshold=512, spill_batch_rows=512)
     pair = _pair(tables)
     got = _both(pair, q, ordered=False, executor="spill_window")
-    assert pair[1].last_profile["spill_window"]["stream_chunks"] >= 8
+    assert node_view(pair[1].last_profile,
+                     "spill_window")["stream_chunks"] >= 8
     assert sorted(got) == base
 
 
@@ -244,7 +248,7 @@ def _hybrid(pair, q, grace_too=True):
     held to the reference's), then under `grace`; the port's rows."""
     got = _both(pair, q, executor="hybrid")
     jc = _jax_counters(pair[0])
-    tc = pair[1].last_profile["counters"]
+    tc = {k: v for k, (v, _) in pair[1].last_profile.counters.items()}
     assert {k: tc.get(k) for k in JOIN_COUNTERS} == {
         k: jc.get(k) for k in JOIN_COUNTERS}
     if grace_too:
@@ -329,7 +333,8 @@ def test_hybrid_string_keys_fall_back_dict_aligned(spill_knobs):
     })
     _both(pair, "SELECT count(*) c, sum(v) sv FROM probe, build "
                 "WHERE probe.k = build.k")
-    assert not {"hybrid", "grace"} & set(pair[1].last_profile)
+    assert not {"hybrid", "grace"} & {
+        c.name for c in pair[1].last_profile.children}
 
 
 # --- tests/test_storage.py::test_grace_join_spill -----------------------------
@@ -351,7 +356,8 @@ def test_grace_join_spill():
     assert pair[1].sql(q).rows() == r  # cached programs + adopted caps
     _knobs(join_hybrid_strategy="grace")
     assert _both(pair, q, executor="grace") == r
-    assert pair[1].last_profile["grace"]["grace_partitions"] == 7
+    assert node_view(pair[1].last_profile,
+                     "grace")["grace_partitions"] == 7
 
 
 # --- the host bucket function --------------------------------------------------

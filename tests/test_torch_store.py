@@ -454,11 +454,32 @@ def test_backup_restore(tmp_path):
 
 
 def test_point_plane_raises(tmp_path):
-    store = TabletStore(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        store.point_lookup("t", [(1,)])
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        store.delete_rows("t", [(1,)])
+    """The point plane is ported (slice 8): `point_lookup` and
+    `delete_rows` over a stored PRIMARY KEY table, after an upsert, answer
+    as the reference's store does (rows in storage order, duplicates and
+    missing keys collapsed)."""
+    script = ["create table t (k bigint, s varchar, v double, "
+              "primary key(k)) distributed by hash(k) buckets 4",
+              "insert into t values (1, 'a', 1.5), (2, 'b', 2.5), "
+              "(3, 'c', 3.5), (4, 'd', 4.5)",
+              "insert into t values (2, 'B', 20.5)"]
+    js = JSession(data_dir=str(tmp_path / "j"))
+    ts = Session(device="cpu", data_dir=str(tmp_path / "t"))
+    for st in script:
+        js.sql(st)
+        ts.sql(st)
+    keys = [(2,), (4,), (9,), (2,)]
+    for cols in (None, ["s"]):
+        assert ts.store.point_lookup("t", keys, columns=cols).to_pylist() \
+            == js.store.point_lookup("t", keys, columns=cols).to_pylist()
+    assert ts.store.delete_rows("t", [(1,), (9,)]) == \
+        js.store.delete_rows("t", [(1,), (9,)]) == 1
+    assert ts.store.point_lookup("t", [(1,)]).num_rows == 0
+    for sess in (js, ts):
+        sess.store.read_manifest("t")
+    assert TabletStore(str(tmp_path / "t")).point_lookup(
+        "t", [(3,), (2,)]).to_pylist() == JStore(str(tmp_path / "j")) \
+        .point_lookup("t", [(3,), (2,)]).to_pylist()
 
 
 # --- the vectorised primary index -------------------------------------------------------

@@ -49,7 +49,9 @@ TEXTS = {**TOPN_QUERIES, "N3_few_live": FEW_LIVE}
 
 def _reset_knobs(cfg):
     for name, _, _, mutable, _ in tcfg.items():
-        if mutable:
+        # a knob a plane module defines when it loads may not be in the
+        # other registry yet
+        if mutable and name in cfg._fields:
             cfg.set(name, cfg._fields[name].default)
 
 

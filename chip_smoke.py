@@ -74,9 +74,9 @@ allocated when it started. Phases, each of which must pass:
    profile node (batches or partitions, resident, spilled and skew keys,
    host-to-device seconds and bytes, host partition seconds, the host
    lexsort's seconds, device-to-host syncs), the join counters, the peak
-   device memory and the resident host memory, launches and shapes; one
-   traced warm run under `auto` of the queries in SPILL_TRACED, and the
-   queries in SPILL_COLD_ONLY cold only (CUTS). Rows
+   device memory and the resident host memory, launches and shapes; a
+   traced warm run under `auto` of the queries in SPILL_TRACED (none:
+   CUTS), and the queries in SPILL_COLD_ONLY cold only (CUTS). Rows
    must equal the same query's
    rows without the threshold (S1/S2/B7's f32 cells to a relative 1e-4,
    W1's unordered rows as a sorted list); SPILL_PARTS_LIVE must read 0
@@ -117,6 +117,24 @@ allocated when it started. Phases, each of which must pass:
    after them equal the twin's. A second restart must give the same
    answers; then a second 1% upsert and `compact_table('orders')` (one
    rowset, no delete vectors left), and the answers again.
+8a. ingest (loading): `orders` at --sf, every column as generated, loaded
+   three ways into one Session whose other tables are the generated
+   ones: (1) written as CSV (`storage/formats/csv.py write_csv`) and
+   loaded with `Session.load_csv` into an empty table of the same
+   schema; (2) written as a directory of INGEST_PARQUET_FILES parquet
+   files by this script's own writer (PLAIN, INGEST_ROW_GROUPS row groups
+   per file, definition levels for the nullable columns) and declared
+   with CREATE EXTERNAL TABLE (read by the port's own reader); (3) the
+   first rows held in memory and the last INGEST_STREAM_ROWS
+   stream-loaded over `PUT /api/load/orders` (format json) in
+   INGEST_BATCHES labelled micro-batches, one label repeated (a no-op);
+   then one routine-load job tails an NDJSON file of those last rows into
+   a side table. Each load's wall splits into write, parse or decode,
+   append and commit, and upload to the card; the loaded table equals the
+   generated one column for column. After each load Q3, Q5, Q18 and N3
+   under the kernel strategies and Q9 under `join_probe_strategy =
+   'pallas'` run cold and warm with `plan_verify_level = 'strict'`; every
+   answer equals the generated catalog's and no finding is reported.
 8b. dist (distribution): the earlier paths' device memory released, a
    fresh Session(dist_shards=8) over the --sf catalog (the default
    thresholds shard every table but nation and region, and the large
@@ -189,8 +207,8 @@ allocated when it started. Phases, each of which must pass:
    (TPCDS_KNOBS: q24 needs more than the default 10 at SF 1 and up).
    Counts set to 0 and peak memory reset
    before each query; each query keeps its wall, launches per kernel,
-   each kernel's shapes and its peak memory, and one traced warm run (of
-   the window queries, under either strategy set: the cut in CUTS) its
+   each kernel's shapes and its peak memory, and a traced warm run (of
+   the queries in TPCDS_TRACED, none: the cut in CUTS) its
    busy time, idle share and device time by the
    window operator's spans (`window::prefilter`, `window::sort`,
    `window::scan`, `window::frame`). Rows equal between the two: exactly, floats to 6
@@ -244,8 +262,8 @@ allocated when it started. Phases, each of which must pass:
    sums in f64.
 
 The last lines of output are the `kernels` JSON line (each kernel's
-`launches` over its first path, the functions, spill, dist, serve and
-tpcds paths) and
+`launches` over its first path, the functions, spill, ingest, dist,
+serve and tpcds paths) and
 then
 {"ok": true, "device": {...}}; the full record goes to DIR/chip_smoke.json.
 `--phases kernels` (a comma list) runs those phases only, after `device`
@@ -335,11 +353,14 @@ CARD = "cuda"  # the device every phase runs the port on
 TRACED_PATH_STRATEGIES = ()
 CUTS = ["tpch, breadth, functions and ssb: no traced warm runs (earlier "
         "traces are in PERF.md)", "breadth and functions: cold only under "
-        "the kernel strategies", "tpcds: only the 15 window queries "
-        "traced, under either strategy set",
-        "spill: traced under `auto` only Q1, Q6, S1, S2, B7 and N3 "
-        "(SPILL_TRACED)", "spill: Q4, Q12, Q14, Q19, Q12 (grace) and W1 "
+        "the kernel strategies", "tpcds: no traced runs (the window "
+        "queries' traces of earlier runs are in PERF.md), to make room for "
+        "the ingest path", "spill: no traced runs (earlier ones are in "
+        "PERF.md), to make room for the ingest path",
+        "spill: Q4, Q12, Q14, Q19, Q12 (grace) and W1 "
         "cold only (SPILL_COLD_ONLY)",
+        "ingest: the routine-load job tails a side table (the answers held "
+        "to the generated catalog leave no further batch for orders)",
         "tpcds: under `auto` the 84 non-window queries cold only",
         "store: no traced runs (earlier ones are in PERF.md)",
         "kernels: every check at every shape stays; the extra timings at "
@@ -1236,7 +1257,8 @@ def _spill_runs(texts, want, cat, out, failures):
 # aggregations and N3; the partitioned joins and W1 are host-bound (idle
 # share 0.73-0.95 when traced) and their traces repeat seconds of
 # host partitioning
-SPILL_TRACED = ("Q1", "Q6", "S1", "S2", "B7", "N3")
+# cut (CUTS); the set traced before: Q1, Q6, S1, S2, B7, N3
+SPILL_TRACED = ()
 # these run cold only: no kernel launches in their plans under either
 # strategy set, and a warm run repeats the same host partitioning
 SPILL_COLD_ONLY = ("Q4", "Q12", "Q14", "Q19", "Q12g", "W1")
@@ -1250,6 +1272,7 @@ TPCDS_SEED = 11
 # changes no answer, only how many attempts a plan may take
 TPCDS_KNOBS = {"max_recompiles": 32}
 TPCDS_GROUP = 24  # queries run cold, warm and traced together
+TPCDS_TRACED = ()  # cut (CUTS); the 15 WINDOW_QUERIES were traced before
 WINDOW_SPANS = ("window::prefilter", "window::sort", "window::scan",
                 "window::frame")
 
@@ -1309,7 +1332,7 @@ def phase_tpcds(rec, sf):
                 _run_each(s, name, group, queries, launches, tables, kernels,
                           cold_only)
                 traced = {q: t for q, t in group.items()
-                          if q in WINDOW_QUERIES}
+                          if q in TPCDS_TRACED}
                 if traced:
                     trace.update(trace_queries(s, traced, WINDOW_SPANS))
             peak = max(r["peak_mem_gb"] for q in queries.values()
@@ -1766,6 +1789,511 @@ def phase_store(rec, cat, sf):
         torch.cuda.empty_cache()
     if failures:
         raise PhaseError(f"store: {failures}")
+
+
+# --- the ingest path (phase 8a) ---------------------------------------------
+
+INGEST_PARQUET_FILES = 8   # the external table's directory
+INGEST_ROW_GROUPS = 2      # per parquet file
+INGEST_STREAM_ROWS = 200_000
+INGEST_BATCHES = 20        # PUT /api/load micro-batches of those rows
+INGEST_REPEAT = 7          # the batch whose label is sent a second time
+# (label, knobs, query): each load's queries, under plan_verify_level strict
+INGEST_RUNS = [("kernels", {}, "3"), ("kernels", {}, "5"),
+               ("kernels", {}, "18"), ("kernels", {}, "N3"),
+               ("hash", {"join_probe_strategy": "pallas"}, "9")]
+
+
+class _ThriftOut:
+    """Writer of the Thrift compact protocol (the parquet footer and page
+    headers of _write_parquet)."""
+
+    def __init__(self):
+        self.b = bytearray()
+        self.last = [0]
+
+    def _varint(self, v: int):
+        while True:
+            if v < 0x80:
+                self.b.append(v)
+                return
+            self.b.append((v & 0x7F) | 0x80)
+            v >>= 7
+
+    def _field(self, fid: int, t: int):
+        d = fid - self.last[-1]
+        if 0 < d <= 15:
+            self.b.append((d << 4) | t)
+        else:
+            self.b.append(t)
+            self._varint((fid << 1) ^ (fid >> 63))
+        self.last[-1] = fid
+
+    def int(self, fid: int, v: int, t: int = 5):  # t 5 = i32, 6 = i64
+        self._field(fid, t)
+        self._varint((v << 1) ^ (v >> 63))
+
+    def binary(self, fid: int, v: bytes):
+        self._field(fid, 8)
+        self._varint(len(v))
+        self.b += v
+
+    def begin(self, fid: int):
+        self._field(fid, 12)
+        self.last.append(0)
+
+    def end(self):
+        self.b.append(0)
+        self.last.pop()
+
+    def list(self, fid: int, etype: int, n: int):
+        self._field(fid, 9)
+        if n < 15:
+            self.b.append((n << 4) | etype)
+        else:
+            self.b.append(0xF0 | etype)
+            self._varint(n)
+
+    def elem_begin(self):
+        self.last.append(0)
+
+
+def _parquet_plain(ht, name, lo, hi) -> tuple:
+    """(PLAIN bytes, physical type, schema extras) of rows [lo, hi) of one
+    column: BIGINT/DECIMAL(<=18) INT64, INT/DATE INT32, DOUBLE, strings as
+    4-byte lengths and bytes (gathered per row from the dictionary's
+    prefixed entries)."""
+    import numpy as np
+
+    from starrocks_tpu_torch import types as T
+
+    f = ht.schema.field(name)
+    a = ht.arrays[name][lo:hi]
+    t = f.type
+    if t.is_string:
+        vals = [v.encode() for v in f.dict.values]
+        ent = b"".join(struct.pack("<I", len(v)) + v for v in vals)
+        elen = np.array([4 + len(v) for v in vals], dtype=np.int64)
+        eoff = np.concatenate([[0], np.cumsum(elen)[:-1]])
+        ebuf = np.frombuffer(ent, dtype=np.uint8)
+        lens = elen[a]
+        starts = np.cumsum(lens) - lens
+        idx = np.repeat(eoff[a] - starts, lens) + np.arange(int(lens.sum()))
+        return ebuf[idx].tobytes(), 6, {6: 0}  # BYTE_ARRAY, UTF8
+    if t.is_decimal:
+        return (a.astype("<i8").tobytes(), 2,
+                {6: 5, 7: t.scale, 8: t.precision})  # INT64, DECIMAL
+    if t.kind is T.TypeKind.DATE:
+        return a.astype("<i4").tobytes(), 1, {6: 6}  # INT32, DATE
+    if t.is_float:
+        return a.astype("<f8").tobytes(), 5, {}
+    if t.kind is T.TypeKind.BIGINT:
+        return a.astype("<i8").tobytes(), 2, {}
+    return a.astype("<i4").tobytes(), 1, {}
+
+
+def _write_parquet(ht, path: str, lo: int, hi: int, groups: int) -> int:
+    """Rows [lo, hi) of a HostTable (no NULLs) as one parquet file: PLAIN
+    data pages v1, uncompressed, `groups` row groups, every column
+    OPTIONAL with its definition levels (one RLE run of 1s). Returns the
+    file's bytes."""
+    names = [f.name for f in ht.schema]
+    bounds = [lo + (hi - lo) * g // groups for g in range(groups + 1)]
+    with open(path, "wb") as fh:
+        fh.write(b"PAR1")
+        pos = 4
+        rgs, meta = [], {}
+        for g in range(groups):
+            r0, r1 = bounds[g], bounds[g + 1]
+            n = r1 - r0
+            chunks = []
+            for name in names:
+                data, phys, extra = _parquet_plain(ht, name, r0, r1)
+                meta[name] = (phys, extra)
+                lv = _ThriftOut()
+                lv._varint(n << 1)  # one RLE run of n definition levels 1
+                levels = bytes(lv.b) + b"\x01"
+                body = struct.pack("<I", len(levels)) + levels + data
+                ph = _ThriftOut()
+                ph.int(1, 0)                 # DATA_PAGE
+                ph.int(2, len(body))
+                ph.int(3, len(body))
+                ph.begin(5)                  # DataPageHeader
+                ph.int(1, n)
+                ph.int(2, 0)                 # PLAIN
+                ph.int(3, 3)                 # RLE levels
+                ph.int(4, 3)
+                ph.end()
+                ph.b.append(0)
+                page = bytes(ph.b) + body
+                fh.write(page)
+                chunks.append((name, phys, pos, len(page), n))
+                pos += len(page)
+            rgs.append((chunks, n))
+        fm = _ThriftOut()
+        fm.int(1, 1)
+        fm.list(2, 12, len(names) + 1)
+        fm.elem_begin()
+        fm.binary(4, b"schema")
+        fm.int(5, len(names))
+        fm.end()
+        for name in names:
+            phys, extra = meta[name]
+            fm.elem_begin()
+            fm.int(1, phys)
+            fm.int(3, 1)                     # OPTIONAL
+            fm.binary(4, name.encode())
+            for fid in sorted(extra):
+                fm.int(fid, extra[fid])
+            fm.end()
+        fm.int(3, hi - lo, 6)
+        fm.list(4, 12, len(rgs))
+        for chunks, n in rgs:
+            fm.elem_begin()
+            fm.list(1, 12, len(chunks))
+            for name, phys, off, size, nv in chunks:
+                fm.elem_begin()
+                fm.int(2, off, 6)
+                fm.begin(3)                  # ColumnMetaData
+                fm.int(1, phys)
+                fm.list(2, 5, 2)
+                fm._varint((0 << 1) ^ 0)     # PLAIN
+                fm._varint((3 << 1) ^ 0)     # RLE
+                fm.list(3, 8, 1)
+                fm._varint(len(name))
+                fm.b += name.encode()
+                fm.int(4, 0)                 # UNCOMPRESSED
+                fm.int(5, nv, 6)
+                fm.int(6, size, 6)
+                fm.int(7, size, 6)
+                fm.int(9, off, 6)
+                fm.end()
+                fm.end()
+            fm.int(2, sum(c[3] for c in chunks), 6)
+            fm.int(3, n, 6)
+            fm.end()
+        fm.b.append(0)
+        footer = bytes(fm.b)
+        fh.write(footer + struct.pack("<I", len(footer)) + b"PAR1")
+        return pos + len(footer) + 8
+
+
+def _rows_head(ht, n: int):
+    """The first n rows of a HostTable (views of its arrays)."""
+    from starrocks_tpu_torch.column import HostTable
+
+    return HostTable(ht.schema, {k: v[:n] for k, v in ht.arrays.items()},
+                     {k: v[:n] for k, v in ht.valids.items()})
+
+
+def _json_rows(ht, lo: int, hi: int) -> list:
+    """Rows [lo, hi) as JSON-able dicts: strings decoded, dates as
+    'YYYY-MM-DD', decimals as their float values (the stream load's JSON
+    body)."""
+    import numpy as np
+
+    cols = {}
+    for f in ht.schema:
+        a = ht.arrays[f.name][lo:hi]
+        t = f.type
+        if t.is_string:
+            cols[f.name] = f.dict.values[a].tolist()
+        elif t.is_decimal:
+            cols[f.name] = (a / 10 ** t.scale).tolist()
+        elif repr(t) == "DATE":
+            cols[f.name] = np.datetime_as_string(
+                a.astype("datetime64[D]")).tolist()
+        else:
+            cols[f.name] = a.tolist()
+    names = list(cols)
+    return [dict(zip(names, r)) for r in zip(*cols.values())]
+
+
+def _same_table(got, want) -> list:
+    """The columns where two HostTables differ (names, types, NULLs, and
+    every value; strings by their decoded values)."""
+    import numpy as np
+
+    bad = []
+    if [f.name for f in got.schema] != [f.name for f in want.schema]:
+        return ["<columns>"]
+    for fg, fw in zip(got.schema, want.schema):
+        a, b = got.arrays[fg.name], want.arrays[fw.name]
+        va, vb = got.valids.get(fg.name), want.valids.get(fw.name)
+        ok = (repr(fg.type) == repr(fw.type) and len(a) == len(b)
+              and (va is None or bool(np.all(va)))
+              and (vb is None or bool(np.all(vb))))
+        if ok and fg.type.is_string:
+            dg, dw = list(fg.dict.values), list(fw.dict.values)
+            ok = (dg == dw and bool(np.array_equal(a, b))) or bool(
+                np.array_equal(fg.dict.values[a], fw.dict.values[b]))
+        elif ok:
+            ok = bool(np.array_equal(a, b))
+        if not ok:
+            bad.append(fg.name)
+    return bad
+
+
+def _upload_s(s, name: str) -> float:
+    """Seconds to copy every column of a table to the card (the device
+    cache keeps them for the queries that follow)."""
+    import torch
+
+    h = s.catalog.get_table(name)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    s.cache.chunk_for(h, name, tuple(h.schema.names))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def _ingest_queries(s, load, texts, want, out, launches, failures, kernels):
+    """Each INGEST_RUNS query cold and warm over the loaded orders under
+    plan_verify_level strict: rows equal to the generated catalog's."""
+    from starrocks_tpu_torch import analysis
+
+    n0 = analysis.findings_total()
+    tables: dict = {}
+    sub: dict = {}
+    try:
+        for label, knobs, q in INGEST_RUNS:
+            set_knobs({**strategies("kernels"), **knobs,
+                       "plan_verify_level": "strict"})
+            _run_each(s, label, {q: texts[q]}, sub, launches, tables,
+                      kernels)
+            for run in ("cold", "warm"):
+                if not tables_agree(tables[(label, q, run)],
+                                    want[(label, q)],
+                                    STAT_REL if q.startswith("S") else 1e-6):
+                    failures.append(f"ingest {load}: {qname(q)}@{label} "
+                                    f"{run} rows differ from the generated")
+    finally:
+        set_knobs({**strategies("auto"), "join_probe_strategy": "auto",
+                   "plan_verify_level": "off"})
+    found = analysis.findings_total() - n0
+    if found:
+        failures.append(f"ingest {load}: {found} plan findings")
+    out["queries"] = {f"{qname(q)}@{label}": sub[q]
+                      for label, _, q in INGEST_RUNS}
+    out["findings"] = found
+
+
+def phase_ingest(rec, cat, sf):
+    """The ingest path (see the module docstring, phase 8a)."""
+    import gc
+    import http.client
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from starrocks_tpu_torch.ops import kernels
+    from starrocks_tpu_torch.runtime.config import config
+    from starrocks_tpu_torch.runtime.http_service import SqlHttpServer
+    from starrocks_tpu_torch.runtime.session import Session
+    from starrocks_tpu_torch.storage import formats
+    from starrocks_tpu_torch.storage.catalog import Catalog
+    from starrocks_tpu_torch.storage.formats.csv import write_csv
+
+    texts = {**query_texts(), **topn_texts()}
+    orders = cat.get_table("orders").table
+    n = orders.num_rows
+    out = {"sf": sf, "rows": n, "files": INGEST_PARQUET_FILES,
+           "row_groups": INGEST_ROW_GROUPS, "batches": INGEST_BATCHES,
+           "stream_rows": INGEST_STREAM_ROWS}
+    rec["ingest"] = out
+    launches = dict.fromkeys(kernels.WRAPPERS, 0)
+    failures = []
+    root = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
+    ddl = "CREATE TABLE orders (" + ", ".join(
+        f"{f.name} {f.type!r}" for f in orders.schema) + ")"
+    # one Session over the generated tables: orders is replaced per load
+    ic = Catalog()
+    for name, h in cat.tables.items():
+        ic.register(name, h.table, h.unique_keys, h.distribution)
+    s = Session(ic, device=CARD)
+    srv = None
+    try:
+        # the reference rows: the generated catalog's
+        want, ref = {}, {}
+        try:
+            for label, knobs, q in INGEST_RUNS:
+                set_knobs({**strategies("kernels"), **knobs})
+                ref[(label, q)] = s.sql(texts[q]).table
+        finally:
+            set_knobs({**strategies("auto"), "join_probe_strategy": "auto"})
+        want.update(ref)
+
+        # 1. CSV through load_csv
+        csv_out = {}
+        path = os.path.join(root, "orders.csv")
+        t = time.perf_counter()
+        csv_out["bytes"] = write_csv(orders, path)
+        csv_out["write_s"] = time.perf_counter() - t
+        s.sql("DROP TABLE orders")
+        s.sql(ddl)
+        box = {}
+        real = formats.csv.read_csv
+
+        def timed_read(*a, **k):
+            t0 = time.perf_counter()
+            r = real(*a, **k)
+            box["parse_s"] = time.perf_counter() - t0
+            return r
+
+        formats.csv.read_csv = timed_read
+        try:
+            t = time.perf_counter()
+            got = s.load_csv("orders", path)
+            total = time.perf_counter() - t
+        finally:
+            formats.csv.read_csv = real
+        os.remove(path)
+        csv_out["parse_s"] = box["parse_s"]
+        csv_out["append_s"] = total - box["parse_s"]
+        csv_out["upload_s"] = _upload_s(s, "orders")
+        bad = _same_table(s.catalog.get_table("orders").table, orders)
+        if got != n or bad:
+            failures.append(f"ingest csv: {got} rows, columns differ {bad}")
+        log(f"  ingest csv: {got} rows, write {csv_out['write_s']:.2f} s "
+            f"({csv_out['bytes'] / 1e9:.2f} GB), parse "
+            f"{csv_out['parse_s']:.2f} s, append {csv_out['append_s']:.2f} "
+            f"s, upload {csv_out['upload_s']:.2f} s")
+        _ingest_queries(s, "csv", texts, want, csv_out, launches, failures,
+                        kernels)
+        out["csv"] = csv_out
+
+        # 2. parquet files as an external table
+        pq_out = {}
+        d = os.path.join(root, "orders_parquet")
+        os.makedirs(d)
+        t = time.perf_counter()
+        size = 0
+        for i in range(INGEST_PARQUET_FILES):
+            lo = n * i // INGEST_PARQUET_FILES
+            hi = n * (i + 1) // INGEST_PARQUET_FILES
+            size += _write_parquet(orders, os.path.join(
+                d, f"part-{i:03d}.parquet"), lo, hi, INGEST_ROW_GROUPS)
+        pq_out["write_s"] = time.perf_counter() - t
+        pq_out["bytes"] = size
+        s.sql("DROP TABLE orders")
+        s.sql(f"CREATE EXTERNAL TABLE orders FROM '{d}'")
+        h = s.catalog.get_table("orders")
+        pq_out["footer_rows"] = h.row_count  # footers only
+        t = time.perf_counter()
+        loaded = h.table
+        pq_out["decode_s"] = time.perf_counter() - t
+        pq_out["append_s"] = 0.0  # the files are the table
+        pq_out["upload_s"] = _upload_s(s, "orders")
+        bad = _same_table(loaded, orders)
+        if pq_out["footer_rows"] != n or bad:
+            failures.append(f"ingest parquet: {pq_out['footer_rows']} rows "
+                            f"by the footers, columns differ {bad}")
+        log(f"  ingest parquet: {INGEST_PARQUET_FILES} files "
+            f"({size / 1e9:.2f} GB) written in {pq_out['write_s']:.2f} s, "
+            f"decode {pq_out['decode_s']:.2f} s, upload "
+            f"{pq_out['upload_s']:.2f} s")
+        _ingest_queries(s, "parquet", texts, want, pq_out, launches,
+                        failures, kernels)
+        out["parquet"] = pq_out
+        shutil.rmtree(d)
+
+        # 3. stream load over PUT /api/load/orders, then a routine load
+        st_out = {}
+        head = n - INGEST_STREAM_ROWS
+        s.sql("DROP TABLE orders")
+        s.catalog.register("orders", _rows_head(orders, head))
+        srv = SqlHttpServer(s, port=0).start()
+        plane = s.ingest_plane()
+        per = INGEST_STREAM_ROWS // INGEST_BATCHES
+        write_s = put_s = commit_ms = 0.0
+        receipts = []
+        for b in range(INGEST_BATCHES + 1):
+            i = b if b < INGEST_BATCHES else INGEST_REPEAT
+            t = time.perf_counter()
+            body = json.dumps(_json_rows(orders, head + i * per,
+                                         head + (i + 1) * per)).encode()
+            write_s += time.perf_counter() - t
+            c = http.client.HTTPConnection("127.0.0.1", srv.port,
+                                           timeout=300)
+            try:
+                t = time.perf_counter()
+                c.request("PUT", f"/api/load/orders?format=json&label=b{i}",
+                          body)
+                r = c.getresponse()
+                doc = json.loads(r.read())
+                put_s += time.perf_counter() - t
+            finally:
+                c.close()
+            if r.status != 200:
+                failures.append(f"ingest stream batch {i}: {r.status} {doc}")
+                break
+            receipts.append(doc)
+            if b < INGEST_BATCHES:
+                commit_ms += float(doc.get("commit_ms", 0.0))
+        replay = receipts[-1] if len(receipts) > INGEST_BATCHES else {}
+        if not replay.get("replayed"):
+            failures.append(f"ingest stream: the repeated label was not a "
+                            f"no-op: {replay}")
+        st_out.update(write_s=write_s, put_s=put_s,
+                      append_s=commit_ms / 1000.0,
+                      parse_s=put_s - commit_ms / 1000.0,
+                      commits=plane.stats()["commits"])
+        st_out["upload_s"] = _upload_s(s, "orders")
+        bad = _same_table(s.catalog.get_table("orders").table, orders)
+        if bad:
+            failures.append(f"ingest stream: columns differ {bad}")
+        log(f"  ingest stream: {INGEST_BATCHES} batches of {per} rows over "
+            f"PUT in {put_s:.2f} s (bodies {write_s:.2f} s, commits "
+            f"{commit_ms / 1e3:.2f} s), label b{INGEST_REPEAT} replayed, "
+            f"upload {st_out['upload_s']:.2f} s")
+        _ingest_queries(s, "stream", texts, want, st_out, launches,
+                        failures, kernels)
+        # the routine-load job: the same last rows as NDJSON, into a side
+        # table, one driven tick (the poll thread's interval is an hour)
+        feed = os.path.join(root, "feed.ndjson")
+        with open(feed, "w") as fh:
+            for r in _json_rows(orders, head, n):
+                fh.write(json.dumps(r) + "\n")
+        s.sql(ddl.replace("CREATE TABLE orders", "CREATE TABLE orders_feed"))
+        config.set("ingest_poll_interval_s", 3600.0)
+        spec = json.dumps({"table": "orders_feed", "path": feed,
+                           "format": "json"})
+        t = time.perf_counter()
+        s.sql(f"ADMIN SET ingest_job 'feed' = '{spec}'")
+        plane.poller.poll_once()
+        st_out["routine_s"] = time.perf_counter() - t
+        res = s.sql("select count(*), sum(o_totalprice), min(o_orderkey), "
+                    "max(o_orderkey) from orders_feed").table
+        got_feed = [_exact(res, c) for c in range(4)]
+        keys = orders.arrays["o_orderkey"][head:]
+        want_feed = [INGEST_STREAM_ROWS,
+                     int(orders.arrays["o_totalprice"][head:].sum()),
+                     int(keys.min()), int(keys.max())]
+        s.sql("ADMIN SET ingest_job 'feed' = 'drop'")
+        st_out["routine_rows"] = got_feed[0]
+        if got_feed != want_feed:
+            failures.append(f"ingest routine load: {got_feed} != {want_feed}")
+        log(f"  ingest routine load: {got_feed[0]} rows in "
+            f"{st_out['routine_s']:.2f} s")
+        out["stream"] = st_out
+    finally:
+        config.set("ingest_poll_interval_s", 0.5)
+        if srv is not None:
+            srv.stop()
+        shutil.rmtree(root, ignore_errors=True)
+        del s
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    log(f"  ingest launches {launches}")
+    for k in ("probe_searchsorted", "hash_build", "hash_probe",
+              "topn_select"):
+        if launches[k] < 1:
+            failures.append(f"ingest: {k} was not launched")
+    if failures:
+        raise PhaseError("; ".join(failures))
 
 
 DIST_SHARDS = 8
@@ -2904,7 +3432,7 @@ def phase_serve(rec, cat, sf, seed):
             failures.append(f"GET /api/query/{last}/profile: {st}")
         st, body = _http_get(ht.port, "/api/ingest")
         http_status["/api/ingest"] = st
-        if st != 501 or b"slice 9" not in body:
+        if st != 200 or b'"ingest"' not in body:
             failures.append(f"GET /api/ingest: {st} {body[:80]!r}")
         life["http"] = http_status
         metrics_text = _http_get(ht.port, "/metrics")[1].decode()
@@ -4289,6 +4817,7 @@ def main(argv=None) -> int:
         ("spill", lambda: phase_spill(rec, data["cat"], args.sf)),
         ("ssb", lambda: phase_ssb(rec, args.ssb_sf, args.seed)),
         ("store", lambda: phase_store(rec, data["cat"], args.sf)),
+        ("ingest", lambda: phase_ingest(rec, data["cat"], args.sf)),
         ("dist", lambda: phase_dist(rec, data["cat"], args.sf)),
         ("serve", lambda: run_serve_child(
             rec, serve or start_serve_child(args))),
@@ -4301,7 +4830,7 @@ def main(argv=None) -> int:
     if args.phases:
         wanted = {"device", "build", *args.phases.split(",")}
         if wanted & {"tpch", "hash_topn", "topn", "breadth", "functions",
-                     "spill", "store", "dist"}:
+                     "spill", "store", "ingest", "dist"}:
             wanted.add("generate")
         unknown = wanted - {name for name, _ in phases}
         if unknown:
@@ -4333,6 +4862,7 @@ def main(argv=None) -> int:
             + rec["tpcds"]["launches"][name]
             + rec["functions"]["launches"][name]
             + rec["spill"]["launches"][name]
+            + rec["ingest"]["launches"][name]
             + rec["dist"]["launches"][name]
             + rec["serve"]["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],

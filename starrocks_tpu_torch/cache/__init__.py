@@ -30,9 +30,10 @@ memory-budgeted host LRU (`SET enable_query_cache = on`,
   fresh partials through the FINAL re-aggregation path.
 
 Invalidation is hook-driven (storage/store.py mutation listeners +
-storage/catalog.py data epochs). A port of the JAX package's cache/: the
-static key-completeness audit of a cached execution's knob reads
-(analysis/key_check.py) is slice 9's, with the other static passes.
+storage/catalog.py data epochs) and key-verified: analysis/key_check.py's
+`check_cache_reads` audits the knob reads of every execution whose result
+enters the cache (Executor._verify_cache_reads). A port of the JAX
+package's cache/.
 """
 
 from .query_cache import QueryCache  # noqa: F401

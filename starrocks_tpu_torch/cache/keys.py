@@ -9,21 +9,19 @@ against the catalog's data epochs + storage content tokens
 session DML or direct TabletStore calls — misses instead of serving stale
 bytes.
 
-A port of the JAX package's cache/keys.py. OPT_KEY_KNOBS is the port's own
-copy of the reference's `analysis/key_check.OPT_KEY_KNOBS` (the static
-key-completeness checks are slice 9's).
+A port of the JAX package's cache/keys.py. OPT_KEY_KNOBS is shared with
+the optimized-plan cache and with `analysis/key_check.py`, whose
+`check_cache_reads` audits the knob read-set of every execution whose
+result gets cached (Executor._verify_cache_reads: strict mode fails on an
+escapee, warn mode declines to cache).
 """
 
 from __future__ import annotations
 
 import os
 
+from ..analysis.key_check import OPT_KEY_KNOBS  # noqa: F401 (re-export)
 from ..runtime.config import config
-
-# plan-shaping optimizer knobs: the optimized-plan cache, the full-result
-# cache and the plan-feedback fingerprint all key on their values (a copy
-# of the reference's analysis/key_check.OPT_KEY_KNOBS)
-OPT_KEY_KNOBS = ("enable_window_topn", "enable_mv_rewrite", "plan_feedback")
 
 
 def full_result_key(plan) -> tuple:

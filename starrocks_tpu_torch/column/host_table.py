@@ -57,6 +57,7 @@ class HostTable:
         """
         types = types or {}
         fields, arrays, valids = [], {}, {}
+        # lint: checkpoint-exempt — host columns only (a string column's codes.tolist() is numpy's); column/ sits below the lifecycle layer
         for name, values in data.items():
             if (
                 isinstance(values, tuple)
@@ -145,6 +146,7 @@ class HostTable:
         sel = chunk.sel_mask()
         idx = torch.nonzero(sel, as_tuple=True)[0]
         arrays, valids = {}, {}
+        # lint: checkpoint-exempt — one copy per column of a finished result; the executor polls at executor::fetch_results just before, and column/ sits below the lifecycle layer
         for i, f in enumerate(chunk.schema.fields):
             arrays[f.name] = chunk.data[i][idx].cpu().numpy()
             if chunk.valid[i] is not None:

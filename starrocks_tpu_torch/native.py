@@ -1,6 +1,6 @@
 """ctypes bridge to the port's host C++ code (csrc/host/).
 
-Two host libraries, each built with the host C++ compiler (`CXX`, default
+The host libraries, each built with the host C++ compiler (`CXX`, default
 `c++`) at first use into `_build/` next to this package and loaded with
 ctypes. Unlike the JAX package's loader, a failed build raises: nothing
 falls back quietly.
@@ -15,6 +15,14 @@ falls back quietly.
   of rows by bucket (`bucket_order`). `hash_partition_i64_np` is the
   bucketing's plain numpy version, the reference's fallback, held to it
   bit for bit.
+- `csv_parse.cpp`: `Session.load_csv`'s parser (`parse_csv`: the
+  reference's unquoted lane, copied, and the port's RFC 4180 lane for
+  quoted files), the loaders' bulk string dictionaries (`dict_encode`,
+  `strings_at`) and the CSV writer of the tests and chip_smoke.py
+  (`format_csv`);
+- `file_formats.cpp`: the hot loops of the parquet and ORC readers
+  (storage/formats/): snappy, the RLE/bit-packed hybrid, ORC's run-length
+  encodings and the split of length-prefixed byte arrays.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ from . import lockdep
 _PKG = Path(__file__).resolve().parent
 HOST_DIR = _PKG / "csrc" / "host"
 SOURCE = HOST_DIR / "fused_filter_sum.cpp"
-LIBS = ("fused_filter_sum", "hash_partition")
+LIBS = ("fused_filter_sum", "hash_partition", "csv_parse", "file_formats")
 BUILD_DIR = _PKG / "_build"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
@@ -71,30 +79,72 @@ def build_all() -> list:
     return [build(name) for name in LIBS]
 
 
+def _sig_fused_filter_sum(lib):
+    p64 = ctypes.POINTER(ctypes.c_int64)
+    lib.sr_fused_filter_sum_i64_mt.argtypes = [
+        ctypes.POINTER(p64), ctypes.POINTER(ctypes.c_int32), p64,
+        ctypes.c_int32, p64, p64, ctypes.c_int64, p64, p64, ctypes.c_int32,
+    ]
+    lib.sr_fused_filter_sum_i64_mt.restype = None
+
+
+def _sig_hash_partition(lib):
+    p64 = ctypes.POINTER(ctypes.c_int64)
+    p32 = ctypes.POINTER(ctypes.c_int32)
+    lib.sr_hash_partition_i64_mt.argtypes = [
+        p64, ctypes.c_int64, ctypes.c_int32, p32, ctypes.c_int32,
+    ]
+    lib.sr_hash_partition_i64_mt.restype = None
+    lib.sr_bucket_order_i32_mt.argtypes = [
+        p32, ctypes.c_int64, ctypes.c_int32, p64, p64, ctypes.c_int32,
+    ]
+    lib.sr_bucket_order_i32_mt.restype = None
+
+
+def _sig_csv_parse(lib):
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+    lib.sr_csv_count_rows.argtypes = [vp, i64]
+    lib.sr_csv_count_rows.restype = i64
+    lib.sr_csv_parse.argtypes = [vp, i64, ctypes.c_char, i32, vp, vp, vp, i64]
+    lib.sr_csv_parse.restype = i64
+    lib.sr_csv_parse_quoted.argtypes = [vp, i64, ctypes.c_char, i32, vp, vp,
+                                        vp, i64, vp]
+    lib.sr_csv_parse_quoted.restype = i64
+    lib.sr_dict_encode.argtypes = [vp, vp, i64, vp, vp, i32]
+    lib.sr_dict_encode.restype = i64
+    lib.sr_gather_fixed.argtypes = [vp, vp, vp, i64, i64, vp]
+    lib.sr_gather_fixed.restype = None
+    lib.sr_csv_format.argtypes = [i32, vp, vp, vp, vp, vp, vp, i64, i64,
+                                  ctypes.c_char, vp, i64]
+    lib.sr_csv_format.restype = i64
+
+
+def _sig_file_formats(lib):
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+    lib.sr_snappy_decompress.argtypes = [vp, i64, vp, i64]
+    lib.sr_snappy_decompress.restype = i64
+    lib.sr_rle_bp_decode.argtypes = [vp, i64, i32, i64, vp]
+    lib.sr_rle_bp_decode.restype = i64
+    lib.sr_byte_array_offsets.argtypes = [vp, i64, i64, i64, vp]
+    lib.sr_byte_array_offsets.restype = i64
+    lib.sr_orc_rle_v2.argtypes = [vp, i64, i32, i64, vp]
+    lib.sr_orc_rle_v2.restype = i64
+    lib.sr_orc_byte_rle.argtypes = [vp, i64, i64, vp]
+    lib.sr_orc_byte_rle.restype = i64
+
+
+_SIGNATURES = {"fused_filter_sum": _sig_fused_filter_sum,
+               "hash_partition": _sig_hash_partition,
+               "csv_parse": _sig_csv_parse,
+               "file_formats": _sig_file_formats}
+
+
 def _load(name: str = "fused_filter_sum"):
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build(name)))
-            p64 = ctypes.POINTER(ctypes.c_int64)
-            if name == "fused_filter_sum":
-                lib.sr_fused_filter_sum_i64_mt.argtypes = [
-                    ctypes.POINTER(p64), ctypes.POINTER(ctypes.c_int32), p64,
-                    ctypes.c_int32, p64, p64, ctypes.c_int64, p64, p64,
-                    ctypes.c_int32,
-                ]
-                lib.sr_fused_filter_sum_i64_mt.restype = None
-            else:
-                p32 = ctypes.POINTER(ctypes.c_int32)
-                lib.sr_hash_partition_i64_mt.argtypes = [
-                    p64, ctypes.c_int64, ctypes.c_int32, p32, ctypes.c_int32,
-                ]
-                lib.sr_hash_partition_i64_mt.restype = None
-                lib.sr_bucket_order_i32_mt.argtypes = [
-                    p32, ctypes.c_int64, ctypes.c_int32, p64, p64,
-                    ctypes.c_int32,
-                ]
-                lib.sr_bucket_order_i32_mt.restype = None
+            _SIGNATURES[name](lib)
             _libs[name] = lib
         return lib
 
@@ -172,3 +222,231 @@ def fused_filter_sum_i64(pred_cols, pred_ops, pred_vals, a, b=None):
         min(os.cpu_count() or 1, 8),
     )
     return int(out_sum.value), int(out_cnt.value)
+
+
+# --- CSV (csv_parse.cpp) ------------------------------------------------------
+
+# column type tags shared with the C side: the reference's four, then the
+# quoted lane's boolean and datetime
+CSV_INT64, CSV_FLOAT64, CSV_DATE, CSV_STRING = 0, 1, 2, 3
+CSV_BOOL, CSV_DATETIME = 4, 5
+_NTHREADS = min(os.cpu_count() or 1, 8)
+
+
+def _ptr(a) -> int:
+    return a.ctypes.data
+
+
+def _csv_buffers(types, n):
+    bufs, masks = [], []
+    for t in types:
+        if t == CSV_STRING:
+            bufs.append(np.empty(n * 2, dtype=np.int64))
+        elif t == CSV_FLOAT64:
+            bufs.append(np.empty(n, dtype=np.float64))
+        else:
+            bufs.append(np.empty(n, dtype=np.int64))
+        masks.append(np.empty(n, dtype=np.uint8))
+    ptrs = (ctypes.c_void_p * len(types))(*[_ptr(b) for b in bufs])
+    mptrs = (ctypes.c_void_p * len(types))(*[_ptr(m) for m in masks])
+    return bufs, masks, ptrs, mptrs
+
+
+def parse_csv(data, types: list, delim: str = ",", quoted: bool = False):
+    """Parse CSV bytes into typed numpy columns: (columns, valid masks,
+    rows), or None when the file does not fit the lane (the caller tries
+    the next lane or raises).
+
+    `quoted=False` is the reference's lane (native/sr_native.cpp, copied:
+    no quoting, an empty field is NULL); `quoted=True` the port's RFC 4180
+    lane with pyarrow's NULL rules (csv_parse.cpp). A string column comes
+    back as (buffer, offsets): the bytes the offsets index (the quoted lane
+    unescapes in a copy) and (start, end) int64 pairs, one per row, for
+    `dict_encode`."""
+    lib = _load("csv_parse")
+    buf = np.frombuffer(data, dtype=np.uint8)
+    if quoted:
+        buf = buf.copy()  # unescaped in place
+    n = int(lib.sr_csv_count_rows(_ptr(buf), len(buf)))
+    bufs, masks, ptrs, mptrs = _csv_buffers(types, n)
+    tarr = np.asarray(types, dtype=np.int32)
+    if quoted:
+        err = np.zeros(1, dtype=np.int64)
+        got = lib.sr_csv_parse_quoted(
+            _ptr(buf), len(buf), delim.encode(), len(types), _ptr(tarr),
+            ptrs, mptrs, n, _ptr(err))
+    else:
+        got = lib.sr_csv_parse(
+            _ptr(buf), len(buf), delim.encode(), len(types), _ptr(tarr),
+            ptrs, mptrs, n)
+    if got < 0:
+        return None
+    cols = []
+    for t, b in zip(types, bufs):
+        if t == CSV_STRING:
+            cols.append((buf, b[:2 * got].reshape(got, 2)))
+        else:
+            cols.append(b[:got])
+    return cols, [m[:got].astype(bool) for m in masks], int(got)
+
+
+def dict_encode(buf: np.ndarray, offs: np.ndarray):
+    """(values, codes) of the strings buf[s:e] for each (s, e) row of
+    `offs`: the sorted distinct strings as a numpy object array of str and
+    int32 codes, equal to what StringDict.from_strings makes of the same
+    strings (host C++: a hash table, then a parallel sort of the distinct
+    strings by their bytes)."""
+    lib = _load("csv_parse")
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    offs = np.ascontiguousarray(offs, dtype=np.int64).reshape(-1, 2)
+    n = len(offs)
+    codes = np.empty(n, dtype=np.int32)
+    first = np.empty(max(n, 1), dtype=np.int64)
+    k = int(lib.sr_dict_encode(_ptr(buf), _ptr(offs), n, _ptr(codes),
+                               _ptr(first), _NTHREADS))
+    return strings_at(buf, offs, first[:k]), codes
+
+
+def strings_at(buf: np.ndarray, offs: np.ndarray, rows: np.ndarray,
+               block: int = 1 << 20) -> np.ndarray:
+    """The strings of `rows` as a numpy object array of str. ASCII blocks
+    decode in bulk (a fixed-width bytes array cast to str); a block with
+    other bytes decodes string by string (UTF-8, invalid bytes
+    replaced)."""
+    lib = _load("csv_parse")
+    offs = np.ascontiguousarray(offs, dtype=np.int64).reshape(-1, 2)
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    out = np.empty(len(rows), dtype=object)
+    if not len(rows):
+        return out
+    lens = offs[rows, 1] - offs[rows, 0]
+    for lo in range(0, len(rows), block):
+        r = rows[lo:lo + block]
+        w = max(int(lens[lo:lo + block].max()), 1)
+        fixed = np.empty((len(r), w), dtype=np.uint8)
+        lib.sr_gather_fixed(_ptr(buf), _ptr(offs), _ptr(r), len(r), w,
+                            _ptr(fixed))
+        if (fixed >= 0x80).any():
+            out[lo:lo + len(r)] = [
+                bytes(buf[s:e]).decode("utf-8", "replace")
+                for s, e in offs[r]]
+        else:
+            out[lo:lo + len(r)] = fixed.view(f"S{w}").ravel().astype(
+                f"U{w}").astype(object)
+    return out
+
+
+CSV_FMT_INT64, CSV_FMT_FLOAT64, CSV_FMT_DATE = 0, 1, 2
+CSV_FMT_STRING, CSV_FMT_DECIMAL = 3, 6
+
+
+def format_csv(columns: list, n: int, delim: str = ",",
+               threads: int = _NTHREADS) -> bytes:
+    """CSV text of `n` rows. Each column is (tag, data, valid, extra):
+    int64 / float64 / date (int32 days) / string (int32 codes; extra is
+    the dictionary as (bytes buffer, int64 offsets of k + 1)) / decimal
+    (int64 scaled; extra is the scale). valid is a bool array or None.
+    Row ranges format on `threads` threads (the C call releases the
+    interpreter lock)."""
+    import concurrent.futures as cf
+
+    lib = _load("csv_parse")
+    k = len(columns)
+    keep = []  # arrays the pointers below point into
+
+    def arr(a, dt):
+        a = np.ascontiguousarray(a, dtype=dt)
+        keep.append(a)
+        return a
+
+    tags = arr([c[0] for c in columns], np.int32)
+    cols = (ctypes.c_void_p * k)()
+    valid = (ctypes.c_void_p * k)()
+    scales = arr([c[3] if c[0] == CSV_FMT_DECIMAL else 0 for c in columns],
+                 np.int32)
+    dbufs = (ctypes.c_void_p * k)()
+    doffs = (ctypes.c_void_p * k)()
+    width = 0
+    for j, (tag, data, v, extra) in enumerate(columns):
+        dt = {CSV_FMT_FLOAT64: np.float64, CSV_FMT_DATE: np.int32,
+              CSV_FMT_STRING: np.int32}.get(tag, np.int64)
+        cols[j] = _ptr(arr(data, dt))
+        valid[j] = None if v is None else _ptr(arr(v, np.uint8))
+        if tag == CSV_FMT_STRING:
+            b, o = extra
+            b = arr(np.frombuffer(b or b"\0", dtype=np.uint8), np.uint8)
+            o = arr(o, np.int64)
+            dbufs[j], doffs[j] = _ptr(b), _ptr(o)
+            width += 2 * int(np.diff(o).max(initial=0)) + 3
+        else:
+            width += 26
+    per_row = width + k + 1
+
+    def part(lo, hi):
+        cap = (hi - lo) * per_row + 64
+        out = np.empty(cap, dtype=np.uint8)
+        m = lib.sr_csv_format(k, _ptr(tags), cols, valid, _ptr(scales),
+                              dbufs, doffs, lo, hi, delim.encode(),
+                              _ptr(out), cap)
+        if m < 0:
+            raise RuntimeError("format_csv: output buffer too small")
+        return out[:m].tobytes()
+
+    step = max(-(-n // max(threads, 1)), 1)
+    bounds = [(lo, min(n, lo + step)) for lo in range(0, n, step)]
+    with cf.ThreadPoolExecutor(max(len(bounds), 1)) as ex:
+        parts = list(ex.map(lambda b: part(*b), bounds))
+    return b"".join(parts)
+
+
+# --- parquet and ORC (file_formats.cpp) ---------------------------------------
+
+
+def _check(consumed, what: str) -> int:
+    if consumed < 0:
+        raise ValueError(f"{what}: malformed or truncated input")
+    return int(consumed)
+
+
+def snappy_decompress(data, size: int) -> np.ndarray:
+    """The raw snappy block `data`, decompressed to `size` bytes."""
+    src = np.frombuffer(data, dtype=np.uint8)
+    out = np.empty(max(size, 1), dtype=np.uint8)
+    m = _load("file_formats").sr_snappy_decompress(
+        _ptr(src), len(src), _ptr(out), size)
+    _check(m, "snappy")
+    return out[:m]
+
+
+def rle_bp_decode(data: np.ndarray, bit_width: int, count: int):
+    """(values int32, bytes consumed) of parquet's RLE/bit-packed hybrid."""
+    out = np.empty(max(count, 1), dtype=np.int32)
+    used = _load("file_formats").sr_rle_bp_decode(
+        _ptr(data), len(data), bit_width, count, _ptr(out))
+    return out[:count], _check(used, "RLE/bit-packed hybrid")
+
+
+def byte_array_offsets(data: np.ndarray, count: int, base: int = 0):
+    """((start, end) int64 pairs of `count` PLAIN byte arrays, offset by
+    `base`, and the bytes consumed)."""
+    offs = np.empty((max(count, 1), 2), dtype=np.int64)
+    used = _load("file_formats").sr_byte_array_offsets(
+        _ptr(data), len(data), count, base, _ptr(offs))
+    return offs[:count], _check(used, "PLAIN byte arrays")
+
+
+def orc_rle_v2(data: np.ndarray, count: int, signed: bool) -> np.ndarray:
+    """`count` int64 values of ORC integer RLE v2."""
+    out = np.empty(max(count, 1), dtype=np.int64)
+    _check(_load("file_formats").sr_orc_rle_v2(
+        _ptr(data), len(data), int(signed), count, _ptr(out)),
+        "ORC integer RLE v2")
+    return out[:count]
+
+
+def orc_byte_rle(data: np.ndarray, count: int) -> np.ndarray:
+    """`count` bytes of ORC byte RLE."""
+    out = np.empty(max(count, 1), dtype=np.uint8)
+    _check(_load("file_formats").sr_orc_byte_rle(
+        _ptr(data), len(data), count, _ptr(out)), "ORC byte RLE")
+    return out[:count]

@@ -120,29 +120,43 @@ def build_kernels(names=SOURCES, verbose: bool = False) -> dict:
     and shared-memory reports with verbose=True). Raises on a failed build."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in names:
-        out = _lib_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        if verbose:
-            cmd[1:1] = ["-Xptxas", "-v"]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
     logs = {}
     failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        logs[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
-            continue
-        os.replace(tmp, out)
+    try:
+        for name in names:
+            out = _lib_path(name)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            if verbose:
+                cmd[1:1] = ["-Xptxas", "-v"]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True), tmp, out)
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            logs[name] = log
+            if proc.returncode != 0:
+                failed.append(f"{name}:\n{log}")
+                continue
+            os.replace(tmp, out)
+    finally:
+        # an interrupted build (a failed spawn, KeyboardInterrupt) leaves no
+        # compiler running
+        kill([p for p, _, _ in procs.values()])
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return logs
+
+
+def kill(procs):
+    """Kill the processes of `procs` that are still running (each Popen
+    reaps its process when it is collected)."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
 
 
 def _lib(name: str):

@@ -22,6 +22,9 @@ Collective inputs are lists of the LOCAL shards' tensors, in shard order.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import numpy as np
 import torch
 
@@ -166,6 +169,9 @@ class Mesh:
             raise ValueError("collective backend sized for another mesh")
         self.local = self.coll.local
         self.moves: dict = {}
+        # per-thread observer of the reductions (analysis/trace_check.py's
+        # counter audit of a program's first run)
+        self._obs = threading.local()
 
     def note_move(self, kind: str, rows: int):
         moved = self.moves.setdefault(kind, [])
@@ -177,13 +183,32 @@ class Mesh:
 
     # reductions over a per-shard sequence (psum / pmax / pmin)
     def psum(self, xs):
-        return self.coll.reduce(list(xs), "sum")
+        return self._reduce(xs, "sum")
 
     def pmax(self, xs):
-        return self.coll.reduce(list(xs), "max")
+        return self._reduce(xs, "max")
 
     def pmin(self, xs):
-        return self.coll.reduce(list(xs), "min")
+        return self._reduce(xs, "min")
+
+    def _reduce(self, xs, op: str):
+        xs = list(xs)
+        out = self.coll.reduce(xs, op)
+        fn = getattr(self._obs, "fn", None)
+        if fn is not None:
+            fn(op, len(xs), len(self.local), out)
+        return out
+
+    @contextlib.contextmanager
+    def observing(self, fn):
+        """Call fn(op, shards reduced, shards held, result) for every
+        reduction this thread makes while the context is open."""
+        prev = getattr(self._obs, "fn", None)
+        self._obs.fn = fn
+        try:
+            yield
+        finally:
+            self._obs.fn = prev
 
     def host_max(self, vals: dict) -> dict:
         """Merge {key: int} maxima of this process's shards across

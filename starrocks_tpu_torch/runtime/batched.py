@@ -28,8 +28,9 @@ one batch (or one partition) at a time and the rest stays in host memory.
 Where the port's idiom differs from the reference's:
 - the reference wraps each per-batch program in `audited_jit` (jax.jit
   plus a one-time jaxpr audit). The port runs eagerly: a program is the
-  plain callable, and the jaxpr audit has no eager counterpart (recorded as
-  not applicable for slice 9's static passes);
+  plain callable, wrapped in `audited`, whose first call is verified the
+  way Executor._verify_compile verifies a fresh program (the knob reads of
+  the call, and the dispatch audit of analysis/trace_check.py);
 - `slice_scan_chunk` copies one batch of host columns to the device; its
   seconds and bytes land in the profile node (`h2d_s`, `h2d_bytes`): that
   copy is the cost this path exists to pay;
@@ -113,6 +114,47 @@ def _to_device(a: np.ndarray, sel, dtype, cap: int, device):
                       device=device)
     out[:n].copy_(src)
     return out
+
+
+def audited(raw_fn, where: str):
+    """A spill executor's program with a one-time static audit: its first
+    call records the knob reads it makes and, under `plan_verify_trace`,
+    runs through the dispatch audit (analysis/trace_check.py); later calls
+    run bare. The counterpart of the reference's `audited_jit` and of
+    Executor._verify_compile for the program caches that live outside the
+    executor's attempts."""
+    return _AuditedProgram(raw_fn, where)
+
+
+class _AuditedProgram:
+    def __init__(self, raw_fn, where: str):
+        self._raw = raw_fn
+        self._where = where
+        self._audited = False
+
+    def __call__(self, *args):
+        if self._audited:
+            return self._raw(*args)
+        self._audited = True
+        from ..analysis import report, verify_level
+        from ..analysis.key_check import check_trace_reads
+        from .config import config
+
+        if verify_level() == "off":
+            return self._raw(*args)
+        findings = []
+        with config.record_reads() as reads:
+            if config.get("plan_verify_trace"):
+                from ..analysis import trace_check
+
+                out, found = trace_check.audit_program(
+                    lambda: self._raw(*args))
+                findings += found
+            else:
+                out = self._raw(*args)
+        report(check_trace_reads(reads) + findings, None,
+               where=f"compile({self._where})")
+        return out
 
 
 def slice_scan_chunk(ht, alias: str, cols, sel, cap: int, device,
@@ -250,7 +292,8 @@ def make_programs(bp: BatchablePlan, group_cap: int):
             mode=FINAL)
         return _apply_top_chain(out, bp.top_chain), ng
 
-    return partial_program, final_program
+    return (audited(partial_program, "batched_partial"),
+            audited(final_program, "batched_final"))
 
 
 def execute_batched(
@@ -457,7 +500,7 @@ def _partition_program(gp: GraceJoinPlan, part_plan, catalog, caps,
             return out, checks
         return c, checks
 
-    return run_part, compiled.scans
+    return audited(run_part, "grace_part"), compiled.scans
 
 
 def execute_grace_join(
@@ -533,7 +576,7 @@ def _finalize_partition_outputs(gp: GraceJoinPlan, outs, caps,
         fkey = ("grace_final", tuple(gp.top_chain), gp.agg, gcap,
                 merged.capacity)
         if fkey not in programs_cache:
-            programs_cache[fkey] = final_fn
+            programs_cache[fkey] = audited(final_fn, "grace_final")
         out, ng = programs_cache[fkey](merged)
         return out, {gkey: ng}
     return _apply_top_chain(concat_many(outs), gp.top_chain), {}
@@ -953,7 +996,7 @@ def make_sort_spill_program(sp: SpillSortPlan):
         ops = sort_operands(keys, sp.sort.keys)
         return c, tuple(ops), c.sel_mask()
 
-    return prog
+    return audited(prog, "spill_sort")
 
 
 def execute_spill_sort(sp: SpillSortPlan, catalog, batch_rows: int,
@@ -1149,7 +1192,7 @@ def _window_program(sp: SpillWindowPlan, windows, top_chain):
             c = window_op(c, w.partition_by, w.order_by, w.funcs)
         return _apply_top_chain(c, top_chain)
 
-    return prog
+    return audited(prog, "spill_window")
 
 
 def execute_streaming_window(sp: SpillWindowPlan, catalog, batch_rows: int,

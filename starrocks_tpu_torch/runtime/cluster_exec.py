@@ -426,8 +426,8 @@ class ClusterRuntime:
     def start(self, session):
         """Spawn + bootstrap the worker fleet from `session`'s catalog."""
         self._boot_session = session  # lint: unguarded-ok — set once at start(), read-only afterwards
-        # lint: checkpoint-exempt — fleet bootstrap precedes any query scope: no KILL/deadline exists to observe yet
         try:
+            # lint: checkpoint-exempt — fleet bootstrap precedes any query scope: no KILL/deadline exists to observe yet
             for i in range(self.n_workers):
                 self.spawn_worker(f"w{i}")
         except BaseException:

@@ -383,6 +383,19 @@ config.define("process_mem_limit_bytes", 0, True,
               "hard process-wide cap on accountant-tracked bytes across "
               "all running queries (the process-level MemTracker analog). "
               "0 = off")
+config.define("plan_verify_level", "off", True,
+              "off | warn | strict: static invariant verification of every "
+              "optimized plan and freshly-built program "
+              "(starrocks_tpu_torch/analysis/ — plan structure, the "
+              "program's dispatch audit, cache-key completeness). warn logs "
+              "findings and counts them in the query profile; strict fails "
+              "the query on any error-severity finding")
+config.define("plan_verify_trace", True, True,
+              "audit the first run of every freshly-built program under a "
+              "torch dispatch mode when plan_verify_level != off "
+              "(analysis/trace_check.py: host callbacks, float32 widened "
+              "to float64, oversized constants); the plan/key passes are "
+              "always on at warn/strict")
 config.load_env()
 
 # The knob values that route the main path through the hand kernels: the

@@ -71,6 +71,40 @@ class DistExecutor(Executor):
         # fragment IRs per (plan, scan-mode vector); see _fragment_ir
         self._frag_ir_memo: dict = {}
 
+    def _verify_plan(self, plan, profile):
+        """Adds the distribution pass on top of the structural passes: the
+        plan must admit a legal partitioned lowering under the compiler's
+        own placement rules (managed mode — the annotated fragment IR gets
+        the stricter declared-mode pass in _fragment_ir once it exists)."""
+        super()._verify_plan(plan, profile)
+        from ..analysis import report, verify_level
+        from ..analysis.plan_check import check_distribution
+
+        if verify_level() == "off":
+            return
+        try:
+            findings = check_distribution(plan, self.catalog)
+        except Exception:  # noqa: BLE001  # lint: swallow-ok — verifier bug, not a query bug
+            return
+        report(findings, profile, where="distribution")
+
+    def _verify_fragment_ir(self, ir, profile):
+        """Declared-distribution verification of the annotated IR: the
+        exchanges are explicit LExchange nodes, so the pass checks the
+        declarations (placement tokens, exchange keys against join/group/
+        partition keys, replicated-at-root)."""
+        from ..analysis import report, verify_level
+        from ..analysis.plan_check import check_distribution
+
+        if verify_level() == "off":
+            return
+        try:
+            findings = check_distribution(
+                ir.annotated, self.catalog, managed_exchanges=False)
+        except Exception:  # noqa: BLE001  # lint: swallow-ok — verifier bug, not a query bug
+            return
+        report(findings, profile, where="fragment-ir")
+
     def _run(self, plan, profile):
         if config.get("dist_fragments"):
             return self._run_fragments(plan, profile)
@@ -96,24 +130,35 @@ class DistExecutor(Executor):
         if out is not None:
             return out
         bucket = self.cache.program_bucket(("dist", self.n, plan))
+        fresh = {"pending": self.cache.bucket_fresh(bucket)}
 
         def attempt(caps, p):
             self.cache.bucket_adopt_last(bucket, caps)
             fail_point("executor::before_compile")
             lifecycle.checkpoint("executor::before_compile")
-            compiled = compile_distributed(plan, self.catalog, caps,
-                                           self.mesh)
-            with p.timer("scan_to_device"):
-                inputs = self._place(
-                    tuple(zip(compiled.scans, compiled.scan_modes)))
-            fail_point("executor::before_dispatch")
-            lifecycle.checkpoint("executor::before_dispatch")
-            def run():
-                out, checks = compiled.fn(inputs)
-                return out, self._read(checks)
 
-            with p.timer("run"):
-                out, checked = self._profiled(p, run)
+            def build_and_run():
+                compiled = compile_distributed(plan, self.catalog, caps,
+                                               self.mesh)
+                with p.timer("scan_to_device"):
+                    inputs = self._place(
+                        tuple(zip(compiled.scans, compiled.scan_modes)))
+                fail_point("executor::before_dispatch")
+                lifecycle.checkpoint("executor::before_dispatch")
+
+                def run():
+                    out, checks = compiled.fn(inputs)
+                    return out, checks, self._read(checks)
+
+                with p.timer("run"):
+                    return self._profiled(p, run)
+
+            if fresh["pending"]:
+                fresh["pending"] = False
+                out, _, checked = self._verify_compile(build_and_run, p,
+                                                       self.mesh)
+            else:
+                out, _, checked = build_and_run()
             self.cache.bucket_last_set(bucket, caps.values)
             return out, checked
 
@@ -141,7 +186,7 @@ class DistExecutor(Executor):
 
     # --- fragment-IR execution path ----------------------------------------
 
-    def _fragment_ir(self, plan):
+    def _fragment_ir(self, plan, profile=None):
         """Build (and memoize) the fragment IR: run the whole plan once over
         shard 0 alone (parallel/mesh.Dry, scratch capacities, the kernel
         strategies at `auto`) with an ExchangeRecorder attached — the
@@ -174,6 +219,7 @@ class DistExecutor(Executor):
         with config.scoped(AUTO_STRATEGIES):
             compiled.fn(inputs)
         ir = split(plan, rec.events)
+        self._verify_fragment_ir(ir, profile)
         if len(self._frag_ir_memo) > 256:
             self._frag_ir_memo.clear()
         self._frag_ir_memo[key] = (ir, scans_meta)
@@ -205,7 +251,7 @@ class DistExecutor(Executor):
         out = self._try_partial_cache(plan, profile)
         if out is not None:
             return out
-        ir, scans_meta = self._fragment_ir(plan)
+        ir, scans_meta = self._fragment_ir(plan, profile)
         # fragment roots and boundaries are nodes of the plan the IR was
         # derived from, and the compiler's scan table is id()-keyed: run
         # against that same object
@@ -224,6 +270,7 @@ class DistExecutor(Executor):
 
         buckets = [self.cache.program_bucket(
             fragment_program_key(self.n, plan, f)) for f in ir.fragments]
+        fresh = {"pending": self.cache.bucket_fresh(buckets[0])}
 
         def attempt(caps, p):
             # the capacity dict is SHARED across the fragments (keys carry
@@ -235,16 +282,25 @@ class DistExecutor(Executor):
             lifecycle.checkpoint("executor::before_dispatch")
             outputs: dict = {}
             merged: dict = {}
+
             def run():
                 for frag in ir.fragments:
                     bnd = tuple(outputs[d] for d in frag.deps)
                     outputs[frag.fid], checks = self.run_fragment(
                         plan, frag, caps, inputs, bnd, scans_meta, p)
                     merged.update(checks)
-                return None, self._read(merged)
+                return None, merged, self._read(merged)
 
-            with p.timer("run"):
-                _, checked = self._profiled(p, run)
+            def timed_run():
+                with p.timer("run"):
+                    return self._profiled(p, run)
+
+            if fresh["pending"]:
+                # the fragments' first run builds every program: verified
+                fresh["pending"] = False
+                _, _, checked = self._verify_compile(timed_run, p, self.mesh)
+            else:
+                _, _, checked = timed_run()
             for b in buckets:
                 self.cache.bucket_last_set(b, caps.values)
             return outputs[ir.fragments[-1].fid], checked

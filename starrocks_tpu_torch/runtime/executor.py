@@ -136,17 +136,20 @@ class DeviceCache:
         from .feedback import FeedbackStore
 
         self.device = torch.device(device)
-        self._cols: dict = {}    # (table, column, tag) -> (data, valid|None)
-        self._sel: dict = {}     # (table, tag) -> (capacity, sel|None)
-        self._border: dict = {}  # (table, key_cols, bit_widths) -> order
+        # (table, column, tag) -> (data, valid|None)
+        self._cols: dict = {}    # guarded_by: _lock
+        # (table, tag) -> (capacity, sel|None)
+        self._sel: dict = {}     # guarded_by: _lock
+        # (table, key_cols, bit_widths) -> order
+        self._border: dict = {}  # guarded_by: _lock
         # (table, tag, columns) -> (pruned handle, scan stats, tag)
-        self._rfscan: dict = {}
+        self._rfscan: dict = {}  # guarded_by: _lock
         # (table, tag) -> (row order, rows per shard) of a hash placement
-        self._layouts: dict = {}
+        self._layouts: dict = {}  # guarded_by: _lock
         self._lock = lockdep.rlock("DeviceCache._lock")
-        self.opt_plans: OrderedDict = OrderedDict()
+        self.opt_plans: OrderedDict = OrderedDict()  # guarded_by: _lock
         # (key, udf epoch, knob values) -> {"last": caps, "progs": {}}
-        self.programs: OrderedDict = OrderedDict()
+        self.programs: OrderedDict = OrderedDict()  # guarded_by: _lock
         self.qcache = QueryCache()
         self.plan_cache = PlanCache()
         self.feedback = FeedbackStore()
@@ -177,6 +180,11 @@ class DeviceCache:
     def bucket_last_set(self, bucket, vals):
         with self._lock:
             bucket["last"] = dict(vals)
+
+    def bucket_fresh(self, bucket) -> bool:
+        """Whether no execution has published capacities into `bucket`."""
+        with self._lock:
+            return bucket["last"] is None
 
     def bucket_seed_last(self, bucket, vals) -> bool:
         """Pre-tighten a COLD bucket from plan-feedback capacities: set
@@ -265,14 +273,17 @@ class DeviceCache:
 
         tag = "rf:" + ",".join(f"{c}[{lo},{hi}]" for c, lo, hi in bounds)
         key = (handle.name, tag, tuple(columns))
-        e = self._rfscan.get(key)
+        with self._lock:
+            e = self._rfscan.get(key)
         if e is None:
+            # the file reads run outside the lock; the first writer wins
             ht, stats = handle.store.load_table(
                 handle.name, columns=list(columns),
                 rf_predicate=bounds_predicate(bounds), with_stats=True)
             ph = TableHandle(handle.name, ht, handle.unique_keys,
                              handle.distribution)
-            e = self._rfscan[key] = (ph, dict(stats), tag)
+            with self._lock:
+                e = self._rfscan.setdefault(key, (ph, dict(stats), tag))
         return e
 
     def chunk_for(self, handle, alias: str, columns, cache_tag=None,
@@ -316,12 +327,16 @@ class DeviceCache:
             if isinstance(mode, tuple) and mode[0] == "hash":
                 keycol = mode[1].split(".", 1)[-1]  # qualified -> base name
                 tag = f"hash{n_shards}:{keycol}"
-                lay = (self._layouts.get((handle.name, tag)) if cacheable
-                       else None)
+                lay = None
+                if cacheable:
+                    with self._lock:
+                        lay = self._layouts.get((handle.name, tag))
                 if lay is None:
                     lay = hash_layout(ht.arrays[keycol], n_shards)
                     if cacheable:
-                        self._layouts[(handle.name, tag)] = lay
+                        with self._lock:
+                            lay = self._layouts.setdefault(
+                                (handle.name, tag), lay)
                 reorder, per_shard = lay
                 cap = pad_capacity(int(per_shard.max()) if n else 1) * n_shards
             else:
@@ -358,13 +373,19 @@ class DeviceCache:
         fields, data, valid = [], [], []
         for c in columns:
             key = (handle.name, c, tag)
-            entry = self._cols.get(key) if cacheable else None
+            entry = None
+            if cacheable:
+                with self._lock:
+                    entry = self._cols.get(key)
             if entry is None:
+                # the copy to the device runs outside the lock; the first
+                # writer wins
                 v = ht.valids.get(c)
                 entry = (put(ht.arrays[c], 0),
                          None if v is None else put(v, False))
                 if cacheable:
-                    self._cols[key] = entry
+                    with self._lock:
+                        entry = self._cols.setdefault(key, entry)
             d, v = entry
             f = ht.schema.field(c)
             st = handle.column_stats(c)
@@ -377,7 +398,10 @@ class DeviceCache:
             data.append(d)
             valid.append(v)
         skey = (handle.name, tag)
-        sentry = self._sel.get(skey) if cacheable else None
+        sentry = None
+        if cacheable:
+            with self._lock:
+                sentry = self._sel.get(skey)
         if sentry is None or sentry[0] != cap:
             if placement is None:
                 sel = None if n == cap else (
@@ -386,7 +410,8 @@ class DeviceCache:
                 sel = put(np.ones(n, dtype=bool), False)
             sentry = (cap, sel)
             if cacheable:
-                self._sel[skey] = sentry
+                with self._lock:
+                    self._sel[skey] = sentry
         schema = Schema(tuple(fields))
         if n_shards == 1:
             out = Chunk(schema, tuple(data), tuple(valid), sentry[1], dev)
@@ -411,12 +436,15 @@ class DeviceCache:
         from ..ops.join import pack_keys
 
         key = (handle.name, tuple(key_cols), bit_widths)
-        order = self._border.get(key)
+        with self._lock:
+            order = self._border.get(key)
         if order is None:
             chunk = self.chunk_for(handle, alias, tuple(key_cols))
             keys = tuple(Col(f"{alias}.{c}") for c in key_cols)
             bk, _ = pack_keys(chunk, keys, bit_widths)
-            order = self._border[key] = argsort_stable(bk)
+            order = argsort_stable(bk)
+            with self._lock:
+                order = self._border.setdefault(key, order)
         return order
 
 
@@ -488,6 +516,7 @@ class Executor:
     def execute_logical(self, plan: LogicalPlan,
                         profile: RuntimeProfile | None = None) -> QueryResult:
         profile = profile or RuntimeProfile("query")
+        self._refresh_external(plan)
         if config.get("segment_strategy") == "native":
             res = self._try_native_scan_agg(plan, profile)
             if res is not None:
@@ -496,6 +525,19 @@ class Executor:
         if gc is not None:
             return self._execute_group_concat(plan, gc, profile)
         return self._execute_plain(plan, profile)
+
+    def _refresh_external(self, plan: LogicalPlan):
+        """An external table whose files changed since its data was read
+        drops that data, and its data epoch moves: the device columns,
+        plans and cached results derived from it go with it."""
+        from ..sql.optimizer import plan_tables
+        from ..storage.external import ExternalTableHandle
+
+        for t in plan_tables(plan):
+            h = self.catalog.get_table(t)
+            if isinstance(h, ExternalTableHandle) and h.stale():
+                h.invalidate()
+                self.catalog.bump_data_epoch(t)
 
     def _try_native_scan_agg(self, plan: LogicalPlan,
                              profile: RuntimeProfile):
@@ -623,12 +665,15 @@ class Executor:
             profile.add_counter("qcache_hits", 1)
             return QueryResult(hit.table, hit.plan, profile)
         profile.add_counter("qcache_misses", 1)
-        res = self._execute_plain_uncached(plan, profile)
+        with config.record_reads() as reads:
+            res = self._execute_plain_uncached(plan, profile)
         ctx = lifecycle.current()
         if ctx is not None and ctx.degraded:
             # soft-mem degradation: decline cache admission
             profile.set_info("qcache_declined", "mem-soft-degraded")
             return res
+        if not self._verify_cache_reads(reads, profile):
+            return res  # a knob outside every key channel: not cached
         tables = plan_tables(plan) | plan_tables(res.plan)
         versions = cache_keys.version_map(self.catalog, tables)
         self.cache.qcache.store_result(skey, res.table, res.plan, versions)
@@ -645,9 +690,11 @@ class Executor:
                 if config.get("plan_feedback"):
                     from .feedback import plan_fingerprint
 
-                    fb_fp = plan_fingerprint(plan)
-                    fb_entry = self.cache.feedback.consult(fb_fp,
-                                                           self.catalog)
+                    with config.record_reads() as fb_reads:
+                        fb_fp = plan_fingerprint(plan)
+                        fb_entry = self.cache.feedback.consult(
+                            fb_fp, self.catalog)
+                    self._verify_feedback_reads(fb_reads, profile)
                 # a UDF create/replace/drop must not serve a plan made
                 # before it
                 opt_key = (plan, _config_key(), registry_epoch())
@@ -659,12 +706,15 @@ class Executor:
                     profile.add_counter("feedback_hits", 1)
                 opt = self.cache.opt_plan_lookup(opt_key)
                 if opt is None:
-                    opt = optimize(plan, self.catalog, fb_entry)
+                    with config.record_reads() as opt_reads:
+                        opt = optimize(plan, self.catalog, fb_entry)
+                    self._verify_opt_reads(opt_reads, profile)
                     self.cache.opt_plan_store(opt_key, opt)
                 analyzed = plan
                 # subquery resolution executes data-dependent sub-plans —
                 # never cached
                 plan = self._resolve_scalar_subqueries(opt)
+            self._verify_plan(plan, profile)
             # record-side feedback context — set AFTER subquery resolution
             # (nested sub-plan executions run through this same executor
             # and must not leave their context on the outer query)
@@ -707,6 +757,75 @@ class Executor:
         except Exception:
             QUERY_ERRORS.inc()
             raise
+
+    # --- static verification hooks (analysis/) ------------------------------
+    def _verify_plan(self, plan, profile):
+        """Per-query structural verification of the optimized plan (behind
+        SET plan_verify_level; see analysis/)."""
+        from ..analysis import run_plan_checks, verify_level
+
+        if verify_level() == "off":
+            return
+        run_plan_checks(plan, self.catalog, profile)
+
+    def _verify_opt_reads(self, reads, profile):
+        """Optimized-plan cache-key completeness: knobs read during
+        optimize() must be part of the optimized-plan key."""
+        from ..analysis import report, verify_level
+        from ..analysis.key_check import check_opt_reads
+
+        if verify_level() == "off":
+            return
+        report(check_opt_reads(reads), profile, where="optimize")
+
+    def _verify_feedback_reads(self, reads, profile):
+        """Feedback-consult cache-key completeness: a knob read while
+        consulting must sit on a declared key channel, or two configs
+        could share one learned plan."""
+        from ..analysis import report, verify_level
+        from ..analysis.key_check import check_feedback_reads
+
+        if verify_level() == "off":
+            return
+        report(check_feedback_reads(reads), profile, where="feedback")
+
+    def _verify_cache_reads(self, reads, profile) -> bool:
+        """Result-key completeness of an execution whose result enters the
+        query cache: False (decline to cache) on any finding."""
+        from ..analysis import report, verify_level
+        from ..analysis.key_check import check_cache_reads
+
+        if verify_level() == "off":
+            return True
+        findings = check_cache_reads(reads)
+        report(findings, profile, where="qcache")
+        return not findings
+
+    def _verify_compile(self, run, profile, mesh=None):
+        """A freshly-built program's first run, verified: `run()` returns
+        (out, checks) of the raw program; the knob reads of its build and
+        run must be keyed (key_check), and under `plan_verify_trace` the
+        run goes through the dispatch audit (analysis/trace_check.py:
+        implicit float64 promotion, counters that are not the full-mesh
+        sum). `run` is the window: call this with the build inside it."""
+        from ..analysis import report, verify_level
+        from ..analysis.key_check import check_trace_reads
+
+        if verify_level() == "off":
+            return run()
+        findings = []
+        with config.record_reads() as reads:
+            if config.get("plan_verify_trace"):
+                from ..analysis import trace_check
+
+                out, found = trace_check.audit_program(
+                    run, checks_of=lambda r: r[1], mesh=mesh)
+                findings += found
+            else:
+                out = run()
+        findings = check_trace_reads(reads) + findings
+        report(findings, profile, where="compile")
+        return out
 
     # --- group_concat orchestration -----------------------------------------
     def _execute_group_concat(self, plan, gc, profile):
@@ -1140,6 +1259,10 @@ class Executor:
                 return self.cache.chunk_for(ph, a, cols, cache_tag=tag)
             return self.cache.chunk_for(self.catalog.get_table(t), a, cols)
 
+        # a plan this bucket has never run builds a fresh program: its
+        # first attempt is the one the static passes verify
+        fresh = {"pending": self.cache.bucket_fresh(bucket)}
+
         def attempt(caps, p):
             # adopt-last: a repeated query starts at the capacities that
             # worked (and usually runs once)
@@ -1147,25 +1270,34 @@ class Executor:
             # the eager program is built here, where the reference compiles
             fail_point("executor::before_compile")
             lifecycle.checkpoint("executor::before_compile")
-            t0 = time.perf_counter()
-            compiled = compile_plan(plan, self.catalog, caps)
-            COMPILE_MS.observe((time.perf_counter() - t0) * 1000.0)
-            trace_box["node_ord"] = compiled.node_ord
-            with p.timer("scan_to_device"):
-                inputs = [scan_input(t, a, cols)
-                          for t, a, cols in compiled.scans]
-                for table, a, key_cols, bw in compiled.aux:
-                    inputs.append(self.cache.build_order_for(
-                        self.catalog.get_table(table), a, key_cols, bw))
-            fail_point("executor::before_dispatch")
-            lifecycle.checkpoint("executor::before_dispatch")
 
-            def run():
-                out, checks = compiled.fn(tuple(inputs))
-                return out, read_checks(checks)  # the attempt's only sync
+            def build_and_run():
+                t0 = time.perf_counter()
+                compiled = compile_plan(plan, self.catalog, caps)
+                COMPILE_MS.observe((time.perf_counter() - t0) * 1000.0)
+                trace_box["node_ord"] = compiled.node_ord
+                with p.timer("scan_to_device"):
+                    inputs = [scan_input(t, a, cols)
+                              for t, a, cols in compiled.scans]
+                    for table, a, key_cols, bw in compiled.aux:
+                        inputs.append(self.cache.build_order_for(
+                            self.catalog.get_table(table), a, key_cols, bw))
+                fail_point("executor::before_dispatch")
+                lifecycle.checkpoint("executor::before_dispatch")
 
-            with p.timer("run"):
-                out, checked = self._profiled(p, run)
+                def run():
+                    out, checks = compiled.fn(tuple(inputs))
+                    # the attempt's only sync
+                    return out, checks, read_checks(checks)
+
+                with p.timer("run"):
+                    return self._profiled(p, run)
+
+            if fresh["pending"]:
+                fresh["pending"] = False
+                out, _, checked = self._verify_compile(build_and_run, p)
+            else:
+                out, _, checked = build_and_run()
             self.cache.bucket_last_set(bucket, caps.values)
             return out, checked
 

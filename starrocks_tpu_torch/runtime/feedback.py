@@ -167,7 +167,7 @@ class FeedbackStore:
                 return
             self._path = path
             try:
-                with open(path) as f:
+                with open(path) as f:  # lint: blocking-ok — one-shot startup load; attach must see a consistent store vs concurrent record()
                     data = json.load(f)
                 if isinstance(data, dict):
                     for fp, e in data.get("entries", {}).items():
@@ -179,7 +179,7 @@ class FeedbackStore:
             except (OSError, ValueError):
                 pass
 
-    def _save_locked(self):  # holds _lock
+    def _save_locked(self):  # lint: holds _lock  # lint: blocking-ok — sidecar persistence must serialize with entry mutation; the tmp+replace write is bounded by the entry cap and tolerates OSError
         if self._path is None:
             return
         from .failpoint import FailPointError, fail_point

@@ -5,9 +5,12 @@ http_service.h, http/action/*: SQL execute, metrics, profile endpoints; FE
 http/rest/ExecuteSqlAction.java). Minimal but real server:
 
   POST /query   {"sql": "..."}  -> {"columns": [...], "rows": [...], "ms": t}
-  PUT  /api/load/{table}        -> stream load: the ingest plane is not
-                                   in the port yet; answers 501 naming it
-  GET  /api/ingest              -> likewise 501
+  PUT  /api/load/{table}        -> stream load: CSV/JSON body staged +
+                                   micro-batch committed by the ingest
+                                   plane (?format=csv|json&label=...&
+                                   columns=a,b&column_separator=,);
+                                   429 on staging backpressure
+  GET  /api/ingest              -> ingest plane stats + routine-load jobs
   GET  /metrics                 -> Prometheus text
   GET  /profile                 -> last query's RuntimeProfile render
   GET  /tables                  -> catalog listing
@@ -122,7 +125,10 @@ def make_handler(session: Session, tier: ServingTier):
                     {"alerts": ALERTS.snapshot(),
                      "stats": ALERTS.stats()}, default=str))
             elif self.path == "/api/ingest":
-                self._not_yet()
+                plane = session.ingest_plane()
+                self._send(200, json.dumps(
+                    {"ingest": plane.stats(),
+                     "jobs": plane.poller.snapshot()}, default=str))
             elif self.path == "/api/debug/bundle":
                 from .audit import diagnostic_bundle
 
@@ -148,20 +154,15 @@ def make_handler(session: Session, tier: ServingTier):
                     return None
             return user if auth.verify_plain(user, pw) else None
 
-        def _not_yet(self):
-            """The ingest plane's endpoints answer 501 with the error that
-            names the slice bringing it (never a silent 200)."""
-            try:
-                session.ingest_plane()
-            except NotImplementedError as e:
-                self._send(501, json.dumps({"error": str(e)}))
-
         def do_PUT(self):
             """Stream load (reference: the BE's `PUT /api/{db}/{table}/
-            _stream_load`) belongs to the ingest plane, which is not in
-            the port yet: an authenticated request answers 501."""
+            _stream_load`): body rows stage into the ingest plane and
+            this request returns once its micro-batch commit is visible,
+            with the txn-label receipt. A replayed label answers with
+            the ORIGINAL receipt (exactly-once); staging over budget
+            answers 429 and the client retries with the SAME label."""
             import re
-            from urllib.parse import urlparse
+            from urllib.parse import parse_qs, urlparse
 
             u = urlparse(self.path)
             m = re.fullmatch(r"/api/load/([A-Za-z_][A-Za-z0-9_]*)", u.path)
@@ -175,7 +176,40 @@ def make_handler(session: Session, tier: ServingTier):
                                  'Basic realm="starrocks_tpu"')
                 self.end_headers()
                 return
-            self._not_yet()
+            from ..ingest import IngestBackpressure
+
+            table = m.group(1).lower()
+            q = {k: v[-1] for k, v in parse_qs(u.query).items()}
+            columns = [c for c in q.get("columns", "").split(",")
+                       if c.strip()] or None
+            t0 = time.time()
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                body = self.rfile.read(n).decode("utf-8", errors="replace")
+                auth = session.auth()
+                if not auth.is_admin(user):
+                    auth.require(user, table, "insert")
+                plane = session.ingest_plane()
+                rows = plane.parse_body(
+                    session, table, body,
+                    fmt=q.get("format", "csv").lower(), columns=columns,
+                    sep=q.get("column_separator", ","))
+                receipt = dict(plane.load(
+                    tier.new_session(user), table, rows,
+                    label=q.get("label"), user=user))
+                receipt["ms"] = round((time.time() - t0) * 1000, 1)
+                self._send(200, json.dumps(
+                    {"status": "ok", **receipt}, default=str))
+            except IngestBackpressure as e:
+                self._send(429, json.dumps(
+                    {"status": "backpressure", "error": str(e)}))
+            except PermissionError as e:
+                self._send(403, json.dumps({"error": str(e)}))
+            except Exception as e:  # lint: swallow-ok — typed error -> 400
+                self._send(
+                    400,
+                    json.dumps({"error": f"{type(e).__name__}: {e}"}),
+                )
 
         def do_POST(self):
             import re

@@ -13,9 +13,11 @@ ALTER TABLE ADD/DROP COLUMN, EXPLAIN ANALYZE, and the statements of the
 serving, security and observability planes: users and GRANT/REVOKE/SHOW
 GRANTS (runtime/auth.py), resource groups and SET resource_group
 (runtime/workgroup.py), KILL QUERY, SHOW PROCESSLIST/WORKLOAD/PROFILE,
-ADMIN SET FAILPOINT/ALERT and ADMIN DIAGNOSE; each returns what the
-reference's returns. External tables, ingest jobs and `load_csv` belong to
-the ingest plane and raise NotImplementedError.
+ADMIN SET FAILPOINT/ALERT and ADMIN DIAGNOSE, and the ingest plane:
+CREATE EXTERNAL TABLE over parquet/ORC files (storage/external.py, read
+without pyarrow), `load_csv` (storage/formats/csv.py), the stream-load and
+routine-load plane (`ingest_plane()`, ingest/) and ADMIN SET ingest_job;
+each returns what the reference's returns.
 
 Every top-level statement runs inside a query lifecycle scope
 (runtime/lifecycle.py): it is registered for KILL QUERY and SHOW
@@ -64,10 +66,6 @@ from .executor import (
     group_concat_main_plan,
 )
 
-# statements of the ingest plane (external tables, routine-load jobs):
-# slice 9
-_PLANE_STATEMENTS = (ast.CreateExternalTable, ast.AdminSetIngestJob)
-
 # serializes query-log append/trim across connection sessions sharing one
 # catalog (runtime/serving.py runs statements on many threads); the log is
 # the only catalog field mutated by CONCURRENT read statements — schema
@@ -75,9 +73,13 @@ _PLANE_STATEMENTS = (ast.CreateExternalTable, ast.AdminSetIngestJob)
 _QLOG_LOCK = lockdep.lock("session._qlog_lock")
 
 
-def _not_yet(what: str, slice_no: int):
-    return NotImplementedError(
-        f"{what} is not in the port yet (slice {slice_no})")
+def _reject_external(handle):
+    from ..storage.external import ExternalTableHandle
+
+    if isinstance(handle, ExternalTableHandle):
+        raise ValueError(
+            f"table {handle.name!r} is EXTERNAL (read-only: the files "
+            "belong to another system)")
 
 
 def _resolve_device(device) -> torch.device:
@@ -160,6 +162,7 @@ class Session:
                         tuple(m.get("distribution", ())),
                     )
                 )
+            self._replay_external_defs()
             self._restore_catalog_meta()
             # storage-level mutations that bypass session DML (an explicit
             # compact_table) advance the catalog's data epoch too
@@ -193,12 +196,26 @@ class Session:
                            for u, g in a.grants.items()},
             }
         wm = self.catalog.workgroups
+        from ..storage.external import ExternalTableHandle
+
         img = {"views": dict(self.catalog.views),
                "mv_defs": dict(self.catalog.mv_defs),
                "auth": auth,
                "resource_groups": (
                    {n: g.to_props() for n, g in wm.groups.items()}
-                   if wm is not None else {})}
+                   if wm is not None else {}),
+               # external-table defs live in the image too (the sidecar
+               # external_tables.json stays as a redundant copy), so a
+               # restored catalog holds the handles a live one holds
+               "external_tables": {
+                   n: h.location for n, h in self.catalog.tables.items()
+                   if isinstance(h, ExternalTableHandle)}}
+        ip = getattr(self.catalog, "ingest_plane", None)
+        if ip is not None:
+            # the txn-label ledger + routine-load jobs/offsets ride the
+            # image, so exactly-once replay detection and job progress
+            # survive restarts (ingest/labels.py, ingest/poller.py)
+            img["ingest"] = ip.image()
         return self.store.checkpoint(img)
 
     def _restore_catalog_meta(self):
@@ -222,6 +239,18 @@ class Session:
             from .workgroup import ResourceGroup
 
             self.workgroups().groups[name] = ResourceGroup.from_props(props)
+        from ..storage.external import ExternalTableHandle
+
+        for name, location in cat.get("external_tables", {}).items():
+            if self.catalog.get_table(name) is not None:
+                continue  # sidecar replay already registered it
+            try:
+                self.catalog.register_handle(
+                    ExternalTableHandle(name, location))
+            except ValueError:
+                pass  # files vanished; the definition stays until DROP
+        if cat.get("ingest"):
+            self.ingest_plane().restore_image(cat["ingest"])
         for op in self.store.replay(after_seq=base):
             k = op["op"]
             if k == "create_rg":
@@ -247,6 +276,26 @@ class Session:
                 mv_defs[op["name"]] = op["text"]
             elif k == "drop_mv":
                 mv_defs.pop(op["name"], None)
+            elif k == "create_external":
+                if self.catalog.get_table(op["name"]) is None:
+                    try:
+                        self.catalog.register_handle(
+                            ExternalTableHandle(op["name"], op["location"]))
+                    except ValueError:
+                        pass
+            elif k == "drop_external":
+                self.catalog.drop(op["name"], if_exists=True)
+            elif k == "ingest_label":
+                # micro-batch commit receipts (exactly-once replay state)
+                self.ingest_plane().labels.restore(op["labels"])
+            elif k == "ingest_job":
+                self.ingest_plane().poller.restore_job(op["name"],
+                                                       op["spec"])
+            elif k == "drop_ingest_job":
+                self.ingest_plane().poller.drop_job(op["name"])
+            elif k == "ingest_offset":
+                self.ingest_plane().poller.restore_offset(
+                    op["name"], op["file"], op["offset"])
         for n, text in mv_defs.items():
             self.catalog.mv_defs[n] = text
             try:
@@ -256,6 +305,11 @@ class Session:
                 # without dropping the MV): keep the definition visible and
                 # unmaterialized; queries against it fail with the real error
                 pass
+        ip = getattr(self.catalog, "ingest_plane", None)
+        if ip is not None:
+            # restored routine-load jobs resume from their persisted
+            # offsets; a no-op when no jobs survived (zero threads)
+            ip.poller.ensure_started()
         self.store.ensure_seq()
 
     def _log_meta(self, op: dict):
@@ -263,13 +317,96 @@ class Session:
         if self.store is not None:
             self.store.log(op)
 
+    def _external_defs_path(self):
+        return (os.path.join(self.store.root, "external_tables.json")
+                if self.store is not None else None)
+
+    def _save_external_defs(self, add=None, remove=None):
+        """External-table definitions survive restarts next to the store's
+        manifests (the FE edit-log analog for connector metadata)."""
+        from .failpoint import fail_point
+
+        fail_point("session::external_defs")  # before the read-modify-
+        #   write: an injected fault surfaces as a DDL error with the
+        #   sidecar file untouched (the live catalog keeps the handle;
+        #   only restart durability is degraded)
+        import json as _json
+
+        path = self._external_defs_path()
+        if path is None:
+            return
+        defs = {}
+        if os.path.exists(path):
+            with open(path) as f:
+                defs = _json.load(f)
+        if add:
+            defs.update(add)
+        if remove:
+            defs.pop(remove, None)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:  # atomic: the store's manifest pattern
+            _json.dump(defs, f)
+        os.replace(tmp, path)
+
+    def _replay_external_defs(self):
+        import json as _json
+
+        path = self._external_defs_path()
+        if path is None or not os.path.exists(path):
+            return
+        from ..storage.external import ExternalTableHandle
+
+        try:
+            with open(path) as f:
+                defs = _json.load(f)
+        except (OSError, _json.JSONDecodeError):
+            return  # torn write must not brick the whole store
+        for name, location in defs.items():
+            try:
+                self.catalog.register_handle(
+                    ExternalTableHandle(name, location))
+            except ValueError:
+                pass  # files vanished; the definition stays until DROP
+
     def load_csv(self, table: str, path: str, **csv_opts) -> int:
-        raise _not_yet("load_csv", 9)
+        """Stream-load a CSV file into a table (reference: stream load path,
+        http/action/stream_load.h:59 -> DeltaWriter). The reference's C++
+        lane takes a plain file; quoted files and reader options take the
+        port's RFC 4180 lane where the reference calls pyarrow
+        (storage/formats/csv.py)."""
+        from ..storage.formats.csv import read_csv
+        from .metrics import ROWS_LOADED
+
+        handle = self.catalog.get_table(table)
+        if handle is None:
+            raise ValueError(f"unknown table {table}")
+        _reject_external(handle)
+        incoming = read_csv(handle.schema, path, **csv_opts)
+        ROWS_LOADED.inc(incoming.num_rows)
+        return self._append(handle, incoming)
 
     def ingest_plane(self):
-        """The continuous ingest plane (HTTP stream load, routine-load
-        jobs) is not in the port yet."""
-        raise _not_yet("the ingest plane (stream load, routine load)", 9)
+        """The catalog-wide continuous ingest plane (HTTP stream load +
+        routine-load poller; ingest/plane.py). Lazily created like
+        workgroups; its commit session is a dedicated sibling sharing
+        this session's catalog/cache/store, so poller commits ride the
+        same PK delta-write path, cache invalidation, and data epochs —
+        the ingest package itself never imports Session."""
+        from ..ingest import IngestPlane
+
+        if getattr(self.catalog, "ingest_plane", None) is None:
+            self.catalog.ingest_plane = IngestPlane()
+        plane = self.catalog.ingest_plane
+        if plane.gate is None:
+            # under a serving tier, commits take the tier's per-table
+            # exclusive gate side; bare sessions have no gate (the store
+            # serializes, matching direct-session DML semantics)
+            plane.gate = getattr(self.catalog, "serve_gate", None)
+        if plane.commit_session is None:
+            plane.commit_session = Session(
+                catalog=self.catalog, cache=self.cache,
+                store=self.store, dist_shards=self.dist_shards)
+        return plane
 
     def sql(self, text: str):
         """Execute one statement. Top-level calls run inside a query
@@ -365,8 +502,14 @@ class Session:
             # (SELECT plans contribute theirs in _query_planned)
             _ctx.tables = tuple(sorted(
                 set(_ctx.tables) | {stmt.table.lower()}))
-        if isinstance(stmt, _PLANE_STATEMENTS):
-            raise _not_yet(f"{type(stmt).__name__} statements", 9)
+        if isinstance(stmt, ast.CreateExternalTable):
+            return self._create_external(stmt)
+        if isinstance(stmt, ast.AdminSetIngestJob):
+            # routine-load CRUD: `ADMIN SET ingest_job 'name' = '<json
+            # spec>'` creates/replaces, `= 'drop'` drops (the CREATE/
+            # PAUSE/DROP ROUTINE LOAD analog; specs journal + image)
+            return self.ingest_plane().admin_set_job(self, stmt.name,
+                                                     stmt.value)
         if isinstance(stmt, ast.Explain):
             return self._explain(stmt)
         if isinstance(stmt, (ast.Select, ast.SetOp)):
@@ -503,12 +646,36 @@ class Session:
                 # definition restored but never materialized: there is no
                 # backing table to drop
                 return None
+        from ..storage.external import ExternalTableHandle
+
+        was_external = isinstance(self.catalog.get_table(nm),
+                                  ExternalTableHandle)
         existed = self.catalog.get_table(stmt.name) is not None
         self.catalog.drop(stmt.name, stmt.if_exists)
         self.cache.invalidate(nm)
         self.catalog.bump_version(nm)
-        if self.store is not None and existed:
+        if was_external:
+            self._save_external_defs(remove=nm)
+            self._log_meta({"op": "drop_external", "name": nm})
+        elif self.store is not None and existed:
             self.store.drop_table(nm)
+        return None
+
+    def _create_external(self, stmt: ast.CreateExternalTable):
+        from ..storage.external import ExternalTableHandle
+
+        name = stmt.name.lower()
+        if self.catalog.get_table(name) is not None \
+                or name in self.catalog.views:
+            raise ValueError(f"name {name!r} already exists")
+        self.catalog.register_handle(ExternalTableHandle(name, stmt.location))
+        self._save_external_defs(add={name: stmt.location})
+        # journaled like native DDL so image+tail replay agrees with the
+        # sidecar, and the data epoch moves so any cached result under a
+        # same-named earlier definition drops
+        self._log_meta({"op": "create_external", "name": name,
+                        "location": stmt.location})
+        self.catalog.bump_data_epoch(name)
         return None
 
     def _create_view(self, stmt: ast.CreateView):
@@ -545,6 +712,7 @@ class Session:
         handle = self.catalog.get_table(name)
         if handle is None:
             raise ValueError(f"unknown table {name}")
+        _reject_external(handle)
         if self.store is not None and isinstance(handle, StoredTableHandle):
             new_schema = self.store.alter_table(
                 name, stmt.action, stmt.column, stmt.type, stmt.nullable)
@@ -927,6 +1095,7 @@ class Session:
         handle = self.catalog.get_table(table)
         if handle is None:
             raise ValueError(f"unknown table {table}")
+        _reject_external(handle)
         return handle
 
     def _delete(self, stmt: ast.Delete):

@@ -146,7 +146,11 @@ def _i64_bits(d: torch.Tensor) -> torch.Tensor:
 def eval_udf(cc, udef: UdfDef, args):
     """Evaluate a UDF call over the compiler's chunk on the host."""
     from ..exprs.compile import EVal, _and_valid, as_tensor
+    from .lifecycle import checkpoint
 
+    # the host round trip below is a stage of its own: a KILL or deadline
+    # lands before it, in every loop that evaluates expressions
+    checkpoint("udf::eval")
     if len(args) != len(udef.params):
         raise TypeError(
             f"{udef.name} takes {len(udef.params)} arguments, "

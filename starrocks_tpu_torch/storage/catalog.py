@@ -13,8 +13,7 @@ listens. ``StoredTableHandle`` reads a TabletStore table lazily.
 information_schema serves the storage views and the views over the serving
 and observability planes (query log, processlist, profiles, metrics,
 resource groups, privileges, fail points, audit log, events, workload,
-alerts); the ingest plane's views (external tables, routine-load jobs)
-raise NotImplementedError.
+alerts) and of the ingest plane (external tables, routine-load jobs).
 """
 
 from __future__ import annotations
@@ -176,11 +175,6 @@ def _live_rows(m: dict) -> int:
                for rs in m["rowsets"] for f in rs["files"])
 
 
-# information_schema views of the ingest plane (external tables, routine-load
-# jobs), which the port does not have yet: slice 9 brings them
-_PLANE_VIEWS = frozenset({"external_tables", "ingest_jobs"})
-
-
 class Catalog:
     def __init__(self):
         self.tables: dict = {}
@@ -296,11 +290,6 @@ class Catalog:
     def _info_schema(self, view: str) -> Optional[TableHandle]:
         """Virtual tables over catalog state (reference analog: BE
         schema_scanner/ + fe catalog/system/information/)."""
-        if view in _PLANE_VIEWS:
-            raise NotImplementedError(
-                f"information_schema.{view} reads a plane that is not in "
-                "the port yet (slice 9)")
-
         def vtable(cols):
             # build even when empty (from_pydict can't infer types of [])
             fields, arrays = [], {}
@@ -317,6 +306,14 @@ class Catalog:
 
         def stored(h) -> bool:
             return getattr(h, "store", None) is not None
+
+        def cold(h) -> bool:
+            """Whether reading h's data means file IO: a stored or an
+            external table not loaded yet."""
+            from .external import ExternalTableHandle
+
+            return getattr(h, "_table", None) is None and (
+                stored(h) or isinstance(h, ExternalTableHandle))
 
         if view == "tables":
             rows = [(n, self.tables[n].row_count,
@@ -363,8 +360,8 @@ class Catalog:
                 h = self.tables[n]
                 # metadata-only contract: computing stats loads + scans the
                 # data — only report tables already resident (ANALYZE-style
-                # warmth); cold stored tables show analyzed=0
-                loaded = getattr(h, "_table", None) is not None or not stored(h)
+                # warmth); cold stored/external tables show analyzed=0
+                loaded = not cold(h)
                 for f in h.schema:
                     if f.type.is_wide:
                         continue
@@ -482,6 +479,15 @@ class Catalog:
                 ("table_name", T.VARCHAR, []),
                 ("referenced_table_name", T.VARCHAR, []),
             ])
+        if view == "external_tables":
+            from .external import ExternalTableHandle
+
+            rows = [(n, h.location) for n, h in sorted(self.tables.items())
+                    if isinstance(h, ExternalTableHandle)]
+            return vtable([
+                ("table_name", T.VARCHAR, [r[0] for r in rows]),
+                ("location", T.VARCHAR, [r[1] for r in rows]),
+            ])
         if view == "rowsets":
             tn, rid, fn, rws, prt = [], [], [], [], []
             for n in sorted(self.tables):
@@ -528,9 +534,9 @@ class Catalog:
             tn, cn, ndv = [], [], []
             for n in sorted(self.tables):
                 h = self.tables[n]
-                if getattr(h, "_table", None) is None and stored(h):
+                if cold(h):
                     continue  # metadata-only contract (see "statistics"):
-                    # computing NDV would LOAD cold stored data
+                    # computing NDV would LOAD cold stored/external data
                 for f in h.schema:
                     if f.type.is_wide:
                         continue
@@ -792,6 +798,30 @@ class Catalog:
                  [e["partial_cache_hit_ratio"] for e in rows]),
                 ("feedback_hit_ratio", T.DOUBLE,
                  [e["feedback_hit_ratio"] for e in rows]),
+            ])
+        if view == "ingest_jobs":
+            # routine-load jobs + progress (the SHOW ROUTINE LOAD analog;
+            # CRUD surface is ADMIN SET ingest_job, ingest/poller.py)
+            import json as _json
+
+            ip = getattr(self, "ingest_plane", None)
+            rows = ip.poller.snapshot() if ip is not None else []
+            return vtable([
+                ("name", T.VARCHAR, [e["name"] for e in rows]),
+                ("table_name", T.VARCHAR, [e["table"] for e in rows]),
+                ("path", T.VARCHAR, [e["path"] for e in rows]),
+                ("format", T.VARCHAR, [e["format"] for e in rows]),
+                ("state", T.VARCHAR, [e["state"] for e in rows]),
+                ("rows_loaded", T.BIGINT,
+                 [e["rows_loaded"] for e in rows]),
+                ("commits", T.BIGINT, [e["commits"] for e in rows]),
+                ("errors", T.BIGINT, [e["errors"] for e in rows]),
+                ("last_error", T.VARCHAR, [e["last_error"] for e in rows]),
+                ("last_poll_ts", T.DOUBLE,
+                 [e["last_poll_ts"] for e in rows]),
+                ("offsets", T.VARCHAR,
+                 [_json.dumps(e["offsets"], sort_keys=True)
+                  for e in rows]),
             ])
         if view == "alerts":
             from ..runtime.alerts import ALERTS

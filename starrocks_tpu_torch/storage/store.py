@@ -127,33 +127,36 @@ class TabletStore:
         # guards the index map, the listener list and the last-scan stats;
         # DML content stays single-writer
         self._state_lock = lockdep.lock("TabletStore._state_lock")
-        self._pk_index: dict = {}   # table -> _PKIndex
+        # table -> _PKIndex
+        self._pk_index: dict = {}   # guarded_by: _state_lock
         # table -> (manifest, Schema) for point probes, cached until the
         # next _write_manifest. Only the point path reads it (mutators read
         # fresh copies via read_manifest and edit their own dict)
-        self._manifest_cache: dict = {}
+        self._manifest_cache: dict = {}  # guarded_by: _state_lock
         # (table, file, columns) -> `_read_file` columns of ONE immutable
         # data file, delete vector NOT applied: delvecs only mask rows at
         # read, so raw positions stay valid across PK DML. The point gather
         # slices rows out of these; entries drop when the table's file set
         # changes (_drop_pk_index)
         self._part_cache = collections.OrderedDict()
-        self.last_scan_stats: dict = {}
+        self.last_scan_stats: dict = {}  # guarded_by: _state_lock
         # host seconds of the last write (insert/upsert/rewrite), by step:
         # "bucket_s" (partition + bucket of each row, the stable group
         # order), "write_s" (slicing, zonemaps, file writes), "index_s"
         # (the primary index: canonical keys, batch dedupe, probe, delete
         # vectors, index update), and its "rows"
-        self.last_write_stats: dict = {}
+        self.last_write_stats: dict = {}  # lint: unguarded-ok — written by the writes alone (DML content stays single-writer, above); a diagnostic read after the write
         # serializes log() appends against checkpoint()'s snapshot+replace:
         # an append between the tail snapshot and os.replace would land on
         # the replaced inode and vanish from the journal
         self._journal_lock = lockdep.rlock("TabletStore._journal_lock")
-        self._next_seq = None   # lazily scanned (image seq + log tail)
-        self.tail_count = None  # ops past the image (auto-checkpoint trigger)
+        # lazily scanned (image seq + log tail); ops past the image (the
+        # auto-checkpoint trigger)
+        self._next_seq = None   # guarded_by: _journal_lock
+        self.tail_count = None  # guarded_by: _journal_lock
         # mutation listeners: fn(table, op) fired after every storage-level
         # write; sessions wire them to catalog data-epoch bumps
-        self._listeners: list = []
+        self._listeners: list = []  # guarded_by: _state_lock
 
     def add_listener(self, fn):
         with self._state_lock:
@@ -190,7 +193,7 @@ class TabletStore:
     # leader/CheckpointController.java:85): every op carries a monotone seq;
     # checkpoint() snapshots catalog-level metadata into image.json and
     # truncates the log to the ops after the image.
-    def _scan_seq(self) -> int:
+    def _scan_seq(self) -> int:  # lint: holds _journal_lock  # lint: blocking-ok — the lazy seq scan reads image+log and must serialize vs writers: a log append racing the scan would mint a duplicate seq
         img = self.read_image()
         base = img["seq"] if img else 0
         seq = base
@@ -202,13 +205,13 @@ class TabletStore:
         self.tail_count = n_tail
         return seq
 
-    def ensure_seq(self):
+    def ensure_seq(self):  # lint: blocking-ok — startup-path journal scan under the journal lock: same serialization contract as _scan_seq
         """Force the lazy journal scan (startup paths want tail_count)."""
         with self._journal_lock:
             if self._next_seq is None:
                 self._next_seq = self._scan_seq()
 
-    def log(self, op: dict) -> int:
+    def log(self, op: dict) -> int:  # lint: blocking-ok — the edit-log append IS the serialization point: writing outside the journal lock could tear op order against checkpoint truncation
         with self._journal_lock:
             # an injected failure here leaves the log un-torn: nothing is
             # appended before this point
@@ -246,7 +249,7 @@ class TabletStore:
         except (OSError, json.JSONDecodeError):
             return None  # torn image: fall back to full log replay
 
-    def checkpoint(self, catalog_image: dict) -> int:
+    def checkpoint(self, catalog_image: dict) -> int:  # lint: blocking-ok — image write + fsync + log truncation must be atomic vs concurrent log(): holding the journal lock across the IO is the durability contract
         """Write the catalog image at the current journal position and
         truncate the log. Image first (fsync'd tmp + atomic replace), then
         the log — a crash between the two leaves covered ops in the log,
@@ -1586,6 +1589,7 @@ def backup(store: TabletStore, dest_dir: str, max_retries: int = 3) -> int:
     if os.path.exists(store.log_path):
         shutil.copy2(store.log_path, os.path.join(dest_dir, "edit_log.jsonl"))
     n = 0
+    # lint: checkpoint-exempt — offline admin utility (no in-package callers run it on an engine thread); there is no QueryContext to observe
     for t in store.table_names():
         src = store._tdir(t)
         dst = os.path.join(dest_dir, t)

@@ -12,9 +12,10 @@ port's counterpart of tests/test_dist_fragments.py.
 - the same query through the host exchange plane (runtime/cluster_exec.py)
   with its fragments in another process.
 
-The JAX package's `test_annotated_plan_passes_declared_check` needs
-analysis/plan_check (slice 9); its half that needs no verifier — one
-LExchange per recorded event — is here."""
+The JAX package's `test_annotated_plan_passes_declared_check` is
+`test_annotated_plan_declares_every_exchange`: one LExchange per recorded
+event, and the annotated plan verifies in declared mode
+(analysis/plan_check.check_distribution)."""
 
 import threading
 
@@ -134,12 +135,20 @@ def test_shuffle_agg_fragments(sess):
 
 def test_annotated_plan_declares_every_exchange(sess):
     """The annotated plan carries one explicit LExchange per recorded
-    exchange edge (the verifier half of the JAX test waits for slice 9)."""
+    exchange edge, and verifies in DECLARED mode: plan_check checks the
+    declarations instead of re-simulating the compiler's exchange
+    decisions."""
+    from starrocks_tpu_torch.analysis import plan_check
+
     for sql in (QUERIES[10], QUERIES[18]):
         ir = _ir_of(sess, sql)
         n_ex = len({id(n) for n in walk_plan(ir.annotated)
                     if isinstance(n, LExchange)})
         assert n_ex == len(ir.events)
+        findings = plan_check.check_distribution(
+            ir.annotated, sess.catalog, managed_exchanges=False)
+        errs = [f for f in findings if f.severity == "error"]
+        assert errs == [], [str(f) for f in errs]
 
 
 GOLDEN = {"scan": SCAN, "q3": QUERIES[3], "q5": QUERIES[5],

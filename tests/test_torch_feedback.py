@@ -10,8 +10,10 @@ stale sidecar, the consult token reaches a fixpoint, `plan_feedback = off`
 answers the same rows; the store's LRU bound, observation counts and
 band-tier token moves; the recursive salted split. Rows and the feedback
 counters equal the reference's at every step. The fingerprint's cases are
-in tests/test_torch_feedback_fingerprint.py. Left to slice 9: the static
-lint fixtures and the key-read audit.
+in tests/test_torch_feedback_fingerprint.py; the key-read audit of the
+consult path is in tests/test_torch_plan_verifier.py. The reference's
+static lint fixtures (tools/src_lint.py) belong to its tools, which the
+port does not carry.
 """
 
 import os

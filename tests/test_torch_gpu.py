@@ -64,7 +64,12 @@ installed:
   returning the card's allocated memory to its value before it, and the
   kernels' launch counts from four threads at once equal to four times
   one thread's, and `enable_device_profile`'s per-attempt CUDA-event
-  time and peak bytes.
+  time and peak bytes;
+- loading: TPC-H orders at SF 0.1 written as CSV and loaded with
+  `load_csv`, and written as parquet files (chip_smoke.py's writer) and
+  declared as an external table, each queried on the card against the
+  CPU's rows; a stream-loaded batch visible to the next query on the
+  card, the warm device cache dropped by the commit.
 """
 
 import numpy as np
@@ -1403,3 +1408,98 @@ def test_device_profile_on_card(cuda):
         mem = c.infos["device_memory"]
         assert c.infos["device_time_ms"] > 0
         assert mem["peak_allocated_bytes"] >= mem["allocated_before_bytes"] > 0
+
+
+# --- loading ------------------------------------------------------------------
+
+LOAD_QUERIES = ("3", "5", "18")
+
+
+def _orders_ddl(orders, name="orders"):
+    return f"CREATE TABLE {name} (" + ", ".join(
+        f"{f.name} {f.type!r}" for f in orders.schema) + ")"
+
+
+def _load_both(tmp_path, load):
+    """The card's and the CPU's rows of Q3, Q5, Q18 and N3 over TPC-H SF
+    0.1 whose orders `load(session, orders)` replaced."""
+    from starrocks_tpu_torch.storage.tpch_queries import TOPN_QUERIES
+
+    out = []
+    for dev in ("cuda", "cpu"):
+        cat = tpch_catalog(sf=0.1)
+        orders = cat.get_table("orders").table
+        s = Session(cat, device=dev)
+        s.sql("DROP TABLE orders")
+        load(s, orders)
+        s.sql("SET join_probe_strategy = 'pallas_sorted'")
+        s.sql("SET topn_strategy = 'pallas'")
+        try:
+            out.append([s.sql(QUERIES[int(q)]).rows() for q in LOAD_QUERIES]
+                       + [s.sql(TOPN_QUERIES["N3"]).rows()])
+        finally:
+            config.set("join_probe_strategy", "auto")
+            config.set("topn_strategy", "auto")
+    return out
+
+
+def test_load_csv_on_card_matches_cpu(cuda, tmp_path):
+    from starrocks_tpu_torch.storage.formats.csv import write_csv
+
+    path = str(tmp_path / "orders.csv")
+
+    def load(s, orders):
+        if not (tmp_path / "orders.csv").exists():
+            write_csv(orders, path)
+        s.sql(_orders_ddl(orders))
+        assert s.load_csv("orders", path) == orders.num_rows
+
+    got, want = _load_both(tmp_path, load)
+    assert got == want and all(len(r) for r in got[:1])
+
+
+def test_external_parquet_on_card_matches_cpu(cuda, tmp_path):
+    import chip_smoke
+
+    d = tmp_path / "orders_pq"
+
+    def load(s, orders):
+        if not d.exists():
+            d.mkdir()
+            n = orders.num_rows
+            for i in range(3):
+                chip_smoke._write_parquet(
+                    orders, str(d / f"part-{i}.parquet"), n * i // 3,
+                    n * (i + 1) // 3, 2)
+        s.sql(f"CREATE EXTERNAL TABLE orders FROM '{d}'")
+
+    got, want = _load_both(tmp_path, load)
+    assert got == want
+
+
+def test_stream_load_visible_on_card_and_drops_the_warm_cache(cuda):
+    """A micro-batch committed through the ingest plane is in the next
+    query's rows on the card; the commit drops the table's warm device
+    columns."""
+    from starrocks_tpu_torch.storage.catalog import Catalog
+
+    s = Session(Catalog())
+    s.sql("create table ti (k bigint, v double, primary key (k))")
+    s.sql("insert into ti values " + ", ".join(
+        f"({i}, {i * 0.5})" for i in range(1000)))
+    q = "select count(*), sum(k), max(v) from ti"
+    assert s.sql(q).rows() == [(1000, 499500, 499.5)]
+    s.sql(q)  # warm: the columns sit in the device cache
+    assert any(k[0] == "ti" for k in s.cache._cols)
+    plane = s.ingest_plane()
+    config.set("ingest_batch_age_ms", 5)
+    try:
+        r = plane.load(s, "ti", [{"k": 5000 + i, "v": 1e4 + i}
+                                 for i in range(10)], label="gpu1")
+    finally:
+        config.set("ingest_batch_age_ms", 200)
+    assert r["rows"] == 10
+    assert not any(k[0] == "ti" for k in s.cache._cols)
+    assert s.sql(q).rows() == [(1010, 499500 + 50045, 10009.0)]
+    assert s.cache._cols and all(
+        d.device.type == "cuda" for d, _ in s.cache._cols.values())

@@ -181,7 +181,9 @@ def io_twice(a):
     s.sql("create table pkt (id int, x int, primary key (id))")
     assert ("pkt", "id", "UNIQUE") in q("key_column_usage")
     assert ("pkt", "UNIQUE") in q("table_constraints")
-    # external tables belong to the ingest plane (slice 9): their view
-    # raises naming it
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        q("external_tables")
+    # the ingest plane's view of external tables: none here, in the
+    # reference's columns
+    assert q("external_tables") == []
+    assert [f.name for f in s.sql(
+        "select * from information_schema.external_tables").table.schema
+    ] == ["table_name", "location"]

@@ -254,15 +254,14 @@ def test_plane_statements_equal(text):
 
 # module -> the definitions the port adapts (their reasons in the port's
 # text): lifecycle measures torch tensors and device Chunks (`_nbytes`);
-# http_service answers the ingest plane's endpoints with 501 naming its
-# slice and takes `--device` (`do_GET`'s /api/ingest branch, `do_PUT`,
-# `_not_yet`, `serve`, `__main__`); profile's device knob describes what
+# http_service takes `--device` (`serve`, `__main__`); profile's device
+# knob describes what
 # the port records (`enable_device_profile`); the tier drops a failed
 # statement's error as it re-raises it, so no reference cycle keeps the
 # statement's device tensors alive (`ServingTier.execute`)
 ADAPTED = {
     "lifecycle": {"_nbytes"},
-    "http_service": {"do_GET", "do_PUT", "_not_yet", "serve", "__main__"},
+    "http_service": {"serve", "__main__"},
     "profile": {"enable_device_profile"},
     "serving": {"execute"},
 }

@@ -9,9 +9,10 @@ that never executes, a stale entry dropped by INSERT, a SET of a trace
 knob that misses, nondeterministic queries never cached, LRU eviction past
 `query_cache_capacity_mb`, `enable_query_cache = off` uncached, and the
 partial tier's delta reuse after an append, its string-dictionary merge,
-the recompute after an upsert and after a compaction. Left to later
-slices: the distributed partial merge (slice 7), external tables and the
-static key audits (slice 9).
+the recompute after an upsert and after a compaction. The distributed
+partial merge is in the distributed tests, an external table's changed
+files in tests/test_torch_external_tables.py, and the verified result key
+(analysis/key_check.py) in tests/test_torch_plan_verifier.py.
 """
 
 import numpy as np

@@ -244,15 +244,11 @@ def test_information_schema_storage_views(mode, tmp_path):
                                   "resource_groups", "table_privileges",
                                   "fail_points", "ingest_jobs", "alerts"])
 def test_information_schema_plane_views_raise(view):
-    """The ingest plane's views still raise, naming the slice that brings
-    them; the serving and observability planes' views (slice 8) answer
-    with the reference's columns and types."""
+    """The views of the serving and observability planes (slice 8) and of
+    the ingest plane (ingest_jobs, the last slice) answer with the
+    reference's columns and types; none raises."""
     s = Session(Catalog(), device="cpu")
     text = f"select * from information_schema.{view}"
-    if view == "ingest_jobs":
-        with pytest.raises(NotImplementedError, match="slice 9"):
-            s.sql(text)
-        return
     got = s.sql(text).table.schema
     want = JSession(JCatalog()).sql(text).table.schema
     assert [(f.name, repr(f.type)) for f in got] == [
@@ -272,8 +268,10 @@ def test_information_schema_plane_views_raise(view):
 def test_later_statements_raise_naming_their_slice(text, slice_no):
     """The plane statements of slice 8 are ported: each answers as the
     reference's does (same result type; SHOW PROFILE and EXPLAIN ANALYZE
-    render a tree), after the same set-up in both packages. The ingest
-    plane's statements still raise, naming slice 9."""
+    render a tree), after the same set-up in both packages. So are the
+    ingest plane's statements: over a location no file matches, CREATE
+    EXTERNAL TABLE raises the reference's error, and ADMIN SET ingest_job
+    answers as the reference's does."""
     assert slice_no == 8
     setup = ["create table t (k int)", "create user bob identified by 'pw'",
              "create resource group rg with (concurrency_limit = 2)"]
@@ -292,12 +290,12 @@ def test_later_statements_raise_naming_their_slice(text, slice_no):
         assert len(got) == len(want)
     if text.startswith("explain analyze"):
         assert got.splitlines()[0] == want.splitlines()[0]
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        Session(Catalog(), device="cpu").sql(
-            "create external table x from '/nowhere'")
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        Session(Catalog(), device="cpu").sql(
-            "admin set ingest_job 'j' = 'drop'")
+    for sess in (JSession(JCatalog()), Session(Catalog(), device="cpu")):
+        with pytest.raises(ValueError, match="no parquet/ORC files match"):
+            sess.sql("create external table x from '/nowhere'")
+    assert Session(Catalog(), device="cpu").sql(
+        "admin set ingest_job 'j' = 'drop'") == JSession(JCatalog()).sql(
+        "admin set ingest_job 'j' = 'drop'")
 
 
 def test_array_column_statements_match_jax():
@@ -329,9 +327,16 @@ def test_sketch_column_statements_match_jax(col, probe):
 
 
 def test_load_csv_raises(tmp_path):
-    s = Session(device="cpu", data_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        s.load_csv("t", str(tmp_path / "x.csv"))
+    """load_csv is ported (tests/test_torch_load_csv.py); it raises where
+    the reference's does: an unknown table, and a file that is not
+    there."""
+    for sess in (Session(device="cpu", data_dir=str(tmp_path / "p")),
+                 JSession(data_dir=str(tmp_path / "j"))):
+        with pytest.raises(ValueError, match="unknown table"):
+            sess.load_csv("t", str(tmp_path / "x.csv"))
+        sess.sql("create table t (k int)")
+        with pytest.raises(FileNotFoundError):
+            sess.load_csv("t", str(tmp_path / "x.csv"))
 
 
 # --- EXPLAIN ---------------------------------------------------------------------

@@ -259,14 +259,14 @@ def test_session_needs_a_card_unless_asked_for_cpu():
 
 
 def test_unported_statements_raise():
-    """A statement of a later slice raises (DDL and DML are ported since
-    slice 4, users and grants since slice 8; external tables wait for
-    slice 9), and so does a function
-    neither package registers; `native` (the host filter-sum lane, now
-    ported) answers Q1, which is grouped and so not the lane's shape, as
-    `auto` does."""
+    """Every statement is ported (DDL and DML since slice 4, users and
+    grants since slice 8, external tables in the last slice, which raise
+    the reference's error over a location no file matches); a function
+    neither package registers raises; `native` (the host filter-sum lane,
+    now ported) answers Q1, which is grouped and so not the lane's shape,
+    as `auto` does."""
     s = Session(tpch_catalog(sf=SF), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    with pytest.raises(ValueError, match="no parquet/ORC files match"):
         s.sql("create external table ext from '/nowhere'")
     with pytest.raises(Exception, match="unknown function"):
         s.sql("select no_such_function(l_quantity) from lineitem")

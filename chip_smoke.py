@@ -45,7 +45,7 @@ allocated when it started. Phases, each of which must pass:
    extremes, group_concat, the numeric, date and string functions) at
    --sf cold and warm under the kernel strategies, then under `auto` in a
    fresh session; launch counts set to 0 and peak memory reset before
-   each query (cold only under the kernel strategies: CUTS); rows equal
+   each query (cold only under both: CUTS); rows equal
    between the two (B7's floats to a relative
    1e-4, or one unit in the rounded place of its rounded cells: its float
    sums take the f32 segment-sum kernel under `pallas`);
@@ -66,8 +66,8 @@ allocated when it started. Phases, each of which must pass:
    lineitem (60,004,659 rows at SF 10) streams through the card in 8
    batches and orders in 2: batched aggregation (Q1, Q6, S1, S2, B7), the
    hybrid partitioned join (Q4, Q12, Q14, Q19, and Q12 again under
-   `join_hybrid_strategy = 'grace'`), the spilled sort (N3; N1 once, cold,
-   under the kernel strategies only) and the spilled window (W1). Each
+   `join_hybrid_strategy = 'grace'`), the spilled sort (N3; N1 not run:
+   CUTS) and the spilled window (W1). Each
    query runs cold and warm under the kernel strategies in a Session of
    its own, then under `auto` in another; launch counts set to 0 and peak
    memory reset before each run. Each run keeps its wall, the executor's
@@ -76,7 +76,8 @@ allocated when it started. Phases, each of which must pass:
    lexsort's seconds, device-to-host syncs), the join counters, the peak
    device memory and the resident host memory, launches and shapes; a
    traced warm run under `auto` of the queries in SPILL_TRACED (none:
-   CUTS), and the queries in SPILL_COLD_ONLY cold only (CUTS). Rows
+   CUTS), and the queries in SPILL_COLD_ONLY, and every query under
+   `auto`, cold only (CUTS). Rows
    must equal the same query's
    rows without the threshold (S1/S2/B7's f32 cells to a relative 1e-4,
    W1's unordered rows as a sorted list); SPILL_PARTS_LIVE must read 0
@@ -135,7 +136,25 @@ allocated when it started. Phases, each of which must pass:
    under the kernel strategies and Q9 under `join_probe_strategy =
    'pallas'` run cold and warm with `plan_verify_level = 'strict'`; every
    answer equals the generated catalog's and no finding is reported.
-8b. dist (distribution): the earlier paths' device memory released, a
+8b. lake (the lake files, read without pyarrow): the committed fixtures
+   of tests/data/torch_formats/ (made by its make_fixtures.py with
+   pyarrow, which this machine lacks; MANIFEST.json holds each one's rows
+   and each column's type, NULL count and digest as the reference's
+   `from_arrow` gives them). Each ZSTD fixture (`orders` of TPC-H SF 0.1,
+   parquet and ORC) is copied LAKE_COPIES (100) times into a directory
+   declared with CREATE EXTERNAL TABLE: 15,000,000 rows, SF 10's orders.
+   For each lake: the footers' row count, the decode seconds (split into
+   decompress and decode values, thread-seconds summed over the files,
+   and the dictionaries), the upload to the card, and whether every column
+   equals the manifest x100. Then N3 under `topn_strategy = 'pallas'` and
+   G1 (a GROUP BY over o_orderpriority) under `auto`, cold and warm, counts
+   set to 0 before each; rows equal to the same statements over an
+   in-memory twin (the generated orders, 100 times over); topn_select must
+   launch, and the kernels phase checks it at the lake's shape. Then every
+   other fixture (LZ4_RAW, the DELTA and BYTE_STREAM_SPLIT encodings,
+   INT96/binary/LIST, ORC LZ4, ORC 0.11, ORC TIMESTAMP/BINARY/LIST, the
+   schema-evolved directory) is read once and held to its manifest.
+8c. dist (distribution): the earlier paths' device memory released, a
    fresh Session(dist_shards=8) over the --sf catalog (the default
    thresholds shard every table but nation and region, and the large
    group-bys take the shuffle; no module global is patched) runs
@@ -152,7 +171,7 @@ allocated when it started. Phases, each of which must pass:
    sub-phase at SF 1: ClusterRuntime(n_workers=2, shards=2) with its
    worker processes on the same card runs Q3 and Q18 cold and warm, rows
    equal to the in-process path's, at least 3 fragments on the workers.
-8c. serve (the serving planes), in a child process of its own (this
+8d. serve (the serving planes), in a child process of its own (this
    script with --serve-child) started with the port's lock-order witness
    on (SR_TPU_LOCK_WITNESS=1), so that every other phase runs and is
    timed with plain locks; the child generates the --sf catalog anew
@@ -201,8 +220,9 @@ allocated when it started. Phases, each of which must pass:
    output's `reduced` list is empty). All 99 queries (`ALL_QUERIES`) run
    under `auto`, cold (the 15 window queries cold and warm: the cut in
    CUTS); the 15 window queries and every query that launches a kernel
-   (`KERNEL_RUN_QUERIES`) then run cold and warm under the kernel
-   strategies in a fresh session (24 queries at a time cold, then warm,
+   (`KERNEL_RUN_QUERIES`) then run under the kernel strategies in a
+   fresh session, cold, and the window queries also warm (CUTS) (24
+   queries at a time cold, then warm,
    then traced: a Session keeps its last 64 plans), both with `max_recompiles` 32
    (TPCDS_KNOBS: q24 needs more than the default 10 at SF 1 and up).
    Counts set to 0 and peak memory reset
@@ -262,8 +282,8 @@ allocated when it started. Phases, each of which must pass:
    sums in f64.
 
 The last lines of output are the `kernels` JSON line (each kernel's
-`launches` over its first path, the functions, spill, ingest, dist,
-serve and tpcds paths) and
+`launches` over its first path, the functions, spill, ingest, lake,
+dist, serve and tpcds paths) and
 then
 {"ok": true, "device": {...}}; the full record goes to DIR/chip_smoke.json.
 `--phases kernels` (a comma list) runs those phases only, after `device`
@@ -343,6 +363,9 @@ DEFAULT_SHAPES = {"hash_build": (8_000_512, 1 << 24),
 # tighter capacity)
 Q9_PROBE_SHAPES = [(1 << 24, 2_483_200), (1 << 24, 9_001_984)]
 SEG_REL = 1e-6  # segment_sum vs f64: |err| <= SEG_REL * sum |x| per cell
+# the top-N kernel is timed at the shapes of at least this many rows and at
+# the largest; smaller ones (launch overhead) are checked only (CUTS)
+TOPN_TIMED_MIN_ROWS = 1 << 20
 
 I64MAX = (1 << 63) - 1
 I64MIN = -(1 << 63)
@@ -352,16 +375,26 @@ CARD = "cuda"  # the device every phase runs the port on
 # (the strategy sets in TRACED_PATH_STRATEGIES would be traced)
 TRACED_PATH_STRATEGIES = ()
 CUTS = ["tpch, breadth, functions and ssb: no traced warm runs (earlier "
-        "traces are in PERF.md)", "breadth and functions: cold only under "
-        "the kernel strategies", "tpcds: no traced runs (the window "
+        "traces are in PERF.md)", "breadth and functions: cold only (under "
+        "`auto` too since the lake path)", "tpcds: no traced runs (the window "
         "queries' traces of earlier runs are in PERF.md), to make room for "
         "the ingest path", "spill: no traced runs (earlier ones are in "
         "PERF.md), to make room for the ingest path",
         "spill: Q4, Q12, Q14, Q19, Q12 (grace) and W1 "
-        "cold only (SPILL_COLD_ONLY)",
+        "cold only (SPILL_COLD_ONLY), and under `auto` every query cold "
+        "only (its warm runs were within 5% of its cold ones in PR 13), to "
+        "make room for the lake path",
+        "ingest: the stream load in 10 PUTs of 20,000 rows (20 of 10,000 "
+        "before the lake path; each commit rewrites the whole table)",
+        "spill: N1 not run (SPILL_SKIPPED: 16.9 s of its 18.6 s were a host "
+        "lexsort, PR 10; N3 drives the spilled sort), for the lake path",
+        "kernels: the top-N kernel timed only at shapes of 2^20 rows or "
+        "more and at the largest (the smaller ones are launch overhead); "
+        "every shape still checked",
         "ingest: the routine-load job tails a side table (the answers held "
         "to the generated catalog leave no further batch for orders)",
-        "tpcds: under `auto` the 84 non-window queries cold only",
+        "tpcds: the non-window queries cold only (under the kernel "
+        "strategies too since the lake path)",
         "store: no traced runs (earlier ones are in PERF.md)",
         "kernels: every check at every shape stays; the extra timings at "
         "the functions and tpcds paths' shapes are not repeated (earlier "
@@ -370,7 +403,8 @@ CUTS = ["tpch, breadth, functions and ssb: no traced warm runs (earlier "
         "Session (the shards' placements already on the card); Q1 and W2 "
         "cold only (DIST_COLD_ONLY), and Q3/Q5 under the hash kernels; "
         "the kernels timed at the largest per-shard shape of each",
-        "the untraced cold and warm runs and every kernel check stay"]
+        "the untraced cold and warm runs and every kernel check stay, but "
+        "for the warm runs named above"]
 TOPN_SF = 1.0  # Q2's top-N scale (see phase_hash_topn)
 CPU_SF = 0.1   # the card-vs-CPU phase's scale (the CPU runs it too)
 CPU_SPILL_ROWS = 1 << 17  # its spill queries' batch budget
@@ -1003,7 +1037,7 @@ def phase_breadth(rec, cat, sf):
     out = {"sf": sf}
     tables: dict = {}
     _strategy_pair(cat, BREADTH_QUERIES, kernels, out, tables,
-                   traced=TRACED_PATH_STRATEGIES, warm=("auto",))
+                   traced=TRACED_PATH_STRATEGIES, warm=())
     rec["breadth"] = out
     differ = _differ(BREADTH_QUERIES, tables, "kernels", "auto", BREADTH_REL,
                      BREADTH_UNITS)
@@ -1048,7 +1082,7 @@ def phase_functions(rec, cat, sf):
     tables: dict = {}
     try:
         _strategy_pair(cat, FUNCTION_QUERIES, kernels, out, tables,
-                       traced=TRACED_PATH_STRATEGIES, warm=("auto",))
+                       traced=TRACED_PATH_STRATEGIES, warm=())
     finally:
         udf.drop_udf("f_udf", if_exists=True)
     main = out["kernels"]["queries"]
@@ -1078,9 +1112,10 @@ def phase_functions(rec, cat, sf):
 # in-memory rows to a relative 1e-4 (B7's rounded cells to one unit)
 SPILL_ROWS = 1 << 23
 SPILL_REL = {"S1": STAT_REL, "S2": STAT_REL, **BREADTH_REL}
-# N1 runs once, cold, under the kernel strategies: a spilled sort launches
-# no kernel, and its host lexsort over 60M rows costs the same either way
-SPILL_ONCE = ("N1",)
+# not run (CUTS): N1, whose spilled sort launches no kernel and spent
+# 16.9 s of its 18.6 s in a host lexsort over 60M rows (PR 10); N3 drives
+# the spilled sort
+SPILL_SKIPPED = ("N1",)
 # a spill query's keys in the output: Q12 also runs under the grace join
 SPILL_GRACE = {"Q12g": "Q12"}
 UNORDERED = ("W1",)
@@ -1113,8 +1148,8 @@ def phase_spill(rec, cat, sf):
     """The spill path (see the module docstring, phase 6c): SPILL_QUERIES
     over the TPC-H catalog at `sf` with a 2^23-row batch budget, each cold
     and warm under the kernel strategies in a Session of its own, then
-    under `auto` in another (N1 cold under the kernel strategies only, Q12
-    also under the grace join); rows equal to the same query's rows
+    under `auto` in another (Q12 also under the grace join; the queries in
+    SPILL_SKIPPED not run); rows equal to the same query's rows
     without the threshold; SPILL_PARTS_LIVE 0 after every query;
     segment_sum must launch."""
     import gc
@@ -1125,7 +1160,9 @@ def phase_spill(rec, cat, sf):
     from starrocks_tpu_torch.runtime.session import Session
     from starrocks_tpu_torch.storage.tpch_queries import SPILL_QUERIES
 
-    texts = {**SPILL_QUERIES,
+    spill_queries = {q: t for q, t in SPILL_QUERIES.items()
+                     if q not in SPILL_SKIPPED}
+    texts = {**spill_queries,
              **{g: SPILL_QUERIES[q] for g, q in SPILL_GRACE.items()}}
     out = {"sf": sf, "batch_rows": SPILL_ROWS,
            "host_peak_rss_gb_before": resource.getrusage(
@@ -1135,7 +1172,7 @@ def phase_spill(rec, cat, sf):
     set_knobs(strategies("auto"))
     s0 = Session(cat, device=CARD)
     want, ref_s = {}, {}
-    for q, text in SPILL_QUERIES.items():
+    for q, text in spill_queries.items():
         t = time.perf_counter()
         want[q] = s0.sql(text).table
         ref_s[q] = time.perf_counter() - t
@@ -1180,8 +1217,6 @@ def _spill_runs(texts, want, cat, out, failures):
         launches = dict.fromkeys(kernels.WRAPPERS, 0)
         traces = {}
         for q, text in texts.items():
-            if q in SPILL_ONCE and strategy == "auto":
-                continue
             executor = SPILL_EXECUTORS[SPILL_GRACE.get(q, q)]
             hybrid = "auto"
             if q in SPILL_GRACE:
@@ -1190,9 +1225,9 @@ def _spill_runs(texts, want, cat, out, failures):
             set_knobs({**strategies(strategy), **spill_knobs(SPILL_ROWS),
                        "join_hybrid_strategy": hybrid})
             for run in ("cold", "warm"):
-                if run == "warm" and (q in SPILL_ONCE
-                                      or q in SPILL_COLD_ONLY):
-                    continue
+                if run == "warm" and (q in SPILL_COLD_ONLY
+                                      or strategy == "auto"):
+                    continue  # (CUTS)
                 kernels.reset_counts()
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
@@ -1326,9 +1361,8 @@ def phase_tpcds(rec, sf):
             names = list(texts)
             for i in range(0, len(names), TPCDS_GROUP):
                 group = {q: texts[q] for q in names[i:i + TPCDS_GROUP]}
-                # under `auto` the non-window queries run cold only (CUTS)
-                cold_only = () if name == "kernels" else [
-                    q for q in group if q not in WINDOW_QUERIES]
+                # the non-window queries run cold only (CUTS)
+                cold_only = [q for q in group if q not in WINDOW_QUERIES]
                 _run_each(s, name, group, queries, launches, tables, kernels,
                           cold_only)
                 traced = {q: t for q, t in group.items()
@@ -1352,8 +1386,8 @@ def phase_tpcds(rec, sf):
     del cat
     gc.collect()
     differ = [f"{q} {run}" for q in KERNEL_RUN_QUERIES
-              for run in ("cold", "warm")
-              if not tables_agree(
+              for run in ("cold", "warm") if ("kernels", q, run) in tables
+              and not tables_agree(
                   tables[("kernels", q, run)],
                   tables.get(("auto", q, run), tables[("auto", q, "cold")]),
                   rel=SEGMENT_SUM_REL if q in SEGMENT_SUM_QUERIES else 1e-6)]
@@ -1796,7 +1830,7 @@ def phase_store(rec, cat, sf):
 INGEST_PARQUET_FILES = 8   # the external table's directory
 INGEST_ROW_GROUPS = 2      # per parquet file
 INGEST_STREAM_ROWS = 200_000
-INGEST_BATCHES = 20        # PUT /api/load micro-batches of those rows
+INGEST_BATCHES = 10        # PUT /api/load micro-batches of those rows
 INGEST_REPEAT = 7          # the batch whose label is sent a second time
 # (label, knobs, query): each load's queries, under plan_verify_level strict
 INGEST_RUNS = [("kernels", {}, "3"), ("kernels", {}, "5"),
@@ -2296,6 +2330,180 @@ def phase_ingest(rec, cat, sf):
         raise PhaseError("; ".join(failures))
 
 
+LAKE_COPIES = 100  # copies of each ZSTD fixture: 15,000,000 rows
+LAKE_FILES = ("orders_zstd.parquet", "orders_zstd.orc")
+LAKE_QUERIES = {
+    "N3": ("topn", None),
+    "G1": ("auto", "SELECT o_orderpriority, count(*) c, sum(o_totalprice) "
+                   "s, min(o_orderdate) d, max(o_custkey) k FROM orders "
+                   "GROUP BY o_orderpriority ORDER BY o_orderpriority"),
+}
+
+
+def fixtures_dir() -> Path:
+    return Path(__file__).resolve().parent / "tests" / "data" / "torch_formats"
+
+
+def _manifest_mismatches(t, entry: dict, copies: int = 1) -> list:
+    """The columns of HostTable `t` that differ from a fixture's manifest
+    entry repeated `copies` times: names, types, NULL counts, and each
+    column's digest over the first copy, every copy equal to the first."""
+    import numpy as np
+
+    from starrocks_tpu_torch.storage.formats import column_digest
+
+    want = entry["columns"]
+    if [f.name for f in t.schema] != [c["name"] for c in want]:
+        return ["<columns>"]
+    if t.num_rows != entry["rows"] * copies:
+        return ["<rows>"]
+    n = entry["rows"]
+    bad = []
+    for f, c in zip(t.schema, want):
+        a, v = t.arrays[f.name], t.valids.get(f.name)
+        nulls = 0 if v is None else int((~v).sum())
+        ok = str(f.type) == c["type"] and nulls == c["nulls"] * copies
+        if ok and copies > 1:
+            ok = bool((a.reshape((copies, n) + a.shape[1:]) == a[:n]).all())
+            if ok and v is not None:
+                ok = bool((v.reshape(copies, n) == v[:n]).all())
+        if ok:
+            ok = column_digest(f, a[:n], None if v is None
+                               else v[:n]) == c["digest"]
+        if not ok:
+            bad.append(f.name)
+    return bad
+
+
+def phase_lake(rec):
+    """The lake path (see the module docstring, phase 8b)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from starrocks_tpu_torch.column import HostTable
+    from starrocks_tpu_torch.ops import kernels
+    from starrocks_tpu_torch.runtime.session import Session
+    from starrocks_tpu_torch.storage.catalog import Catalog
+    from starrocks_tpu_torch.storage.datagen.tpch import gen_tpch
+    from starrocks_tpu_torch.storage.external import ExternalTableHandle
+
+    here = fixtures_dir()
+    man = json.loads((here / "MANIFEST.json").read_text())
+    texts = {q: t or topn_texts()[q] for q, (_, t) in LAKE_QUERIES.items()}
+    out = {"copies": LAKE_COPIES, "lakes": {}, "small": {}}
+    rec["lake"] = out
+    launches = dict.fromkeys(kernels.WRAPPERS, 0)
+    failures = []
+    # the in-memory twin: the generated orders, LAKE_COPIES times over
+    gen = gen_tpch(0.1, man["seed"])["orders"]
+    twin = HostTable(gen.schema, {
+        f.name: np.concatenate([gen.arrays[f.name]] * LAKE_COPIES)
+        for f in gen.schema}, {})
+    mem = Catalog()
+    mem.register("orders", twin)
+    ms = Session(mem, device=CARD)
+    want = {}
+    try:
+        for q, (knobs, _) in LAKE_QUERIES.items():
+            set_knobs({**strategies("auto"),
+                       **(TOPN_KNOBS if knobs == "topn" else {})})
+            want[q] = ms.sql(texts[q]).table
+    finally:
+        set_knobs(strategies("auto"))
+    del ms, mem, twin
+    queries: dict = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_lake_")
+    try:
+        for name in LAKE_FILES:
+            entry = man["fixtures"][name]
+            lo = {"file": name, "bytes": (here / name).stat().st_size}
+            d = os.path.join(root, name.replace(".", "_"))
+            os.makedirs(d)
+            t = time.perf_counter()
+            ext = Path(name).suffix
+            for i in range(LAKE_COPIES):
+                shutil.copyfile(here / name,
+                                os.path.join(d, f"part-{i:03d}{ext}"))
+            lo["copy_s"] = time.perf_counter() - t
+            s = Session(Catalog(), device=CARD)
+            s.sql(f"CREATE EXTERNAL TABLE orders FROM '{d}'")
+            h = s.catalog.get_table("orders")
+            t = time.perf_counter()
+            lo["footer_rows"] = h.row_count  # footers only
+            lo["footer_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            table = h.table
+            lo["decode_s"] = time.perf_counter() - t
+            lo.update({k: v for k, v in h.read_stats.items()
+                       if k != "wall_s"})
+            lo["upload_s"] = _upload_s(s, "orders")
+            bad = _manifest_mismatches(table, entry, LAKE_COPIES)
+            lo["columns_equal"] = not bad
+            if lo["footer_rows"] != entry["rows"] * LAKE_COPIES or bad:
+                failures.append(f"lake {name}: {lo['footer_rows']} rows by "
+                                f"the footers, columns differ {bad}")
+            log(f"  lake {name} x{LAKE_COPIES}: {lo['footer_rows']} rows by "
+                f"the footers in {lo['footer_s'] * 1e3:.1f} ms; decode "
+                f"{lo['decode_s']:.2f} s (thread-seconds: decompress "
+                f"{lo['decompress_s']:.2f}, values {lo['values_s']:.2f}; "
+                f"dictionaries {lo['dict_s']:.2f} s), upload "
+                f"{lo['upload_s']:.2f} s; columns equal the manifest x"
+                f"{LAKE_COPIES}: {not bad}")
+            del table
+            sub: dict = {}
+            tables: dict = {}
+            try:
+                for q, (knobs, _) in LAKE_QUERIES.items():
+                    set_knobs({**strategies("auto"),
+                               **(TOPN_KNOBS if knobs == "topn" else {})})
+                    _run_each(s, knobs, {q: texts[q]}, sub, launches, tables,
+                              kernels)
+                    for run in ("cold", "warm"):
+                        if not tables_agree(tables[(knobs, q, run)], want[q]):
+                            failures.append(f"lake {name}: {q} {run} rows "
+                                            "differ from the in-memory twin")
+            finally:
+                set_knobs(strategies("auto"))
+            lo["queries"] = sub
+            queries.update({f"{name}:{q}": r for q, r in sub.items()})
+            out["lakes"][name] = lo
+            del s, h, tables
+            gc.collect()
+            torch.cuda.empty_cache()
+            shutil.rmtree(d)
+        # every other fixture once, against its manifest
+        for name, entry in man["fixtures"].items():
+            if name in LAKE_FILES:
+                continue
+            h = ExternalTableHandle("f", str(here / name))
+            t = time.perf_counter()
+            bad = _manifest_mismatches(h.table, entry)
+            so = {"what": entry["what"], "rows": h.table.num_rows,
+                  "decode_s": time.perf_counter() - t, "columns_equal":
+                  not bad}
+            out["small"][name] = so
+            if bad:
+                failures.append(f"lake fixture {name}: columns differ {bad}")
+        log(f"  lake fixtures: {len(out['small'])} read, columns equal "
+            f"their manifests: "
+            f"{all(v['columns_equal'] for v in out['small'].values())}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["shapes"] = _path_shapes(queries)
+    log(f"  lake launches {launches}, shapes {out['shapes']}")
+    if launches["topn_select"] < 1:
+        failures.append("lake: topn_select was not launched")
+    if failures:
+        raise PhaseError("; ".join(failures))
+
+
 DIST_SHARDS = 8
 DIST_REL = {"S1": STAT_REL, "S2": STAT_REL}
 # run once more, cold, under the hash kernels (`join_probe_strategy =
@@ -2339,7 +2547,7 @@ def _dist_agree(q, got, want, rel) -> bool:
 
 
 def phase_dist(rec, cat, sf):
-    """The distributed path (see the module docstring, phase 8b): a fresh
+    """The distributed path (see the module docstring, phase 8c): a fresh
     Session(dist_shards=8) over the TPC-H catalog at `sf`, DIST_QUERIES
     cold and warm under the kernel strategies then under `auto`, then
     DIST_HASH cold under the hash kernels; rows equal to the single-shard
@@ -2942,7 +3150,7 @@ def _point_agree(got: tuple, want: tuple) -> bool:
 
 
 def phase_serve(rec, cat, sf, seed):
-    """The serving planes (see the module docstring, phase 8c): the TPC-H
+    """The serving planes (see the module docstring, phase 8d): the TPC-H
     catalog behind one ServingTier and its MySQL and HTTP front doors on
     loopback ports, driven by real sockets, round by round; every check
     below fails the phase."""
@@ -3893,7 +4101,7 @@ def phase_kernels(rec, seed, only=None):
     dev = torch.device(CARD)
     shapes = {n: [] for n in kernels.WRAPPERS}
     for path in ("hash_topn", "tpch", "topn", "breadth", "functions",
-                 "spill", "ssb", "store", "dist", "serve", "tpcds"):
+                 "spill", "ssb", "store", "lake", "dist", "serve", "tpcds"):
         for n, v in (rec.get(path) or {}).get("shapes", {}).items():
             shapes[n] += [tuple(x) for x in v]
     build_shape = max(shapes["hash_build"] or [DEFAULT_SHAPES["hash_build"]])
@@ -4273,8 +4481,9 @@ def _check_topn(dev, topn_shapes, seed, failures, res):
     """At each of `topn_shapes`: the kernel timed beside its bound, its
     plain version and two library calls (torch.sort of the blocks, the
     same function; torch.topk per block, which orders ties otherwise) and
-    its host enqueue time, then every case of _topn_cases against its
-    plain version, bit for bit. At the largest shape the candidates'
+    its host enqueue time (at the shapes of TOPN_TIMED_MIN_ROWS rows or
+    more, and the largest: CUTS), then every case of _topn_cases against
+    its plain version, bit for bit. At the largest shape the candidates'
     reduction is timed two ways — the full stable sort, and the threshold
     sort the port uses — which must return the same indices."""
     import torch
@@ -4288,36 +4497,9 @@ def _check_topn(dev, topn_shapes, seed, failures, res):
     for shape in sorted(topn_shapes):
         n, k = shape
         cases = _topn_cases(dev, shape, seed)
-        neg = cases[0][1]
-        nb = n // 1024
-        ms = cuda_ms(lambda: kernels.topn_select(neg, k), reps=20)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(20):
-            kernels.topn_select(neg, k)
-        enqueue = (time.perf_counter() - t) / 20 * 1e3
-        torch.cuda.synchronize()
-        blocks = neg.view(-1, 1024)
-        # bytes: N keys in, nb*k (value, row) pairs out; operations: the
-        # compares a comparison sort of 1024 keys needs, log2(1024!) ~ 8770
-        # a block (the bytes bound it)
-        b = bound_ms(n * 8 + nb * k * 12, nb * 8770)
-        by_shape[str(list(shape))] = r = {
-            "ms": ms, "enqueue_ms": enqueue,
-            "plain_ms": cuda_ms(lambda: kernels.topn_select_plain(neg, k),
-                                reps=5),
-            "library_ms": cuda_ms(lambda: torch.sort(
-                blocks, dim=1, descending=True, stable=True), reps=10),
-            "library_topk_ms": cuda_ms(lambda: torch.topk(blocks, k, dim=1),
-                                       reps=10),
-            "bound_ms": b[0], "bound_by": b[1],
-            "split": device_split(lambda: kernels.topn_select(neg, k))}
-        log(f"  topn_select at N={n} k={k}: {ms:.4f} ms (host enqueue "
-            f"{enqueue:.4f} ms), bound {b[0]:.4f} ms by {b[1]}, plain "
-            f"{r['plain_ms']:.4f} ms, torch.sort of the blocks "
-            f"{r['library_ms']:.4f} ms, torch.topk per block "
-            f"{r['library_topk_ms']:.4f} ms; split {r['split']}")
-        del neg, blocks
+        r = by_shape[str(list(shape))] = {}
+        if n >= TOPN_TIMED_MIN_ROWS or shape == big:  # else checked only
+            _time_topn(cases[0][1], n, k, r)
         for name, neg, kk in cases:
             v, i = kernels.topn_select(neg, kk)
             listed = getattr(kernels.topn_select, "last_listed", None)
@@ -4343,6 +4525,43 @@ def _check_topn(dev, topn_shapes, seed, failures, res):
         torch.cuda.empty_cache()
     res.update(by_shape[str(list(big))])
     res.update({"shape": list(big), "by_shape": by_shape})
+
+
+def _time_topn(neg, n, k, r):
+    """The top-N kernel timed at one shape beside its bound, its plain
+    version, two library calls and its host enqueue time, into `r`."""
+    import torch
+
+    from starrocks_tpu_torch.ops import kernels
+
+    nb = n // 1024
+    ms = cuda_ms(lambda: kernels.topn_select(neg, k), reps=20)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(20):
+        kernels.topn_select(neg, k)
+    enqueue = (time.perf_counter() - t) / 20 * 1e3
+    torch.cuda.synchronize()
+    blocks = neg.view(-1, 1024)
+    # bytes: N keys in, nb*k (value, row) pairs out; operations: the
+    # compares a comparison sort of 1024 keys needs, log2(1024!) ~ 8770
+    # a block (the bytes bound it)
+    b = bound_ms(n * 8 + nb * k * 12, nb * 8770)
+    r.update({
+        "ms": ms, "enqueue_ms": enqueue,
+        "plain_ms": cuda_ms(lambda: kernels.topn_select_plain(neg, k),
+                            reps=5),
+        "library_ms": cuda_ms(lambda: torch.sort(
+            blocks, dim=1, descending=True, stable=True), reps=10),
+        "library_topk_ms": cuda_ms(lambda: torch.topk(blocks, k, dim=1),
+                                   reps=10),
+        "bound_ms": b[0], "bound_by": b[1],
+        "split": device_split(lambda: kernels.topn_select(neg, k))})
+    log(f"  topn_select at N={n} k={k}: {ms:.4f} ms (host enqueue "
+        f"{enqueue:.4f} ms), bound {b[0]:.4f} ms by {b[1]}, plain "
+        f"{r['plain_ms']:.4f} ms, torch.sort of the blocks "
+        f"{r['library_ms']:.4f} ms, torch.topk per block "
+        f"{r['library_topk_ms']:.4f} ms; split {r['split']}")
 
 
 def _time_topn_reduction(name, neg, cv, kk, sort_ops, failures, res):
@@ -4818,6 +5037,7 @@ def main(argv=None) -> int:
         ("ssb", lambda: phase_ssb(rec, args.ssb_sf, args.seed)),
         ("store", lambda: phase_store(rec, data["cat"], args.sf)),
         ("ingest", lambda: phase_ingest(rec, data["cat"], args.sf)),
+        ("lake", lambda: phase_lake(rec)),
         ("dist", lambda: phase_dist(rec, data["cat"], args.sf)),
         ("serve", lambda: run_serve_child(
             rec, serve or start_serve_child(args))),
@@ -4863,6 +5083,7 @@ def main(argv=None) -> int:
             + rec["functions"]["launches"][name]
             + rec["spill"]["launches"][name]
             + rec["ingest"]["launches"][name]
+            + rec["lake"]["launches"][name]
             + rec["dist"]["launches"][name]
             + rec["serve"]["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],

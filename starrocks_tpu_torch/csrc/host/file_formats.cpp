@@ -9,6 +9,15 @@
 //   dictionary indices), values of up to 32 bits.
 // sr_byte_array_offsets: parquet's PLAIN BYTE_ARRAY, 4-byte little-endian
 //   lengths each followed by the bytes, split into (start, end) offsets.
+// sr_delta_binary_packed: parquet's DELTA_BINARY_PACKED (INT32, INT64 and
+//   the lengths of the two DELTA byte-array encodings): blocks of
+//   miniblocks, bit widths 0-64, deltas that wrap in unsigned 64 bits.
+// sr_delta_byte_array: parquet's DELTA_BYTE_ARRAY, each value the previous
+//   one's prefix plus its own suffix, rebuilt into one contiguous buffer.
+// sr_orc_rle_v1: ORC's integer run-length encoding v1 (file version 0.11):
+//   runs with a signed delta byte, and literals.
+// sr_orc_varints: the zigzag base-128 varints of ORC's DECIMAL values, up
+//   to 128 bits each, as two's complement (high, low) 64-bit halves.
 // sr_orc_rle_v2: ORC's integer run-length encoding v2, all four
 //   sub-encodings (SHORT_REPEAT, DIRECT, PATCHED_BASE, DELTA), signed
 //   (zigzag) or unsigned.
@@ -102,6 +111,27 @@ static inline bool read_uvarint(const uint8_t* in, int64_t n, int64_t* i,
   return false;
 }
 
+// up to 8 little-endian bytes of p[at..n), zeros past n
+static inline uint64_t load_le(const uint8_t* p, int64_t n, int64_t at) {
+  uint64_t w = 0;
+  if (at + 8 <= n) {
+    memcpy(&w, p + at, 8);
+  } else {
+    for (int64_t k = 0; at + k < n; k++) w |= (uint64_t)p[at + k] << (8 * k);
+  }
+  return w;
+}
+
+// value of `width` (0-64) bits at bit `bit` of p[0..n), LSB first
+static inline uint64_t bits_le(const uint8_t* p, int64_t n, int64_t bit,
+                               int width) {
+  if (width == 0) return 0;
+  const int sh = (int)(bit & 7);
+  uint64_t lo = load_le(p, n, bit >> 3) >> sh;
+  if (width + sh > 64) lo |= load_le(p, n, (bit >> 3) + 8) << (64 - sh);
+  return width == 64 ? lo : lo & ((1ULL << width) - 1);
+}
+
 int64_t sr_rle_bp_decode(const uint8_t* in, int64_t n, int32_t bit_width,
                          int64_t count, int32_t* out) {
   int64_t i = 0, o = 0;
@@ -118,11 +148,7 @@ int64_t sr_rle_bp_decode(const uint8_t* in, int64_t n, int32_t bit_width,
       const uint8_t* p = in + i;
       for (int64_t k = 0; k < vals && o < count; k++) {
         int64_t bit = k * bit_width;
-        uint64_t v = 0;
-        for (int b = 0; b < bit_width; b++) {
-          int64_t q = bit + b;
-          v |= (uint64_t)((p[q >> 3] >> (q & 7)) & 1) << b;
-        }
+        uint64_t v = load_le(p, nbytes, bit >> 3) >> (bit & 7);
         out[o++] = (int32_t)(v & mask);
       }
       i += nbytes;
@@ -152,6 +178,74 @@ int64_t sr_byte_array_offsets(const uint8_t* in, int64_t n, int64_t count,
     i += m;
   }
   return i;
+}
+
+static inline bool read_zigzag(const uint8_t* in, int64_t n, int64_t* i,
+                               uint64_t* v) {
+  uint64_t u;
+  if (!read_uvarint(in, n, i, &u)) return false;
+  *v = (u >> 1) ^ (0 - (u & 1));
+  return true;
+}
+
+int64_t sr_delta_binary_packed(const uint8_t* in, int64_t n, int64_t count,
+                               int64_t* out) {
+  int64_t i = 0;
+  uint64_t block, nmini, total, first;
+  if (!read_uvarint(in, n, &i, &block) || !read_uvarint(in, n, &i, &nmini) ||
+      !read_uvarint(in, n, &i, &total) || !read_zigzag(in, n, &i, &first))
+    return -1;
+  if (block == 0 || nmini == 0 || block % 128 || block % nmini ||
+      (block / nmini) % 32 || (int64_t)total < count)
+    return -1;
+  const int64_t per_mini = (int64_t)(block / nmini);
+  uint64_t v = first;
+  int64_t o = 0;
+  if (count > 0) out[o++] = (int64_t)v;
+  if (total <= 1) return i;
+  int64_t left = (int64_t)total - 1;  // values still encoded
+  while (left > 0) {
+    uint64_t min_delta;
+    if (!read_zigzag(in, n, &i, &min_delta)) return -1;
+    if (i + (int64_t)nmini > n) return -1;
+    const uint8_t* widths = in + i;
+    i += (int64_t)nmini;
+    for (uint64_t m = 0; m < nmini && left > 0; m++) {
+      const int w = widths[m];
+      if (w > 64) return -1;
+      const int64_t nbytes = per_mini * w / 8;
+      if (i + nbytes > n) return -1;
+      const uint8_t* p = in + i;
+      const int64_t take = left < per_mini ? left : per_mini;
+      for (int64_t k = 0; k < take; k++) {
+        v += min_delta + bits_le(p, nbytes, k * w, w);  // wraps mod 2^64
+        if (o < count) out[o++] = (int64_t)v;
+      }
+      left -= take;
+      i += nbytes;
+    }
+  }
+  return i;
+}
+
+int64_t sr_delta_byte_array(const uint8_t* data, const int64_t* prefix,
+                            const int64_t* soffs, int64_t count, uint8_t* out,
+                            int64_t cap, int64_t* offs) {
+  int64_t o = 0, prev_s = 0, prev_len = 0;
+  for (int64_t k = 0; k < count; k++) {
+    const int64_t pre = prefix[k];
+    const int64_t slen = soffs[2 * k + 1] - soffs[2 * k];
+    if (pre < 0 || pre > prev_len || slen < 0 || o + pre + slen > cap)
+      return -1;
+    memmove(out + o, out + prev_s, (size_t)pre);
+    memcpy(out + o + pre, data + soffs[2 * k], (size_t)slen);
+    offs[2 * k] = o;
+    offs[2 * k + 1] = o + pre + slen;
+    prev_s = o;
+    prev_len = pre + slen;
+    o += prev_len;
+  }
+  return o;
 }
 
 // --- ORC ---------------------------------------------------------------------
@@ -282,6 +376,51 @@ int64_t sr_orc_rle_v2(const uint8_t* in, int64_t n, int32_t is_signed,
         }
       }
     }
+  }
+  return i;
+}
+
+int64_t sr_orc_rle_v1(const uint8_t* in, int64_t n, int32_t is_signed,
+                      int64_t count, int64_t* out) {
+  int64_t i = 0, o = 0;
+  while (o < count) {
+    if (i >= n) return -1;
+    const int8_t h = (int8_t)in[i++];
+    if (h >= 0) {  // a run of h + 3 values: a delta byte, then the base
+      if (i >= n) return -1;
+      const int64_t delta = (int8_t)in[i++];
+      uint64_t u;
+      if (!read_uvarint(in, n, &i, &u)) return -1;
+      uint64_t v = is_signed ? (uint64_t)unzigzag(u) : u;
+      for (int k = 0; k < h + 3 && o < count; k++) {
+        out[o++] = (int64_t)v;
+        v += (uint64_t)delta;
+      }
+    } else {  // -h literal varints
+      for (int k = 0; k < -(int)h && o < count; k++) {
+        uint64_t u;
+        if (!read_uvarint(in, n, &i, &u)) return -1;
+        out[o++] = is_signed ? unzigzag(u) : (int64_t)u;
+      }
+    }
+  }
+  return i;
+}
+
+int64_t sr_orc_varints(const uint8_t* in, int64_t n, int64_t count,
+                       int64_t* hi, int64_t* lo) {
+  int64_t i = 0;
+  for (int64_t k = 0; k < count; k++) {
+    unsigned __int128 u = 0;
+    for (int shift = 0;; shift += 7) {
+      if (i >= n || shift > 126) return -1;
+      const uint8_t b = in[i++];
+      u |= (unsigned __int128)(b & 0x7f) << shift;
+      if (!(b & 0x80)) break;
+    }
+    const unsigned __int128 v = (u >> 1) ^ (0 - (u & 1));  // unzigzag
+    hi[k] = (int64_t)(uint64_t)(v >> 64);
+    lo[k] = (int64_t)(uint64_t)v;
   }
   return i;
 }

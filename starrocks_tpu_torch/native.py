@@ -21,8 +21,11 @@ falls back quietly.
   `strings_at`) and the CSV writer of the tests and chip_smoke.py
   (`format_csv`);
 - `file_formats.cpp`: the hot loops of the parquet and ORC readers
-  (storage/formats/): snappy, the RLE/bit-packed hybrid, ORC's run-length
-  encodings and the split of length-prefixed byte arrays.
+  (storage/formats/): snappy, the RLE/bit-packed hybrid, parquet's DELTA
+  and BYTE_STREAM_SPLIT encodings, ORC's run-length encodings and the
+  split of length-prefixed byte arrays;
+- `zstd_decode.cpp` and `lz4_decode.cpp`: the ZSTD frame decoder (RFC
+  8878) and the LZ4 block decoder of the parquet and ORC codecs.
 """
 
 from __future__ import annotations
@@ -40,7 +43,8 @@ from . import lockdep
 _PKG = Path(__file__).resolve().parent
 HOST_DIR = _PKG / "csrc" / "host"
 SOURCE = HOST_DIR / "fused_filter_sum.cpp"
-LIBS = ("fused_filter_sum", "hash_partition", "csv_parse", "file_formats")
+LIBS = ("fused_filter_sum", "hash_partition", "csv_parse", "file_formats",
+        "zstd_decode", "lz4_decode")
 BUILD_DIR = _PKG / "_build"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
@@ -75,8 +79,12 @@ def build(name: str = "fused_filter_sum") -> Path:
 
 
 def build_all() -> list:
-    """Build every host library (chip_smoke's build phase)."""
-    return [build(name) for name in LIBS]
+    """Build every host library (chip_smoke's build phase), one compiler
+    process per source, all at once."""
+    import concurrent.futures as cf
+
+    with cf.ThreadPoolExecutor(len(LIBS)) as ex:
+        return list(ex.map(build, LIBS))
 
 
 def _sig_fused_filter_sum(lib):
@@ -131,12 +139,34 @@ def _sig_file_formats(lib):
     lib.sr_orc_rle_v2.restype = i64
     lib.sr_orc_byte_rle.argtypes = [vp, i64, i64, vp]
     lib.sr_orc_byte_rle.restype = i64
+    lib.sr_orc_varints.argtypes = [vp, i64, i64, vp, vp]
+    lib.sr_orc_varints.restype = i64
+    lib.sr_orc_rle_v1.argtypes = [vp, i64, i32, i64, vp]
+    lib.sr_orc_rle_v1.restype = i64
+    lib.sr_delta_binary_packed.argtypes = [vp, i64, i64, vp]
+    lib.sr_delta_binary_packed.restype = i64
+    lib.sr_delta_byte_array.argtypes = [vp, vp, vp, i64, vp, i64, vp]
+    lib.sr_delta_byte_array.restype = i64
+
+
+def _sig_zstd_decode(lib):
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.sr_zstd_decompress.argtypes = [vp, i64, vp, i64]
+    lib.sr_zstd_decompress.restype = i64
+
+
+def _sig_lz4_decode(lib):
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.sr_lz4_block_decompress.argtypes = [vp, i64, vp, i64]
+    lib.sr_lz4_block_decompress.restype = i64
 
 
 _SIGNATURES = {"fused_filter_sum": _sig_fused_filter_sum,
                "hash_partition": _sig_hash_partition,
                "csv_parse": _sig_csv_parse,
-               "file_formats": _sig_file_formats}
+               "file_formats": _sig_file_formats,
+               "zstd_decode": _sig_zstd_decode,
+               "lz4_decode": _sig_lz4_decode}
 
 
 def _load(name: str = "fused_filter_sum"):
@@ -444,9 +474,86 @@ def orc_rle_v2(data: np.ndarray, count: int, signed: bool) -> np.ndarray:
     return out[:count]
 
 
+def orc_rle_v1(data: np.ndarray, count: int, signed: bool) -> np.ndarray:
+    """`count` int64 values of ORC integer RLE v1."""
+    out = np.empty(max(count, 1), dtype=np.int64)
+    _check(_load("file_formats").sr_orc_rle_v1(
+        _ptr(data), len(data), int(signed), count, _ptr(out)),
+        "ORC integer RLE v1")
+    return out[:count]
+
+
+def orc_varints(data: np.ndarray, count: int):
+    """(high, low) int64 halves of `count` zigzag varints of up to 128
+    bits (ORC DECIMAL values), two's complement."""
+    hi = np.empty(max(count, 1), dtype=np.int64)
+    lo = np.empty(max(count, 1), dtype=np.int64)
+    _check(_load("file_formats").sr_orc_varints(
+        _ptr(data), len(data), count, _ptr(hi), _ptr(lo)), "ORC varints")
+    return hi[:count], lo[:count]
+
+
+def delta_binary_packed(data: np.ndarray, count: int):
+    """(the first `count` int64 values of parquet's DELTA_BINARY_PACKED,
+    bytes consumed). INT32 columns take the low 32 bits."""
+    out = np.empty(max(count, 1), dtype=np.int64)
+    used = _load("file_formats").sr_delta_binary_packed(
+        _ptr(data), len(data), count, _ptr(out))
+    return out[:count], _check(used, "DELTA_BINARY_PACKED")
+
+
+def delta_byte_array(data: np.ndarray, prefix: np.ndarray,
+                     suffixes: np.ndarray):
+    """(buffer, (start, end) offsets) of DELTA_BYTE_ARRAY values: value k
+    is value k - 1's first prefix[k] bytes, then data[suffixes[k]]."""
+    prefix = np.ascontiguousarray(prefix, dtype=np.int64)
+    suffixes = np.ascontiguousarray(suffixes, dtype=np.int64).reshape(-1, 2)
+    n = len(prefix)
+    cap = int(prefix.sum() + (suffixes[:, 1] - suffixes[:, 0]).sum())
+    out = np.empty(max(cap, 1), dtype=np.uint8)
+    offs = np.empty((max(n, 1), 2), dtype=np.int64)
+    _check(_load("file_formats").sr_delta_byte_array(
+        _ptr(data), _ptr(prefix), _ptr(suffixes), n, _ptr(out), cap,
+        _ptr(offs)), "DELTA_BYTE_ARRAY")
+    return out[:cap], offs[:n]
+
+
 def orc_byte_rle(data: np.ndarray, count: int) -> np.ndarray:
     """`count` bytes of ORC byte RLE."""
     out = np.empty(max(count, 1), dtype=np.uint8)
     _check(_load("file_formats").sr_orc_byte_rle(
         _ptr(data), len(data), count, _ptr(out)), "ORC byte RLE")
     return out[:count]
+
+
+_ZSTD_ERRORS = {-1: "malformed or truncated input",
+                -2: "content checksum mismatch",
+                -3: "more output than the size given",
+                -4: "the frame needs a dictionary"}
+
+
+def zstd_decompress(data, size: int, exact: bool = True) -> np.ndarray:
+    """Every Zstandard frame of `data` (skippable frames skipped), which
+    must decompress to exactly `size` bytes (at most `size` when `exact` is
+    false)."""
+    src = np.frombuffer(data, dtype=np.uint8)
+    out = np.empty(max(size, 1), dtype=np.uint8)
+    m = _load("zstd_decode").sr_zstd_decompress(
+        _ptr(src), len(src), _ptr(out), size)
+    if m < 0:
+        raise ValueError(f"zstd: {_ZSTD_ERRORS.get(m, m)}")
+    if exact and m != size:
+        raise ValueError(f"zstd: {m} bytes where {size} were expected")
+    return out[:m]
+
+
+def lz4_decompress(data, size: int, exact: bool = True) -> np.ndarray:
+    """One raw LZ4 block, decompressed to `size` bytes (at most `size`
+    when `exact` is false)."""
+    src = np.frombuffer(data, dtype=np.uint8)
+    out = np.empty(max(size, 1), dtype=np.uint8)
+    m = _load("lz4_decode").sr_lz4_block_decompress(
+        _ptr(src), len(src), _ptr(out), size)
+    if m < 0 or (exact and m != size):
+        raise ValueError("lz4: malformed or truncated block")
+    return out[:m]

@@ -6,20 +6,57 @@ csrc/host/file_formats.cpp, through native.py)."""
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 
 
 class Column:
     """One column of one file as a reader decodes it: `data` is a numpy
-    array with a row per value, or for a string column (buffer, offsets)
-    with one (start, end) pair per row; `valid` is a bool mask, or None
-    when the column has no NULL. A NULL row holds 0 (strings: "")."""
+    array with a row per value, for a string or binary column (buffer,
+    offsets) with one (start, end) pair per row, or for a LIST column a
+    Lists; `valid` is a bool mask, or None when the column has no NULL. A
+    NULL row holds 0 (strings: "", lists: no element)."""
 
     __slots__ = ("data", "valid")
 
     def __init__(self, data, valid=None):
         self.data = data
         self.valid = valid
+
+
+class Lists:
+    """The rows of a LIST column: `lengths` (int64, one per row) and
+    `elems`, the Column of every element in row order (no NULL: a NULL
+    element raises when it is decoded, as the reference's ARRAY builder
+    does)."""
+
+    __slots__ = ("lengths", "elems")
+
+    def __init__(self, lengths, elems):
+        self.lengths = lengths
+        self.elems = elems
+
+
+class Spec:
+    """One top-level column of a file as its footer describes it: `type`
+    is what the reference's `from_arrow` makes of an empty table of the
+    file's schema (a LIST column ARRAY<BIGINT>, a binary one BITMAP(8));
+    `key` names the Arrow type pyarrow reads it as, which must agree from
+    file to file; `build` is how the HostTable column is made of the
+    decoded Column ("value", "string", "binary" -> BITMAP, "list" ->
+    ARRAY); for a list, `elem` is ("value" | "string" | "binary" | "date" |
+    "timestamp" | "timestamp_tz" | "decimal", the element's LogicalType as
+    decoded)."""
+
+    __slots__ = ("name", "type", "key", "build", "elem")
+
+    def __init__(self, name, type, key, build="value", elem=None):
+        self.name = name
+        self.type = type
+        self.key = key
+        self.build = build
+        self.elem = elem
 
 
 def decimal_from_be(raw: np.ndarray, precision: int) -> np.ndarray:
@@ -55,7 +92,10 @@ def concat(parts: list) -> Column:
     """The Columns of one column in several files, as one Column."""
     if len(parts) == 1:
         return parts[0]
-    if isinstance(parts[0].data, tuple):
+    if isinstance(parts[0].data, Lists):
+        data = Lists(np.concatenate([p.data.lengths for p in parts]),
+                     concat([p.data.elems for p in parts]))
+    elif isinstance(parts[0].data, tuple):
         # pages decoded through one dictionary share its buffer: keep it once
         bufs, offs, base, seen = [], [], 0, {}
         for p in parts:
@@ -77,7 +117,21 @@ def concat(parts: list) -> Column:
 
 
 def _rows(c: Column) -> int:
+    if isinstance(c.data, Lists):
+        return len(c.data.lengths)
     return len(c.data[1]) if isinstance(c.data, tuple) else len(c.data)
+
+
+def null_like(c: Column, n: int) -> Column:
+    """`n` NULL rows in the layout of Column `c` (a column a file lacks)."""
+    valid = np.zeros(n, dtype=bool)
+    d = c.data
+    if isinstance(d, Lists):
+        return Column(Lists(np.zeros(n, dtype=np.int64),
+                            null_like(d.elems, 0)), valid)
+    if isinstance(d, tuple):
+        return Column((d[0][:0], np.zeros((n, 2), dtype=np.int64)), valid)
+    return Column(np.zeros((n,) + d.shape[1:], dtype=d.dtype), valid)
 
 
 def empty_column(lt) -> Column:
@@ -88,3 +142,24 @@ def empty_column(lt) -> Column:
     if lt.is_decimal128:
         return Column(np.zeros((0, 4), dtype=np.int64))
     return Column(np.zeros(0, dtype=lt.np_dtype))
+
+
+def column_digest(field, array, valid) -> str:
+    """sha256 of one HostTable column as the lake fixtures' manifests hold
+    it (tests/data/torch_formats/): its type, its validity (all true when
+    `valid` is None), its values with NULL rows zeroed, and the strings of
+    its dictionary. Equal columns of the reference's `from_arrow` and of
+    the port's readers give equal digests."""
+    h = hashlib.sha256(str(field.type).encode())
+    a = np.ascontiguousarray(array)
+    v = (np.ones(len(a), dtype=bool) if valid is None
+         else np.asarray(valid, dtype=bool))
+    h.update(np.packbits(v).tobytes())
+    if not v.all():
+        a = a.copy()
+        a[~v] = 0
+    h.update(a.dtype.str.encode())
+    h.update(a.tobytes())
+    if field.dict is not None:
+        h.update("\0".join(str(x) for x in field.dict.values).encode())
+    return h.hexdigest()

@@ -1,32 +1,40 @@
 """A parquet reader without pyarrow (the external tables' parquet files).
 
-What it reads is what pyarrow writes by default and what the reference's
-tests write: flat schemas; data pages v1 and v2 and dictionary pages; the
-PLAIN, PLAIN_DICTIONARY and RLE_DICTIONARY encodings, with definition
-levels in the RLE/bit-packed hybrid; the UNCOMPRESSED, SNAPPY and GZIP
-codecs. Another codec (ZSTD, LZ4, BROTLI, ..) or encoding raises
-NotImplementedError naming it and the file.
+What it reads is what pyarrow reads of the files the reference's users
+declare: flat columns and LIST columns of primitives (the 3-level list and
+the legacy 2-level one, repetition and definition levels in the
+RLE/bit-packed hybrid); data pages v1 and v2 and dictionary pages; the
+encodings PLAIN, PLAIN_DICTIONARY, RLE_DICTIONARY, RLE (booleans),
+DELTA_BINARY_PACKED, DELTA_LENGTH_BYTE_ARRAY, DELTA_BYTE_ARRAY and
+BYTE_STREAM_SPLIT; the codecs UNCOMPRESSED, SNAPPY, GZIP, ZSTD, LZ4_RAW and
+LZ4 (Hadoop's framing, or a raw block as older writers left it). BROTLI,
+LZO, STRUCT, MAP and TIME columns raise NotImplementedError naming the
+feature and the file.
 
 The footer (Thrift compact protocol) and the page headers parse here; the
-loops over values (snappy, the hybrid, the split of byte arrays) run in
-host C++ (csrc/host/file_formats.cpp). `schema` and `num_rows` read the
-footer alone. Types follow what the reference's `HostTable.from_arrow`
+loops over values (the codecs, the hybrid, the DELTA encodings, the split
+of byte arrays) run in host C++ (csrc/host/). `schema` and `num_rows` read
+the footer alone. Types follow what the reference's `HostTable.from_arrow`
 makes of pyarrow's read of the same file: every column nullable, strings
 as dictionary codes, decimals of precision <= 18 as scaled int64 and wider
-ones as 128-bit limbs, DATE as days, timestamps as microseconds.
+ones as 128-bit limbs, DATE as days, timestamps (INT96 included) as
+microseconds (a sub-microsecond fraction raises, as the reference's cast
+does), binary columns as byte ranges (external.py makes them BITMAP) and
+LIST columns as Lists (external.py makes them ARRAY).
 """
 
 from __future__ import annotations
 
 import struct
+import time
 import zlib
 
 import numpy as np
 
 from ... import native
 from ... import types as T
-from . import (Column, concat, decimal_from_be, decimal_from_ints,
-               empty_column)
+from . import (Column, Lists, Spec, concat, decimal_from_be,
+               decimal_from_ints, empty_column)
 
 _MAGIC = b"PAR1"
 _CODECS = {0: "UNCOMPRESSED", 1: "SNAPPY", 2: "GZIP", 3: "LZO", 4: "BROTLI",
@@ -39,6 +47,10 @@ _ENCODINGS = {0: "PLAIN", 2: "PLAIN_DICTIONARY", 3: "RLE", 4: "BIT_PACKED",
 BOOLEAN, INT32, INT64, INT96, FLOAT, DOUBLE, BYTE_ARRAY, FLBA = range(8)
 # page types
 _DATA_PAGE, _DICTIONARY_PAGE, _DATA_PAGE_V2 = 0, 2, 3
+# repetition types
+_REQUIRED, _OPTIONAL, _REPEATED = range(3)
+_JULIAN_EPOCH = 2440588  # the Julian day of 1970-01-01 (INT96)
+_US_PER_DAY = 86_400_000_000
 
 
 # --- Thrift compact protocol ----------------------------------------------------
@@ -120,20 +132,32 @@ class _Thrift:
 # --- schema -----------------------------------------------------------------------
 
 class _Leaf:
-    __slots__ = ("name", "physical", "type_length", "optional", "type",
-                 "ts_div")
+    """One leaf column: its physical type, its LogicalType as decoded
+    (`type`; microseconds per unit in `ts_div`, 1 / 1000 / -1000, and
+    `int96`), whether its values are opaque bytes (`binary`), and its
+    levels: `max_def`, `max_rep`, and for a list leaf the definition level
+    at which the list is defined (`d_list`; an element slot exists from
+    d_list + 1, a value at max_def)."""
 
-    def __init__(self, name, physical, type_length, optional, ltype, ts_div):
+    __slots__ = ("name", "physical", "type_length", "type", "ts_div",
+                 "binary", "max_def", "max_rep", "d_list")
+
+    def __init__(self, name, physical, type_length, ltype, ts_div, binary,
+                 max_def, max_rep=0, d_list=0):
         self.name = name
         self.physical = physical
         self.type_length = type_length
-        self.optional = optional
         self.type = ltype
-        self.ts_div = ts_div  # timestamp units per microsecond (1 / -1000)
+        self.ts_div = ts_div
+        self.binary = binary
+        self.max_def = max_def
+        self.max_rep = max_rep
+        self.d_list = d_list
 
 
 def _leaf_type(el: dict, path: str):
-    """(LogicalType, timestamp divisor) of one schema element."""
+    """(LogicalType, microseconds per unit, Arrow type key, binary, list
+    element kind) of one primitive schema element."""
     phys = el.get(1)
     conv = el.get(6)
     logical = el.get(10) or {}
@@ -142,47 +166,139 @@ def _leaf_type(el: dict, path: str):
     if dec is not None or conv == 5:
         prec = dec.get(2) if dec is not None else el.get(8)
         scale = dec.get(1) if dec is not None else el.get(7, 0)
-        return T.LogicalType(T.TypeKind.DECIMAL, prec, scale), 1
+        return (T.LogicalType(T.TypeKind.DECIMAL, prec, scale), 1,
+                f"decimal128({prec}, {scale})", False, "decimal")
+    if 11 in logical:
+        raise TypeError(f"{path}: column {name!r}: unsupported arrow type "
+                        "null")
     if phys == BOOLEAN:
-        return T.BOOLEAN, 1
+        return T.BOOLEAN, 1, "bool", False, "value"
     if phys == INT32:
         if 6 in logical or conv == 6:
-            return T.DATE, 1
+            return T.DATE, 1, "date32[day]", False, "date"
+        if 7 in logical or conv in (7, 8):
+            raise NotImplementedError(f"{path}: TIME column {name!r}")
         it = logical.get(10)
         if it is not None or conv in (15, 16, 11, 12, 13):
             bits, signed = ((it.get(1), it.get(2)) if it is not None else
                             {15: (8, True), 16: (16, True), 11: (8, False),
                              12: (16, False), 13: (32, False)}[conv])
+            key = f"{'' if signed else 'u'}int{bits}"
             if signed:
-                return {8: T.TINYINT, 16: T.SMALLINT}.get(bits, T.INT), 1
-            return {8: T.SMALLINT, 16: T.INT}.get(bits, T.BIGINT), 1
-        if 7 in logical or conv in (7, 8):
-            raise NotImplementedError(f"{path}: TIME column {name!r}")
-        return T.INT, 1
+                return ({8: T.TINYINT, 16: T.SMALLINT}.get(bits, T.INT), 1,
+                        key, False, "value")
+            return ({8: T.SMALLINT, 16: T.INT}.get(bits, T.BIGINT), 1, key,
+                    False, "value")
+        return T.INT, 1, "int32", False, "value"
     if phys == INT64:
         ts = logical.get(8)
         if ts is not None or conv in (9, 10):
             unit = (ts or {}).get(2) or ({1: {}} if conv == 9 else {2: {}})
             div = 1000 if 3 in unit else (-1000 if 1 in unit else 1)
-            return T.DATETIME, div
+            tz = (ts or {1: True}).get(1)
+            u = "ns" if 3 in unit else ("ms" if 1 in unit else "us")
+            key = f"timestamp[{u}{', tz=UTC' if tz else ''}]"
+            return (T.DATETIME, div, key, False,
+                    "timestamp_tz" if tz else "timestamp")
         if 7 in logical or conv == 8:
             raise NotImplementedError(f"{path}: TIME column {name!r}")
-        return T.BIGINT, 1
+        it = logical.get(10)
+        unsigned = (it is not None and not it.get(2)) or conv == 14
+        return T.BIGINT, 1, "uint64" if unsigned else "int64", False, "value"
+    if phys == INT96:
+        return T.DATETIME, 1000, "timestamp[ns]", False, "int96"
     if phys == FLOAT:
-        return T.FLOAT, 1
+        return T.FLOAT, 1, "float", False, "value"
     if phys == DOUBLE:
-        return T.DOUBLE, 1
+        return T.DOUBLE, 1, "double", False, "value"
     if phys == BYTE_ARRAY and (1 in logical or 4 in logical or 12 in logical
                                or conv in (0, 4, 19)):
-        return T.VARCHAR, 1
-    what = {BYTE_ARRAY: "binary", FLBA: "fixed-length binary",
-            INT96: "INT96 timestamp"}.get(phys, f"physical type {phys}")
-    raise NotImplementedError(f"{path}: {what} column {name!r}")
+        return T.VARCHAR, 1, "string", False, "string"
+    if phys == FLBA and 15 in logical:
+        raise TypeError(f"{path}: column {name!r}: unsupported arrow type "
+                        "halffloat")
+    if phys in (BYTE_ARRAY, FLBA):
+        key = ("binary" if phys == BYTE_ARRAY
+               else f"fixed_size_binary[{el.get(2)}]")
+        return T.LogicalType(T.TypeKind.BITMAP, 8), 1, key, True, "binary"
+    raise NotImplementedError(f"{path}: physical type {phys} column {name!r}")
+
+
+def _tree(elems: list, i: int):
+    """(node, next index) of the schema subtree at elems[i]: a node is
+    (element, [children])."""
+    el = elems[i]
+    kids, j = [], i + 1
+    for _ in range(el.get(5) or 0):
+        kid, j = _tree(elems, j)
+        kids.append(kid)
+    return (el, kids), j
+
+
+def _is_list(el: dict) -> bool:
+    return el.get(6) == 3 or 3 in (el.get(10) or {})
+
+
+def _is_map(el: dict) -> bool:
+    return el.get(6) in (1, 2) or 2 in (el.get(10) or {})
+
+
+def _column(node, path: str):
+    """(Spec, _Leaf) of one top-level column, after the parquet spec's
+    rules for lists (the 3-level list, and the legacy forms as Arrow reads
+    them); STRUCT and MAP columns raise."""
+    el, kids = node
+    name = el.get(4, b"").decode()
+    rep = el.get(3, _REQUIRED)
+    if not kids:
+        ltype, div, key, binary, kind = _leaf_type(el, path)
+        if rep != _REPEATED:
+            spec = Spec(name, ltype, key, "binary" if binary else
+                        ("string" if kind == "string" else "value"))
+            return spec, _Leaf(name, el.get(1), el.get(2), ltype, div,
+                               binary, 1 if rep == _OPTIONAL else 0)
+        # a bare repeated primitive: a list of required elements
+        leaf = _Leaf(name, el.get(1), el.get(2), ltype, div, binary, 1, 1, 0)
+        return _list_spec(name, key + " not null", kind, ltype), leaf
+    if _is_map(el):
+        raise NotImplementedError(f"{path}: MAP column {name!r}")
+    if not _is_list(el) or rep == _REPEATED or len(kids) != 1:
+        raise NotImplementedError(f"{path}: STRUCT column {name!r}")
+    d_list = 1 if rep == _OPTIONAL else 0
+    rel, rkids = kids[0]
+    if rel.get(3) != _REPEATED:
+        raise NotImplementedError(
+            f"{path}: LIST column {name!r} without a repeated field")
+    rname = rel.get(4, b"").decode()
+    if not rkids:  # 2-level: the repeated field is the element
+        ltype, div, key, binary, kind = _leaf_type(rel, path)
+        leaf = _Leaf(name, rel.get(1), rel.get(2), ltype, div, binary,
+                     d_list + 1, 1, d_list)
+        return _list_spec(name, key + " not null", kind, ltype), leaf
+    if len(rkids) > 1 or rname in ("array", f"{name}_tuple"):
+        raise NotImplementedError(f"{path}: LIST of STRUCT column {name!r}")
+    eel, ekids = rkids[0]
+    if ekids:
+        what = ("LIST" if _is_list(eel) else
+                "MAP" if _is_map(eel) else "STRUCT")
+        raise NotImplementedError(f"{path}: LIST of {what} column {name!r}")
+    ltype, div, key, binary, kind = _leaf_type(eel, path)
+    opt = eel.get(3, _REQUIRED) == _OPTIONAL
+    leaf = _Leaf(name, eel.get(1), eel.get(2), ltype, div, binary,
+                 d_list + 1 + opt, 1, d_list)
+    return _list_spec(name, key + ("" if opt else " not null"), kind,
+                      ltype), leaf
+
+
+def _list_spec(name, key, kind, ltype) -> Spec:
+    return Spec(name, T.ARRAY(T.BIGINT), f"list<{key}>", "list",
+                (kind, ltype))
 
 
 class ParquetFile:
-    """One parquet file: `schema` and `num_rows` from its footer; `read()`
-    decodes every column."""
+    """One parquet file: `schema`, `specs` and `num_rows` from its footer;
+    `read()` decodes every column, adding its seconds to `times`
+    (decompress, values)."""
 
     def __init__(self, path: str):
         self.path = path
@@ -200,27 +316,25 @@ class ParquetFile:
             self.meta = _Thrift(fh.read(flen)).struct()
         self.num_rows = int(self.meta.get(3, 0))
         elems = self.meta.get(2, [])
-        self.leaves = []
-        for el in elems[1:]:
-            name = el.get(4, b"").decode()
-            if el.get(5):
-                raise NotImplementedError(
-                    f"{path}: nested column {name!r} (only flat schemas)")
-            if el.get(3) == 2:
-                raise NotImplementedError(
-                    f"{path}: repeated column {name!r}")
-            ltype, div = _leaf_type(el, path)
-            self.leaves.append(_Leaf(name, el.get(1), el.get(2),
-                                     el.get(3) == 1, ltype, div))
+        self.specs, self.leaves = [], []
+        j = 1
+        for _ in range((elems[0].get(5) or 0) if elems else 0):
+            node, j = _tree(elems, j)
+            spec, leaf = _column(node, path)
+            self.specs.append(spec)
+            self.leaves.append(leaf)
+        self.times = {"decompress": 0.0, "values": 0.0}
 
     @property
     def schema(self) -> list:
-        """[(name, LogicalType)] in file order."""
-        return [(lf.name, lf.type) for lf in self.leaves]
+        """[(name, LogicalType)] in file order, as the footer gives them."""
+        return [(sp.name, sp.type) for sp in self.specs]
 
     def read(self) -> dict:
         """{name: Column} of every row of the file."""
         parts = {lf.name: [] for lf in self.leaves}
+        t0 = time.perf_counter()
+        d0 = self.times["decompress"]
         with open(self.path, "rb") as fh:
             for rg in self.meta.get(4, []):
                 for lf, cc in zip(self.leaves, rg[1]):
@@ -228,25 +342,27 @@ class ParquetFile:
         out = {}
         for lf in self.leaves:
             p = parts[lf.name]
-            out[lf.name] = concat(p) if p else empty_column(lf.type)
+            out[lf.name] = concat(p) if p else _empty(lf)
+        self.times["values"] += (time.perf_counter() - t0
+                                 - (self.times["decompress"] - d0))
         return out
 
     def _chunk(self, fh, lf: _Leaf, md: dict) -> Column:
         codec = md.get(4, 0)
-        if codec not in (0, 1, 2):
+        if codec not in (0, 1, 2, 5, 6, 7):
             raise NotImplementedError(
                 f"{self.path}: parquet codec {_CODECS.get(codec, codec)} "
-                f"(column {lf.name!r}); the port reads UNCOMPRESSED, SNAPPY "
-                "and GZIP")
+                f"(column {lf.name!r}); the port reads UNCOMPRESSED, SNAPPY, "
+                "GZIP, ZSTD, LZ4_RAW and LZ4")
         start = md.get(9)
         dpo = md.get(11)
         if dpo is not None and 0 < dpo < start:
             start = dpo
         fh.seek(start)
-        raw = fh.read(md[7])
+        raw = memoryview(fh.read(md[7]))  # pages sliced without a copy
         nvals = md[5]
         dictionary = None
-        values, valids = [], []
+        values, defs, reps = [], [], []
         pos = 0
         got = 0
         while got < nvals:
@@ -264,42 +380,88 @@ class ParquetFile:
                 hdr = ph[5]
                 page = self._decompress(codec, body, usize)
                 n, enc = hdr[1], hdr[2]
-                valid, p = None, 0
-                if lf.optional:
-                    ln = struct.unpack_from("<I", page, 0)[0]
-                    lv = np.frombuffer(page, dtype=np.uint8, count=ln,
-                                       offset=4)
-                    valid = native.rle_bp_decode(lv, 1, n)[0] == 1
-                    p = 4 + ln
+                p = 0
+                rl = dl = None
+                if lf.max_rep:
+                    ln = struct.unpack_from("<I", page, p)[0]
+                    rl = np.frombuffer(page, dtype=np.uint8, count=ln,
+                                       offset=p + 4)
+                    p += 4 + ln
+                if lf.max_def:
+                    ln = struct.unpack_from("<I", page, p)[0]
+                    dl = np.frombuffer(page, dtype=np.uint8, count=ln,
+                                       offset=p + 4)
+                    p += 4 + ln
                 data = page[p:]
             elif ptype == _DATA_PAGE_V2:
                 hdr = ph[8]
                 n, enc = hdr[1], hdr[4]
-                dl, rl = hdr.get(5, 0), hdr.get(6, 0)
-                valid = None
-                if lf.optional:
-                    lv = np.frombuffer(body, dtype=np.uint8, count=dl,
-                                       offset=rl)
-                    valid = (native.rle_bp_decode(lv, 1, n)[0] == 1
-                             if dl else np.ones(n, dtype=bool))
-                data = body[rl + dl:]
+                dlen, rlen = hdr.get(5, 0), hdr.get(6, 0)
+                rl = np.frombuffer(body, dtype=np.uint8, count=rlen)
+                dl = np.frombuffer(body, dtype=np.uint8, count=dlen,
+                                   offset=rlen)
+                data = body[rlen + dlen:]
                 if hdr.get(7, True):
-                    data = self._decompress(codec, data, usize - rl - dl)
+                    data = self._decompress(codec, data, usize - rlen - dlen)
             else:
                 continue  # index pages carry no rows
-            nn = n if valid is None else int(valid.sum())
-            vals = self._values(lf, data, enc, nn, dictionary)
-            values.append(_spread(lf, vals, valid, n))
-            valids.append(valid)
+            dlv = _levels(dl, lf.max_def, n)
+            if lf.max_rep:
+                reps.append(_levels(rl, lf.max_rep, n))
+            nn = n
+            if dlv is not None:
+                nn = int((dlv == lf.max_def).sum())
+                defs.append(dlv)
+            values.append(Column(self._values(lf, data, enc, nn,
+                                              dictionary)))
             got += n
-        return concat([Column(v, m) for v, m in zip(values, valids)])
+        vals = concat(values).data if values else None
+        if lf.max_rep:
+            none = np.zeros(0, dtype=np.int32)
+            return self._lists(lf, vals, np.concatenate(defs or [none]),
+                               np.concatenate(reps or [none]))
+        valid = None
+        if defs:  # rows without a value: definition level below max_def
+            valid = np.concatenate(defs) == lf.max_def
+            if valid.all():
+                valid = None
+        return Column(_spread(lf, vals, valid, got, self.path), valid)
+
+    def _lists(self, lf: _Leaf, vals, dlv, rlv) -> Column:
+        """The rows of a list leaf from its levels: a row starts at
+        repetition level 0; definition level d_list or more defines the
+        list, d_list + 1 or more an element slot, max_def a value."""
+        starts = rlv == 0
+        rows = int(starts.sum())
+        row = np.cumsum(starts) - 1
+        slot = dlv > lf.d_list
+        if ((dlv < lf.max_def) & slot).any():
+            raise NotImplementedError("NULL array elements not supported")
+        lengths = np.bincount(row[slot], minlength=rows).astype(np.int64)
+        valid = None
+        if lf.d_list:
+            valid = (dlv >= lf.d_list)[starts]
+            if valid.all():
+                valid = None
+        elems = _spread(lf, vals, None, int(slot.sum()), self.path)
+        return Column(Lists(lengths, Column(elems)), valid)
 
     def _decompress(self, codec: int, body, size: int):
-        if codec == 0:
-            return body
-        if codec == 1:
-            return native.snappy_decompress(body, size).tobytes()
-        return zlib.decompress(body, 47)  # gzip or zlib header
+        t = time.perf_counter()
+        try:
+            if codec == 0:
+                return body
+            if codec == 1:
+                return native.snappy_decompress(body, size)
+            if codec == 6:
+                return native.zstd_decompress(body, size)
+            if codec == 7:
+                return native.lz4_decompress(body, size)
+            if codec == 5:
+                return lz4_hadoop(body, size)
+            return zlib.decompress(body, 47)  # gzip or zlib header
+        finally:
+            self.times["decompress"] += time.perf_counter() - t
 
     def _plain(self, lf: _Leaf, data, n: int):
         """(values, bytes used) of n PLAIN values."""
@@ -313,20 +475,19 @@ class ParquetFile:
                                                count=(n + 7) // 8),
                                  bitorder="little")[:n]
             return bits.astype(bool), (n + 7) // 8
-        if ph == FLBA:
-            w = lf.type_length
+        if ph in (FLBA, INT96):
+            w = 12 if ph == INT96 else lf.type_length
             return (np.frombuffer(data, dtype=np.uint8, count=n * w)
                     .reshape(n, w)), n * w
-        if ph == INT96:
-            raise NotImplementedError(f"{self.path}: INT96 column")
         dt = {INT32: "<i4", INT64: "<i8", FLOAT: "<f4", DOUBLE: "<f8"}[ph]
         a = np.frombuffer(data, dtype=dt, count=n)
         return a, a.nbytes
 
     def _values(self, lf: _Leaf, data, enc: int, n: int, dictionary):
+        ph = lf.physical
         if enc == 0:
             return self._plain(lf, data, n)[0]
-        if enc == 3 and lf.physical == BOOLEAN:
+        if enc == 3 and ph == BOOLEAN:
             # booleans in RLE (v2 pages): a 4-byte length, then the hybrid
             ln = struct.unpack_from("<I", data, 0)[0]
             buf = np.frombuffer(data, dtype=np.uint8, count=ln, offset=4)
@@ -340,15 +501,106 @@ class ParquetFile:
             if isinstance(dictionary, tuple):
                 return dictionary[0], dictionary[1][idx]
             return dictionary[idx]
+        buf = np.frombuffer(data, dtype=np.uint8)
+        if enc == 5 and ph in (INT32, INT64):
+            v = native.delta_binary_packed(buf, n)[0]
+            return v.astype(np.int32) if ph == INT32 else v
+        if enc == 6 and ph == BYTE_ARRAY:
+            return _delta_lengths(buf, n)[0]
+        if enc == 7 and ph in (BYTE_ARRAY, FLBA):
+            prefix, used = native.delta_binary_packed(buf, n)
+            (sbuf, soffs), _ = _delta_lengths(buf[used:], n)
+            out = native.delta_byte_array(sbuf, prefix, soffs)
+            if ph == FLBA:
+                w = lf.type_length
+                if not (out[1][:, 1] - out[1][:, 0] == w).all():
+                    raise ValueError(f"{self.path}: column {lf.name!r}: "
+                                     "DELTA_BYTE_ARRAY value of another width")
+                return out[0].reshape(n, w)
+            return out
+        if enc == 9 and ph in (FLOAT, DOUBLE, INT32, INT64, FLBA):
+            w = lf.type_length if ph == FLBA else (4 if ph in (FLOAT, INT32)
+                                                   else 8)
+            cols = buf[:n * w].reshape(w, n).T.copy()
+            if ph == FLBA:
+                return cols
+            dt = {INT32: "<i4", INT64: "<i8", FLOAT: "<f4", DOUBLE: "<f8"}[ph]
+            return cols.view(dt).ravel()
         raise NotImplementedError(
             f"{self.path}: parquet encoding {_ENCODINGS.get(enc, enc)} "
             f"(column {lf.name!r})")
 
 
-def _spread(lf: _Leaf, vals, valid, n: int):
-    """Non-null values onto the page's n rows (NULL rows hold 0 or ""),
-    converted to the column's in-memory layout."""
+def lz4_hadoop(body, size: int):
+    """Parquet's LZ4 codec (5): blocks in Hadoop's framing, each after its
+    big-endian decompressed and compressed lengths; input that is not so
+    framed is one raw block, as older writers left it (Arrow's reader does
+    the same)."""
+    out, pos, left = [], 0, size
+    try:
+        while len(body) - pos >= 8:
+            usize, csize = struct.unpack_from(">II", body, pos)
+            pos += 8
+            if csize > len(body) - pos or usize > left:
+                raise ValueError("not Hadoop framing")
+            out.append(native.lz4_decompress(body[pos:pos + csize], usize))
+            pos += csize
+            left -= usize
+        if pos == len(body):
+            return (np.concatenate(out) if out
+                    else np.zeros(0, dtype=np.uint8))
+    except ValueError:
+        pass
+    return native.lz4_decompress(body, size)
+
+
+def _levels(buf, max_level: int, n: int):
+    """n levels of the RLE/bit-packed hybrid at the bit width of
+    max_level, or None when the column has no such levels."""
+    if not max_level:
+        return None
+    if buf is None or not len(buf):
+        return np.full(n, max_level, dtype=np.int32)
+    return native.rle_bp_decode(buf, max_level.bit_length(), n)[0]
+
+
+def _delta_lengths(buf: np.ndarray, n: int):
+    """((buffer, offsets), bytes used) of n DELTA_LENGTH_BYTE_ARRAY
+    values: their lengths, DELTA_BINARY_PACKED, then their bytes."""
+    lens, used = native.delta_binary_packed(buf, n)
+    ends = used + np.cumsum(lens)
+    if n and (lens.min() < 0 or ends[-1] > len(buf)):
+        raise ValueError("DELTA_LENGTH_BYTE_ARRAY: malformed lengths")
+    offs = np.stack([ends - lens, ends], axis=1).astype(np.int64)
+    return (buf, offs.reshape(-1, 2)), int(ends[-1]) if n else used
+
+
+def _no_values(lf: _Leaf):
+    """The decoded values of a leaf that has none."""
+    if lf.binary:
+        return np.zeros(0, dtype=np.uint8), np.zeros((0, 2), dtype=np.int64)
+    return empty_column(lf.type).data
+
+
+def _empty(lf: _Leaf) -> Column:
+    """A column of no rows (a file without row groups)."""
+    if lf.max_rep:
+        return Column(Lists(np.zeros(0, dtype=np.int64),
+                            Column(_no_values(lf))))
+    return Column(_no_values(lf))
+
+
+def _spread(lf: _Leaf, vals, valid, n: int, path: str):
+    """Non-null values onto the n rows (NULL rows hold 0 or ""), converted
+    to the column's in-memory layout."""
     t = lf.type
+    if vals is None:
+        vals = _no_values(lf)
+    if lf.binary and not isinstance(vals, tuple):  # FLBA: a byte matrix
+        m, w = vals.shape
+        ends = np.arange(1, m + 1, dtype=np.int64) * w
+        vals = (np.ascontiguousarray(vals).ravel(),
+                np.stack([ends - w, ends], axis=1))
     if isinstance(vals, tuple):
         buf, offs = vals
         if t.is_decimal or t.is_decimal128:
@@ -367,14 +619,39 @@ def _spread(lf: _Leaf, vals, valid, n: int):
     elif t.is_decimal or t.is_decimal128:
         vals = (decimal_from_be(vals, t.precision) if vals.ndim == 2
                 else decimal_from_ints(vals, t.precision))
+    elif lf.physical == INT96:
+        vals = _int96_us(vals, path, lf.name)
     elif t.kind is T.TypeKind.DATETIME:
         vals = vals.astype(np.int64)
+        if lf.ts_div > 1:
+            _exact_us(vals, lf.ts_div, path, lf.name)
         vals = (vals // lf.ts_div if lf.ts_div > 0
                 else vals * -lf.ts_div)
     else:
-        vals = vals.astype(t.np_dtype)
+        vals = vals.astype(t.np_dtype, copy=False)
     if valid is None:
         return vals
     full = np.zeros((n,) + vals.shape[1:], dtype=vals.dtype)
     full[valid] = vals
     return full
+
+
+def _exact_us(ns: np.ndarray, div: int, path: str, name: str):
+    """The reference casts timestamp[ns] to timestamp[us] with Arrow's safe
+    cast, which raises on a sub-microsecond fraction."""
+    bad = np.flatnonzero(ns % div)
+    if len(bad):
+        raise ValueError(
+            f"{path}: column {name!r}: Casting from timestamp[ns] to "
+            f"timestamp[us] would lose data: {int(ns[bad[0]])}")
+
+
+def _int96_us(raw: np.ndarray, path: str, name: str) -> np.ndarray:
+    """INT96 timestamps (8 bytes of nanoseconds in the day, then the
+    Julian day, little-endian) as microseconds since 1970-01-01."""
+    raw = np.ascontiguousarray(raw, dtype=np.uint8).reshape(-1, 12)
+    nanos = raw[:, :8].copy().view("<i8").ravel()
+    days = raw[:, 8:].copy().view("<i4").ravel().astype(np.int64)
+    ns = (days - _JULIAN_EPOCH) * (_US_PER_DAY * 1000) + nanos
+    _exact_us(ns, 1000, path, name)
+    return ns // 1000

@@ -5,9 +5,11 @@ analysis/ are copies of the JAX package's modules with only their imports
 changed. Where a definition had to differ, ADAPTED names it: the module
 docstrings (each says what the port changed), the package name the static
 gates point at, the torch device waits of effects_check, the readers the
-external tables go to instead of pyarrow, and the poll loop's tick that
-the port's tests drive. analysis/trace_check.py is not a copy: the jaxpr
-audit is re-derived for eager torch (its docstring says check by check).
+external tables go to instead of pyarrow, with the merge and column
+builders that replace pyarrow's concat_tables and from_arrow, and the
+poll loop's tick that the port's tests drive. analysis/trace_check.py is
+not a copy: the jaxpr audit is re-derived for eager torch (its docstring
+says check by check).
 """
 
 from __future__ import annotations
@@ -35,8 +37,11 @@ ADAPTED = {
     "ingest/poller.py": {"_run", "poll_once"},
     "storage/external.py": {"_open", "_file_schema", "_file_rows",
                             "_read_file", "_read_files", "__init__",
-                            "schema", "_load", "stale"},  # _read_file: the
-    # reference's pyarrow read, which _read_files replaces
+                            "schema", "_load", "stale", "_THREADS",
+                            "_merged_specs", "_build", "_bitmap", "_array",
+                            "_as_text"},  # _read_file: the reference's
+    # pyarrow read, which _read_files (the merge of concat_tables) and the
+    # builders of from_arrow's BITMAP and ARRAY columns replace
     "analysis/__init__.py": {"logger"},
     "analysis/astwalk.py": {"_PKG", "ModuleSrc", "package_sources",
                             "parse_fixture"},

@@ -313,12 +313,17 @@ def test_external_table_of_every_type_matches_the_reference(tmp_path, fmt):
     assert len(got) == N and got == want
 
 
-def test_zstd_raises_a_named_error(tmp_path):
-    path = str(tmp_path / "z.parquet")
-    pq.write_table(pa.table({"a": [1, 2, 3]}), path, compression="zstd")
-    with pytest.raises(NotImplementedError, match="ZSTD.*z.parquet|z.parquet.*ZSTD"):
+def test_unported_formats_raise_a_named_error(tmp_path):
+    """Parquet BROTLI and an ORC STRUCT column raise NotImplementedError
+    naming the feature and the file; nothing falls back to another
+    reader."""
+    path = str(tmp_path / "b.parquet")
+    pq.write_table(pa.table({"a": [1, 2, 3]}), path, compression="brotli")
+    with pytest.raises(NotImplementedError,
+                       match="BROTLI.*b.parquet|b.parquet.*BROTLI"):
         _read_files([path])
-    opath = str(tmp_path / "z.orc")
-    po.write_table(pa.table({"a": [1, 2, 3]}), opath, compression="zstd")
-    with pytest.raises(NotImplementedError, match="ZSTD"):
+    opath = str(tmp_path / "s.orc")
+    po.write_table(pa.table({"s": [{"x": 1}, {"x": 2}]}), opath)
+    with pytest.raises(NotImplementedError,
+                       match="s.orc.*STRUCT|STRUCT.*s.orc"):
         _read_files([opath])

@@ -69,7 +69,11 @@ installed:
   `load_csv`, and written as parquet files (chip_smoke.py's writer) and
   declared as an external table, each queried on the card against the
   CPU's rows; a stream-loaded batch visible to the next query on the
-  card, the warm device cache dropped by the commit.
+  card, the warm device cache dropped by the commit; the lake fixtures
+  (tests/data/torch_formats/: ZSTD, LZ4, the DELTA and BYTE_STREAM_SPLIT
+  encodings, INT96, binary and LIST columns, ORC 0.11, TIMESTAMP and the
+  schema-evolved directory) as external tables on the card against the
+  CPU's rows, N3 under the top-N kernel on the ZSTD ones.
 """
 
 import numpy as np
@@ -1475,6 +1479,40 @@ def test_external_parquet_on_card_matches_cpu(cuda, tmp_path):
 
     got, want = _load_both(tmp_path, load)
     assert got == want
+
+
+def test_lake_fixtures_on_card_match_cpu(cuda):
+    """Every lake fixture as an external table: SELECT * (ARRAY and BITMAP
+    columns included) on the card equals the CPU's rows; on the two ZSTD
+    fixtures N3 launches the top-N kernel and equals the CPU's rows."""
+    import json
+    import os
+
+    from starrocks_tpu_torch.storage.catalog import Catalog
+    from starrocks_tpu_torch.storage.tpch_queries import TOPN_QUERIES
+
+    here = os.path.join(os.path.dirname(__file__), "data", "torch_formats")
+    with open(os.path.join(here, "MANIFEST.json")) as fh:
+        names = sorted(json.load(fh)["fixtures"])
+    for name in names:
+        out = []
+        for dev in ("cuda", "cpu"):
+            s = Session(Catalog(), device=dev)
+            s.sql(f"CREATE EXTERNAL TABLE orders FROM "
+                  f"'{os.path.join(here, name)}'")
+            rows = [s.sql("select * from orders").rows()]
+            if name.startswith("orders_zstd"):
+                s.sql("SET topn_strategy = 'pallas'")
+                kernels.reset_counts()
+                try:
+                    rows.append(s.sql(TOPN_QUERIES["N3"]).rows())
+                finally:
+                    config.set("topn_strategy", "auto")
+                if dev == "cuda":
+                    assert kernels.counts()["topn_select"]["launches"] >= 1
+            out.append(rows)
+        assert out[0] == out[1], name
+        assert len(out[0][0]) > 0, name
 
 
 def test_stream_load_visible_on_card_and_drops_the_warm_cache(cuda):

@@ -27,8 +27,8 @@ judgement (sql/optimizer.plan_uncacheable_reason over the fragment): no
 nondeterministic exprs, no UDFs, no DISTINCT/holistic aggregates — and the
 fragment has no join, so no runtime filter can mutate its probe side.
 
-A port of the JAX package's cache/partial.py. A segment is one `.npz` data
-file of the port's TabletStore. Each fresh segment's state count is read
+A port of the JAX package's cache/partial.py. A segment is one data file
+of the port's TabletStore. Each fresh segment's state count is read
 back before the state is cached (one device-to-host copy per segment, as
 in the reference); the states live on the host.
 """

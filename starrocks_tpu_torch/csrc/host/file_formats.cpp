@@ -26,6 +26,14 @@
 //
 // Each returns the input bytes it consumed, or -1 when the input is cut
 // short or malformed; the readers raise on -1.
+//
+// The TabletStore's parquet writer (storage/formats/parquet_write.py) has
+// two loops here as well, each returning the bytes it wrote:
+// sr_bit_pack: values of `width` (1-32) bits packed LSB first, the body of
+//   a bit-packed run of the RLE/bit-packed hybrid (levels, dictionary
+//   indices); the last group of 8 is padded with zeros.
+// sr_plain_byte_arrays: the strings buf[offs[r]] of the rows `rows`, each
+//   after its 4-byte little-endian length (PLAIN BYTE_ARRAY).
 
 #include <cstdint>
 #include <cstring>
@@ -443,6 +451,44 @@ int64_t sr_orc_byte_rle(const uint8_t* in, int64_t n, int64_t count,
     }
   }
   return i;
+}
+
+// --- the writer's loops ---------------------------------------------------------
+
+int64_t sr_bit_pack(const uint32_t* v, int64_t count, int32_t width,
+                    uint8_t* out) {
+  const int64_t nbytes = (count + 7) / 8 * width;
+  memset(out, 0, nbytes);
+  uint64_t acc = 0;
+  int bits = 0;
+  int64_t o = 0;
+  const uint64_t mask = width >= 32 ? 0xffffffffULL : ((1ULL << width) - 1);
+  for (int64_t k = 0; k < count; k++) {
+    acc |= ((uint64_t)v[k] & mask) << bits;
+    bits += width;
+    while (bits >= 8) {
+      out[o++] = (uint8_t)acc;
+      acc >>= 8;
+      bits -= 8;
+    }
+  }
+  if (bits > 0) out[o++] = (uint8_t)acc;
+  return nbytes;
+}
+
+int64_t sr_plain_byte_arrays(const uint8_t* buf, const int64_t* offs,
+                             const int64_t* rows, int64_t count,
+                             uint8_t* out) {
+  int64_t o = 0;
+  for (int64_t k = 0; k < count; k++) {
+    const int64_t r = rows[k];
+    const int64_t s = offs[2 * r], e = offs[2 * r + 1];
+    const uint32_t len = (uint32_t)(e - s);
+    memcpy(out + o, &len, 4);
+    memcpy(out + o + 4, buf + s, (size_t)len);
+    o += 4 + (int64_t)len;
+  }
+  return o;
 }
 
 }  // extern "C"

@@ -23,9 +23,13 @@ falls back quietly.
 - `file_formats.cpp`: the hot loops of the parquet and ORC readers
   (storage/formats/): snappy, the RLE/bit-packed hybrid, parquet's DELTA
   and BYTE_STREAM_SPLIT encodings, ORC's run-length encodings and the
-  split of length-prefixed byte arrays;
-- `zstd_decode.cpp` and `lz4_decode.cpp`: the ZSTD frame decoder (RFC
-  8878) and the LZ4 block decoder of the parquet and ORC codecs.
+  split of length-prefixed byte arrays; and the two loops of the
+  TabletStore's parquet writer (`bit_pack`, `plain_byte_arrays`);
+- `zstd_decode.cpp`, `lz4_decode.cpp` and `brotli_decode.cpp`: the ZSTD
+  frame decoder (RFC 8878), the LZ4 block decoder and the Brotli decoder
+  (RFC 7932; its static dictionary, transforms and context lookup in
+  `brotli_tables.inc`, which the build's digest covers) of the parquet and
+  ORC codecs.
 """
 
 from __future__ import annotations
@@ -44,7 +48,9 @@ _PKG = Path(__file__).resolve().parent
 HOST_DIR = _PKG / "csrc" / "host"
 SOURCE = HOST_DIR / "fused_filter_sum.cpp"
 LIBS = ("fused_filter_sum", "hash_partition", "csv_parse", "file_formats",
-        "zstd_decode", "lz4_decode")
+        "zstd_decode", "lz4_decode", "brotli_decode")
+# files a source includes beside it (their bytes are part of its digest)
+INCLUDES = {"brotli_decode": ("brotli_tables.inc",)}
 BUILD_DIR = _PKG / "_build"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
@@ -57,8 +63,10 @@ _lock = lockdep.lock("native._lock")
 
 def _lib_path(name: str) -> Path:
     src = HOST_DIR / f"{name}.cpp"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256(src.read_bytes() + " ".join(CXX_FLAGS).encode())
+    for inc in INCLUDES.get(name, ()):
+        h.update((HOST_DIR / inc).read_bytes())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
 
 
@@ -147,6 +155,10 @@ def _sig_file_formats(lib):
     lib.sr_delta_binary_packed.restype = i64
     lib.sr_delta_byte_array.argtypes = [vp, vp, vp, i64, vp, i64, vp]
     lib.sr_delta_byte_array.restype = i64
+    lib.sr_bit_pack.argtypes = [vp, i64, i32, vp]
+    lib.sr_bit_pack.restype = i64
+    lib.sr_plain_byte_arrays.argtypes = [vp, vp, vp, i64, vp]
+    lib.sr_plain_byte_arrays.restype = i64
 
 
 def _sig_zstd_decode(lib):
@@ -161,12 +173,19 @@ def _sig_lz4_decode(lib):
     lib.sr_lz4_block_decompress.restype = i64
 
 
+def _sig_brotli_decode(lib):
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.sr_brotli_decompress.argtypes = [vp, i64, vp, i64]
+    lib.sr_brotli_decompress.restype = i64
+
+
 _SIGNATURES = {"fused_filter_sum": _sig_fused_filter_sum,
                "hash_partition": _sig_hash_partition,
                "csv_parse": _sig_csv_parse,
                "file_formats": _sig_file_formats,
                "zstd_decode": _sig_zstd_decode,
-               "lz4_decode": _sig_lz4_decode}
+               "lz4_decode": _sig_lz4_decode,
+               "brotli_decode": _sig_brotli_decode}
 
 
 def _load(name: str = "fused_filter_sum"):
@@ -526,6 +545,31 @@ def orc_byte_rle(data: np.ndarray, count: int) -> np.ndarray:
     return out[:count]
 
 
+def bit_pack(values: np.ndarray, width: int) -> np.ndarray:
+    """The body of one bit-packed run of parquet's RLE/bit-packed hybrid:
+    `values` (non-negative, below 2**width) at `width` bits each, LSB
+    first, padded with zeros to a whole group of 8."""
+    v = np.ascontiguousarray(values, dtype=np.uint32)
+    out = np.empty(max((len(v) + 7) // 8 * width, 1), dtype=np.uint8)
+    m = _load("file_formats").sr_bit_pack(_ptr(v), len(v), width, _ptr(out))
+    return out[:m]
+
+
+def plain_byte_arrays(buf: np.ndarray, offs: np.ndarray,
+                      rows: np.ndarray) -> np.ndarray:
+    """PLAIN BYTE_ARRAY values: the strings buf[s:e] of the (s, e) rows
+    `rows` of `offs`, each after its 4-byte little-endian length."""
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    offs = np.ascontiguousarray(offs, dtype=np.int64).reshape(-1, 2)
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    size = int((offs[rows, 1] - offs[rows, 0]).sum()) + 4 * len(rows)
+    out = np.empty(max(size, 1), dtype=np.uint8)
+    m = _load("file_formats").sr_plain_byte_arrays(
+        _ptr(buf if len(buf) else np.zeros(1, np.uint8)), _ptr(offs),
+        _ptr(rows), len(rows), _ptr(out))
+    return out[:m]
+
+
 _ZSTD_ERRORS = {-1: "malformed or truncated input",
                 -2: "content checksum mismatch",
                 -3: "more output than the size given",
@@ -556,4 +600,20 @@ def lz4_decompress(data, size: int, exact: bool = True) -> np.ndarray:
         _ptr(src), len(src), _ptr(out), size)
     if m < 0 or (exact and m != size):
         raise ValueError("lz4: malformed or truncated block")
+    return out[:m]
+
+
+def brotli_decompress(data, size: int) -> np.ndarray:
+    """One Brotli stream (RFC 7932), which must decompress to exactly
+    `size` bytes."""
+    src = np.frombuffer(data, dtype=np.uint8)
+    out = np.empty(max(size, 1), dtype=np.uint8)
+    m = _load("brotli_decode").sr_brotli_decompress(
+        _ptr(src) if len(src) else 0, len(src), _ptr(out), size)
+    if m == -3:
+        raise ValueError("brotli: more output than the size given")
+    if m < 0:
+        raise ValueError("brotli: malformed or truncated stream")
+    if m != size:
+        raise ValueError(f"brotli: {m} bytes where {size} were expected")
     return out[:m]

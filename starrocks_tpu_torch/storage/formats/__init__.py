@@ -1,8 +1,10 @@
-"""File formats the port reads (and, for its tests and chip_smoke.py,
-writes) without pyarrow: CSV (`Session.load_csv`), parquet and ORC (the
-external tables of storage/external.py). Footers and page headers parse in
-Python; the loops over values run in host C++ (csrc/host/csv_parse.cpp,
-csrc/host/file_formats.cpp, through native.py)."""
+"""File formats the port reads and writes without pyarrow: CSV
+(`Session.load_csv`), parquet and ORC (the external tables of
+storage/external.py), and parquet as the TabletStore's data files
+(parquet_write.py writes them; parquet.py reads them and the reference's).
+Footers and page headers parse in Python; the loops over values run in
+host C++ (csrc/host/csv_parse.cpp, csrc/host/file_formats.cpp, through
+native.py)."""
 
 from __future__ import annotations
 
@@ -14,15 +16,36 @@ import numpy as np
 class Column:
     """One column of one file as a reader decodes it: `data` is a numpy
     array with a row per value, for a string or binary column (buffer,
-    offsets) with one (start, end) pair per row, or for a LIST column a
-    Lists; `valid` is a bool mask, or None when the column has no NULL. A
-    NULL row holds 0 (strings: "", lists: no element)."""
+    offsets) with one (start, end) pair per row (or a Coded, where the
+    reader was asked for codes), or for a LIST column a Lists; `valid` is
+    a bool mask, or None when the column has no NULL. A NULL row holds 0
+    (strings: "", lists: no element)."""
 
     __slots__ = ("data", "valid")
 
     def __init__(self, data, valid=None):
         self.data = data
         self.valid = valid
+
+
+class Coded:
+    """String values as indices into a dictionary (a parquet column chunk
+    whose pages are all dictionary-encoded, read with `codes=True`):
+    `strings` is the dictionary as (buffer, offsets), `codes` the int32
+    index of each value (0 in a NULL row)."""
+
+    __slots__ = ("strings", "codes")
+
+    def __init__(self, strings, codes):
+        self.strings = strings
+        self.codes = codes
+
+    def decoded(self) -> tuple:
+        """The values as (buffer, offsets), one (start, end) per row."""
+        buf, offs = self.strings
+        if not len(offs):
+            return buf, np.zeros((len(self.codes), 2), dtype=np.int64)
+        return buf, offs[self.codes]
 
 
 class Lists:
@@ -92,6 +115,26 @@ def concat(parts: list) -> Column:
     """The Columns of one column in several files, as one Column."""
     if len(parts) == 1:
         return parts[0]
+    coded = [isinstance(p.data, Coded) for p in parts]
+    if all(coded):
+        # one dictionary: the parts' dictionaries one after another, each
+        # once (the pages of a column chunk share theirs)
+        bufs, offs, codes, base, nd, seen = [], [], [], 0, 0, {}
+        for p in parts:
+            if id(p.data.strings) not in seen:
+                b, o = p.data.strings
+                seen[id(p.data.strings)] = nd
+                bufs.append(b)
+                offs.append(o + base)
+                base += len(b)
+                nd += len(o)
+            codes.append(p.data.codes + seen[id(p.data.strings)])
+        data = Coded((np.concatenate(bufs), np.concatenate(offs)),
+                     np.concatenate(codes).astype(np.int32))
+        return Column(data, _valid(parts))
+    if any(coded):
+        parts = [Column(p.data.decoded(), p.valid) if c else p
+                 for p, c in zip(parts, coded)]
     if isinstance(parts[0].data, Lists):
         data = Lists(np.concatenate([p.data.lengths for p in parts]),
                      concat([p.data.elems for p in parts]))
@@ -108,17 +151,22 @@ def concat(parts: list) -> Column:
         data = (np.concatenate(bufs), np.concatenate(offs))
     else:
         data = np.concatenate([p.data for p in parts])
-    valid = None
-    if any(p.valid is not None for p in parts):
-        valid = np.concatenate([
-            p.valid if p.valid is not None else np.ones(_rows(p), dtype=bool)
-            for p in parts])
-    return Column(data, valid)
+    return Column(data, _valid(parts))
+
+
+def _valid(parts: list):
+    if all(p.valid is None for p in parts):
+        return None
+    return np.concatenate([
+        p.valid if p.valid is not None else np.ones(_rows(p), dtype=bool)
+        for p in parts])
 
 
 def _rows(c: Column) -> int:
     if isinstance(c.data, Lists):
         return len(c.data.lengths)
+    if isinstance(c.data, Coded):
+        return len(c.data.codes)
     return len(c.data[1]) if isinstance(c.data, tuple) else len(c.data)
 
 

@@ -6,10 +6,11 @@ the legacy 2-level one, repetition and definition levels in the
 RLE/bit-packed hybrid); data pages v1 and v2 and dictionary pages; the
 encodings PLAIN, PLAIN_DICTIONARY, RLE_DICTIONARY, RLE (booleans),
 DELTA_BINARY_PACKED, DELTA_LENGTH_BYTE_ARRAY, DELTA_BYTE_ARRAY and
-BYTE_STREAM_SPLIT; the codecs UNCOMPRESSED, SNAPPY, GZIP, ZSTD, LZ4_RAW and
-LZ4 (Hadoop's framing, or a raw block as older writers left it). BROTLI,
-LZO, STRUCT, MAP and TIME columns raise NotImplementedError naming the
-feature and the file.
+BYTE_STREAM_SPLIT; the codecs UNCOMPRESSED, SNAPPY, GZIP, BROTLI, ZSTD,
+LZ4_RAW and LZ4 (Hadoop's framing, or a raw block as older writers left
+it). LZO, STRUCT, MAP and TIME columns raise NotImplementedError naming
+the feature and the file; a corrupt page raises ValueError naming the
+file.
 
 The footer (Thrift compact protocol) and the page headers parse here; the
 loops over values (the codecs, the hybrid, the DELTA encodings, the split
@@ -33,7 +34,7 @@ import numpy as np
 
 from ... import native
 from ... import types as T
-from . import (Column, Lists, Spec, concat, decimal_from_be,
+from . import (Coded, Column, Lists, Spec, concat, decimal_from_be,
                decimal_from_ints, empty_column)
 
 _MAGIC = b"PAR1"
@@ -330,30 +331,36 @@ class ParquetFile:
         """[(name, LogicalType)] in file order, as the footer gives them."""
         return [(sp.name, sp.type) for sp in self.specs]
 
-    def read(self) -> dict:
-        """{name: Column} of every row of the file."""
-        parts = {lf.name: [] for lf in self.leaves}
+    def read(self, columns=None, codes: bool = False) -> dict:
+        """{name: Column} of every row of the file: of every column, or of
+        the names in `columns`. With `codes`, a string column (or a list
+        of strings' elements) whose pages are all dictionary-encoded comes
+        back as a Coded: the dictionary and each row's index."""
+        leaves = [(i, lf) for i, lf in enumerate(self.leaves)
+                  if columns is None or lf.name in columns]
+        parts = {lf.name: [] for _, lf in leaves}
         t0 = time.perf_counter()
         d0 = self.times["decompress"]
         with open(self.path, "rb") as fh:
             for rg in self.meta.get(4, []):
-                for lf, cc in zip(self.leaves, rg[1]):
-                    parts[lf.name].append(self._chunk(fh, lf, cc[3]))
+                for i, lf in leaves:
+                    parts[lf.name].append(
+                        self._chunk(fh, lf, rg[1][i][3], codes))
         out = {}
-        for lf in self.leaves:
+        for _, lf in leaves:
             p = parts[lf.name]
             out[lf.name] = concat(p) if p else _empty(lf)
         self.times["values"] += (time.perf_counter() - t0
                                  - (self.times["decompress"] - d0))
         return out
 
-    def _chunk(self, fh, lf: _Leaf, md: dict) -> Column:
+    def _chunk(self, fh, lf: _Leaf, md: dict, codes: bool = False) -> Column:
         codec = md.get(4, 0)
-        if codec not in (0, 1, 2, 5, 6, 7):
+        if codec not in (0, 1, 2, 4, 5, 6, 7):
             raise NotImplementedError(
                 f"{self.path}: parquet codec {_CODECS.get(codec, codec)} "
                 f"(column {lf.name!r}); the port reads UNCOMPRESSED, SNAPPY, "
-                "GZIP, ZSTD, LZ4_RAW and LZ4")
+                "GZIP, BROTLI, ZSTD, LZ4_RAW and LZ4")
         start = md.get(9)
         dpo = md.get(11)
         if dpo is not None and 0 < dpo < start:
@@ -361,6 +368,8 @@ class ParquetFile:
         fh.seek(start)
         raw = memoryview(fh.read(md[7]))  # pages sliced without a copy
         nvals = md[5]
+        coded = (codes and lf.physical == BYTE_ARRAY and not lf.binary
+                 and lf.type.is_string)
         dictionary = None
         values, defs, reps = [], [], []
         pos = 0
@@ -412,8 +421,12 @@ class ParquetFile:
             if dlv is not None:
                 nn = int((dlv == lf.max_def).sum())
                 defs.append(dlv)
-            values.append(Column(self._values(lf, data, enc, nn,
-                                              dictionary)))
+            if coded and enc in (2, 8) and dictionary is not None:
+                values.append(Column(Coded(dictionary,
+                                           self._indices(data, nn))))
+            else:
+                values.append(Column(self._values(lf, data, enc, nn,
+                                                  dictionary)))
             got += n
         vals = concat(values).data if values else None
         if lf.max_rep:
@@ -459,7 +472,11 @@ class ParquetFile:
                 return native.lz4_decompress(body, size)
             if codec == 5:
                 return lz4_hadoop(body, size)
+            if codec == 4:
+                return native.brotli_decompress(body, size)
             return zlib.decompress(body, 47)  # gzip or zlib header
+        except ValueError as e:
+            raise ValueError(f"{self.path}: {e}") from e
         finally:
             self.times["decompress"] += time.perf_counter() - t
 
@@ -483,6 +500,14 @@ class ParquetFile:
         a = np.frombuffer(data, dtype=dt, count=n)
         return a, a.nbytes
 
+    @staticmethod
+    def _indices(data, n: int) -> np.ndarray:
+        """n dictionary indices: their bit width, then the hybrid."""
+        if not n:
+            return np.zeros(0, dtype=np.int32)
+        buf = np.frombuffer(data, dtype=np.uint8)
+        return native.rle_bp_decode(buf[1:], int(buf[0]), n)[0]
+
     def _values(self, lf: _Leaf, data, enc: int, n: int, dictionary):
         ph = lf.physical
         if enc == 0:
@@ -495,9 +520,7 @@ class ParquetFile:
         if enc in (2, 8):
             if dictionary is None:
                 raise ValueError(f"{self.path}: dictionary page missing")
-            buf = np.frombuffer(data, dtype=np.uint8)
-            idx = native.rle_bp_decode(buf[1:], int(buf[0]), n)[0] \
-                if n else np.zeros(0, dtype=np.int32)
+            idx = self._indices(data, n)
             if isinstance(dictionary, tuple):
                 return dictionary[0], dictionary[1][idx]
             return dictionary[idx]
@@ -596,6 +619,12 @@ def _spread(lf: _Leaf, vals, valid, n: int, path: str):
     t = lf.type
     if vals is None:
         vals = _no_values(lf)
+    if isinstance(vals, Coded):
+        if valid is None:
+            return vals
+        full = np.zeros(n, dtype=np.int32)
+        full[valid] = vals.codes
+        return Coded(vals.strings, full)
     if lf.binary and not isinstance(vals, tuple):  # FLBA: a byte matrix
         m, w = vals.shape
         ends = np.arange(1, m + 1, dtype=np.int64) * w

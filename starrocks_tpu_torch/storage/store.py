@@ -1,18 +1,20 @@
-"""Persistent tablet store: bucketed numpy rowsets + manifest + edit log.
+"""Persistent tablet store: bucketed parquet rowsets + manifest + edit log.
 
 Reference behavior re-designed (SURVEY §2.1 storage rows), after the JAX
 package's ``storage/store.py``, with the same directory layout, manifest
-fields and journal:
+fields, journal and data files, so either package opens a data directory
+the other wrote:
 - StorageEngine/Tablet/Rowset (be/src/storage/storage_engine.h:133,
   tablet.h:84, rowset/rowset.h:143): a table = N hash buckets ("tablets");
   every INSERT produces an immutable *rowset* = one data file per non-empty
-  (partition, bucket). A data file is one uncompressed ``.npz`` (numpy's
-  zip of ``.npy`` arrays, written and read with pickling off): ``names``
-  lists the file's columns, ``c<j>`` holds column j's values (DECIMAL(38)
-  as a [rows, 4] int64 limb matrix, VARCHAR as int32 codes), ``v<j>`` its
-  validity where the column has NULLs in the file, and ``d<j>`` a VARCHAR
-  column's own dictionary as a fixed-width unicode array. NULL slots hold
-  zeros, as the reference's parquet read-back gives them.
+  (partition, bucket). A data file is one parquet file, written by the
+  port's own writer (storage/formats/parquet_write.py: the Arrow types the
+  reference's `_to_arrow` gives, uncompressed) and read by its own reader
+  (storage/formats/parquet.py), which also reads the reference's files
+  (pyarrow's, SNAPPY). NULL slots read back as zeros, as the reference's
+  parquet read-back gives them. Directories the port wrote before it wrote
+  parquet hold ``.npz`` files (numpy's zip of ``.npy`` arrays, read with
+  pickling off), which still read.
 - zonemap indexes (storage/rowset/zone_map_index*): per-file min/max stats
   recorded in the manifest; scans prune files by predicate.
 - FE EditLog/BDB-JE journal (fe persist/EditLog.java:133): an append-only
@@ -25,8 +27,8 @@ fields and journal:
 
 The rows of every file, and their order, are the reference's: rows go to
 buckets by splitmix64 of the distribution key and to files by one stable
-sort on (partition, bucket). So delete-vector positions and manifests
-agree with the reference's, except for the data files' names.
+sort on (partition, bucket). So delete-vector positions, file names and
+manifests agree with the reference's.
 """
 
 from __future__ import annotations
@@ -40,12 +42,17 @@ from typing import Optional
 import numpy as np
 
 from .. import lockdep
+from .. import native
 from .. import types as T
 from ..column import Field, HostTable, Schema, StringDict
 from ..exprs.ir import Call, Col, Expr, InList, Lit
 from ..runtime.failpoint import fail_point
+from .external import _bitmap
+from .formats import Coded, Lists
+from .formats.parquet import ParquetFile
+from .formats.parquet_write import write_table
 
-FILE_EXT = ".npz"
+FILE_EXT = ".parquet"
 
 
 def _type_to_json(t: T.LogicalType) -> dict:
@@ -116,7 +123,7 @@ class TabletStore:
     root/edit_log.jsonl
     root/image.json
     root/<table>/manifest.json
-    root/<table>/rowset_<n>[_part_<p>]_bucket_<b>.npz
+    root/<table>/rowset_<n>[_part_<p>]_bucket_<b>.parquet
     """
 
     def __init__(self, root: str):
@@ -453,45 +460,7 @@ class TabletStore:
 
     def _write_file(self, name: str, fname: str, data: HostTable):
         """Write one data file atomically (temporary name, then rename)."""
-        out = {"names": np.asarray([f.name for f in data.schema], dtype=str)}
-        for j, f in enumerate(data.schema):
-            a = np.asarray(data.arrays[f.name])
-            v = data.valids.get(f.name)
-            if v is not None and v.all():
-                v = None
-            if f.type.is_array:
-                # the [rows, K+1] lanes (length, then the elements); string
-                # elements re-coded against the file's own dictionary
-                a = np.array(a, dtype=f.type.np_dtype)
-                if v is not None:
-                    a[~v] = 0  # NULL rows read back as empty lanes
-                if f.type.elem.is_string:
-                    a, fdict = _file_elem_dict(a, f.dict)
-                    out[f"d{j}"] = fdict
-                out[f"c{j}"] = a
-            elif f.type.is_hll or f.type.is_bitmap:
-                # the rank-2 int8 registers / planes, as they are
-                a = np.array(a, dtype=np.int8)
-                if v is not None:
-                    a[~v] = 0
-                out[f"c{j}"] = a
-            elif f.type.is_string:
-                codes, fdict = _file_dict(a, v, f.dict)
-                out[f"c{j}"] = codes
-                out[f"d{j}"] = fdict
-            else:
-                a = np.asarray(a, dtype=f.type.np_dtype)
-                if v is not None:
-                    a = a.copy()
-                    a[~v] = 0  # NULL slots read back as zeros
-                out[f"c{j}"] = a
-            if v is not None:
-                out[f"v{j}"] = np.asarray(v, dtype=np.bool_)
-        path = os.path.join(self._tdir(name), fname)
-        tmp = path + ".tmp"
-        with open(tmp, "wb") as fh:
-            np.savez(fh, **out)
-        os.replace(tmp, path)
+        write_table(data, os.path.join(self._tdir(name), fname))
 
     def rewrite_table(self, name: str, data: HostTable, record: bool = True) -> int:
         """Atomically replace a table's rows (DELETE/TRUNCATE rewrite): the
@@ -582,11 +551,12 @@ class TabletStore:
             # without one, written by compaction, take theirs from the
             # file once) so a future same-named ADD reads NULL, never the
             # dropped bytes
-            for rs in m["rowsets"]:
-                for fmeta in rs["files"]:
-                    if "cols" not in fmeta:
-                        fmeta["cols"] = self._file_names(name, fmeta)
-                    fmeta["cols"] = [c for c in fmeta["cols"] if c != column]
+            metas = [f for rs in m["rowsets"] for f in rs["files"]]
+            # lint: checkpoint-exempt — DDL under the DML gate, no query context to observe; it reads a footer only for a file without a live-column list, once
+            for fmeta in metas:
+                if "cols" not in fmeta:
+                    fmeta["cols"] = self._file_names(name, fmeta)
+                fmeta["cols"] = [c for c in fmeta["cols"] if c != column]
         m["schema"] = schema_to_json(Schema(fields))
         self._write_manifest(name, m)
         self._drop_pk_index(name)
@@ -855,8 +825,11 @@ class TabletStore:
         by_file: dict = {}
         for ri, fi, pos, _ in hits:
             by_file.setdefault((ri, fi), []).append(pos)
+        from ..runtime import lifecycle
+
         parts = []
         for (ri, fi), poss in sorted(by_file.items()):
+            lifecycle.checkpoint("point::gather")
             raw = self._file_parts(name, m["rowsets"][ri]["files"][fi],
                                    want, schema)
             idx = np.asarray(poss, dtype=np.int64)
@@ -921,49 +894,52 @@ class TabletStore:
         else (files written by compaction) the names stored in the file."""
         if fmeta.get("cols") is not None:
             return list(fmeta["cols"])
-        with np.load(os.path.join(self._tdir(name), fmeta["file"]),
-                     allow_pickle=False) as z:
-            return [str(x) for x in z["names"]]
+        path = os.path.join(self._tdir(name), fmeta["file"])
+        if path.endswith(".npz"):
+            with np.load(path, allow_pickle=False) as z:
+                return [str(x) for x in z["names"]]
+        return [sp.name for sp in ParquetFile(path).specs]
 
     def _read_file(self, name: str, fmeta: dict, want, schema: Schema,
                    apply_delvec: bool = True) -> dict:
         """{column: (values, validity or None, dictionary or None)} of the
         `want` columns of one data file, delete vector applied. A column
         the file does not hold (added after it was written, or dropped and
-        added again) reads back as NULL."""
+        added again) reads back as NULL. A `.parquet` file (this store's,
+        or the JAX package's written through pyarrow) is read by the
+        port's parquet reader, an `.npz` one (the port's format before
+        parquet) by numpy."""
         path = os.path.join(self._tdir(name), fmeta["file"])
         live_cols = fmeta.get("cols")
+        n = int(fmeta["rows"])
+        if path.endswith(".npz"):
+            got = _read_npz(path, want, live_cols)
+        else:
+            got = _read_parquet(path, want, live_cols, schema)
+        keep = None
+        dv = fmeta.get("delvec")
+        if apply_delvec and dv:
+            keep = np.ones(n, dtype=bool)
+            keep[np.asarray(dv, dtype=np.int64)] = False
         out = {}
-        with np.load(path, allow_pickle=False) as z:
-            names = [str(x) for x in z["names"]]
-            have = set(names if live_cols is None else live_cols)
-            n = int(fmeta["rows"])
-            keep = None
-            dv = fmeta.get("delvec")
-            if apply_delvec and dv:
-                keep = np.ones(n, dtype=bool)
-                keep[np.asarray(dv, dtype=np.int64)] = False
-            for c in want:
-                f = schema.field(c)
-                if c in have and c in names:
-                    j = names.index(c)
-                    a = z[f"c{j}"]
-                    v = z[f"v{j}"] if f"v{j}" in z.files else None
-                    d = z[f"d{j}"] if f"d{j}" in z.files else None
-                else:
-                    a = _null_column(f.type, n)
-                    v = np.zeros(n, dtype=np.bool_)
-                    d = None
-                if d is None and _has_text(f.type):
-                    d = np.zeros(0, dtype="<U1")
-                if len(a) != n:
-                    raise ValueError(
-                        f"{fmeta['file']}: column {c!r} holds {len(a)} rows, "
-                        f"the manifest says {n}")
-                if keep is not None:
-                    a = a[keep]
-                    v = None if v is None else v[keep]
-                out[c] = (a, v, d)
+        for c in want:
+            f = schema.field(c)
+            if c in got:
+                a, v, d = got[c]
+            else:
+                a = _null_column(f.type, n)
+                v = np.zeros(n, dtype=np.bool_)
+                d = None
+            if d is None and _has_text(f.type):
+                d = np.zeros(0, dtype="<U1")
+            if len(a) != n:
+                raise ValueError(
+                    f"{fmeta['file']}: column {c!r} holds {len(a)} rows, "
+                    f"the manifest says {n}")
+            if keep is not None:
+                a = a[keep]
+                v = None if v is None else v[keep]
+            out[c] = (a, v, d)
         return out
 
     def load_table(
@@ -1241,27 +1217,6 @@ def _slice_table(data: HostTable, idx) -> HostTable:
     )
 
 
-def _file_dict(codes: np.ndarray, valid, d):
-    """A VARCHAR column's codes re-coded against the file's own dictionary
-    (the values its non-NULL rows use, sorted), and that dictionary as a
-    fixed-width unicode array. NULL rows get code 0."""
-    nd = 0 if d is None else len(d)
-    if nd == 0 or len(codes) == 0:
-        return np.zeros(len(codes), dtype=np.int32), np.zeros(0, dtype="<U1")
-    codes = np.clip(np.asarray(codes, dtype=np.int64), 0, nd - 1)
-    live = codes if valid is None else codes[valid]
-    used = np.flatnonzero(np.bincount(live, minlength=nd))
-    lut = np.zeros(nd, dtype=np.int32)
-    lut[used] = np.arange(len(used), dtype=np.int32)
-    out = lut[codes]
-    if valid is not None:
-        out[~valid] = 0
-    # only the used values become text: a file holds a slice of the rows
-    fdict = (np.asarray(d.values[used], dtype=str) if len(used)
-             else np.zeros(0, dtype="<U1"))
-    return out, fdict
-
-
 def _has_text(t: T.LogicalType) -> bool:
     """A column whose file holds a dictionary: VARCHAR, ARRAY<VARCHAR>."""
     return t.is_string or (t.is_array and t.elem.is_string)
@@ -1281,25 +1236,93 @@ def _null_column(t: T.LogicalType, n: int) -> np.ndarray:
     return np.zeros(n, dtype=t.np_dtype)
 
 
-def _file_elem_dict(lanes: np.ndarray, d):
-    """An ARRAY<VARCHAR> column's [rows, K+1] lanes with the element codes
-    re-coded against the file's own dictionary (the values its elements
-    use, sorted), and that dictionary. Padding lanes read back as 0."""
-    nd = 0 if d is None else len(d)
-    lens = lanes[:, 0].astype(np.int64)
-    k = lanes.shape[1] - 1
-    live = np.arange(k)[None, :] < lens[:, None]
-    if nd == 0 or not live.any():
-        out = lanes.copy()
-        out[:, 1:] = 0
-        return out, np.zeros(0, dtype="<U1")
-    codes = np.clip(lanes[:, 1:].astype(np.int64), 0, nd - 1)
-    used = np.flatnonzero(np.bincount(codes[live], minlength=nd))
-    lut = np.zeros(nd, dtype=np.int64)
-    lut[used] = np.arange(len(used))
-    out = lanes.copy()
-    out[:, 1:] = np.where(live, lut[codes], 0).astype(lanes.dtype)
-    return out, np.asarray(d.values[used], dtype=str)
+def _read_npz(path: str, want, live_cols) -> dict:
+    """{column: (values, validity or None, dictionary or None)} of the
+    `want` columns an `.npz` data file holds (`names` lists its columns,
+    `c<j>` holds column j's values, `v<j>` its validity where it has
+    NULLs, `d<j>` a VARCHAR column's own dictionary)."""
+    out = {}
+    with np.load(path, allow_pickle=False) as z:
+        names = [str(x) for x in z["names"]]
+        have = set(names if live_cols is None else live_cols)
+        for c in want:
+            if c in have and c in names:
+                j = names.index(c)
+                out[c] = (z[f"c{j}"],
+                          z[f"v{j}"] if f"v{j}" in z.files else None,
+                          z[f"d{j}"] if f"d{j}" in z.files else None)
+    return out
+
+
+def _read_parquet(path: str, want, live_cols, schema: Schema) -> dict:
+    """{column: (values, validity or None, dictionary or None)} of the
+    `want` columns a parquet data file holds, in the layout the JAX
+    package's `HostTable.from_arrow` and `_conform` give of the same file:
+    VARCHAR as int32 codes into the file's dictionary (a fixed-width
+    unicode array), ARRAY as [rows, K+1] lanes (K the file's longest
+    list, at least 1), HLL/BITMAP as an int8 row per value, NULL rows as
+    zeros."""
+    pf = ParquetFile(path)
+    names = [sp.name for sp in pf.specs]
+    have = set(names if live_cols is None else live_cols)
+    cols = [c for c in want if c in have and c in names]
+    if not cols:
+        return {}
+    got = pf.read(cols, codes=True)
+    specs = {sp.name: sp for sp in pf.specs}
+    out = {}
+    for c in cols:
+        col, t = got[c], schema.field(c).type
+        build = specs[c].build
+        if build == "string":
+            codes, d = _text_codes(col.data)
+            out[c] = (codes, col.valid, d)
+        elif build == "binary":
+            out[c] = (_bitmap(c, col)[1], col.valid, None)
+        elif build == "list":
+            lanes, d = _lanes(col.data, t)
+            out[c] = (lanes, col.valid, d)
+        else:
+            out[c] = (np.asarray(col.data).astype(t.np_dtype, copy=False),
+                      col.valid, None)
+    return out
+
+
+def _text(strings: tuple) -> np.ndarray:
+    """The strings (buffer, offsets) as a fixed-width unicode array."""
+    buf, offs = strings
+    if not len(offs):
+        return np.zeros(0, dtype="<U1")
+    return native.strings_at(buf, offs, np.arange(len(offs))).astype(str)
+
+
+def _text_codes(data) -> tuple:
+    """(int32 codes, dictionary as a unicode array) of decoded strings: a
+    Coded column's own dictionary, or the sorted distinct values."""
+    if isinstance(data, Coded):
+        return data.codes, _text(data.strings)
+    vals, codes = native.dict_encode(*data)
+    return codes, (vals.astype(str) if len(vals)
+                   else np.zeros(0, dtype="<U1"))
+
+
+def _lanes(lists: Lists, t: T.LogicalType) -> tuple:
+    """A LIST column's rows as [rows, K+1] lanes of the element type (the
+    length, then the elements; K the longest list, at least 1), and for
+    string elements the dictionary their codes index."""
+    lengths = lists.lengths
+    n = len(lengths)
+    d = None
+    if t.elem.is_string:
+        vals, d = _text_codes(lists.elems.data)
+    else:
+        vals = np.asarray(lists.elems.data)
+    k = max(int(lengths.max()) if n else 0, 1)
+    out = np.zeros((n, k + 1), dtype=t.np_dtype)
+    out[:, 0] = lengths
+    live = np.arange(k)[None, :] < lengths[:, None]
+    out[:, 1:][live] = vals
+    return out, d
 
 
 def _concat_array_parts(cols: list, t: T.LogicalType):

@@ -8,11 +8,12 @@ port reads the files back without either. The data is the port's
 `gen_tpch(0.1, 42)` `orders` (150,000 rows, every column) for the two
 files the lake path copies 100 times (parquet and ORC, both ZSTD), and
 `gen_tpch(0.01, 42)` `orders` (15,000 rows) or its first 3,000 for one
-file of each other variant: parquet LZ4_RAW, the four DELTA and
-BYTE_STREAM_SPLIT encodings with v2 pages, INT96, binary and LIST columns
-with NULLs; ORC LZ4, ORC file version 0.11, ORC TIMESTAMP/BINARY/LIST; and
-a directory of two parquet files that differ in their columns (written
-before and after an ADD COLUMN).
+file of each other variant: parquet BROTLI (`orders` SF 0.1 at pyarrow's
+default level, and 1,000 English-like sentences at level 11), LZ4_RAW,
+the four DELTA and BYTE_STREAM_SPLIT encodings with v2 pages, INT96,
+binary and LIST columns with NULLs; ORC LZ4, ORC file version 0.11, ORC
+TIMESTAMP/BINARY/LIST; and a directory of two parquet files that differ
+in their columns (written before and after an ADD COLUMN).
 
 MANIFEST.json holds, for each fixture, its rows and for each column (as
 the reference's `from_arrow` of pyarrow's read, merged as the reference
@@ -133,6 +134,44 @@ def typed(o: pa.Table, int96: bool) -> pa.Table:
     return pa.table(cols)
 
 
+# common English words (the kind Brotli's static dictionary holds)
+VOCAB = ("the of and to in is for that with on as by this from at are be "
+         "or an was which have not it their more all has but one also can "
+         "other new when after would about these first been who only will "
+         "into such time people there some many most during may between "
+         "where over through world were than well under system use used "
+         "while both each could since number part state national company "
+         "information available university development public "
+         "international government history service including however "
+         "located known several following within group music family city "
+         "population school water country season league children program "
+         "important research language example business president "
+         "character original political special general release building "
+         "community published different description management question "
+         "according experience performance security technology "
+         "environment understand application particular").split()
+
+
+def text(n: int) -> pa.Table:
+    """n English-like sentences of 6-14 words from VOCAB (seeded), and
+    each in title case and in capitals, NULLs in some: written in small
+    pages, each its own Brotli stream, level 11 codes many words as
+    static dictionary references through the word transforms."""
+    rng = np.random.default_rng(SEED)
+    lines = []
+    for _ in range(n):
+        words = [VOCAB[i] for i in rng.integers(0, len(VOCAB),
+                                                int(rng.integers(6, 15)))]
+        s = " ".join(words)
+        lines.append(s[0].upper() + s[1:] + ".")
+    return pa.table({
+        "line": pa.array(lines, pa.string()),
+        "title": _nulls(pa.array([x.title() for x in lines], pa.string()),
+                        17),
+        "upper": pa.array([x.upper() for x in lines], pa.string()),
+    })
+
+
 def evolved(o: pa.Table):
     """Two parts of `orders`: the first before an ADD COLUMN
     (o_orderpriority), the second after it."""
@@ -177,6 +216,13 @@ def main() -> int:
             compression="zstd")
     orc("orders_zstd.orc", big, "lake: orders SF 0.1, ZSTD",
         compression="zstd")
+    parquet("orders_brotli.parquet", big, "lake: orders SF 0.1, BROTLI "
+            "(pyarrow's default level)", compression="brotli")
+    parquet("text_brotli11.parquet", text(1000),
+            "BROTLI level 11 over English-like text in 2 KB pages (static "
+            "dictionary references, word transforms), PLAIN strings",
+            compression="brotli", compression_level=11,
+            use_dictionary=False, data_page_size=2048, write_batch_size=32)
     parquet("orders_lz4raw.parquet", small, "LZ4_RAW (compression='lz4')",
             compression="lz4")
     parquet("encodings_v2.parquet", encoded(small),

@@ -71,9 +71,11 @@ installed:
   CPU's rows; a stream-loaded batch visible to the next query on the
   card, the warm device cache dropped by the commit; the lake fixtures
   (tests/data/torch_formats/: ZSTD, LZ4, the DELTA and BYTE_STREAM_SPLIT
-  encodings, INT96, binary and LIST columns, ORC 0.11, TIMESTAMP and the
-  schema-evolved directory) as external tables on the card against the
-  CPU's rows, N3 under the top-N kernel on the ZSTD ones.
+  encodings, INT96, binary and LIST columns, ORC 0.11, TIMESTAMP, the
+  schema-evolved directory and BROTLI) as external tables on the card
+  against the CPU's rows, N3 under the top-N kernel on the ZSTD ones; the
+  data directory the JAX package wrote (tests/data/torch_store/) opened on
+  the card with its answers file's rows.
 """
 
 import numpy as np
@@ -1513,6 +1515,46 @@ def test_lake_fixtures_on_card_match_cpu(cuda):
             out.append(rows)
         assert out[0] == out[1], name
         assert len(out[0][0]) > 0, name
+
+
+def test_reference_data_dir_and_brotli_on_card(cuda, tmp_path):
+    """The data directory the JAX package wrote (tests/data/torch_store/
+    reference_dir: pyarrow's parquet rowsets, its journal and sidecar)
+    opened by a Session on the card gives every answer of
+    reference_answers.json; the port's own parquet files written there
+    (an upsert, then compaction) read back on the card as on the CPU; and
+    the BROTLI lake fixtures read on the card equal their CPU rows."""
+    import json
+    import os
+    import shutil
+
+    from chip_smoke import answers_agree, fixtures_dir, store_data_dir
+    from starrocks_tpu_torch.storage.catalog import Catalog
+
+    here = store_data_dir()
+    ans = json.loads((here / "reference_answers.json").read_text())
+    d = tmp_path / "db"
+    shutil.copytree(here / "reference_dir", d)
+    s = Session(data_dir=str(d))
+    for q, text in ans["queries"].items():
+        assert answers_agree(s.sql(text).rows(), ans["answers"][q]), q
+    s.sql("insert into kv values (2, 'two', 22), (10, 'ten', 100)")
+    s.store.compact_table("kv")
+    s.catalog.get_table("kv").invalidate()
+    q = "select * from kv order by k"
+    got = s.sql(q).rows()
+    assert got == Session(device="cpu", data_dir=str(d)).sql(q).rows()
+    assert (2, "two", 22) in got and len(got) == 7
+    assert all(f.endswith(".parquet") for f in os.listdir(d / "kv")
+               if f.startswith("rowset_"))
+    for name in ("orders_brotli.parquet", "text_brotli11.parquet"):
+        out = []
+        for dev in ("cuda", "cpu"):
+            e = Session(Catalog(), device=dev)
+            e.sql(f"CREATE EXTERNAL TABLE lake FROM "
+                  f"'{fixtures_dir() / name}'")
+            out.append(e.sql("select * from lake").rows())
+        assert out[0] == out[1] and len(out[0]) > 0, name
 
 
 def test_stream_load_visible_on_card_and_drops_the_warm_cache(cuda):

@@ -596,7 +596,7 @@ def test_parquet_legacy_lists(tmp_path):
     as pyarrow reads them: a LIST group whose repeated field is the
     element (2-level), and a bare repeated primitive (a list of required
     elements); NULL lists and empty ones; one v1 page each."""
-    import chip_smoke
+    from starrocks_tpu_torch.storage.formats.parquet_write import ThriftOut
 
     rows = 4
     # (schema elements, rep levels, def levels, max def, values)
@@ -616,7 +616,7 @@ def test_parquet_legacy_lists(tmp_path):
             body = (struct.pack("<I", len(rl)) + rl
                     + struct.pack("<I", len(dl)) + dl
                     + struct.pack(f"<{len(vals)}i", *vals))
-            ph = chip_smoke._ThriftOut()
+            ph = ThriftOut()
             ph.int(1, 0)
             ph.int(2, len(body))
             ph.int(3, len(body))
@@ -631,7 +631,7 @@ def test_parquet_legacy_lists(tmp_path):
             fh.write(page)
             chunks.append((name, pos, len(page), len(rep)))
             pos += len(page)
-        fm = chip_smoke._ThriftOut()
+        fm = ThriftOut()
         fm.int(1, 1)
         elems = [el for els, *_ in cols.values() for el in els]
         fm.list(2, 12, len(elems) + 1)

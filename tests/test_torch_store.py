@@ -1,5 +1,6 @@
-"""The port's TabletStore (storage/store.py: numpy rowset files, manifest,
-edit log, image) against the JAX package's (parquet), on the same scripts.
+"""The port's TabletStore (storage/store.py: parquet rowset files written
+and read without pyarrow, manifest, edit log, image) against the JAX
+package's (parquet through pyarrow), on the same scripts.
 
 Mirrors tests/test_storage.py's store cases (not CSV, the native kernels,
 the compilation cache or the grace join): restart round trips with NULLs
@@ -8,13 +9,13 @@ partitions, partition pruning and the bound violation, the primary-key
 delta path with delete vectors equal to the reference's, VARCHAR/DATE
 keys, compaction, ALTER add/drop/re-add, the image checkpoint and a
 concurrent log, backup and restore, and manifests equal to the reference's
-except for the data files' names. The vectorised primary index is held to
+(tests/test_torch_store_format.py opens each package's directory in the
+other). The vectorised primary index is held to
 the reference's dict index on hypothesis-drawn batches with duplicate
 keys, and a subprocess runs the port's store with pyarrow, pandas and jax
 made unimportable.
 """
 
-import json
 import os
 import subprocess
 import sys
@@ -58,15 +59,6 @@ def _set_both(name, value):
     tcfg.set(name, value)
 
 
-def _norm_manifest(m: dict) -> dict:
-    """A manifest with its data files' names reduced to their stems."""
-    m = json.loads(json.dumps(m))
-    for rs in m["rowsets"]:
-        for f in rs["files"]:
-            f["file"] = os.path.splitext(f["file"])[0]
-    return m
-
-
 def _entries(index) -> dict:
     """The port's primary index as the reference's dict: {key tuple:
     (rowset, file, position)}."""
@@ -77,8 +69,7 @@ def _entries(index) -> dict:
 
 def _manifests_equal(js, ts, tables):
     for t in tables:
-        assert (_norm_manifest(ts.store.read_manifest(t))
-                == _norm_manifest(js.store.read_manifest(t))), t
+        assert ts.store.read_manifest(t) == js.store.read_manifest(t), t
 
 
 # --- round trips ---------------------------------------------------------------
@@ -98,7 +89,8 @@ def test_create_insert_restart_roundtrip(tmp_path):
     js, ts = _restart(tmp_path)
     run_both(js, ts, [script[-1]])
     files = os.listdir(tmp_path / "port" / "t")
-    assert any(f.endswith(".npz") for f in files) and "manifest.json" in files
+    assert (any(f.endswith(".parquet") for f in files)
+            and "manifest.json" in files)
     _manifests_equal(js, ts, ["t"])
     run_both(js, ts, ["drop table t"])
     js, ts = _restart(tmp_path)
@@ -314,7 +306,7 @@ def test_compaction_bounds_file_count(tmp_path):
         f"INSERT INTO t VALUES ({i}, {i * 1.5})" for i in range(20)]
     run_both(js, ts, script + ["SELECT count(*) c, sum(v) sv FROM t"])
     files = [f for f in os.listdir(tmp_path / "port" / "t")
-             if f.endswith(".npz")]
+             if f.endswith(".parquet")]
     assert len(files) < tcfg.get("compaction_trigger_rowsets") + 1, files
     _manifests_equal(js, ts, ["t"])
     out = run_both(js, ts, [
@@ -520,8 +512,7 @@ def test_pk_index_equals_dict_index(batches, buckets):
             jstore, tstore = stores
             want = jstore._pk_index["p"]
             assert _entries(tstore._pk_index["p"]) == want
-            assert (_norm_manifest(tstore.read_manifest("p"))
-                    == _norm_manifest(jstore.read_manifest("p")))
+            assert tstore.read_manifest("p") == jstore.read_manifest("p")
             fresh = TabletStore(os.path.join(d, "t"))
             m = fresh.read_manifest("p")
             assert _entries(fresh._load_pk_index("p", m, ["k", "s"])) == want

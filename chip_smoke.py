@@ -146,23 +146,27 @@ allocated when it started. Phases, each of which must pass:
    of tests/data/torch_formats/ (made by its make_fixtures.py with
    pyarrow, which this machine lacks; MANIFEST.json holds each one's rows
    and each column's type, NULL count and digest as the reference's
-   `from_arrow` gives them). Each ZSTD fixture (`orders` of TPC-H SF 0.1,
-   parquet and ORC) is copied LAKE_COPIES (100) times into a directory
-   declared with CREATE EXTERNAL TABLE: 15,000,000 rows, SF 10's orders.
-   For each lake: the footers' row count, the decode seconds (split into
+   `from_arrow` gives them). The lakes (LAKES): each ZSTD fixture
+   (`orders` of TPC-H SF 0.1, parquet and ORC) copied LAKE_COPIES (100)
+   times into a directory declared with CREATE EXTERNAL TABLE (15,000,000
+   rows, SF 10's orders), the BROTLI parquet fixture and the LZO ORC one
+   (the same orders) BROTLI_COPIES and LZO_COPIES (10) times. For each
+   lake: the footers' row count, the decode seconds (split into
    decompress and decode values, thread-seconds summed over the files,
-   and the dictionaries), the upload to the card, and whether every column
-   equals the manifest x100. Then N3 under `topn_strategy = 'pallas'` and
-   G1 (a GROUP BY over o_orderpriority) under `auto`, cold and warm, counts
-   set to 0 before each; rows equal to the same statements over an
-   in-memory twin (the generated orders, 100 times over); topn_select must
-   launch, and the kernels phase checks it at the lake's shape. Then every
-   other fixture (LZ4_RAW, the DELTA and BYTE_STREAM_SPLIT encodings,
-   INT96/binary/LIST, ORC LZ4, ORC 0.11, ORC TIMESTAMP/BINARY/LIST, the
-   schema-evolved directory, the level-11 BROTLI text) is read once and
-   held to its manifest; the BROTLI fixture (`orders` SF 0.1, pyarrow's
-   default level) is copied BROTLI_COPIES (10) times and held to its
-   manifest x10, its decode seconds split as the ZSTD lakes'.
+   and the dictionaries), the bytes the codec gave and their rate per
+   decompress thread-second (and one file's alone, on one thread), the
+   upload to the card, and whether every column equals the manifest x
+   copies. Over the ZSTD and LZO lakes, N3 under `topn_strategy =
+   'pallas'` and G1 (a GROUP BY over o_orderpriority) under `auto` run
+   cold and warm, counts set to 0 before each; rows equal to the same
+   statements over an in-memory twin (the generated orders, as many times
+   over as the lake's copies);
+   topn_select must launch, and the kernels phase checks it at the lakes'
+   shapes. Then every other fixture (LZ4_RAW, the DELTA and
+   BYTE_STREAM_SPLIT encodings, INT96/binary/LIST, ORC LZ4, ORC 0.11, ORC
+   TIMESTAMP/BINARY/LIST with ZSTD and with LZO, the schema-evolved
+   directory, the level-11 BROTLI text) is read once and held to its
+   manifest.
 8c. dist (distribution): the earlier paths' device memory released, a
    fresh Session(dist_shards=8) over the --sf catalog (the default
    thresholds shard every table but nation and region, and the large
@@ -563,11 +567,31 @@ def phase_device(rec):
         capture_output=True, text=True, timeout=60)
     line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else (
         f"nvidia-smi failed: {smi.stderr.strip()}")
+    cpu = _host_cpu()  # beside the host-side numbers (the lakes' decoders)
     log(f"device: {name} count={count} torch={torch.__version__} "
         f"cuda={torch.version.cuda}")
     log(line)
+    log(f"host: {cpu}, {os.cpu_count()} CPUs")
     rec["device"] = {"kind": name, "count": count, "nvidia_smi": line,
-                     "torch": torch.__version__, "cuda": torch.version.cuda}
+                     "torch": torch.__version__, "cuda": torch.version.cuda,
+                     "host_cpu": cpu, "host_cpus": os.cpu_count()}
+
+
+def _host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it: its model name (or the
+    machine, where there is none), then the vendor, family and model
+    numbers (x86) or implementer and part (Arm), which a sandbox that
+    reports its model name as "unknown" still gives."""
+    import platform
+
+    info: dict = {}
+    for ln in Path("/proc/cpuinfo").read_text().splitlines():
+        k, _, v = ln.partition(":")
+        info.setdefault(k.strip().lower(), v.strip())
+    ids = ", ".join(f"{k} {info[k]}" for k in (
+        "vendor_id", "cpu family", "model", "cpu implementer", "cpu part")
+        if info.get(k))
+    return f"{info.get('model name') or platform.machine()} ({ids})"
 
 
 def phase_build(rec):
@@ -2388,6 +2412,11 @@ LAKE_COPIES = 100  # copies of each ZSTD fixture: 15,000,000 rows
 LAKE_FILES = ("orders_zstd.parquet", "orders_zstd.orc")
 # the BROTLI fixture (orders SF 0.1) and its copies: 1,500,000 rows
 LAKE_BROTLI, BROTLI_COPIES = "orders_brotli.parquet", 10
+# the ORC LZO fixture (orders SF 0.1) and its copies: 1,500,000 rows
+LAKE_LZO, LZO_COPIES = "orders_lzo.orc", 10
+# (fixture, copies, whether N3 and G1 run over it), in the order read
+LAKES = (*((f, LAKE_COPIES, True) for f in LAKE_FILES),
+         (LAKE_BROTLI, BROTLI_COPIES, False), (LAKE_LZO, LZO_COPIES, True))
 LAKE_QUERIES = {
     "N3": ("topn", None),
     "G1": ("auto", "SELECT o_orderpriority, count(*) c, sum(o_totalprice) "
@@ -2454,89 +2483,36 @@ def phase_lake(rec):
     rec["lake"] = out
     launches = dict.fromkeys(kernels.WRAPPERS, 0)
     failures = []
-    # the in-memory twin: the generated orders, LAKE_COPIES times over
+    # the in-memory twins: the generated orders, as many times over as
+    # each queried lake's copies
     gen = gen_tpch(0.1, man["seed"])["orders"]
-    twin = HostTable(gen.schema, {
-        f.name: np.concatenate([gen.arrays[f.name]] * LAKE_COPIES)
-        for f in gen.schema}, {})
-    mem = Catalog()
-    mem.register("orders", twin)
-    ms = Session(mem, device=CARD)
-    want = {}
+    want: dict = {}
     try:
-        for q, (knobs, _) in LAKE_QUERIES.items():
-            set_knobs({**strategies("auto"),
-                       **(TOPN_KNOBS if knobs == "topn" else {})})
-            want[q] = ms.sql(texts[q]).table
+        for copies in sorted({c for _, c, q in LAKES if q}):
+            mem = Catalog()
+            mem.register("orders", HostTable(gen.schema, {
+                f.name: np.concatenate([gen.arrays[f.name]] * copies)
+                for f in gen.schema}, {}))
+            ms = Session(mem, device=CARD)
+            for q, (knobs, _) in LAKE_QUERIES.items():
+                set_knobs({**strategies("auto"),
+                           **(TOPN_KNOBS if knobs == "topn" else {})})
+                want[(copies, q)] = ms.sql(texts[q]).table
+            del ms, mem
     finally:
         set_knobs(strategies("auto"))
-    del ms, mem, twin
     queries: dict = {}
     root = tempfile.mkdtemp(prefix="chip_smoke_lake_")
     try:
-        for name in LAKE_FILES:
-            entry = man["fixtures"][name]
-            lo = {"file": name, "bytes": (here / name).stat().st_size}
-            d = os.path.join(root, name.replace(".", "_"))
-            os.makedirs(d)
-            t = time.perf_counter()
-            ext = Path(name).suffix
-            for i in range(LAKE_COPIES):
-                shutil.copyfile(here / name,
-                                os.path.join(d, f"part-{i:03d}{ext}"))
-            lo["copy_s"] = time.perf_counter() - t
-            s = Session(Catalog(), device=CARD)
-            s.sql(f"CREATE EXTERNAL TABLE orders FROM '{d}'")
-            h = s.catalog.get_table("orders")
-            t = time.perf_counter()
-            lo["footer_rows"] = h.row_count  # footers only
-            lo["footer_s"] = time.perf_counter() - t
-            t = time.perf_counter()
-            table = h.table
-            lo["decode_s"] = time.perf_counter() - t
-            lo.update({k: v for k, v in h.read_stats.items()
-                       if k != "wall_s"})
-            lo["upload_s"] = _upload_s(s, "orders")
-            bad = _manifest_mismatches(table, entry, LAKE_COPIES)
-            lo["columns_equal"] = not bad
-            if lo["footer_rows"] != entry["rows"] * LAKE_COPIES or bad:
-                failures.append(f"lake {name}: {lo['footer_rows']} rows by "
-                                f"the footers, columns differ {bad}")
-            log(f"  lake {name} x{LAKE_COPIES}: {lo['footer_rows']} rows by "
-                f"the footers in {lo['footer_s'] * 1e3:.1f} ms; decode "
-                f"{lo['decode_s']:.2f} s (thread-seconds: decompress "
-                f"{lo['decompress_s']:.2f}, values {lo['values_s']:.2f}; "
-                f"dictionaries {lo['dict_s']:.2f} s), upload "
-                f"{lo['upload_s']:.2f} s; columns equal the manifest x"
-                f"{LAKE_COPIES}: {not bad}")
-            del table
-            sub: dict = {}
-            tables: dict = {}
-            try:
-                for q, (knobs, _) in LAKE_QUERIES.items():
-                    set_knobs({**strategies("auto"),
-                               **(TOPN_KNOBS if knobs == "topn" else {})})
-                    _run_each(s, knobs, {q: texts[q]}, sub, launches, tables,
-                              kernels)
-                    for run in ("cold", "warm"):
-                        if not tables_agree(tables[(knobs, q, run)], want[q]):
-                            failures.append(f"lake {name}: {q} {run} rows "
-                                            "differ from the in-memory twin")
-            finally:
-                set_knobs(strategies("auto"))
-            lo["queries"] = sub
-            queries.update({f"{name}:{q}": r for q, r in sub.items()})
-            out["lakes"][name] = lo
-            del s, h, tables
-            gc.collect()
-            torch.cuda.empty_cache()
-            shutil.rmtree(d)
-        # the BROTLI fixture, BROTLI_COPIES times, against its manifest
-        out["brotli"] = _lake_brotli(here, man["fixtures"][LAKE_BROTLI],
-                                     root, failures)
+        for name, copies, queried in LAKES:
+            out["lakes"][name] = _lake(
+                here, name, copies, man["fixtures"][name], root, failures,
+                queried and (texts, {q: want[(copies, q)]
+                                     for q in LAKE_QUERIES},
+                             launches, queries))
         # every other fixture once, against its manifest
         for name, entry in man["fixtures"].items():
-            if name in LAKE_FILES or name == LAKE_BROTLI:
+            if any(name == lake for lake, _, _ in LAKES):
                 continue
             h = ExternalTableHandle("f", str(here / name))
             t = time.perf_counter()
@@ -2563,37 +2539,94 @@ def phase_lake(rec):
         raise PhaseError("; ".join(failures))
 
 
-def _lake_brotli(here, entry: dict, root: str, failures: list) -> dict:
-    """LAKE_BROTLI copied BROTLI_COPIES times into a directory under
-    `root`, read as an external table and held to its manifest: the decode
-    seconds (decompress and values thread-seconds over the files)."""
+def _lake(here, name: str, copies: int, entry: dict, root: str,
+          failures: list, queried) -> dict:
+    """Fixture `name` copied `copies` times into a directory under `root`,
+    declared with CREATE EXTERNAL TABLE and held to its manifest x copies:
+    the footers' row count, the decode seconds (decompress and values
+    thread-seconds over the files, and the dictionaries), the bytes the
+    codec gave and their rate per decompress thread-second (and that of
+    one copy read alone, on one thread), and the upload to the card.
+    `queried`, when not false, is (texts, the in-memory twin's tables,
+    launches, queries): N3 under `topn_strategy = 'pallas'` and G1 under
+    `auto` then run cold and warm over the lake, each equal to the twin's
+    rows, their launches and runs added to the last two."""
+    import gc
     import shutil
 
+    import torch
+
+    from starrocks_tpu_torch.ops import kernels
+    from starrocks_tpu_torch.runtime.session import Session
+    from starrocks_tpu_torch.storage.catalog import Catalog
     from starrocks_tpu_torch.storage.external import ExternalTableHandle
 
-    d = os.path.join(root, "brotli")
+    lo = {"file": name, "copies": copies,
+          "bytes": (here / name).stat().st_size}
+    d = os.path.join(root, name.replace(".", "_"))
     os.makedirs(d)
-    for i in range(BROTLI_COPIES):
-        shutil.copyfile(here / LAKE_BROTLI,
-                        os.path.join(d, f"part-{i:03d}.parquet"))
-    h = ExternalTableHandle("orders", d)
+    t = time.perf_counter()
+    ext = Path(name).suffix
+    for i in range(copies):
+        shutil.copyfile(here / name, os.path.join(d, f"part-{i:03d}{ext}"))
+    lo["copy_s"] = time.perf_counter() - t
+    s = Session(Catalog(), device=CARD)
+    s.sql(f"CREATE EXTERNAL TABLE orders FROM '{d}'")
+    h = s.catalog.get_table("orders")
+    t = time.perf_counter()
+    lo["footer_rows"] = h.row_count  # footers only
+    lo["footer_s"] = time.perf_counter() - t
     t = time.perf_counter()
     table = h.table
-    br = {"file": LAKE_BROTLI, "copies": BROTLI_COPIES,
-          "bytes": (here / LAKE_BROTLI).stat().st_size,
-          "rows": table.num_rows, "decode_s": time.perf_counter() - t,
-          **{k: v for k, v in h.read_stats.items() if k != "wall_s"}}
-    bad = _manifest_mismatches(table, entry, BROTLI_COPIES)
-    br["columns_equal"] = not bad
-    if bad:
-        failures.append(f"lake {LAKE_BROTLI} x{BROTLI_COPIES}: columns "
-                        f"differ {bad}")
-    log(f"  lake {LAKE_BROTLI} x{BROTLI_COPIES}: {br['rows']} rows, decode "
-        f"{br['decode_s']:.2f} s (thread-seconds: decompress "
-        f"{br['decompress_s']:.2f}, values {br['values_s']:.2f}); columns "
-        f"equal the manifest x{BROTLI_COPIES}: {not bad}")
+    lo["decode_s"] = time.perf_counter() - t
+    lo.update({k: v for k, v in h.read_stats.items() if k != "wall_s"})
+    lo["decompress_mb_per_s"] = (lo["decompressed_bytes"] / 1e6
+                                 / max(lo["decompress_s"], 1e-9))
+    one = ExternalTableHandle("one", str(here / name))  # one file, one thread
+    one.table  # the read
+    lo["one_file_mb_per_s"] = (one.read_stats["decompressed_bytes"] / 1e6
+                               / max(one.read_stats["decompress_s"], 1e-9))
+    del one
+    lo["upload_s"] = _upload_s(s, "orders")
+    bad = _manifest_mismatches(table, entry, copies)
+    lo["columns_equal"] = not bad
+    if lo["footer_rows"] != entry["rows"] * copies or bad:
+        failures.append(f"lake {name}: {lo['footer_rows']} rows by the "
+                        f"footers, columns differ {bad}")
+    log(f"  lake {name} x{copies}: {lo['footer_rows']} rows by the footers "
+        f"in {lo['footer_s'] * 1e3:.1f} ms; decode {lo['decode_s']:.2f} s "
+        f"(thread-seconds: decompress {lo['decompress_s']:.3f}, values "
+        f"{lo['values_s']:.2f}; dictionaries {lo['dict_s']:.2f} s); "
+        f"decompressed {lo['decompressed_bytes']} bytes, "
+        f"{lo['decompress_mb_per_s']:.1f} MB per decompress thread-second "
+        f"(one file on one thread: {lo['one_file_mb_per_s']:.1f}); "
+        f"upload {lo['upload_s']:.2f} s; columns equal the manifest "
+        f"x{copies}: {not bad}")
+    del table
+    if queried:
+        texts, want, launches, queries = queried
+        sub: dict = {}
+        tables: dict = {}
+        try:
+            for q, (knobs, _) in LAKE_QUERIES.items():
+                set_knobs({**strategies("auto"),
+                           **(TOPN_KNOBS if knobs == "topn" else {})})
+                _run_each(s, knobs, {q: texts[q]}, sub, launches, tables,
+                          kernels)
+                for run in ("cold", "warm"):
+                    if not tables_agree(tables[(knobs, q, run)], want[q]):
+                        failures.append(f"lake {name}: {q} {run} rows "
+                                        "differ from the in-memory twin")
+        finally:
+            set_knobs(strategies("auto"))
+        lo["queries"] = sub
+        queries.update({f"{name}:{q}": r for q, r in sub.items()})
+        del tables
+    del s, h
+    gc.collect()
+    torch.cuda.empty_cache()
     shutil.rmtree(d)
-    return br
+    return lo
 
 
 DIST_SHARDS = 8

@@ -25,11 +25,12 @@ falls back quietly.
   and BYTE_STREAM_SPLIT encodings, ORC's run-length encodings and the
   split of length-prefixed byte arrays; and the two loops of the
   TabletStore's parquet writer (`bit_pack`, `plain_byte_arrays`);
-- `zstd_decode.cpp`, `lz4_decode.cpp` and `brotli_decode.cpp`: the ZSTD
-  frame decoder (RFC 8878), the LZ4 block decoder and the Brotli decoder
-  (RFC 7932; its static dictionary, transforms and context lookup in
-  `brotli_tables.inc`, which the build's digest covers) of the parquet and
-  ORC codecs.
+- `zstd_decode.cpp`, `lz4_decode.cpp`, `brotli_decode.cpp` and
+  `lzo_decode.cpp`: the ZSTD frame decoder (RFC 8878), the LZ4 block
+  decoder, the Brotli decoder (RFC 7932; its static dictionary, transforms
+  and context lookup in `brotli_tables.inc`, which the build's digest
+  covers) and the LZO1X decoder (as the ORC library reads LZO) of the
+  parquet and ORC codecs.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ _PKG = Path(__file__).resolve().parent
 HOST_DIR = _PKG / "csrc" / "host"
 SOURCE = HOST_DIR / "fused_filter_sum.cpp"
 LIBS = ("fused_filter_sum", "hash_partition", "csv_parse", "file_formats",
-        "zstd_decode", "lz4_decode", "brotli_decode")
+        "zstd_decode", "lz4_decode", "brotli_decode", "lzo_decode")
 # files a source includes beside it (their bytes are part of its digest)
 INCLUDES = {"brotli_decode": ("brotli_tables.inc",)}
 BUILD_DIR = _PKG / "_build"
@@ -179,13 +180,20 @@ def _sig_brotli_decode(lib):
     lib.sr_brotli_decompress.restype = i64
 
 
+def _sig_lzo_decode(lib):
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.sr_lzo1x_decompress.argtypes = [vp, i64, vp, i64]
+    lib.sr_lzo1x_decompress.restype = i64
+
+
 _SIGNATURES = {"fused_filter_sum": _sig_fused_filter_sum,
                "hash_partition": _sig_hash_partition,
                "csv_parse": _sig_csv_parse,
                "file_formats": _sig_file_formats,
                "zstd_decode": _sig_zstd_decode,
                "lz4_decode": _sig_lz4_decode,
-               "brotli_decode": _sig_brotli_decode}
+               "brotli_decode": _sig_brotli_decode,
+               "lzo_decode": _sig_lzo_decode}
 
 
 def _load(name: str = "fused_filter_sum"):
@@ -600,6 +608,27 @@ def lz4_decompress(data, size: int, exact: bool = True) -> np.ndarray:
         _ptr(src), len(src), _ptr(out), size)
     if m < 0 or (exact and m != size):
         raise ValueError("lz4: malformed or truncated block")
+    return out[:m]
+
+
+_LZO_ERRORS = {-1: "malformed instruction", -2: "input overrun",
+               -3: "output past the size given",
+               -4: "distance before the start of the output",
+               -5: "missing end marker"}
+
+
+def lzo_decompress(data, size: int, exact: bool = True) -> np.ndarray:
+    """LZO1X blocks, one after another, as the ORC library decodes them,
+    which must decompress to exactly `size` bytes (at most `size` when
+    `exact` is false)."""
+    src = np.frombuffer(data, dtype=np.uint8)
+    out = np.empty(max(size, 1), dtype=np.uint8)
+    m = _load("lzo_decode").sr_lzo1x_decompress(
+        _ptr(src) if len(src) else 0, len(src), _ptr(out), size)
+    if m < 0:
+        raise ValueError(f"lzo: {_LZO_ERRORS.get(m, m)}")
+    if exact and m != size:
+        raise ValueError(f"lzo: {m} bytes where {size} were expected")
     return out[:m]
 
 

@@ -5,8 +5,9 @@ declare: file versions 0.11 and 0.12; a struct of BOOLEAN, BYTE, SHORT,
 INT, LONG, FLOAT, DOUBLE, STRING/VARCHAR/CHAR, BINARY, DATE, TIMESTAMP,
 DECIMAL and LIST-of-primitive columns; the PRESENT stream (boolean RLE);
 byte RLE; integer RLE v1 (the DIRECT and DICTIONARY encodings) and v2 with
-its four sub-encodings (DIRECT_V2, DICTIONARY_V2); the codecs NONE, ZLIB,
-SNAPPY, ZSTD and LZ4. LZO, STRUCT, MAP and UNION columns raise
+its four sub-encodings (DIRECT_V2, DICTIONARY_V2); every codec the ORC
+library reads: NONE, ZLIB, SNAPPY, LZO (LZO1X, as the ORC library decodes
+it), LZ4 and ZSTD. STRUCT, MAP and UNION columns raise
 NotImplementedError naming the feature and the file.
 
 The postscript, footer and stripe footers (protobuf) parse here; the loops
@@ -127,11 +128,13 @@ def _one(msg: dict, field: int, default=None):
 class OrcFile:
     """One ORC file: `schema`, `specs` and `num_rows` from its footer;
     `read()` decodes every column, adding its seconds to `times`
-    (decompress, values)."""
+    (decompress, values) and the bytes its codec gave to
+    `times["decompressed_bytes"]`."""
 
     def __init__(self, path: str):
         self.path = path
-        self.times = {"decompress": 0.0, "values": 0.0}
+        self.times = {"decompress": 0.0, "values": 0.0,
+                      "decompressed_bytes": 0}
         with open(path, "rb") as fh:
             fh.seek(0, 2)
             size = fh.tell()
@@ -145,10 +148,10 @@ class OrcFile:
                 raise ValueError(f"{path}: not an ORC file")
             self.codec = _one(ps, 2, 0)
             self.block = _one(ps, 3, 256 * 1024)
-            if self.codec not in (0, 1, 2, 4, 5):
+            if self.codec not in _CODECS:
                 raise NotImplementedError(
-                    f"{path}: ORC codec {_CODECS.get(self.codec, self.codec)};"
-                    " the port reads NONE, ZLIB, SNAPPY, ZSTD and LZ4")
+                    f"{path}: ORC codec {self.codec}; the port reads "
+                    f"{', '.join(_CODECS.values())}")
             flen = _one(ps, 1)
             fh.seek(size - 1 - ps_len - flen)
             footer = _pb(self._decompress(fh.read(flen)))
@@ -220,11 +223,19 @@ class OrcFile:
             elif self.codec == 5:
                 out.append(native.zstd_decompress(
                     chunk, self.block, exact=False).tobytes())
+            elif self.codec == 3:  # LZO: LZO1X blocks, as the ORC library
+                try:
+                    out.append(native.lzo_decompress(
+                        chunk, self.block, exact=False).tobytes())
+                except ValueError as e:
+                    raise ValueError(f"{self.path}: ORC LZO: {e}") from e
             else:  # LZ4: one raw block per chunk
                 out.append(native.lz4_decompress(
                     chunk, self.block, exact=False).tobytes())
+        raw = b"".join(out)
         self.times["decompress"] += time.perf_counter() - t
-        return b"".join(out)
+        self.times["decompressed_bytes"] += len(raw)
+        return raw
 
     def read(self) -> dict:
         """{name: Column} of every row of the file."""

@@ -299,7 +299,8 @@ def _list_spec(name, key, kind, ltype) -> Spec:
 class ParquetFile:
     """One parquet file: `schema`, `specs` and `num_rows` from its footer;
     `read()` decodes every column, adding its seconds to `times`
-    (decompress, values)."""
+    (decompress, values) and the bytes its codecs gave to
+    `times["decompressed_bytes"]`."""
 
     def __init__(self, path: str):
         self.path = path
@@ -324,7 +325,8 @@ class ParquetFile:
             spec, leaf = _column(node, path)
             self.specs.append(spec)
             self.leaves.append(leaf)
-        self.times = {"decompress": 0.0, "values": 0.0}
+        self.times = {"decompress": 0.0, "values": 0.0,
+                      "decompressed_bytes": 0}
 
     @property
     def schema(self) -> list:
@@ -460,25 +462,28 @@ class ParquetFile:
         return Column(Lists(lengths, Column(elems)), valid)
 
     def _decompress(self, codec: int, body, size: int):
+        if codec == 0:
+            return body
         t = time.perf_counter()
         try:
-            if codec == 0:
-                return body
             if codec == 1:
-                return native.snappy_decompress(body, size)
-            if codec == 6:
-                return native.zstd_decompress(body, size)
-            if codec == 7:
-                return native.lz4_decompress(body, size)
-            if codec == 5:
-                return lz4_hadoop(body, size)
-            if codec == 4:
-                return native.brotli_decompress(body, size)
-            return zlib.decompress(body, 47)  # gzip or zlib header
+                out = native.snappy_decompress(body, size)
+            elif codec == 6:
+                out = native.zstd_decompress(body, size)
+            elif codec == 7:
+                out = native.lz4_decompress(body, size)
+            elif codec == 5:
+                out = lz4_hadoop(body, size)
+            elif codec == 4:
+                out = native.brotli_decompress(body, size)
+            else:
+                out = zlib.decompress(body, 47)  # gzip or zlib header
         except ValueError as e:
             raise ValueError(f"{self.path}: {e}") from e
         finally:
             self.times["decompress"] += time.perf_counter() - t
+        self.times["decompressed_bytes"] += len(out)
+        return out
 
     def _plain(self, lf: _Leaf, data, n: int):
         """(values, bytes used) of n PLAIN values."""

@@ -12,8 +12,12 @@ file of each other variant: parquet BROTLI (`orders` SF 0.1 at pyarrow's
 default level, and 1,000 English-like sentences at level 11), LZ4_RAW,
 the four DELTA and BYTE_STREAM_SPLIT encodings with v2 pages, INT96,
 binary and LIST columns with NULLs; ORC LZ4, ORC file version 0.11, ORC
-TIMESTAMP/BINARY/LIST; and a directory of two parquet files that differ
-in their columns (written before and after an ADD COLUMN).
+TIMESTAMP/BINARY/LIST; ORC LZO (`orders` SF 0.1 in 3 stripes, which the
+lake path copies 10 times, and the TIMESTAMP/BINARY/LIST table), which no
+writer on hand writes: pyarrow writes ZLIB and make_lzo.py's `orc_to_lzo`
+recompresses every chunk with its own LZO1X compressor; and a directory
+of two parquet files that differ in their columns (written before and
+after an ADD COLUMN).
 
 MANIFEST.json holds, for each fixture, its rows and for each column (as
 the reference's `from_arrow` of pyarrow's read, merged as the reference
@@ -27,6 +31,7 @@ import decimal
 import json
 import os
 import sys
+import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(HERE)))
@@ -37,6 +42,8 @@ import numpy as np  # noqa: E402
 import pyarrow as pa  # noqa: E402
 import pyarrow.orc as po  # noqa: E402
 import pyarrow.parquet as pq  # noqa: E402
+
+from make_lzo import orc_to_lzo  # noqa: E402
 
 SEED = 42
 SMALL = 3000  # rows of the type variants
@@ -212,6 +219,17 @@ def main() -> int:
         po.write_table(table, path, **kw)
         man[name] = manifest_entry(what, "orc", po.ORCFile(path).read())
 
+    def orc_lzo(name, table, what, **kw):
+        """Written as ZLIB with one row group per stripe (its row-index
+        positions stay true), then recompressed with LZO."""
+        path = os.path.join(HERE, name)
+        with tempfile.TemporaryDirectory() as tmp:
+            src = os.path.join(tmp, "zlib.orc")
+            po.write_table(table, src, compression="zlib",
+                           row_index_stride=1 << 20, **kw)
+            orc_to_lzo(src, path)
+        man[name] = manifest_entry(what, "orc", po.ORCFile(path).read())
+
     parquet("orders_zstd.parquet", big, "lake: orders SF 0.1, ZSTD",
             compression="zstd")
     orc("orders_zstd.orc", big, "lake: orders SF 0.1, ZSTD",
@@ -240,6 +258,11 @@ def main() -> int:
         dictionary_key_size_threshold=1.0, compression="zlib")
     orc("ts_binary_list.orc", typed(part, False),
         "ORC TIMESTAMP, BINARY and LIST columns, NULLs", compression="zstd")
+    orc_lzo("orders_lzo.orc", big, "lake: orders SF 0.1, ORC LZO (3 "
+            "stripes, 64 KiB blocks)", compression_block_size=65536,
+            stripe_size=1 << 19)
+    orc_lzo("ts_binary_list_lzo.orc", typed(part, False),
+            "ORC LZO: TIMESTAMP, BINARY and LIST columns, NULLs")
     d = os.path.join(HERE, "evolved")
     os.makedirs(d, exist_ok=True)
     old, new = evolved(small)

@@ -11,9 +11,11 @@ hash to RFC 7932's dictionary and equal what
 tests/data/torch_formats/make_brotli_tables.py reads from libbrotlicommon
 where that library is present. A BROTLI external table gives the
 reference's rows through both Sessions. (The committed BROTLI fixtures are
-held to their manifests by test_torch_lake_formats.py.) LZO, the codec
-neither machine can write, still raises a named NotImplementedError in
-parquet (where pyarrow, and so the reference, refuses it too) and ORC.
+held to their manifests by test_torch_lake_formats.py.) Parquet LZO
+still raises a named NotImplementedError (pyarrow, and so the reference,
+refuses it too); ORC LZO reads since the port has its decoder
+(tests/test_torch_lzo.py), and a ZLIB file labelled LZO is refused by
+both readers.
 """
 
 from __future__ import annotations
@@ -234,8 +236,12 @@ def _patched(path, old: bytes, new: bytes, tail: int):
 
 def test_lzo_raises_a_named_error(tmp_path):
     """A parquet column chunk and an ORC file that say LZO (codec 3;
-    pyarrow writes neither, so the codec field is patched): the port
-    raises a NotImplementedError naming LZO and the file."""
+    pyarrow writes neither, so the codec field is patched). Parquet: the
+    port raises a NotImplementedError naming LZO and the file, and pyarrow
+    refuses the file too. ORC, whose LZO the port reads: the chunks are
+    ZLIB's, so the port's LZO decoder refuses them with a ValueError
+    naming LZO and the file, and pyarrow (the ORC library's LZO decoder)
+    with an OSError."""
     import pyarrow.orc as po
 
     p = tmp_path / "lzo.parquet"
@@ -253,6 +259,7 @@ def test_lzo_raises_a_named_error(tmp_path):
                    compression="zlib")
     # the PostScript's compression kind (field 2): ZLIB 1 -> LZO 3
     _patched(o, b"\x10\x01", b"\x10\x03", 24)
-    with pytest.raises(NotImplementedError,
-                       match="lzo.orc.*LZO|LZO.*lzo.orc"):
+    with pytest.raises(ValueError, match="lzo.orc.*LZO|LZO.*lzo.orc"):
         _read_files([str(o)])
+    with pytest.raises(OSError):
+        po.ORCFile(str(o)).read()

@@ -15,6 +15,7 @@ from __future__ import annotations
 import datetime
 import decimal
 import os
+import sys
 
 import numpy as np
 import pyarrow as pa
@@ -27,6 +28,10 @@ from starrocks_tpu.runtime.session import Session as JSession
 from starrocks_tpu_torch.runtime.session import Session as _Session
 from starrocks_tpu_torch.storage.external import (
     ExternalTableHandle, _read_files)
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "data", "torch_formats"))
+from make_lzo import orc_to_lzo  # noqa: E402
 
 
 def Session(*args, **kwargs):
@@ -296,18 +301,26 @@ def test_orc_reader_equals_pyarrow(tmp_path, codec, dictionary):
     _assert_like_the_reference(path, po.ORCFile(path).read())
 
 
-@pytest.mark.parametrize("fmt", ["parquet", "orc"])
+@pytest.mark.parametrize("fmt", ["parquet", "orc", "orc_lzo"])
 def test_external_table_of_every_type_matches_the_reference(tmp_path, fmt):
     """Through SQL: the same directory of files as an external table in
-    both packages gives the same rows (DECIMAL(38) as Decimal values)."""
+    both packages gives the same rows (DECIMAL(38) as Decimal values).
+    ORC LZO files are ZLIB ones recompressed by
+    tests/data/torch_formats/make_lzo.py; the reference reads them
+    through pyarrow (the ORC library's LZO decoder)."""
     table = _every_type()
     d = tmp_path / "t"
     d.mkdir()
     for i, part in enumerate((table.slice(0, 1700), table.slice(1700))):
         if fmt == "parquet":
             pq.write_table(part, str(d / f"p{i}.parquet"))
-        else:
+        elif fmt == "orc":
             po.write_table(part, str(d / f"p{i}.orc"))
+        else:
+            src = str(tmp_path / f"zlib{i}.orc")
+            po.write_table(part, src, compression="zlib",
+                           row_index_stride=1 << 20)
+            orc_to_lzo(src, str(d / f"p{i}.orc"))
     got, want = _rows_both([f"create external table t from '{d}'"],
                            "select * from t order by key")
     assert len(got) == N and got == want

@@ -72,10 +72,11 @@ installed:
   card, the warm device cache dropped by the commit; the lake fixtures
   (tests/data/torch_formats/: ZSTD, LZ4, the DELTA and BYTE_STREAM_SPLIT
   encodings, INT96, binary and LIST columns, ORC 0.11, TIMESTAMP, the
-  schema-evolved directory and BROTLI) as external tables on the card
+  schema-evolved directory, BROTLI and ORC LZO) as external tables on the card
   against the CPU's rows, N3 under the top-N kernel on the ZSTD ones; the
   data directory the JAX package wrote (tests/data/torch_store/) opened on
-  the card with its answers file's rows.
+  the card with its answers file's rows; the ORC LZO fixture against its
+  manifest on the card, N3 launching the top-N kernel over it.
 """
 
 import numpy as np
@@ -1555,6 +1556,36 @@ def test_reference_data_dir_and_brotli_on_card(cuda, tmp_path):
                   f"'{fixtures_dir() / name}'")
             out.append(e.sql("select * from lake").rows())
         assert out[0] == out[1] and len(out[0]) > 0, name
+
+
+def test_orc_lzo_lake_on_card(cuda):
+    """The committed ORC LZO fixture (orders SF 0.1) as an external table
+    on the card: every column equals its manifest entry, and N3 under the
+    top-N kernel launches it and equals the CPU's rows."""
+    import json
+
+    from chip_smoke import _manifest_mismatches, fixtures_dir
+    from starrocks_tpu_torch.storage.catalog import Catalog
+    from starrocks_tpu_torch.storage.tpch_queries import TOPN_QUERIES
+
+    name = "orders_lzo.orc"
+    entry = json.loads((fixtures_dir() / "MANIFEST.json").read_text())[
+        "fixtures"][name]
+    rows = []
+    for dev in ("cuda", "cpu"):
+        s = Session(Catalog(), device=dev)
+        s.sql(f"CREATE EXTERNAL TABLE orders FROM '{fixtures_dir() / name}'")
+        assert _manifest_mismatches(
+            s.catalog.get_table("orders").table, entry) == []
+        s.sql("SET topn_strategy = 'pallas'")
+        kernels.reset_counts()
+        try:
+            rows.append(s.sql(TOPN_QUERIES["N3"]).rows())
+        finally:
+            config.set("topn_strategy", "auto")
+        if dev == "cuda":
+            assert kernels.counts()["topn_select"]["launches"] >= 1
+    assert rows[0] == rows[1] and len(rows[0]) > 0
 
 
 def test_stream_load_visible_on_card_and_drops_the_warm_cache(cuda):

@@ -6,8 +6,8 @@ The ZSTD frame decoder and the LZ4 block decoder
 parquet encoding (DELTA_BINARY_PACKED, DELTA_LENGTH_BYTE_ARRAY,
 DELTA_BYTE_ARRAY, BYTE_STREAM_SPLIT), type (INT96, binary, fixed-length
 binary) and LIST variant, and each ORC one (RLE v1 of file version 0.11,
-the ZSTD and LZ4 codecs, TIMESTAMP, BINARY, LIST), against pyarrow's read
-and the reference's `HostTable.from_arrow` of the same file (schema,
+the ZSTD, LZ4 and LZO codecs, TIMESTAMP, BINARY, LIST), against pyarrow's
+read and the reference's `HostTable.from_arrow` of the same file (schema,
 values, validity, and the same kind of error where the reference raises);
 the same directories through both packages' Sessions; and files that
 differ in their columns, merged as the reference's `pa.concat_tables(...,
@@ -21,6 +21,7 @@ import datetime
 import decimal
 import os
 import struct
+import sys
 
 import numpy as np
 import pyarrow as pa
@@ -36,6 +37,10 @@ from starrocks_tpu_torch import native
 from starrocks_tpu_torch.runtime.session import Session as _Session
 from starrocks_tpu_torch.storage.external import _read_files
 from starrocks_tpu_torch.storage.formats.parquet import lz4_hadoop
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "data", "torch_formats"))
+from make_lzo import orc_to_lzo  # noqa: E402
 
 
 def Session(*args, **kwargs):
@@ -390,17 +395,25 @@ def _orc_table(n=N) -> pa.Table:
 
 
 @pytest.mark.parametrize("version", ["0.11", "0.12"])
-@pytest.mark.parametrize("codec", ["uncompressed", "zstd", "lz4", "zlib"])
+@pytest.mark.parametrize("codec", ["uncompressed", "zstd", "lz4", "zlib",
+                                   "lzo"])
 @pytest.mark.parametrize("dictionary", [0.0, 1.0])
 def test_orc_variants(tmp_path, version, codec, dictionary):
     """File version 0.11 (integer RLE v1, strings DIRECT / DICTIONARY), the
-    ZSTD and LZ4 codecs, TIMESTAMP (before 1970 too), BINARY and LIST
-    columns with NULLs, several stripes."""
+    ZSTD, LZ4 and LZO codecs, TIMESTAMP (before 1970 too), BINARY and LIST
+    columns with NULLs, several stripes. LZO files are ZLIB ones
+    recompressed by tests/data/torch_formats/make_lzo.py (no writer on
+    hand writes LZO), with one row group per stripe."""
     table = _orc_table()
     path = str(tmp_path / "t.orc")
-    po.write_table(table, path, file_version=version, compression=codec,
+    kw = {"row_index_stride": 1 << 20} if codec == "lzo" else {}
+    po.write_table(table, path, file_version=version,
+                   compression="zlib" if codec == "lzo" else codec,
                    dictionary_key_size_threshold=dictionary,
-                   stripe_size=8192, batch_size=500)
+                   stripe_size=8192, batch_size=500, **kw)
+    if codec == "lzo":
+        orc_to_lzo(path, str(tmp_path / "lzo.orc"))
+        path = str(tmp_path / "lzo.orc")
     assert po.ORCFile(path).file_version == version
     _assert_like_the_reference(path, po.ORCFile(path).read())
 
@@ -576,7 +589,8 @@ def test_fixtures_match_their_manifest(name):
                     "digest": column_digest(f, t.arrays[f.name], v)})
     assert got == entry["columns"]
     assert set(h.read_stats) == {"files", "decompress_s", "values_s",
-                                 "dict_s", "wall_s"}
+                                 "decompressed_bytes", "dict_s", "wall_s"}
+    assert h.read_stats["decompressed_bytes"] > 0  # all are compressed
 
 
 # --- files pyarrow does not write: hand-made ---------------------------------

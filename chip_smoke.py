@@ -103,8 +103,12 @@ allocated when it started. Phases, each of which must pass:
    (supplier) or one bucket (nation, region), then loaded by INSERT INTO t
    SELECT * FROM a staging copy, which is dropped; each load is split into
    the SELECT on the card, the fetch, the primary-key index, the bucketing
-   and the file writes. A fresh Session over the directory (its replay
-   timed) runs Q5, Q9 and Q20 under `join_probe_strategy =
+   and the file writes (with their compress thread-seconds: the files are
+   pyarrow's layout, SNAPPY pages from the host compressor); the data
+   files' bytes print beside the card's name and power limit. A fresh
+   Session over the directory (its replay timed; each table's first load
+   split into the files' read, decompress and decode thread-seconds, their
+   wall, and the merge into one table) runs Q5, Q9 and Q20 under `join_probe_strategy =
    'pallas_sorted'`, Q9 under `'pallas'`, S1 under `segment_strategy =
    'pallas'`, N1 under `topn_strategy = 'pallas'` and Q1 under `auto`,
    cold (file reads included) and warm, counts set to 0 before each; all
@@ -129,8 +133,9 @@ allocated when it started. Phases, each of which must pass:
    ones: (1) written as CSV (`storage/formats/csv.py write_csv`) and
    loaded with `Session.load_csv` into an empty table of the same
    schema; (2) written as a directory of INGEST_PARQUET_FILES parquet
-   files by this script's own writer (PLAIN, INGEST_ROW_GROUPS row groups
-   per file, definition levels for the nullable columns) and declared
+   files by the store's writer (`storage/formats/parquet_write.py
+   write_table`, PLAIN and uncompressed, INGEST_ROW_GROUPS row groups per
+   file, DECIMAL columns annotated) and declared
    with CREATE EXTERNAL TABLE (read by the port's own reader); (3) the
    first rows held in memory and the last INGEST_STREAM_ROWS
    stream-loaded over `PUT /api/load/orders` (format json) in
@@ -562,11 +567,7 @@ def phase_device(rec):
         raise PhaseError("no CUDA device")
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else (
-        f"nvidia-smi failed: {smi.stderr.strip()}")
+    line = smi_line()
     cpu = _host_cpu()  # beside the host-side numbers (the lakes' decoders)
     log(f"device: {name} count={count} torch={torch.__version__} "
         f"cuda={torch.version.cuda}")
@@ -575,6 +576,15 @@ def phase_device(rec):
     rec["device"] = {"kind": name, "count": count, "nvidia_smi": line,
                      "torch": torch.__version__, "cuda": torch.version.cuda,
                      "host_cpu": cpu, "host_cpus": os.cpu_count()}
+
+
+def smi_line() -> str:
+    """The card's name and power limit as `nvidia-smi` gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else (
+        f"nvidia-smi failed: {smi.stderr.strip()}")
 
 
 def _host_cpu() -> str:
@@ -1694,11 +1704,19 @@ def phase_store(rec, cat, sf):
         if out["data_files"] != [".parquet"]:
             failures.append(f"data files {out['data_files']}, not parquet")
         out["write_s"] = sum(v["write_s"] for v in load.values())
+        out["compress_s"] = sum(v.get("compress_s", 0.0)
+                                for v in load.values())
         out["bucket_s"] = sum(v["bucket_s"] for v in load.values())
+        out["data_bytes"] = sum(os.path.getsize(os.path.join(r, f))
+                                for r, _, fs in os.walk(d) for f in fs
+                                if f.startswith("rowset_"))
+        out["nvidia_smi"] = smi_line()
         log(f"  load: {out['load_s']:.1f} s (parquet writes "
-            f"{out['write_s']:.1f} s, bucketing {out['bucket_s']:.1f} s), "
+            f"{out['write_s']:.1f} s, of it {out['compress_s']:.1f} "
+            f"compress thread-seconds; bucketing {out['bucket_s']:.1f} s), "
+            f"data files {out['data_bytes']} bytes, "
             f"{out['bytes_after_load'] / 1e9:.2f} GB on disk in "
-            f"{out['data_files']} files")
+            f"{out['data_files']} files ({out['nvidia_smi']})")
         del s
         gc.collect()
         torch.cuda.empty_cache()
@@ -1726,8 +1744,22 @@ def phase_store(rec, cat, sf):
         # the first query that read it: its cold wall includes them)
         out["file_load_s"] = {n: h.load_s for n, h in s2.catalog.tables.items()
                               if getattr(h, "load_s", None) is not None}
+        # each first load's split: thread-seconds over the files reading
+        # their bytes, decompressing and decoding; the wall of the files'
+        # reads and of the merge into one table
+        out["file_load"] = {
+            n: {k: h.load_stats[k] for k in (
+                "files", "read_s", "decompress_s", "decode_s",
+                "files_wall_s", "concat_s")}
+            for n, h in s2.catalog.tables.items()
+            if getattr(h, "load_stats", None) is not None}
         log("  file loads: " + ", ".join(
             f"{n} {v:.2f} s" for n, v in out["file_load_s"].items()))
+        for n, v in out["file_load"].items():
+            log(f"    {n}: {v['files']} files, read {v['read_s']:.2f}, "
+                f"decompress {v['decompress_s']:.2f}, decode "
+                f"{v['decode_s']:.2f} thread-s; files {v['files_wall_s']:.2f}"
+                f" s, merge {v['concat_s']:.2f} s ({out['nvidia_smi']})")
         out["launches"] = launches
         out["shapes"] = _path_shapes(queries)
         out["trace"] = None  # cut: see CUTS
@@ -1968,134 +2000,27 @@ INGEST_RUNS = [("kernels", {}, "3"), ("kernels", {}, "5"),
                ("hash", {"join_probe_strategy": "pallas"}, "9")]
 
 
-def _parquet_plain(ht, name, lo, hi) -> tuple:
-    """(PLAIN bytes, physical type, schema extras) of rows [lo, hi) of one
-    column: BIGINT/DECIMAL(<=18) INT64, INT/DATE INT32, DOUBLE, strings as
-    4-byte lengths and bytes (gathered per row from the dictionary's
-    prefixed entries)."""
-    import numpy as np
+def ingest_parquet(ht, path: str, lo: int, hi: int) -> int:
+    """Rows [lo, hi) of a HostTable as one of the ingest path's parquet
+    files, by the store's writer: PLAIN and uncompressed, as the path's
+    files have been since it began (its decode seconds stay comparable),
+    INGEST_ROW_GROUPS row groups, DECIMAL columns annotated (an external
+    table takes its types from the files). Returns the file's bytes."""
+    from starrocks_tpu_torch.storage.formats.parquet_write import write_table
 
-    from starrocks_tpu_torch import types as T
-
-    f = ht.schema.field(name)
-    a = ht.arrays[name][lo:hi]
-    t = f.type
-    if t.is_string:
-        vals = [v.encode() for v in f.dict.values]
-        ent = b"".join(struct.pack("<I", len(v)) + v for v in vals)
-        elen = np.array([4 + len(v) for v in vals], dtype=np.int64)
-        eoff = np.concatenate([[0], np.cumsum(elen)[:-1]])
-        ebuf = np.frombuffer(ent, dtype=np.uint8)
-        lens = elen[a]
-        starts = np.cumsum(lens) - lens
-        idx = np.repeat(eoff[a] - starts, lens) + np.arange(int(lens.sum()))
-        return ebuf[idx].tobytes(), 6, {6: 0}  # BYTE_ARRAY, UTF8
-    if t.is_decimal:
-        return (a.astype("<i8").tobytes(), 2,
-                {6: 5, 7: t.scale, 8: t.precision})  # INT64, DECIMAL
-    if t.kind is T.TypeKind.DATE:
-        return a.astype("<i4").tobytes(), 1, {6: 6}  # INT32, DATE
-    if t.is_float:
-        return a.astype("<f8").tobytes(), 5, {}
-    if t.kind is T.TypeKind.BIGINT:
-        return a.astype("<i8").tobytes(), 2, {}
-    return a.astype("<i4").tobytes(), 1, {}
+    return write_table(_rows_slice(ht, lo, hi), path, codec="UNCOMPRESSED",
+                       dictionary=False,
+                       row_group_rows=-(-(hi - lo) // INGEST_ROW_GROUPS),
+                       annotate_decimals=True)
 
 
-def _write_parquet(ht, path: str, lo: int, hi: int, groups: int) -> int:
-    """Rows [lo, hi) of a HostTable (no NULLs) as one parquet file: PLAIN
-    data pages v1, uncompressed, `groups` row groups, every column
-    OPTIONAL with its definition levels (one RLE run of 1s). Returns the
-    file's bytes."""
-    from starrocks_tpu_torch.storage.formats.parquet_write import ThriftOut
-
-    names = [f.name for f in ht.schema]
-    bounds = [lo + (hi - lo) * g // groups for g in range(groups + 1)]
-    with open(path, "wb") as fh:
-        fh.write(b"PAR1")
-        pos = 4
-        rgs, meta = [], {}
-        for g in range(groups):
-            r0, r1 = bounds[g], bounds[g + 1]
-            n = r1 - r0
-            chunks = []
-            for name in names:
-                data, phys, extra = _parquet_plain(ht, name, r0, r1)
-                meta[name] = (phys, extra)
-                lv = ThriftOut()
-                lv._varint(n << 1)  # one RLE run of n definition levels 1
-                levels = bytes(lv.b) + b"\x01"
-                body = struct.pack("<I", len(levels)) + levels + data
-                ph = ThriftOut()
-                ph.int(1, 0)                 # DATA_PAGE
-                ph.int(2, len(body))
-                ph.int(3, len(body))
-                ph.begin(5)                  # DataPageHeader
-                ph.int(1, n)
-                ph.int(2, 0)                 # PLAIN
-                ph.int(3, 3)                 # RLE levels
-                ph.int(4, 3)
-                ph.end()
-                ph.b.append(0)
-                page = bytes(ph.b) + body
-                fh.write(page)
-                chunks.append((name, phys, pos, len(page), n))
-                pos += len(page)
-            rgs.append((chunks, n))
-        fm = ThriftOut()
-        fm.int(1, 1)
-        fm.list(2, 12, len(names) + 1)
-        fm.elem_begin()
-        fm.binary(4, b"schema")
-        fm.int(5, len(names))
-        fm.end()
-        for name in names:
-            phys, extra = meta[name]
-            fm.elem_begin()
-            fm.int(1, phys)
-            fm.int(3, 1)                     # OPTIONAL
-            fm.binary(4, name.encode())
-            for fid in sorted(extra):
-                fm.int(fid, extra[fid])
-            fm.end()
-        fm.int(3, hi - lo, 6)
-        fm.list(4, 12, len(rgs))
-        for chunks, n in rgs:
-            fm.elem_begin()
-            fm.list(1, 12, len(chunks))
-            for name, phys, off, size, nv in chunks:
-                fm.elem_begin()
-                fm.int(2, off, 6)
-                fm.begin(3)                  # ColumnMetaData
-                fm.int(1, phys)
-                fm.list(2, 5, 2)
-                fm._varint((0 << 1) ^ 0)     # PLAIN
-                fm._varint((3 << 1) ^ 0)     # RLE
-                fm.list(3, 8, 1)
-                fm._varint(len(name))
-                fm.b += name.encode()
-                fm.int(4, 0)                 # UNCOMPRESSED
-                fm.int(5, nv, 6)
-                fm.int(6, size, 6)
-                fm.int(7, size, 6)
-                fm.int(9, off, 6)
-                fm.end()
-                fm.end()
-            fm.int(2, sum(c[3] for c in chunks), 6)
-            fm.int(3, n, 6)
-            fm.end()
-        fm.b.append(0)
-        footer = bytes(fm.b)
-        fh.write(footer + struct.pack("<I", len(footer)) + b"PAR1")
-        return pos + len(footer) + 8
-
-
-def _rows_head(ht, n: int):
-    """The first n rows of a HostTable (views of its arrays)."""
+def _rows_slice(ht, lo: int, hi: int):
+    """Rows [lo, hi) of a HostTable (views of its arrays)."""
     from starrocks_tpu_torch.column import HostTable
 
-    return HostTable(ht.schema, {k: v[:n] for k, v in ht.arrays.items()},
-                     {k: v[:n] for k, v in ht.valids.items()})
+    return HostTable(ht.schema,
+                     {k: v[lo:hi] for k, v in ht.arrays.items()},
+                     {k: v[lo:hi] for k, v in ht.valids.items()})
 
 
 def _json_rows(ht, lo: int, hi: int) -> list:
@@ -2285,8 +2210,8 @@ def phase_ingest(rec, cat, sf):
         for i in range(INGEST_PARQUET_FILES):
             lo = n * i // INGEST_PARQUET_FILES
             hi = n * (i + 1) // INGEST_PARQUET_FILES
-            size += _write_parquet(orders, os.path.join(
-                d, f"part-{i:03d}.parquet"), lo, hi, INGEST_ROW_GROUPS)
+            size += ingest_parquet(orders, os.path.join(
+                d, f"part-{i:03d}.parquet"), lo, hi)
         pq_out["write_s"] = time.perf_counter() - t
         pq_out["bytes"] = size
         s.sql("DROP TABLE orders")
@@ -2315,7 +2240,7 @@ def phase_ingest(rec, cat, sf):
         st_out = {}
         head = n - INGEST_STREAM_ROWS
         s.sql("DROP TABLE orders")
-        s.catalog.register("orders", _rows_head(orders, head))
+        s.catalog.register("orders", _rows_slice(orders, 0, head))
         srv = SqlHttpServer(s, port=0).start()
         plane = s.ingest_plane()
         per = INGEST_STREAM_ROWS // INGEST_BATCHES

@@ -28,12 +28,32 @@
 // short or malformed; the readers raise on -1.
 //
 // The TabletStore's parquet writer (storage/formats/parquet_write.py) has
-// two loops here as well, each returning the bytes it wrote:
-// sr_bit_pack: values of `width` (1-32) bits packed LSB first, the body of
-//   a bit-packed run of the RLE/bit-packed hybrid (levels, dictionary
-//   indices); the last group of 8 is padded with zeros.
+// its loops here as well:
+// sr_snappy_compress: the raw snappy block format, from the format's
+//   description: the varint of the uncompressed length, then literals and
+//   copies with 1- and 2-byte offsets, found by a greedy hash-table matcher
+//   over 64 KiB blocks (the table reset per block, so no offset reaches
+//   65,536 and no 4-byte-offset copy is written), with the matcher's
+//   skipping of incompressible input. Returns the bytes written, or -1 when
+//   `cap` is below sr_snappy_max_compressed(n).
+// sr_rle_hybrid_encode: values of `width` (0-32) bits (uint8 or uint32
+//   input) in the RLE/bit-packed hybrid, as Arrow's encoder lays it out:
+//   groups of 8 from the end of the last repeated run; a group that starts
+//   8 or more equal values starts a repeated run, which lasts as long as
+//   the value repeats; other groups go into bit-packed runs of at most 63
+//   groups (the last group padded with zeros); input that ends in values
+//   all equal with no bit-packed run open ends in a repeated run. Returns
+//   the bytes written, or -1 when `cap` is too small.
+// sr_dict_encode_fixed: the dictionary of values `width` bytes wide, in
+//   order of first appearance (an open-addressing hash over the bytes):
+//   each value's index, and the row of each dictionary entry's first
+//   appearance. At each check position (sorted value counts), a dictionary
+//   of `max_entries` or more stops the encoding: the values from there on
+//   are left to PLAIN pages. Returns the entries, the values encoded in
+//   *n_encoded; -1 when memory runs out.
 // sr_plain_byte_arrays: the strings buf[offs[r]] of the rows `rows`, each
-//   after its 4-byte little-endian length (PLAIN BYTE_ARRAY).
+//   after its 4-byte little-endian length (PLAIN BYTE_ARRAY); the bytes
+//   written.
 
 #include <cstdint>
 #include <cstring>
@@ -455,25 +475,310 @@ int64_t sr_orc_byte_rle(const uint8_t* in, int64_t n, int64_t count,
 
 // --- the writer's loops ---------------------------------------------------------
 
-int64_t sr_bit_pack(const uint32_t* v, int64_t count, int32_t width,
-                    uint8_t* out) {
-  const int64_t nbytes = (count + 7) / 8 * width;
-  memset(out, 0, nbytes);
-  uint64_t acc = 0;
-  int bits = 0;
-  int64_t o = 0;
-  const uint64_t mask = width >= 32 ? 0xffffffffULL : ((1ULL << width) - 1);
-  for (int64_t k = 0; k < count; k++) {
-    acc |= ((uint64_t)v[k] & mask) << bits;
-    bits += width;
-    while (bits >= 8) {
-      out[o++] = (uint8_t)acc;
-      acc >>= 8;
-      bits -= 8;
+static inline uint32_t ld32(const uint8_t* p) {
+  uint32_t v;
+  memcpy(&v, p, 4);
+  return v;
+}
+
+static inline uint64_t ld64(const uint8_t* p) {
+  uint64_t v;
+  memcpy(&v, p, 8);
+  return v;
+}
+
+// --- snappy compression ----------------------------------------------------------
+
+static const int64_t kSnappyBlock = 1 << 16;
+static const int kSnappyMaxTableBits = 14;
+
+int64_t sr_snappy_max_compressed(int64_t n) { return 32 + n + n / 6; }
+
+static inline uint32_t snappy_hash(uint32_t v, int shift) {
+  return (v * 0x1e35a7bdU) >> shift;
+}
+
+static uint8_t* snappy_literal(uint8_t* op, const uint8_t* lit, int64_t len) {
+  int64_t n = len - 1;
+  if (n < 60) {
+    *op++ = (uint8_t)(n << 2);
+  } else {
+    uint8_t* tag = op++;
+    int count = 0;
+    for (; n > 0; n >>= 8, count++) *op++ = (uint8_t)(n & 0xff);
+    *tag = (uint8_t)((59 + count) << 2);
+  }
+  memcpy(op, lit, (size_t)len);
+  return op + len;
+}
+
+// one copy of 4-64 bytes: 1-byte offset for 4-11 bytes below 2048 back,
+// else a 2-byte offset
+static uint8_t* snappy_copy64(uint8_t* op, int64_t off, int64_t len) {
+  if (len < 12 && off < 2048) {
+    *op++ = (uint8_t)(1 | ((len - 4) << 2) | ((off >> 8) << 5));
+    *op++ = (uint8_t)(off & 0xff);
+  } else {
+    *op++ = (uint8_t)(2 | ((len - 1) << 2));
+    *op++ = (uint8_t)(off & 0xff);
+    *op++ = (uint8_t)((off >> 8) & 0xff);
+  }
+  return op;
+}
+
+static uint8_t* snappy_copy(uint8_t* op, int64_t off, int64_t len) {
+  // 64-byte pieces, keeping at least 4 for the last one or two
+  while (len >= 68) {
+    op = snappy_copy64(op, off, 64);
+    len -= 64;
+  }
+  if (len > 64) {
+    op = snappy_copy64(op, off, 60);
+    len -= 60;
+  }
+  return snappy_copy64(op, off, len);
+}
+
+// bytes from s2 on equal to those from s1 on, up to end (s1 < s2)
+static inline int64_t match_length(const uint8_t* s1, const uint8_t* s2,
+                                   const uint8_t* end) {
+  int64_t m = 0;
+  while (s2 + m + 8 <= end) {
+    const uint64_t x = ld64(s2 + m) ^ ld64(s1 + m);
+    if (x) return m + (__builtin_ctzll(x) >> 3);
+    m += 8;
+  }
+  while (s2 + m < end && s1[m] == s2[m]) m++;
+  return m;
+}
+
+// one block of at most 64 KiB; `table` holds 1 << bits entries, zeroed
+static uint8_t* snappy_block(const uint8_t* in, int64_t n, uint8_t* op,
+                             uint16_t* table, int bits) {
+  const uint8_t* ip = in;
+  const uint8_t* end = in + n;
+  const uint8_t* next_emit = in;
+  const int shift = 32 - bits;
+  const int64_t kMargin = 15;  // the last bytes are always a literal
+  if (n >= kMargin) {
+    const uint8_t* limit = end - kMargin;
+    uint32_t next_hash = snappy_hash(ld32(++ip), shift);
+    for (;;) {
+      // look for a 4-byte match, stepping further the longer none is found
+      uint32_t skip = 32;
+      const uint8_t* next_ip = ip;
+      const uint8_t* cand;
+      do {
+        ip = next_ip;
+        const uint32_t h = next_hash;
+        const uint32_t step = skip >> 5;
+        skip += step;
+        next_ip = ip + step;
+        if (next_ip > limit) goto tail;
+        next_hash = snappy_hash(ld32(next_ip), shift);
+        cand = in + table[h];
+        table[h] = (uint16_t)(ip - in);
+      } while (ld32(ip) != ld32(cand));
+      op = snappy_literal(op, next_emit, ip - next_emit);
+      // copies, as long as the bytes after one match start another
+      uint64_t at;
+      uint32_t cand_bytes;
+      do {
+        const uint8_t* base = ip;
+        const int64_t len = 4 + match_length(cand + 4, ip + 4, end);
+        ip += len;
+        op = snappy_copy(op, base - cand, len);
+        next_emit = ip;
+        if (ip >= limit) goto tail;
+        at = ld64(ip - 1);
+        table[snappy_hash((uint32_t)at, shift)] = (uint16_t)(ip - 1 - in);
+        const uint32_t h = snappy_hash((uint32_t)(at >> 8), shift);
+        cand = in + table[h];
+        cand_bytes = ld32(cand);
+        table[h] = (uint16_t)(ip - in);
+      } while ((uint32_t)(at >> 8) == cand_bytes);
+      next_hash = snappy_hash((uint32_t)(at >> 16), shift);
+      ++ip;
     }
   }
-  if (bits > 0) out[o++] = (uint8_t)acc;
-  return nbytes;
+tail:
+  if (next_emit < end) op = snappy_literal(op, next_emit, end - next_emit);
+  return op;
+}
+
+int64_t sr_snappy_compress(const uint8_t* in, int64_t n, uint8_t* out,
+                           int64_t cap) {
+  if (n < 0 || cap < sr_snappy_max_compressed(n)) return -1;
+  uint8_t* op = out;
+  for (uint64_t v = (uint64_t)n;; v >>= 7) {
+    if (v < 0x80) {
+      *op++ = (uint8_t)v;
+      break;
+    }
+    *op++ = (uint8_t)((v & 0x7f) | 0x80);
+  }
+  std::vector<uint16_t> table((size_t)1 << kSnappyMaxTableBits);
+  for (int64_t at = 0; at < n; at += kSnappyBlock) {
+    const int64_t m = n - at < kSnappyBlock ? n - at : kSnappyBlock;
+    int bits = 8;
+    while (bits < kSnappyMaxTableBits && ((int64_t)1 << bits) < m) bits++;
+    memset(table.data(), 0, sizeof(uint16_t) << bits);
+    op = snappy_block(in + at, m, op, table.data(), bits);
+  }
+  return op - out;
+}
+
+// --- the RLE/bit-packed hybrid ------------------------------------------------------
+
+static inline uint8_t* put_uvarint(uint8_t* op, uint64_t v) {
+  while (v >= 0x80) {
+    *op++ = (uint8_t)((v & 0x7f) | 0x80);
+    v >>= 7;
+  }
+  *op++ = (uint8_t)v;
+  return op;
+}
+
+}  // extern "C"
+
+template <typename T>
+static int64_t rle_hybrid(const T* v, int64_t n, int width, uint8_t* out,
+                          int64_t cap) {
+  const int vbytes = (width + 7) / 8;
+  const uint64_t mask = width >= 32 ? 0xffffffffULL : ((1ULL << width) - 1);
+  uint8_t* op = out;
+  uint8_t* const stop = out + cap;
+  // 8 equal values from p on
+  auto run8 = [&](int64_t p) {
+    if (p + 8 > n) return false;
+    for (int k = 1; k < 8; k++)
+      if (v[p + k] != v[p]) return false;
+    return true;
+  };
+  int64_t pos = 0;
+  while (pos < n) {
+    int64_t r = 1;
+    while (pos + r < n && v[pos + r] == v[pos]) r++;
+    if (r >= 8 || pos + r == n) {  // a repeated run
+      if (stop - op < 10 + vbytes) return -1;
+      op = put_uvarint(op, (uint64_t)r << 1);
+      const uint64_t x = (uint64_t)v[pos] & mask;
+      for (int k = 0; k < vbytes; k++) *op++ = (uint8_t)(x >> (8 * k));
+      pos += r;
+      continue;
+    }
+    // a bit-packed run: groups of 8 until one starts a repeated run
+    const int64_t start = pos;
+    int64_t groups = 0;
+    while (pos < n && groups < 63) {
+      if (groups > 0 && run8(pos)) break;
+      pos += 8;
+      groups++;
+    }
+    if (pos > n) pos = n;
+    if (stop - op < 1 + groups * width) return -1;
+    *op++ = (uint8_t)((groups << 1) | 1);
+    uint64_t acc = 0;
+    int bits = 0;
+    for (int64_t k = start; k < start + groups * 8; k++) {
+      const uint64_t x = k < pos ? ((uint64_t)v[k] & mask) : 0;
+      acc |= x << bits;
+      bits += width;
+      while (bits >= 8) {
+        *op++ = (uint8_t)acc;
+        acc >>= 8;
+        bits -= 8;
+      }
+    }
+  }
+  return op - out;
+}
+
+extern "C" {
+
+int64_t sr_rle_hybrid_encode(const void* v, int32_t in_bytes, int64_t n,
+                             int32_t width, uint8_t* out, int64_t cap) {
+  if (width < 0 || width > 32) return -1;
+  if (in_bytes == 1)
+    return rle_hybrid((const uint8_t*)v, n, width, out, cap);
+  if (in_bytes == 4)
+    return rle_hybrid((const uint32_t*)v, n, width, out, cap);
+  return -1;
+}
+
+// --- dictionaries of fixed-width values --------------------------------------------
+
+static inline uint64_t mix64(uint64_t z) {
+  z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9ULL;
+  z = (z ^ (z >> 27)) * 0x94D049BB133111EBULL;
+  return z ^ (z >> 31);
+}
+
+static inline uint64_t hash_value(const uint8_t* p, int w) {
+  if (w == 4) return mix64(ld32(p) + 0x9E3779B97F4A7C15ULL);
+  if (w == 8) return mix64(ld64(p) + 0x9E3779B97F4A7C15ULL);
+  uint64_t h = 0x9E3779B97F4A7C15ULL ^ (uint64_t)w;
+  int k = 0;
+  for (; k + 8 <= w; k += 8) h = mix64(h ^ ld64(p + k));
+  if (k < w) {
+    uint64_t t = 0;
+    memcpy(&t, p + k, (size_t)(w - k));
+    h = mix64(h ^ t);
+  }
+  return h;
+}
+
+int64_t sr_dict_encode_fixed(const uint8_t* vals, int64_t n, int32_t width,
+                             const int64_t* checks, int64_t nchecks,
+                             int64_t max_entries, uint32_t* index,
+                             int64_t* firsts, int64_t* n_encoded) {
+  const size_t w = (size_t)width;
+  std::vector<int64_t> slots;  // entry id, or -1
+  uint64_t cap = 1024;
+  try {
+    slots.assign(cap, -1);
+  } catch (...) {
+    return -1;
+  }
+  int64_t nd = 0, ci = 0;
+  *n_encoded = n;
+  for (int64_t i = 0; i < n; i++) {
+    while (ci < nchecks && checks[ci] <= i) {
+      if (checks[ci++] == i && nd >= max_entries) {
+        *n_encoded = i;
+        return nd;
+      }
+    }
+    const uint8_t* p = vals + (size_t)i * w;
+    uint64_t s = hash_value(p, width) & (cap - 1);
+    int64_t id;
+    for (;;) {
+      id = slots[s];
+      if (id < 0 || memcmp(vals + (size_t)firsts[id] * w, p, w) == 0) break;
+      s = (s + 1) & (cap - 1);
+    }
+    if (id < 0) {
+      id = nd++;
+      firsts[id] = i;
+      slots[s] = id;
+      if ((uint64_t)nd * 2 > cap) {  // grow: rehash every entry
+        cap <<= 1;
+        try {
+          slots.assign(cap, -1);
+        } catch (...) {
+          return -1;
+        }
+        for (int64_t e = 0; e < nd; e++) {
+          uint64_t t =
+              hash_value(vals + (size_t)firsts[e] * w, width) & (cap - 1);
+          while (slots[t] >= 0) t = (t + 1) & (cap - 1);
+          slots[t] = e;
+        }
+      }
+    }
+    index[i] = (uint32_t)id;
+  }
+  return nd;
 }
 
 int64_t sr_plain_byte_arrays(const uint8_t* buf, const int64_t* offs,

@@ -23,8 +23,9 @@ falls back quietly.
 - `file_formats.cpp`: the hot loops of the parquet and ORC readers
   (storage/formats/): snappy, the RLE/bit-packed hybrid, parquet's DELTA
   and BYTE_STREAM_SPLIT encodings, ORC's run-length encodings and the
-  split of length-prefixed byte arrays; and the two loops of the
-  TabletStore's parquet writer (`bit_pack`, `plain_byte_arrays`);
+  split of length-prefixed byte arrays; and the loops of the TabletStore's
+  parquet writer (`snappy_compress`, `rle_hybrid_encode`,
+  `dict_encode_fixed`, `plain_byte_arrays`);
 - `zstd_decode.cpp`, `lz4_decode.cpp`, `brotli_decode.cpp` and
   `lzo_decode.cpp`: the ZSTD frame decoder (RFC 8878), the LZ4 block
   decoder, the Brotli decoder (RFC 7932; its static dictionary, transforms
@@ -156,8 +157,15 @@ def _sig_file_formats(lib):
     lib.sr_delta_binary_packed.restype = i64
     lib.sr_delta_byte_array.argtypes = [vp, vp, vp, i64, vp, i64, vp]
     lib.sr_delta_byte_array.restype = i64
-    lib.sr_bit_pack.argtypes = [vp, i64, i32, vp]
-    lib.sr_bit_pack.restype = i64
+    lib.sr_snappy_max_compressed.argtypes = [i64]
+    lib.sr_snappy_max_compressed.restype = i64
+    lib.sr_snappy_compress.argtypes = [vp, i64, vp, i64]
+    lib.sr_snappy_compress.restype = i64
+    lib.sr_rle_hybrid_encode.argtypes = [vp, i32, i64, i32, vp, i64]
+    lib.sr_rle_hybrid_encode.restype = i64
+    lib.sr_dict_encode_fixed.argtypes = [vp, i64, i32, vp, i64, i64, vp, vp,
+                                         vp]
+    lib.sr_dict_encode_fixed.restype = i64
     lib.sr_plain_byte_arrays.argtypes = [vp, vp, vp, i64, vp]
     lib.sr_plain_byte_arrays.restype = i64
 
@@ -553,14 +561,63 @@ def orc_byte_rle(data: np.ndarray, count: int) -> np.ndarray:
     return out[:count]
 
 
-def bit_pack(values: np.ndarray, width: int) -> np.ndarray:
-    """The body of one bit-packed run of parquet's RLE/bit-packed hybrid:
-    `values` (non-negative, below 2**width) at `width` bits each, LSB
-    first, padded with zeros to a whole group of 8."""
-    v = np.ascontiguousarray(values, dtype=np.uint32)
-    out = np.empty(max((len(v) + 7) // 8 * width, 1), dtype=np.uint8)
-    m = _load("file_formats").sr_bit_pack(_ptr(v), len(v), width, _ptr(out))
+def snappy_compress(data) -> np.ndarray:
+    """`data` (bytes or a uint8 array) as one raw snappy block, which
+    `snappy_decompress` and every snappy reader take back. The C call
+    releases the interpreter lock, so threads compress at once."""
+    src = np.frombuffer(data, dtype=np.uint8)
+    lib = _load("file_formats")
+    out = np.empty(int(lib.sr_snappy_max_compressed(len(src))),
+                   dtype=np.uint8)
+    m = lib.sr_snappy_compress(_ptr(src) if len(src) else 0, len(src),
+                               _ptr(out), len(out))
+    if m < 0:
+        raise RuntimeError("snappy_compress: the output buffer is too small")
     return out[:m]
+
+
+def rle_hybrid_encode(values: np.ndarray, width: int) -> np.ndarray:
+    """`values` (non-negative, below 2**width; uint8 or uint32, other
+    integers are cast to uint32) in parquet's RLE/bit-packed hybrid at
+    `width` bits, without a length prefix: repeated runs wherever a group
+    of 8 starts 8 or more equal values, bit-packed runs between them."""
+    v = np.asarray(values)
+    if v.dtype != np.uint8:
+        v = v.astype(np.uint32, copy=False)
+    v = np.ascontiguousarray(v)
+    n = len(v)
+    cap = (n // 8 + 2) * (width + 10) + 16
+    out = np.empty(cap, dtype=np.uint8)
+    m = _load("file_formats").sr_rle_hybrid_encode(
+        _ptr(v) if n else 0, v.itemsize, n, width, _ptr(out), cap)
+    if m < 0:
+        raise ValueError(f"rle_hybrid_encode: width {width} or buffer")
+    return out[:m]
+
+
+def dict_encode_fixed(values: np.ndarray, checks: np.ndarray,
+                      max_entries: int):
+    """(index uint32, firsts int64, encoded) of the rows of `values` (a
+    [n, w] uint8 matrix, or a 1-D array of fixed-width items, compared by
+    their bytes): the dictionary in order of first appearance, `firsts`
+    the row of each entry's first appearance, `index` each of the first
+    `encoded` rows' entry. At each of the sorted value counts `checks`, a
+    dictionary of `max_entries` or more ends the encoding there."""
+    v = np.ascontiguousarray(values)
+    n = len(v)
+    width = v.itemsize if v.ndim == 1 else v.shape[1] * v.itemsize
+    checks = np.ascontiguousarray(checks, dtype=np.int64)
+    index = np.empty(max(n, 1), dtype=np.uint32)
+    firsts = np.empty(max(n, 1), dtype=np.int64)
+    encoded = np.zeros(1, dtype=np.int64)
+    nd = _load("file_formats").sr_dict_encode_fixed(
+        _ptr(v) if n else 0, n, width,
+        _ptr(checks) if len(checks) else 0, len(checks), int(max_entries),
+        _ptr(index), _ptr(firsts), _ptr(encoded))
+    if nd < 0:
+        raise MemoryError("dict_encode_fixed: out of memory")
+    k = int(encoded[0])
+    return index[:k], firsts[:nd], k
 
 
 def plain_byte_arrays(buf: np.ndarray, offs: np.ndarray,

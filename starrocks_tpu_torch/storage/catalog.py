@@ -122,12 +122,14 @@ class StoredTableHandle(TableHandle):
         self.store = store
         self._schema = schema
         self.load_s = None  # host seconds of the last load from the files
+        self.load_stats = None  # and its split (TabletStore.load_table)
 
     @property
     def table(self) -> HostTable:
         if self._table is None:
             t0 = time.perf_counter()
-            self._table = self.store.load_table(self.name)
+            self._table, self.load_stats = self.store.load_table(
+                self.name, with_stats=True)
             self.load_s = time.perf_counter() - t0
         return self._table
 

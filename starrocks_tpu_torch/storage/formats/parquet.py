@@ -299,8 +299,10 @@ def _list_spec(name, key, kind, ltype) -> Spec:
 class ParquetFile:
     """One parquet file: `schema`, `specs` and `num_rows` from its footer;
     `read()` decodes every column, adding its seconds to `times`
-    (decompress, values) and the bytes its codecs gave to
-    `times["decompressed_bytes"]`."""
+    (decompress; values, the rest, which includes "read", the seconds
+    reading the chunks' bytes) and the bytes its codecs gave to
+    `times["decompressed_bytes"]`. A run of dictionary-encoded pages is
+    looked up in its dictionary by one gather."""
 
     def __init__(self, path: str):
         self.path = path
@@ -325,7 +327,7 @@ class ParquetFile:
             spec, leaf = _column(node, path)
             self.specs.append(spec)
             self.leaves.append(leaf)
-        self.times = {"decompress": 0.0, "values": 0.0,
+        self.times = {"decompress": 0.0, "values": 0.0, "read": 0.0,
                       "decompressed_bytes": 0}
 
     @property
@@ -367,13 +369,25 @@ class ParquetFile:
         dpo = md.get(11)
         if dpo is not None and 0 < dpo < start:
             start = dpo
+        t = time.perf_counter()
         fh.seek(start)
         raw = memoryview(fh.read(md[7]))  # pages sliced without a copy
+        self.times["read"] += time.perf_counter() - t
         nvals = md[5]
         coded = (codes and lf.physical == BYTE_ARRAY and not lf.binary
                  and lf.type.is_string)
         dictionary = None
         values, defs, reps = [], [], []
+        pending = []  # indices of dictionary pages not yet looked up
+
+        def lookup():  # one gather for a run of dictionary-encoded pages
+            if pending:
+                idx = np.concatenate(pending) if len(pending) > 1 else (
+                    pending[0])
+                values.append(Column(
+                    (dictionary[0], dictionary[1][idx])
+                    if isinstance(dictionary, tuple) else dictionary[idx]))
+                pending.clear()
         pos = 0
         got = 0
         while got < nvals:
@@ -416,28 +430,39 @@ class ParquetFile:
                     data = self._decompress(codec, data, usize - rlen - dlen)
             else:
                 continue  # index pages carry no rows
-            dlv = _levels(dl, lf.max_def, n)
             if lf.max_rep:
                 reps.append(_levels(rl, lf.max_rep, n))
+                dlv = _levels(dl, lf.max_def, n)
+            else:  # a page without NULLs keeps its count, not its levels
+                dlv = (n if _one_run(dl, lf.max_def, n)
+                       else _levels(dl, lf.max_def, n))
             nn = n
             if dlv is not None:
-                nn = int((dlv == lf.max_def).sum())
+                if not isinstance(dlv, int):
+                    nn = int((dlv == lf.max_def).sum())
                 defs.append(dlv)
             if coded and enc in (2, 8) and dictionary is not None:
                 values.append(Column(Coded(dictionary,
                                            self._indices(data, nn))))
+            elif enc in (2, 8) and dictionary is not None:
+                pending.append(self._indices(data, nn))
             else:
+                lookup()
                 values.append(Column(self._values(lf, data, enc, nn,
                                                   dictionary)))
             got += n
+        lookup()
         vals = concat(values).data if values else None
         if lf.max_rep:
             none = np.zeros(0, dtype=np.int32)
             return self._lists(lf, vals, np.concatenate(defs or [none]),
                                np.concatenate(reps or [none]))
         valid = None
-        if defs:  # rows without a value: definition level below max_def
-            valid = np.concatenate(defs) == lf.max_def
+        if not all(isinstance(d, int) for d in defs):
+            # rows without a value: definition level below max_def
+            valid = np.concatenate([
+                np.full(d, lf.max_def, dtype=np.int32) if isinstance(d, int)
+                else d for d in defs]) == lf.max_def
             if valid.all():
                 valid = None
         return Column(_spread(lf, vals, valid, got, self.path), valid)
@@ -522,13 +547,8 @@ class ParquetFile:
             ln = struct.unpack_from("<I", data, 0)[0]
             buf = np.frombuffer(data, dtype=np.uint8, count=ln, offset=4)
             return native.rle_bp_decode(buf, 1, n)[0].astype(bool)
-        if enc in (2, 8):
-            if dictionary is None:
-                raise ValueError(f"{self.path}: dictionary page missing")
-            idx = self._indices(data, n)
-            if isinstance(dictionary, tuple):
-                return dictionary[0], dictionary[1][idx]
-            return dictionary[idx]
+        if enc in (2, 8):  # with a dictionary, _chunk looks them up
+            raise ValueError(f"{self.path}: dictionary page missing")
         buf = np.frombuffer(data, dtype=np.uint8)
         if enc == 5 and ph in (INT32, INT64):
             v = native.delta_binary_packed(buf, n)[0]
@@ -590,6 +610,26 @@ def _levels(buf, max_level: int, n: int):
     if buf is None or not len(buf):
         return np.full(n, max_level, dtype=np.int32)
     return native.rle_bp_decode(buf, max_level.bit_length(), n)[0]
+
+
+def _one_run(buf, max_level: int, n: int) -> bool:
+    """Whether levels `buf` (or none: every entry defined) are one
+    repeated run of n max_level values, so need no decoding."""
+    if not max_level:
+        return False
+    if buf is None or not len(buf):
+        return True
+    head, shift, i = 0, 0, 0
+    while i < len(buf) and i < 10:
+        b = int(buf[i])
+        head |= (b & 0x7F) << shift
+        shift += 7
+        i += 1
+        if not b & 0x80:
+            break
+    width = (max_level.bit_length() + 7) // 8
+    return (not head & 1 and head >> 1 == n and len(buf) == i + width
+            and int.from_bytes(bytes(buf[i:]), "little") == max_level)
 
 
 def _delta_lengths(buf: np.ndarray, n: int):

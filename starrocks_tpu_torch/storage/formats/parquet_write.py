@@ -2,25 +2,55 @@
 
 `write_table` writes one HostTable as one parquet file, atomically (a
 temporary name, then os.replace), in the layout the JAX package's store
-writes through pyarrow (`_to_arrow`), so either package reads the other's
-data directory: one row group, data pages v1 of up to PAGE_VALUES values,
-UNCOMPRESSED, every column OPTIONAL with its definition levels (written
-even where the column has no NULL, as pyarrow does). The types:
+writes through pyarrow's defaults (`pq.write_table` of `_to_arrow`), so
+either package reads the other's data directory and the files are about as
+large:
+
+- row groups of at most ROW_GROUP_ROWS rows;
+- in each column chunk but a BOOLEAN one, a dictionary page (PLAIN values
+  in order of first appearance) and RLE_DICTIONARY data pages; once the
+  dictionary's PLAIN bytes reach DICT_PAGE_BYTES at a check (every
+  DICT_CHECK values, pyarrow's write batch), the page in hand ends and the
+  chunk's remaining values go to PLAIN pages;
+- data pages v1 of about PAGE_BYTES of encoded values (and at most
+  PAGE_VALUES level entries), levels and dictionary indices in the
+  RLE/bit-packed hybrid (repeated runs wherever a group of 8 starts 8 or
+  more equal values);
+- SNAPPY pages (the whole v1 body, levels included; native.snappy_compress);
+- Statistics: the null count of every flat column, and the min and max of
+  the integer, date, timestamp, floating and boolean ones (NaN left out,
+  a zero minimum as -0.0 and a zero maximum as +0.0), as pyarrow writes
+  them;
+- every column OPTIONAL with its definition levels (written even where the
+  column has no NULL, as pyarrow does).
+
+One difference from pyarrow's layout, on purpose: a VARCHAR chunk's
+dictionary is the values the chunk uses, sorted (pyarrow's: in order of
+first appearance), and it stays a dictionary up to DICT_BYTES (pyarrow's:
+1 MiB). The store's first load merges the files' sorted dictionaries
+(store._concat_parts) instead of hashing strings.
+
+The options mirror pyarrow's `write_table`: `codec` ("SNAPPY" or
+"UNCOMPRESSED"), `dictionary` (False: PLAIN pages for every column,
+VARCHAR too) and `row_group_rows`. `annotate_decimals` writes DECIMAL(p
+<= 18) as INT64 annotated DECIMAL(p, s), as pyarrow writes a decimal
+column stored as integers, for files whose readers take the types from the
+files (external tables); the store's files carry the scaled integers
+unannotated, as the reference's do. The types:
 
   BIGINT, INT            INT64, INT32
   SMALLINT, TINYINT      INT32 with INT(16/8, signed)
   BOOLEAN                BOOLEAN, bit-packed PLAIN
-  FLOAT, DOUBLE          FLOAT, DOUBLE
+  FLOAT, DOUBLE          FLOAT, DOUBLE (dictionaries keyed by bit pattern:
+                         -0.0, 0.0 and each NaN payload stay apart)
   DECIMAL(p <= 18)       plain INT64, no DECIMAL annotation (the scaled
                          integers, as the reference writes them)
   DECIMAL(p > 18)        FIXED_LEN_BYTE_ARRAY(16) with DECIMAL(p, s), big-
                          endian two's complement made of the [rows, 4] limbs
   DATE                   INT32 DATE
   DATETIME               INT64 TIMESTAMP(MICROS, not adjusted to UTC)
-  VARCHAR                BYTE_ARRAY STRING, RLE_DICTIONARY pages over the
-                         file's own dictionary (the values its rows use,
-                         sorted), the dictionary page first; a dictionary
-                         past DICT_BYTES falls back to PLAIN pages
+  VARCHAR                BYTE_ARRAY STRING over the chunk's sorted
+                         dictionary; past DICT_BYTES, PLAIN pages
   HLL, BITMAP            BYTE_ARRAY: each row's int8 registers as bytes
   ARRAY<T>               the three-level LIST (optional group, repeated
                          `list`, optional `element`); the elements as the
@@ -30,8 +60,9 @@ even where the column has no NULL, as pyarrow does). The types:
                          empty one
 
 NULL rows carry no value (their definition level says so). The loops over
-values run in numpy and host C++ (native.bit_pack,
-native.plain_byte_arrays); nothing loops per row in Python. The Thrift
+values run in numpy and host C++ (native.dict_encode_fixed,
+native.rle_hybrid_encode, native.plain_byte_arrays,
+native.snappy_compress); nothing loops per row in Python. The Thrift
 compact protocol of the footer and the page headers is `ThriftOut`.
 """
 
@@ -39,15 +70,20 @@ from __future__ import annotations
 
 import os
 import struct
+import time
 
 import numpy as np
 
 from ... import native
 from ... import types as T
 
-PAGE_VALUES = 1 << 20   # values (level entries) per data page, at most
-PAGE_BYTES = 1 << 27    # and PLAIN bytes per page, at most
-DICT_BYTES = 1 << 30    # a dictionary page past this: PLAIN pages instead
+ROW_GROUP_ROWS = 1 << 20  # rows per row group, at most
+PAGE_BYTES = 1 << 20      # encoded value bytes per data page, about
+PAGE_VALUES = 1 << 20     # level entries per data page, at most
+DICT_PAGE_BYTES = 1 << 20  # a dictionary this large at a check: PLAIN next
+DICT_CHECK = 1024         # values between those checks
+DICT_BYTES = 1 << 30      # a VARCHAR dictionary page past this: PLAIN pages
+_CODECS = {"UNCOMPRESSED": 0, "SNAPPY": 1}
 _MAGIC = b"PAR1"
 # physical types, encodings, converted types
 _BOOLEAN, _INT32, _INT64, _FLOAT, _DOUBLE, _BYTE_ARRAY, _FLBA = (
@@ -56,6 +92,7 @@ _PLAIN, _RLE, _RLE_DICTIONARY = 0, 3, 8
 _UTF8, _LIST, _DECIMAL, _DATE = 0, 3, 5, 6
 _INT_8, _INT_16 = 15, 16
 _OPTIONAL, _REPEATED = 1, 2
+_DATA_PAGE, _DICTIONARY_PAGE = 0, 2
 
 
 class ThriftOut:
@@ -126,24 +163,9 @@ class ThriftOut:
         self.end()
 
 
-def _uvarint(v: int) -> bytes:
-    out = bytearray()
-    while v >= 0x80:
-        out.append((v & 0x7F) | 0x80)
-        v >>= 7
-    out.append(v)
-    return bytes(out)
-
-
-def _hybrid(vals: np.ndarray, width: int) -> bytes:
-    """`vals` in the RLE/bit-packed hybrid at `width` bits: one RLE run
-    when every value is equal, else one bit-packed run."""
-    n = len(vals)
-    if n and (vals == vals[0]).all():
-        return (_uvarint(n << 1)
-                + int(vals[0]).to_bytes((width + 7) // 8, "little"))
-    return (_uvarint(((n + 7) // 8) << 1 | 1)
-            + native.bit_pack(vals, width).tobytes())
+def _levels(vals: np.ndarray, max_level: int):
+    h = native.rle_hybrid_encode(vals, max_level.bit_length())
+    return struct.pack("<I", len(h)) + h.tobytes()
 
 
 def _utf8(strings) -> tuple:
@@ -169,13 +191,15 @@ def _utf8(strings) -> tuple:
 
 
 def _file_dict(codes: np.ndarray, valid, d):
-    """A VARCHAR column's codes re-coded against the file's own dictionary
+    """A VARCHAR column's codes re-coded against the chunk's own dictionary
     (the values its non-NULL rows use, sorted), and that dictionary as a
     fixed-width unicode array. NULL rows get code 0."""
     nd = 0 if d is None else len(d)
     if nd == 0 or len(codes) == 0:
         return np.zeros(len(codes), dtype=np.int32), np.zeros(0, dtype="<U1")
-    codes = np.clip(np.asarray(codes, dtype=np.int64), 0, nd - 1)
+    codes = np.asarray(codes)
+    if codes.min() < 0 or codes.max() >= nd:
+        codes = np.clip(codes, 0, nd - 1)
     live = codes if valid is None else codes[valid]
     used = np.flatnonzero(np.bincount(live, minlength=nd))
     lut = np.zeros(nd, dtype=np.int32)
@@ -183,21 +207,25 @@ def _file_dict(codes: np.ndarray, valid, d):
     out = lut[codes]
     if valid is not None:
         out[~valid] = 0
-    # only the used values become text: a file holds a slice of the rows
+    # only the used values become text: a chunk holds a slice of the rows
     fdict = (np.asarray(d.values[used], dtype=str) if len(used)
              else np.zeros(0, dtype="<U1"))
     return out, fdict
 
 
 class _Leaf:
-    """One column as it goes into the file: its schema elements (a
-    function writing each), its path, physical type and levels, the
-    non-NULL values (`plain(v0, v1)` gives the PLAIN bytes of values
-    [v0, v1)), and for a dictionary-encoded column the dictionary
-    (`dict_plain`, `dict_n`) and each value's index (`index`)."""
+    """One column chunk as it goes into the file: its schema elements (a
+    function writing each), its path, physical type and levels; the
+    non-NULL values as PLAIN bytes (`plain(v0, v1)` gives values [v0,
+    v1)), each value's PLAIN bytes for the page size (`vbytes`, or for
+    strings `ends`, the PLAIN bytes through each value); for a dictionary-
+    encoded chunk the dictionary page's values (`dict_plain`, `dict_n`) and
+    the index of each of the first `n_enc` values (`index`); and its
+    Statistics (`stats`: null count, min and max PLAIN bytes or None), or
+    None for a LIST chunk."""
 
     def __init__(self, schema, path, physical, defs, reps, max_def,
-                 plain, width):
+                 plain, vbytes):
         self.schema = schema
         self.path = path
         self.physical = physical
@@ -205,10 +233,13 @@ class _Leaf:
         self.reps = reps
         self.max_def = max_def
         self.plain = plain
-        self.width = width        # bytes per value, for the page size
+        self.vbytes = vbytes
+        self.ends = None
         self.dict_plain = None
         self.dict_n = 0
         self.index = None
+        self.n_enc = 0
+        self.stats = None
 
 
 def _element(name, physical=None, rep=_OPTIONAL, children=None,
@@ -241,17 +272,27 @@ def _element(name, physical=None, rep=_OPTIONAL, children=None,
 def _fixed(vals: np.ndarray):
     """plain(v0, v1) of fixed-width little-endian values (rows of a 2-D
     byte matrix for FIXED_LEN_BYTE_ARRAY)."""
-    return lambda v0, v1: np.ascontiguousarray(vals[v0:v1]).tobytes()
+    return lambda v0, v1: np.ascontiguousarray(vals[v0:v1]).view(np.uint8)
 
 
-def _type_of(t: T.LogicalType, name: str):
+def _decimal(p: int, s: int):
+    def logical(o):
+        o.begin(5)
+        o.int(1, s)
+        o.int(2, p)
+        o.end()
+    return {"converted": _DECIMAL, "logical": logical, "scale": s,
+            "precision": p}
+
+
+def _type_of(t: T.LogicalType, name: str, annotate_decimals: bool = False):
     """(schema element writer args, physical, values converter, bytes per
     value) of one non-list column of type `t`. The converter takes the
     column's array (rows of non-NULL values) and gives what `_fixed`
     writes, or for BOOLEAN the bools."""
     k = t.kind
     if k is T.TypeKind.BOOLEAN:
-        return {}, _BOOLEAN, lambda a: np.asarray(a, dtype=bool), 1
+        return {}, _BOOLEAN, lambda a: np.asarray(a, dtype=bool), 1 / 8
     if k is T.TypeKind.TINYINT or k is T.TypeKind.SMALLINT:
         bits = 8 if k is T.TypeKind.TINYINT else 16
 
@@ -262,11 +303,12 @@ def _type_of(t: T.LogicalType, name: str):
             o.end()
         return ({"converted": _INT_8 if bits == 8 else _INT_16,
                  "logical": integer}, _INT32,
-                lambda a: np.asarray(a).astype("<i4"), 4)
+                lambda a: np.asarray(a).astype("<i4", copy=False), 4)
     if k in (T.TypeKind.INT, T.TypeKind.DATE):
         extra = ({"converted": _DATE, "logical": lambda o: o.empty(6)}
                  if k is T.TypeKind.DATE else {})
-        return extra, _INT32, lambda a: np.asarray(a).astype("<i4"), 4
+        return (extra, _INT32,
+                lambda a: np.asarray(a).astype("<i4", copy=False), 4)
     if k is T.TypeKind.DATETIME:
         def timestamp(o):
             o.begin(8)
@@ -276,23 +318,20 @@ def _type_of(t: T.LogicalType, name: str):
             o.end()
             o.end()
         return ({"logical": timestamp}, _INT64,
-                lambda a: np.asarray(a).astype("<i8"), 8)
+                lambda a: np.asarray(a).astype("<i8", copy=False), 8)
     if k in (T.TypeKind.BIGINT, T.TypeKind.DECIMAL):
-        return {}, _INT64, lambda a: np.asarray(a).astype("<i8"), 8
+        extra = (_decimal(t.precision, t.scale)
+                 if k is T.TypeKind.DECIMAL and annotate_decimals else {})
+        return (extra, _INT64,
+                lambda a: np.asarray(a).astype("<i8", copy=False), 8)
     if k is T.TypeKind.FLOAT:
-        return {}, _FLOAT, lambda a: np.asarray(a).astype("<f4"), 4
+        return ({}, _FLOAT,
+                lambda a: np.asarray(a).astype("<f4", copy=False), 4)
     if k is T.TypeKind.DOUBLE:
-        return {}, _DOUBLE, lambda a: np.asarray(a).astype("<f8"), 8
+        return ({}, _DOUBLE,
+                lambda a: np.asarray(a).astype("<f8", copy=False), 8)
     if k is T.TypeKind.DECIMAL128:
-        p, s = t.precision, t.scale
-
-        def decimal(o):
-            o.begin(5)
-            o.int(1, s)
-            o.int(2, p)
-            o.end()
-        return ({"converted": _DECIMAL, "logical": decimal, "scale": s,
-                 "precision": p, "type_length": 16}, _FLBA,
+        return ({**_decimal(t.precision, t.scale), "type_length": 16}, _FLBA,
                 lambda a: (np.asarray(a, dtype=np.int64).astype(">u4")
                            .view(np.uint8).reshape(-1, 16)), 16)
     raise NotImplementedError(f"column {name!r}: {t!r} in a parquet file")
@@ -306,38 +345,64 @@ _STORAGE = {np.dtype(np.int8): T.TINYINT, np.dtype(np.int16): T.SMALLINT,
             np.dtype(np.float32): T.FLOAT, np.dtype(np.float64): T.DOUBLE}
 
 
-def _flat(f, a, v) -> _Leaf:
+def _min_max(vals: np.ndarray):
+    """(min, max) PLAIN bytes of non-NULL values as pyarrow's statistics
+    hold them (NaN left out, a zero minimum -0.0 and a zero maximum +0.0),
+    or None when no value counts."""
+    if vals.dtype.kind == "f":
+        vals = vals[~np.isnan(vals)]
+    if not len(vals):
+        return None
+    lo, hi = vals.min(), vals.max()
+    if vals.dtype.kind == "f":
+        lo = -abs(lo) if lo == 0 else lo
+        hi = abs(hi) if hi == 0 else hi
+    return (np.asarray(lo, dtype=vals.dtype).tobytes(),
+            np.asarray(hi, dtype=vals.dtype).tobytes())
+
+
+def _flat(f, a, v, dictionary: bool, annotate_decimals: bool) -> _Leaf:
     """A non-list column: one OPTIONAL leaf."""
     t, name = f.type, f.name
     n = len(a)
     valid = np.ones(n, dtype=bool) if v is None else np.asarray(v, bool)
     defs = valid.view(np.uint8)
+    nulls = n - int(np.count_nonzero(valid))
     if t.is_string:
         codes, fdict = _file_dict(a, v, f.dict)
         leaf = _Leaf([_element(name, _BYTE_ARRAY, converted=_UTF8,
                                logical=lambda o: o.empty(1))],
                      [name], _BYTE_ARRAY, defs, None, 1, None, 4)
-        _dictionary(leaf, _utf8(fdict), codes[valid])
+        _strings(leaf, _utf8(fdict), codes[valid], dictionary)
+        leaf.stats = (nulls, None)
         return leaf
     if t.is_hll or t.is_bitmap:
         mat = np.asarray(a, dtype=np.int8)[valid].view(np.uint8)
         m, w = mat.shape
         lens = np.full((m, 1), w, dtype="<u4").view(np.uint8)
         rows = np.concatenate([lens, mat], axis=1)
-        return _Leaf([_element(name, _BYTE_ARRAY)], [name], _BYTE_ARRAY,
+        leaf = _Leaf([_element(name, _BYTE_ARRAY)], [name], _BYTE_ARRAY,
                      defs, None, 1, _fixed(rows), 4 + w)
-    extra, phys, conv, width = _type_of(t, name)
-    vals = conv(np.asarray(a)[valid])
+        if dictionary:
+            _dict_fixed(leaf, mat, 4 + w, rows)
+        leaf.stats = (nulls, None)
+        return leaf
+    extra, phys, conv, width = _type_of(t, name, annotate_decimals)
+    vals = conv(np.asarray(a) if v is None else np.asarray(a)[valid])
     if phys == _BOOLEAN:
         def plain(v0, v1, vals=vals):
-            return np.packbits(vals[v0:v1], bitorder="little").tobytes()
+            return np.packbits(vals[v0:v1], bitorder="little")
     else:
         plain = _fixed(vals)
-    return _Leaf([_element(name, phys, **extra)], [name], phys, defs, None,
+    leaf = _Leaf([_element(name, phys, **extra)], [name], phys, defs, None,
                  1, plain, width)
+    if dictionary and phys != _BOOLEAN:
+        _dict_fixed(leaf, vals, width, vals)
+    leaf.stats = (nulls, None if phys == _FLBA else _min_max(vals))
+    return leaf
 
 
-def _list(f, a, v) -> _Leaf:
+def _list(f, a, v, dictionary: bool) -> _Leaf:
     """An ARRAY column ([rows, K+1] lanes: the length, then the elements)
     as the three-level LIST: definition level 0 a NULL row, 1 an empty
     list, 3 an element; repetition level 0 a row's first entry."""
@@ -366,65 +431,117 @@ def _list(f, a, v) -> _Leaf:
                                        converted=_UTF8,
                                        logical=lambda o: o.empty(1))],
                      path, _BYTE_ARRAY, defs, reps, 3, None, 4)
-        _dictionary(leaf, _utf8(fdict), codes)
+        _strings(leaf, _utf8(fdict), codes, dictionary)
         return leaf
     extra, phys, conv, width = _type_of(_STORAGE[np.dtype(et.np_dtype)],
                                         name)
-    return _Leaf(group + [_element("element", phys, **extra)], path, phys,
-                 defs, reps, 3, _fixed(conv(elems)), width)
+    vals = conv(elems)
+    leaf = _Leaf(group + [_element("element", phys, **extra)], path, phys,
+                 defs, reps, 3, _fixed(vals), width)
+    if dictionary:
+        _dict_fixed(leaf, vals, width, vals)
+    return leaf
 
 
-def _dictionary(leaf: _Leaf, strings: tuple, index: np.ndarray):
-    """Dictionary-encode a BYTE_ARRAY leaf: the dictionary page's PLAIN
-    values and each value's index; past DICT_BYTES, PLAIN values
-    instead."""
+def _strings(leaf: _Leaf, strings: tuple, index: np.ndarray,
+             dictionary: bool):
+    """A VARCHAR leaf's values: over its sorted dictionary `strings`, or
+    PLAIN (without `dictionary`, or past DICT_BYTES)."""
     buf, offs = strings
     nd = len(offs)
     rows = np.arange(nd, dtype=np.int64)
-    if len(buf) + 4 * nd <= DICT_BYTES:
+    if dictionary and len(buf) + 4 * nd <= DICT_BYTES:
         leaf.dict_plain = native.plain_byte_arrays(buf, offs, rows)
         leaf.dict_n = nd
         leaf.index = np.asarray(index, dtype=np.uint32)
+        leaf.n_enc = len(index)
         return
     index = np.asarray(index, dtype=np.int64)
     lens = offs[:, 1] - offs[:, 0]
-    leaf.width = 4 + int(lens.max(initial=0))
+    leaf.ends = np.cumsum(4 + lens[index]) if len(index) else index
     leaf.plain = lambda v0, v1: native.plain_byte_arrays(
-        buf, offs, index[v0:v1]).tobytes()
+        buf, offs, index[v0:v1])
+
+
+def _dict_checks(leaf: _Leaf, m: int) -> np.ndarray:
+    """The value counts at which the dictionary's size is checked: every
+    DICT_CHECK values, or for a list column the first row start at or after
+    each (a page of a list column starts at a row)."""
+    at = np.arange(DICT_CHECK, m, DICT_CHECK, dtype=np.int64)
+    if leaf.reps is None or not len(at):
+        return at
+    before = np.cumsum(leaf.defs == leaf.max_def) - (
+        leaf.defs == leaf.max_def)
+    rv = before[leaf.reps == 0]
+    return np.unique(rv[np.minimum(np.searchsorted(rv, at), len(rv) - 1)])
+
+
+def _dict_fixed(leaf: _Leaf, keys: np.ndarray, entry_bytes, rows):
+    """Dictionary-encode a leaf of fixed-width values `keys` (compared by
+    their bytes), the dictionary page's values the rows of `rows` (PLAIN
+    bytes each, `entry_bytes` of them) of the entries' first appearances;
+    the encoding stops where the dictionary reaches DICT_PAGE_BYTES at a
+    check."""
+    m = len(keys)
+    limit = -(-DICT_PAGE_BYTES // int(entry_bytes))
+    index, firsts, k = native.dict_encode_fixed(
+        keys, _dict_checks(leaf, m), limit)
+    leaf.dict_plain = np.ascontiguousarray(rows[firsts]).view(np.uint8)
+    leaf.dict_n = len(firsts)
+    leaf.index = index
+    leaf.n_enc = k
 
 
 def _page_bounds(leaf: _Leaf) -> list:
     """[(first entry, end entry, first value, end value)] of each data
-    page: at most PAGE_VALUES entries and PAGE_BYTES of values, a list
-    column's pages starting at its rows' first entries."""
+    page: about PAGE_BYTES of encoded values and at most PAGE_VALUES
+    entries; the dictionary-encoded values and the PLAIN ones in pages of
+    their own; a list column's pages starting at its rows' first
+    entries."""
     e = len(leaf.defs)
-    width = 4 if leaf.index is not None else leaf.width
-    step = max(1, min(PAGE_VALUES, PAGE_BYTES // max(width, 1)))
-    cand = np.arange(0, e, step, dtype=np.int64)
+    live = leaf.defs == leaf.max_def
+    m = int(np.count_nonzero(live))
+    if m == e:  # every entry a value
+        before = None
+    else:
+        before = np.zeros(e + 1, dtype=np.int64)
+        np.cumsum(live, out=before[1:])
+    k = leaf.n_enc if leaf.index is not None else 0
+    cuts = [np.zeros(1, dtype=np.int64)]
+    if k:
+        bits = max(1, (leaf.dict_n - 1).bit_length())
+        cuts.append(np.arange(0, k, max(1, PAGE_BYTES * 8 // bits)))
+    if m > k:
+        cuts.append(np.array([k], dtype=np.int64))
+        if leaf.ends is not None:  # PLAIN strings: every value PLAIN
+            at = np.arange(PAGE_BYTES, int(leaf.ends[-1]), PAGE_BYTES)
+            cuts.append(np.searchsorted(leaf.ends, at) + 1)
+        else:
+            cuts.append(np.arange(k, m, max(1, int(PAGE_BYTES
+                                                   // leaf.vbytes))))
+    ecuts = np.concatenate(cuts)
+    if before is not None:
+        ecuts = np.searchsorted(before, ecuts)
+    ecuts = np.concatenate([ecuts, np.arange(0, e, PAGE_VALUES)])
     if leaf.reps is not None:
         rs = np.flatnonzero(leaf.reps == 0)
-        cand = np.unique(rs[np.minimum(np.searchsorted(rs, cand),
-                                       len(rs) - 1)])
-    bounds = np.append(cand, e).tolist()
-    out, v0 = [], 0
-    for e0, e1 in zip(bounds[:-1], bounds[1:]):
-        v1 = v0 + int(np.count_nonzero(leaf.defs[e0:e1] == leaf.max_def))
-        out.append((e0, e1, v0, v1))
-        v0 = v1
-    return out
+        ecuts = rs[np.minimum(np.searchsorted(rs, ecuts), len(rs) - 1)]
+    bounds = np.unique(np.append(ecuts[ecuts < e], e)).tolist()
+    if bounds[0] != 0:
+        bounds.insert(0, 0)
+    if before is None:
+        return [(e0, e1, e0, e1) for e0, e1 in zip(bounds[:-1], bounds[1:])]
+    return [(e0, e1, int(before[e0]), int(before[e1]))
+            for e0, e1 in zip(bounds[:-1], bounds[1:])]
 
 
-def _levels(vals: np.ndarray, max_level: int) -> bytes:
-    h = _hybrid(vals, max_level.bit_length())
-    return struct.pack("<I", len(h)) + h
-
-
-def _page_header(ptype: int, size: int, nvals: int, enc: int) -> bytes:
+def _page_header(ptype: int, usize: int, csize: int, nvals: int,
+                 enc: int) -> bytes:
     ph = ThriftOut()
     ph.int(1, ptype)
-    ph.int(2, size)
-    ph.int(3, size)
-    if ptype == 2:   # DICTIONARY_PAGE
+    ph.int(2, usize)
+    ph.int(3, csize)
+    if ptype == _DICTIONARY_PAGE:
         ph.begin(7)
         ph.int(1, nvals)
         ph.int(2, _PLAIN)
@@ -440,58 +557,100 @@ def _page_header(ptype: int, size: int, nvals: int, enc: int) -> bytes:
     return bytes(ph.b)
 
 
-def _write_chunk(fh, pos: int, leaf: _Leaf) -> dict:
+class _ChunkOut:
+    """The pages of one column chunk as they are written: offsets, the
+    sizes before and after the codec, the pages by type and encoding, and
+    the compress seconds."""
+
+    def __init__(self, fh, pos: int, codec: int):
+        self.fh, self.pos, self.codec = fh, pos, codec
+        self.start = pos
+        self.usize = 0
+        self.pages: dict = {}
+        self.compress_s = 0.0
+
+    def page(self, ptype: int, body: bytes, nvals: int, enc: int):
+        data = body
+        if self.codec:
+            t = time.perf_counter()
+            data = native.snappy_compress(body)
+            self.compress_s += time.perf_counter() - t
+        head = _page_header(ptype, len(body), len(data), nvals, enc)
+        self.fh.write(head)
+        self.fh.write(data)
+        self.pos += len(head) + len(data)
+        self.usize += len(head) + len(body)
+        key = (ptype, enc)
+        self.pages[key] = self.pages.get(key, 0) + 1
+
+
+def _write_chunk(fh, pos: int, leaf: _Leaf, codec: int) -> dict:
     """Write one column chunk's pages at file offset `pos`; its
     ColumnMetaData fields."""
-    start = pos
+    out = _ChunkOut(fh, pos, codec)
     dict_off = None
     if leaf.index is not None:
-        body = leaf.dict_plain.tobytes()
-        page = _page_header(2, len(body), leaf.dict_n, _PLAIN) + body
-        fh.write(page)
         dict_off = pos
-        pos += len(page)
-        width = max(1, (leaf.dict_n - 1).bit_length())
-    data_off = pos
+        out.page(_DICTIONARY_PAGE, leaf.dict_plain.tobytes(), leaf.dict_n,
+                 _PLAIN)
+    data_off = out.pos
+    hi = 0  # the dictionary's entries so far, less one
     for e0, e1, v0, v1 in _page_bounds(leaf):
         parts = []
         if leaf.reps is not None:
             parts.append(_levels(leaf.reps[e0:e1], 1))
         parts.append(_levels(leaf.defs[e0:e1], leaf.max_def))
-        if leaf.index is not None:
-            parts.append(bytes([width]))
-            if v1 > v0:
-                parts.append(_hybrid(leaf.index[v0:v1], width))
+        if leaf.index is not None and v1 <= leaf.n_enc:
+            idx = leaf.index[v0:v1]
+            if len(idx):
+                hi = max(hi, int(idx.max()))
+            bits = max(1, hi.bit_length())
+            parts.append(bytes([bits]))
+            parts.append(native.rle_hybrid_encode(idx, bits))
             enc = _RLE_DICTIONARY
         else:
             parts.append(leaf.plain(v0, v1))
             enc = _PLAIN
-        body = b"".join(parts)
-        page = _page_header(0, len(body), e1 - e0, enc) + body
-        fh.write(page)
-        pos += len(page)
-    encodings = ([_PLAIN, _RLE, _RLE_DICTIONARY] if leaf.index is not None
-                 else [_PLAIN, _RLE])
-    return {"start": start, "size": pos - start, "data_off": data_off,
-            "dict_off": dict_off, "encodings": encodings,
-            "nvals": len(leaf.defs)}
+        out.page(_DATA_PAGE, b"".join(parts), e1 - e0, enc)
+    encodings = sorted({_RLE} | {enc for _, enc in out.pages})
+    return {"start": out.start, "size": out.pos - out.start,
+            "usize": out.usize, "data_off": data_off, "dict_off": dict_off,
+            "encodings": encodings, "pages": out.pages,
+            "nvals": len(leaf.defs), "compress_s": out.compress_s}
 
 
-def _footer(leaves: list, chunks: list, n: int) -> bytes:
+def _statistics(fm: ThriftOut, stats):
+    nulls, mm = stats
+    fm.begin(12)
+    if mm is not None:
+        fm.binary(1, mm[1])
+        fm.binary(2, mm[0])
+    fm.int(3, nulls, 6)
+    if mm is not None:
+        fm.binary(5, mm[1])
+        fm.binary(6, mm[0])
+        fm.bool(7, True)
+        fm.bool(8, True)
+    fm.end()
+
+
+def _footer(schema: list, groups: list, n: int) -> bytes:
+    """The FileMetaData of a file: its schema (the first group's leaves,
+    or an empty table's), and each row group's (leaves, chunks, rows)."""
     fm = ThriftOut()
     fm.int(1, 2)  # version
-    elems = sum(len(lf.schema) for lf in leaves) + 1
+    elems = sum(len(lf.schema) for lf in schema) + 1
     fm.list(2, 12, elems)
     fm.elem_begin()
     fm.binary(4, b"schema")
-    fm.int(5, len(leaves))
+    fm.int(5, len(schema))
     fm.end()
-    for lf in leaves:
+    for lf in schema:
         for write in lf.schema:
             write(fm)
     fm.int(3, n, 6)
-    fm.list(4, 12, 1 if chunks else 0)
-    if chunks:
+    fm.list(4, 12, len(groups))
+    for leaves, chunks, rows in groups:
         fm.elem_begin()
         fm.list(1, 12, len(chunks))
         for lf, c in zip(leaves, chunks):
@@ -506,48 +665,97 @@ def _footer(leaves: list, chunks: list, n: int) -> bytes:
             for p in lf.path:
                 fm._varint(len(p.encode()))
                 fm.b += p.encode()
-            fm.int(4, 0)  # UNCOMPRESSED
+            fm.int(4, c["codec"])
             fm.int(5, c["nvals"], 6)
-            fm.int(6, c["size"], 6)
+            fm.int(6, c["usize"], 6)
             fm.int(7, c["size"], 6)
             fm.int(9, c["data_off"], 6)
             if c["dict_off"] is not None:
                 fm.int(11, c["dict_off"], 6)
+            if lf.stats is not None:
+                _statistics(fm, lf.stats)
+            fm.list(13, 12, len(c["pages"]))  # encoding_stats
+            for (ptype, enc), count in sorted(c["pages"].items()):
+                fm.elem_begin()
+                fm.int(1, ptype)
+                fm.int(2, enc)
+                fm.int(3, count)
+                fm.end()
             fm.end()
             fm.end()
-        total = sum(c["size"] for c in chunks)
-        fm.int(2, total, 6)
-        fm.int(3, n, 6)
-        fm.int(6, total, 6)  # total_compressed_size
+        fm.int(2, sum(c["usize"] for c in chunks), 6)
+        fm.int(3, rows, 6)
+        fm.int(5, chunks[0]["start"], 6)
+        fm.int(6, sum(c["size"] for c in chunks), 6)
         fm.end()
     fm.binary(6, b"starrocks_tpu_torch")
+    fm.list(7, 12, len(schema))  # column_orders: TYPE_DEFINED_ORDER
+    for _ in schema:
+        fm.elem_begin()
+        fm.empty(1)
+        fm.end()
     fm.b.append(0)
     return bytes(fm.b)
 
 
-def write_table(data, path: str) -> int:
-    """Write HostTable `data` as one parquet file at `path`, atomically;
-    returns the file's bytes."""
-    leaves = []
+def _leaves(data, r0: int, r1: int, dictionary: bool,
+            annotate_decimals: bool) -> list:
+    """The leaves of rows [r0, r1) of HostTable `data`."""
+    out = []
     for f in data.schema:
-        a = data.arrays[f.name]
+        a = data.arrays[f.name][r0:r1]
         v = data.valids.get(f.name)
-        if v is not None and np.asarray(v).all():
-            v = None
-        leaves.append(_list(f, a, v) if f.type.is_array else _flat(f, a, v))
+        if v is not None:
+            v = np.asarray(v)[r0:r1]
+            if v.all():
+                v = None
+        out.append(_list(f, a, v, dictionary) if f.type.is_array
+                   else _flat(f, a, v, dictionary, annotate_decimals))
+    return out
+
+
+def write_table(data, path: str, *, codec: str = "SNAPPY",
+                dictionary: bool = True,
+                row_group_rows: int = ROW_GROUP_ROWS,
+                annotate_decimals: bool = False, times=None) -> int:
+    """Write HostTable `data` as one parquet file at `path`, atomically;
+    returns the file's bytes. The defaults are pyarrow's layout (the module
+    docstring); a dict `times` gains the seconds this call spent in the
+    codec under "compress"."""
+    name = str(codec).upper()
+    if name not in _CODECS:
+        raise ValueError(f"parquet codec {codec!r}: the writer has "
+                         f"{sorted(_CODECS)}")
+    cid = _CODECS[name]
     n = data.num_rows
+    step = max(1, int(row_group_rows))
+    bounds = list(range(0, n, step)) + [n] if n else []
+    groups, compress_s = [], 0.0
     tmp = path + ".tmp"
-    with open(tmp, "wb") as fh:
-        fh.write(_MAGIC)
-        pos = len(_MAGIC)
-        chunks = []
-        if n:
-            for lf in leaves:
-                c = _write_chunk(fh, pos, lf)
-                pos += c["size"]
-                chunks.append(c)
-        footer = _footer(leaves, chunks, n)
-        fh.write(footer + struct.pack("<I", len(footer)) + _MAGIC)
-        size = pos + len(footer) + 8
-    os.replace(tmp, path)
+    try:
+        with open(tmp, "wb") as fh:
+            fh.write(_MAGIC)
+            pos = len(_MAGIC)
+            for r0, r1 in zip(bounds[:-1], bounds[1:]):
+                leaves = _leaves(data, r0, r1, dictionary, annotate_decimals)
+                chunks = []
+                for lf in leaves:
+                    c = _write_chunk(fh, pos, lf, cid)
+                    c["codec"] = cid
+                    pos += c["size"]
+                    compress_s += c["compress_s"]
+                    chunks.append(c)
+                groups.append((leaves, chunks, r1 - r0))
+            schema = (groups[0][0] if groups else
+                      _leaves(data, 0, 0, dictionary, annotate_decimals))
+            footer = _footer(schema, groups, n)
+            fh.write(footer + struct.pack("<I", len(footer)) + _MAGIC)
+            size = pos + len(footer) + 8
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise
+    if times is not None:
+        times["compress"] = times.get("compress", 0.0) + compress_s
     return size

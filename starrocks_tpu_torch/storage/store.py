@@ -9,9 +9,11 @@ the other wrote:
   every INSERT produces an immutable *rowset* = one data file per non-empty
   (partition, bucket). A data file is one parquet file, written by the
   port's own writer (storage/formats/parquet_write.py: the Arrow types the
-  reference's `_to_arrow` gives, uncompressed) and read by its own reader
-  (storage/formats/parquet.py), which also reads the reference's files
-  (pyarrow's, SNAPPY). NULL slots read back as zeros, as the reference's
+  reference's `_to_arrow` gives, in the layout of pyarrow's defaults:
+  SNAPPY pages, a dictionary per column chunk, row groups of up to 2^20
+  rows) and read by its own reader (storage/formats/parquet.py), which also
+  reads the reference's files and the port's older UNCOMPRESSED ones. NULL
+  slots read back as zeros, as the reference's
   parquet read-back gives them. Directories the port wrote before it wrote
   parquet hold ``.npz`` files (numpy's zip of ``.npy`` arrays, read with
   pickling off), which still read.
@@ -430,6 +432,7 @@ class TabletStore:
         pos[order] = np.arange(n, dtype=np.int64) - np.repeat(
             starts[:-1], counts)
         t1 = time.perf_counter()
+        times = []  # each file's codec seconds (list.append is atomic)
 
         def one(g):
             p = None if part is None else int(g // nb)
@@ -437,7 +440,7 @@ class TabletStore:
             suffix = "" if p is None else f"_part_{p}"
             fname = f"rowset_{rid}{suffix}_bucket_{b}{FILE_EXT}"
             sl = _slice_table(data, order[starts[g]:starts[g + 1]])
-            self._write_file(name, fname, sl)
+            times.append(self._write_file(name, fname, sl))
             meta = {
                 "file": fname,
                 "bucket": b,
@@ -456,11 +459,16 @@ class TabletStore:
         st = self.last_write_stats
         st["bucket_s"] = st.get("bucket_s", 0.0) + t1 - t0
         st["write_s"] = st.get("write_s", 0.0) + time.perf_counter() - t1
+        st["compress_s"] = st.get("compress_s", 0.0) + sum(
+            t.get("compress", 0.0) for t in times)
         return files, (grp, pos)
 
-    def _write_file(self, name: str, fname: str, data: HostTable):
-        """Write one data file atomically (temporary name, then rename)."""
-        write_table(data, os.path.join(self._tdir(name), fname))
+    def _write_file(self, name: str, fname: str, data: HostTable) -> dict:
+        """Write one data file atomically (temporary name, then rename);
+        the seconds it spent compressing, as {"compress": s}."""
+        times: dict = {}
+        write_table(data, os.path.join(self._tdir(name), fname), times=times)
+        return times
 
     def rewrite_table(self, name: str, data: HostTable, record: bool = True) -> int:
         """Atomically replace a table's rows (DELETE/TRUNCATE rewrite): the
@@ -901,21 +909,22 @@ class TabletStore:
         return [sp.name for sp in ParquetFile(path).specs]
 
     def _read_file(self, name: str, fmeta: dict, want, schema: Schema,
-                   apply_delvec: bool = True) -> dict:
+                   apply_delvec: bool = True, times=None) -> dict:
         """{column: (values, validity or None, dictionary or None)} of the
         `want` columns of one data file, delete vector applied. A column
         the file does not hold (added after it was written, or dropped and
         added again) reads back as NULL. A `.parquet` file (this store's,
         or the JAX package's written through pyarrow) is read by the
         port's parquet reader, an `.npz` one (the port's format before
-        parquet) by numpy."""
+        parquet) by numpy. A list `times` gains a parquet file's reader
+        times (ParquetFile.times)."""
         path = os.path.join(self._tdir(name), fmeta["file"])
         live_cols = fmeta.get("cols")
         n = int(fmeta["rows"])
         if path.endswith(".npz"):
             got = _read_npz(path, want, live_cols)
         else:
-            got = _read_parquet(path, want, live_cols, schema)
+            got = _read_parquet(path, want, live_cols, schema, times)
         keep = None
         dv = fmeta.get("delvec")
         if apply_delvec and dv:
@@ -1010,10 +1019,21 @@ class TabletStore:
             out = _empty_table(sub)
             return (out, stats) if with_stats else out
         want = list(columns) if columns else [f.name for f in schema]
-        parts = _pmap(lambda fm: self._read_file(name, fm, want, schema),
-                      chosen)
+        times = []  # each parquet file's reader times
+        t0 = time.perf_counter()
+        parts = _pmap(lambda fm: self._read_file(name, fm, want, schema,
+                                                 times=times), chosen)
+        t1 = time.perf_counter()
         out = _concat_parts(parts, want, schema)
-        return (out, stats) if with_stats else out
+        # thread-seconds over the files: reading their bytes, decompressing,
+        # decoding the rest; then the wall of the files' reads and of the
+        # merge into one table
+        read = sum(t["read"] for t in times)
+        split = dict(
+            read_s=read, decompress_s=sum(t["decompress"] for t in times),
+            decode_s=sum(t["values"] for t in times) - read,
+            files_wall_s=t1 - t0, concat_s=time.perf_counter() - t1)
+        return (out, {**stats, **split}) if with_stats else out
 
 
 # --- the primary index --------------------------------------------------------
@@ -1254,14 +1274,15 @@ def _read_npz(path: str, want, live_cols) -> dict:
     return out
 
 
-def _read_parquet(path: str, want, live_cols, schema: Schema) -> dict:
+def _read_parquet(path: str, want, live_cols, schema: Schema,
+                  times=None) -> dict:
     """{column: (values, validity or None, dictionary or None)} of the
     `want` columns a parquet data file holds, in the layout the JAX
     package's `HostTable.from_arrow` and `_conform` give of the same file:
     VARCHAR as int32 codes into the file's dictionary (a fixed-width
     unicode array), ARRAY as [rows, K+1] lanes (K the file's longest
     list, at least 1), HLL/BITMAP as an int8 row per value, NULL rows as
-    zeros."""
+    zeros. A list `times` gains the reader's times."""
     pf = ParquetFile(path)
     names = [sp.name for sp in pf.specs]
     have = set(names if live_cols is None else live_cols)
@@ -1269,6 +1290,8 @@ def _read_parquet(path: str, want, live_cols, schema: Schema) -> dict:
     if not cols:
         return {}
     got = pf.read(cols, codes=True)
+    if times is not None:
+        times.append(pf.times)
     specs = {sp.name: sp for sp in pf.specs}
     out = {}
     for c in cols:

@@ -1,7 +1,7 @@
 """Make the data directories the store-format tests and chip_smoke.py open.
 
     JAX_PLATFORMS=cpu python tests/data/torch_store/make_store_dirs.py \
-        [--npz-tree DIR]
+        [--npz-tree DIR] [--uncompressed-tree DIR]
 
 - `reference_dir/`: a data directory the JAX package writes (its parquet
   rowsets through pyarrow, the journal, the manifests and the
@@ -13,9 +13,17 @@
   PyTorch port at DIR, a checkout of a commit whose TabletStore wrote
   `.npz` rowsets (58c45b7 and before), run in a child process with DIR
   first on the import path.
+- `uncompressed_dir/` (with `--uncompressed-tree`): the same, by a port
+  whose TabletStore wrote UNCOMPRESSED parquet with PLAIN numeric pages and
+  one row group (0b903f7 to ca9e01a).
 
 `--compare-bytes` prints the data files' bytes of the same statements as
-written by each package, and writes nothing here.
+written by each package (`reference_snappy`, `port`), and writes nothing
+here. `--tpch-bytes SF [--port-tree DIR]` prints the bytes of each TPC-H
+table at SF as one parquet file, pyarrow's defaults over the JAX
+package's `_to_arrow` (its store's files) against the port's
+`write_table` (of this checkout, or of DIR, run in a child process). The committed port directories stay as they were written: they
+hold the reading of older files.
 
 Needs the JAX package and pyarrow (and the old tree for `--npz-tree`);
 nothing that reads these directories does.
@@ -155,8 +163,9 @@ def _data_bytes(d: str) -> dict:
 
 def _compare_bytes() -> dict:
     """The data files' bytes of reference_dir's statements written by the
-    JAX package (SNAPPY parquet) and by the port (UNCOMPRESSED parquet),
-    in a temporary directory."""
+    JAX package (pyarrow's defaults: SNAPPY, dictionary pages) and by the
+    port (its own writer, in the same layout but for VARCHAR's sorted
+    dictionaries), in a temporary directory."""
     import tempfile
 
     from starrocks_tpu_torch.runtime.session import Session
@@ -167,13 +176,54 @@ def _compare_bytes() -> dict:
         _reference_session(ref)
         _write(Session(device="cpu", data_dir=port), tpch_catalog)
         out = {"sf": SF, "reference_snappy": _data_bytes(ref),
-               "port_uncompressed": _data_bytes(port)}
-    for k in ("reference_snappy", "port_uncompressed"):
+               "port": _data_bytes(port)}
+    for k in ("reference_snappy", "port"):
         out[k]["total"] = sum(out[k].values())
     return out
 
 
-def _npz_dir(out: str):
+def _port_tpch_files(sf: float, out: str):
+    """Each TPC-H table at `sf` as one file under `out`, written by the
+    port on the import path."""
+    from starrocks_tpu_torch.storage.catalog import tpch_catalog
+    from starrocks_tpu_torch.storage.formats.parquet_write import (
+        write_table)
+
+    for name, h in tpch_catalog(sf=sf, seed=SEED).tables.items():
+        write_table(h.table, os.path.join(out, f"{name}.parquet"))
+
+
+def _tpch_bytes(sf: float, tree) -> dict:
+    """{table: (pyarrow's bytes, the port's bytes, ratio)}, one file per
+    table, and the totals."""
+    import tempfile
+
+    import pyarrow.parquet as pq
+
+    from starrocks_tpu.storage.catalog import tpch_catalog
+    from starrocks_tpu.storage.store import _to_arrow
+
+    tree = os.path.abspath(tree or REPO)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=tree)
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--write-tpch", tmp, "--sf", str(sf)],
+                       env=env, check=True, cwd=tree)
+        for name, h in tpch_catalog(sf=sf, seed=SEED).tables.items():
+            ref = os.path.join(tmp, f"{name}.pyarrow")
+            pq.write_table(_to_arrow(h.table), ref)
+            a = os.path.getsize(ref)
+            b = os.path.getsize(os.path.join(tmp, f"{name}.parquet"))
+            out[name] = (a, b, round(b / a, 3))
+    a, b = (sum(v[i] for v in out.values()) for i in (0, 1))
+    out["total"] = (a, b, round(b / a, 3))
+    return {"sf": sf, "port_tree": tree, "pyarrow_port_ratio": out}
+
+
+def _port_dir(out: str, ext: str):
+    """STATEMENTS written at `out` by the port on the import path, whose
+    data files must end in `ext`."""
     from starrocks_tpu_torch.runtime.session import Session
 
     shutil.rmtree(out, ignore_errors=True)
@@ -182,31 +232,53 @@ def _npz_dir(out: str):
         s.sql(text)
     files = [f for _, _, fs in os.walk(out) for f in fs
              if f.startswith("rowset_")]
-    assert files and all(f.endswith(".npz") for f in files), files
+    assert files and all(f.endswith(ext) for f in files), files
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--npz-tree", default=None,
                     help="a checkout whose port writes .npz rowsets")
+    ap.add_argument("--uncompressed-tree", default=None,
+                    help="a checkout whose port writes UNCOMPRESSED parquet")
+    ap.add_argument("--tpch-bytes", type=float, default=None, metavar="SF",
+                    help="print each TPC-H table's bytes as one file, "
+                    "pyarrow's defaults against the port's writer")
+    ap.add_argument("--port-tree", default=None,
+                    help="with --tpch-bytes: a checkout whose writer to use")
     ap.add_argument("--write-npz", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--write-tpch", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--sf", type=float, default=SF, help=argparse.SUPPRESS)
+    ap.add_argument("--write-parquet", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--compare-bytes", action="store_true",
                     help="print both packages' data-file bytes for the "
                     "same statements; write nothing here")
     args = ap.parse_args(argv)
     if args.write_npz:
-        _npz_dir(args.write_npz)
+        _port_dir(args.write_npz, ".npz")
+        return 0
+    if args.write_parquet:
+        _port_dir(args.write_parquet, ".parquet")
+        return 0
+    if args.write_tpch:
+        _port_tpch_files(args.sf, args.write_tpch)
         return 0
     sys.path.insert(0, REPO)
     if args.compare_bytes:
         print(json.dumps(_compare_bytes()))
         return 0
+    if args.tpch_bytes:
+        print(json.dumps(_tpch_bytes(args.tpch_bytes, args.port_tree)))
+        return 0
     _reference_dir(os.path.join(HERE, "reference_dir"))
-    if args.npz_tree:
-        env = dict(os.environ, PYTHONPATH=os.path.abspath(args.npz_tree))
-        subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--write-npz", os.path.join(HERE, "npz_dir")],
-                       env=env, check=True, cwd=args.npz_tree)
+    for tree, flag, out in ((args.npz_tree, "--write-npz", "npz_dir"),
+                            (args.uncompressed_tree, "--write-parquet",
+                             "uncompressed_dir")):
+        if tree:
+            env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            flag, os.path.join(HERE, out)],
+                           env=env, check=True, cwd=tree)
     return 0
 
 

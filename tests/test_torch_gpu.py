@@ -1475,9 +1475,9 @@ def test_external_parquet_on_card_matches_cpu(cuda, tmp_path):
             d.mkdir()
             n = orders.num_rows
             for i in range(3):
-                chip_smoke._write_parquet(
+                chip_smoke.ingest_parquet(
                     orders, str(d / f"part-{i}.parquet"), n * i // 3,
-                    n * (i + 1) // 3, 2)
+                    n * (i + 1) // 3)
         s.sql(f"CREATE EXTERNAL TABLE orders FROM '{d}'")
 
     got, want = _load_both(tmp_path, load)

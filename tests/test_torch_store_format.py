@@ -157,7 +157,7 @@ def test_port_files_read_in_pyarrow_and_manifests_equal(tmp_path, script):
                     for f in tb.schema]), a
         meta = pq.ParquetFile(a).metadata
         assert meta.num_row_groups == 1
-        assert meta.row_group(0).column(0).compression == "UNCOMPRESSED"
+        assert meta.row_group(0).column(0).compression == "SNAPPY"
 
 
 def test_the_two_repros(tmp_path):

@@ -180,14 +180,24 @@ allocated when it started. Phases, each of which must pass:
    PARTITION BY window W2 and the range-exchange sort O1) cold, and those
    of DIST_WARM warm too, under the kernel strategies, then under
    `auto`, then Q3 and Q5 cold under the hash kernels; the 8 shards run in lockstep in this process,
-   on the one card. Counts set to 0 and peak memory reset before each
-   run; each keeps its wall, peak, launches, fragments, exchanges and
+   spread over the visible cards (parallel/mesh.shard_devices: all on
+   cuda:0 with one card); the cards and each shard's card are printed.
+   Counts set to 0 and peak memory reset before each
+   run; each keeps its wall, peak, launches (and per card), fragments,
+   exchanges and
    exchange rows and bytes. Rows must equal the single-shard Session's
    (exactly, floats to 6 significant digits, S1/S2's f32 cells to a
    relative 1e-4; tied ORDER BY rows as a multiset); all five kernels must
-   launch; the fragment stats must be non-zero. Then the cluster
-   sub-phase at SF 1: ClusterRuntime(n_workers=2, shards=2) with its
-   worker processes on the same card runs Q3 cold and warm, rows
+   launch, on every card that holds shards; the fragment stats must be
+   non-zero; every placed input must sit on its shard's device. Then the
+   dist_mixed sub-phase: DIST_QUERIES cold at SF 0.1 (the CPU tests'
+   lowered thresholds) over the explicit mixed mesh (cuda:0, cpu) x 4,
+   under the kernel strategies (Q1 and S2 not: CUTS) and under `auto`,
+   rows equal to the
+   single-shard Session's, every placed input on its shard's device,
+   the kernels launched on cuda:0 only. Then the cluster
+   sub-phase at SF 1: ClusterRuntime(n_workers=2, shards=2), worker i on
+   cuda:(i % cards) (its card printed), runs Q3 cold and warm, rows
    equal to the in-process path's, at least 3 fragments on the workers.
 8d. serve (the serving planes), in a child process of its own (this
    script with --serve-child) started with the port's lock-order witness
@@ -427,7 +437,10 @@ CUTS = ["tpch, breadth, functions and ssb: no traced warm runs (earlier "
         "kernels; "
         "the kernels timed at the largest per-shard shape of each",
         "the untraced cold and warm runs and every kernel check stay, but "
-        "for the warm runs named above"]
+        "for the warm runs named above",
+        "dist_mixed: Q1 and S2 under `auto` only (MIXED_AUTO_ONLY; under "
+        "the kernel strategies their CPU shards' one-hot operands took 8.3 "
+        "and 9.5 s on the host; tests/test_torch_gpu.py runs them)"]
 TOPN_SF = 1.0  # Q2's top-N scale (see phase_hash_topn)
 CPU_SF = 0.1   # the card-vs-CPU phase's scale (the CPU runs it too)
 CPU_SPILL_ROWS = 1 << 17  # its spill queries' batch budget
@@ -2625,9 +2638,16 @@ def phase_dist(rec, cat, sf):
     gc.collect()
     torch.cuda.empty_cache()
     launches = dict.fromkeys(kernels.WRAPPERS, 0)
+    per_card = {n: {} for n in kernels.WRAPPERS}
     shapes = {n: set() for n in kernels.WRAPPERS}
     queries: dict = {}
     s8 = Session(cat, device=CARD, dist_shards=DIST_SHARDS)
+    mesh = s8._executor().mesh
+    out["cards"] = [str(d) for d in mesh.cards]
+    out["shard_cards"] = [str(d) for d in mesh.devices]
+    log(f"dist: {DIST_SHARDS} shards on {len(mesh.cards)} of "
+        f"{torch.cuda.device_count()} cards {out['cards']}; shard s on "
+        f"{out['shard_cards']}")
     runs = [(st, run, q) for st in ("kernels", "auto")
             for run in ("cold", "warm") for q in DIST_QUERIES
             if run == "cold" or q in DIST_WARM]
@@ -2654,6 +2674,9 @@ def phase_dist(rec, cat, sf):
                 launches[n] += v
                 if v:
                     shapes[n].update(kernels.WRAPPERS[n].shapes)
+            for n, cards in kernels.launches_per_card().items():
+                for c, v in cards.items():
+                    per_card[n][c] = per_card[n].get(c, 0) + v
             prof = _prof_view(res.profile)
             ctr = prof.get("counters", {})
             r = queries.setdefault(f"{q}@{strategy}", {})[run] = {
@@ -2686,12 +2709,28 @@ def phase_dist(rec, cat, sf):
         set_knobs(strategies("auto"))
     out["queries"] = queries
     out["launches"] = launches
+    out["launches_per_card"] = per_card
     out["shapes"] = {n: sorted(v) for n, v in shapes.items()}
-    log(f"dist: launches {launches}, kernel shapes {out['shapes']}")
+    log(f"dist: launches {launches}, per card {per_card}, kernel shapes "
+        f"{out['shapes']}")
     for n, v in launches.items():
         if not v:
             failures.append(f"{n} did not launch on the dist path")
+    cards_used = {c for v in per_card.values() for c in v}
+    if cards_used != set(out["cards"]):
+        failures.append(f"the kernels launched on {sorted(cards_used)}, "
+                        f"the shards sit on {out['cards']}")
+    errs = _placement_errors(s8)
+    if errs:
+        failures.append(f"dist placement: {errs[:5]}")
     del s8
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        out["mixed"] = _dist_mixed(failures)
+    except Exception as e:  # the phase fails below, with the reason
+        traceback.print_exc()
+        failures.append(f"dist_mixed: {type(e).__name__}: {e}")
     gc.collect()
     torch.cuda.empty_cache()
     try:
@@ -2702,6 +2741,110 @@ def phase_dist(rec, cat, sf):
     rec["dist"] = out
     if failures:
         raise PhaseError(f"dist: {failures}")
+
+
+def _placement_errors(s) -> list:
+    """Every input the Session's DistExecutor placed for the plans it ran,
+    walked shard by shard against its mesh (each shard's tensors on its
+    shard's device, REPLICATED ones on the home device)."""
+    from starrocks_tpu_torch.runtime.dist_executor import placement_errors
+
+    ex = s._executor()
+    errs = []
+    for _ir, scans_meta in list(ex._frag_ir_memo.values()):
+        errs += placement_errors(ex._place(scans_meta), ex.mesh)
+    return errs
+
+
+# the dist_mixed sub-phase: DIST_QUERIES cold at this scale over the mesh
+# MIXED_MESH, under the CPU tests' lowered thresholds (every TPC-H table
+# but nation and region sharded, the large group-bys shuffled)
+MIXED_SF = 0.1
+MIXED_MESH = ("cuda:0", "cpu") * 4
+MIXED_THRESHOLDS = {"SHARD_THRESHOLD_ROWS": 10_000,
+                    "SHUFFLE_AGG_MIN_GROUPS": 4_000}
+# run under `auto` only (CUTS): under the kernel strategies their CPU
+# shards build the one-hot operands on the host, 8.3 and 9.5 s of the
+# sub-phase's 32.3 on an H100 host (PERF.md); the `gpu` tests run them
+MIXED_AUTO_ONLY = ("Q1", "S2")
+
+
+def _dist_mixed(failures) -> dict:
+    """The dist_mixed sub-phase: a DistExecutor over the explicit mixed
+    mesh (cuda:0, cpu) x 4, where every exchange crosses devices, every
+    REPLICATED value is needed on both and the CPU shards take the plain
+    versions; DIST_QUERIES at MIXED_SF cold under the kernel strategies
+    (but MIXED_AUTO_ONLY) and then under `auto` (each in a Session of its
+    own), rows equal to
+    the single-shard card Session's, every placed input on its shard's
+    device after each query, the kernels launched on cuda:0 only."""
+    import gc
+
+    import starrocks_tpu_torch.sql.distributed as D
+    import torch
+
+    from starrocks_tpu_torch.ops import kernels
+    from starrocks_tpu_torch.runtime.dist_executor import DistExecutor
+    from starrocks_tpu_torch.runtime.session import Session
+    from starrocks_tpu_torch.storage.catalog import tpch_catalog
+    from starrocks_tpu_torch.storage.tpch_queries import DIST_QUERIES
+
+    out = {"sf": MIXED_SF, "mesh": list(MIXED_MESH), "queries": {}}
+    old = {k: getattr(D, k) for k in MIXED_THRESHOLDS}
+    t0 = time.perf_counter()
+    try:
+        for k, v in MIXED_THRESHOLDS.items():
+            setattr(D, k, v)
+        cat = tpch_catalog(sf=MIXED_SF, seed=42)
+        set_knobs(strategies("auto"))
+        one = Session(cat, device=CARD)
+        want = {q: one.sql(t).table for q, t in DIST_QUERIES.items()}
+        del one
+        per_card: dict = {}
+        for strategy in ("kernels", "auto"):
+            s = Session(cat, device=CARD, dist_shards=DIST_SHARDS)
+            s._dist_executor = DistExecutor(cat, mesh=MIXED_MESH,
+                                            device_cache=s.cache)
+            set_knobs(strategies(strategy))
+            kernels.reset_counts()
+            for q, text in DIST_QUERIES.items():
+                if strategy == "kernels" and q in MIXED_AUTO_ONLY:
+                    continue
+                t = time.perf_counter()
+                table = s.sql(text).table
+                wall = time.perf_counter() - t
+                out["queries"][f"{q}@{strategy}"] = {
+                    "wall_s": wall, "rows": table.num_rows}
+                rel = (DIST_REL.get(q, 1e-6) if strategy != "auto"
+                       else 1e-6)
+                if not _dist_agree(q, table, want[q], rel):
+                    failures.append(f"{q}@mixed-{strategy}: rows differ "
+                                    "from the single-shard path's")
+                errs = _placement_errors(s)
+                if errs:
+                    failures.append(f"{q}@mixed-{strategy} placement: "
+                                    f"{errs[:3]}")
+            for n, cards in kernels.launches_per_card().items():
+                for c, v in cards.items():
+                    per_card.setdefault(n, {})[c] = (
+                        per_card.get(n, {}).get(c, 0) + v)
+            del s
+            gc.collect()
+    finally:
+        set_knobs(strategies("auto"))
+        for k, v in old.items():
+            setattr(D, k, v)
+    out["launches_per_card"] = per_card
+    out["wall_s"] = time.perf_counter() - t0
+    cards = {c for v in per_card.values() for c in v}
+    if cards - {"cuda:0"} or not per_card.get("segment_sum"):
+        failures.append(f"dist_mixed: kernel launches per card {per_card}")
+    log(f"  dist_mixed: {len(out['queries'])} runs over {MIXED_MESH} at SF "
+        f"{MIXED_SF:g} in {out['wall_s']:.1f} s, launches per card "
+        f"{per_card}")
+    del cat
+    torch.cuda.empty_cache()
+    return out
 
 
 def _dist_cluster(failures) -> dict:
@@ -2750,7 +2893,8 @@ def _dist_cluster(failures) -> dict:
     finally:
         s.catalog.cluster_runtime = None
         cr.stop()
-    log(f"  cluster: started in {out['start_s']:.1f} s, {out['stats']}")
+    log(f"  cluster: started in {out['start_s']:.1f} s, worker cards "
+        f"{out['stats']['devices']}, {out['stats']}")
     if out["stats"]["fragments_total"] < 3:
         failures.append(f"cluster: {out['stats']['fragments_total']} "
                         "fragments ran on the workers")

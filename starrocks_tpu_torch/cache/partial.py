@@ -90,7 +90,8 @@ def try_partial_cached(executor, plan, profile):
     bucket = executor.cache.program_bucket(("qcache_partial", plan))
     node = profile_node(profile, "qcache_partial")
     node.set_info("segments", len(seg_metas))
-    dev = executor.cache.device
+    # one device: the executor's home (a mesh's shard 0 card)
+    dev = executor.home_device
     stats = {}
 
     def attempt(caps, p):

@@ -204,7 +204,8 @@ def runtime_filter_mask(probe: Chunk, build: Chunk, probe_keys, build_keys,
         for pk, _, _, _ in packed:
             idx = pk - lo
             in_range = (idx >= 0) & (idx < size)
-            masks.append(in_range & (present[idx.clamp(0, size - 1)] == 1))
+            here = present if axis is None else axis.to(present, pk.device)
+            masks.append(in_range & (here[idx.clamp(0, size - 1)] == 1))
     else:
         bmin = [torch.where(b_ok, bk, _I64MAX).min()
                 for _, _, bk, b_ok in packed]
@@ -217,7 +218,12 @@ def runtime_filter_mask(probe: Chunk, build: Chunk, probe_keys, build_keys,
         # An all-NULL (or empty) build leaves bmin > bmax: the mask is
         # all-false, the intended INNER/SEMI semantics (an empty key set
         # matches nothing).
-        masks = [(pk >= bmin) & (pk <= bmax) for pk, _, _, _ in packed]
+        if axis is not None:  # the merged bounds, on each probe's device
+            masks = [(pk >= axis.to(bmin, pk.device))
+                     & (pk <= axis.to(bmax, pk.device))
+                     for pk, _, _, _ in packed]
+        else:
+            masks = [(pk >= bmin) & (pk <= bmax) for pk, _, _, _ in packed]
     if axis is None:
         return masks[0]
     return _per_probe(probe, masks)
@@ -272,8 +278,9 @@ def bloom_filter_mask(probe: Chunk, build: Chunk, probe_keys, build_keys,
               for p, b in _shard_pairs(probe, build)]
     bitset = bloom_build_bitset([k[2] for k in packed],
                                 [k[3] for k in packed], bits, axis)
-    return _per_probe(probe, [bloom_probe_bitset(bitset, pk, p_ok)
-                              for pk, p_ok, _, _ in packed])
+    return _per_probe(probe, [
+        bloom_probe_bitset(axis.to(bitset, pk.device), pk, p_ok)
+        for pk, p_ok, _, _ in packed])
 
 
 def dense_semi_anti_mask(probe: Chunk, build: Chunk, probe_keys, build_keys,

@@ -19,8 +19,9 @@ counts kernel launches only, so a run on the card shows that the main path
 went through the kernels; `<wrapper>.last_shape` keeps the sizes of the
 latest call and `<wrapper>.shapes` those of every call since the counts were
 last reset, so a benchmark can time a kernel at the shapes a query gave it.
-`hash_probe.routes` counts its launches by route ("direct", "partitioned":
-csrc/hash_table.cu), `hash_build.last_deferred` holds the latest build's
+`<wrapper>.per_card` counts its launches by card ("cuda:1": a launch
+runs on the card of its tensors, under a device guard), `hash_probe.routes`
+its launches by route ("direct", "partitioned": csrc/hash_table.cu), `hash_build.last_deferred` holds the latest build's
 per-slice count of keys inserted past their slice, and
 `topn_select.last_listed` the latest launch's count of blocks sent to the
 top-N kernel's 64-bit pass and to its pair kernel (device tensors).
@@ -187,6 +188,14 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _on_card(t: torch.Tensor):
+    """The device guard of a launch: the CUDA runtime's current device is
+    `t`'s card while the library runs, so its attribute calls
+    (cudaFuncSetAttribute, cudaGetDevice) act on the card whose stream it
+    launches on."""
+    return torch.cuda.device(t.device)
+
+
 def _check_vector(t: torch.Tensor, dtype: torch.dtype, what: str):
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{what}: expected a tensor, got {type(t).__name__}")
@@ -212,6 +221,7 @@ def _route(t: torch.Tensor, what: str) -> bool:
 def _counted(fn):
     fn.calls = 0
     fn.launches = 0
+    fn.per_card = {}
     fn.last_shape = None
     fn.shapes = set()
     return fn
@@ -229,11 +239,14 @@ def _called(fn, shape):
         fn.shapes.add(shape)
 
 
-def _launched(fn, route=None):
+def _launched(fn, route=None, on: torch.Tensor | None = None):
     """Count one kernel launch of wrapper `fn` (and of `route`, for the
-    hash probe's per-route counts)."""
+    hash probe's per-route counts), on the card of tensor `on`."""
+    card = None if on is None else str(on.device)
     with _count_lock:
         fn.launches += 1
+        if card is not None:
+            fn.per_card[card] = fn.per_card.get(card, 0) + 1
         if route is not None:
             fn.routes[route] += 1
 
@@ -243,6 +256,7 @@ def reset_counts():
         for w in WRAPPERS.values():
             w.calls = 0
             w.launches = 0
+            w.per_card = {}
             w.last_shape = None
             w.shapes = set()
         hash_build.last_deferred = None
@@ -255,6 +269,12 @@ def counts() -> dict:
     with _count_lock:
         return {n: {"calls": w.calls, "launches": w.launches}
                 for n, w in WRAPPERS.items()}
+
+
+def launches_per_card() -> dict:
+    """{wrapper name: {card: launches}} since the counts were last reset."""
+    with _count_lock:
+        return {n: dict(w.per_card) for n, w in WRAPPERS.items()}
 
 
 # --- the hash kernels' partitioned layout ------------------------------------
@@ -409,12 +429,14 @@ def hash_build(keys: torch.Tensor, table_size: int):
     skey = torch.empty((n,), dtype=torch.int64, device=dev)
     srow = torch.empty((n,), dtype=torch.int32, device=dev)
     work = torch.empty((lay.work_ints,), dtype=torch.int32, device=dev)
-    rc = lib.sr_hash_build(keys.data_ptr(), n, tkey.data_ptr(),
-                           trow.data_ptr(), table_size, lay.slice_log2,
-                           int(lay.hist_smem > 0), skey.data_ptr(),
-                           srow.data_ptr(), work.data_ptr(), _stream(keys))
+    with _on_card(keys):
+        rc = lib.sr_hash_build(keys.data_ptr(), n, tkey.data_ptr(),
+                               trow.data_ptr(), table_size, lay.slice_log2,
+                               int(lay.hist_smem > 0), skey.data_ptr(),
+                               srow.data_ptr(), work.data_ptr(),
+                               _stream(keys))
     _check_launch(lib, rc, "hash_build")
-    _launched(hash_build)
+    _launched(hash_build, on=keys)
     hash_build.last_deferred = work[3 * lay.partitions:4 * lay.partitions]
     return tkey, trow
 
@@ -474,9 +496,10 @@ def hash_probe(table_key: torch.Tensor, table_row: torch.Tensor,
                          "bytes (the partitioned probe copies whole slices)")
     lib = _lib("hash_table")
     if lay.probe_route == "direct":
-        rc = lib.sr_hash_probe(table_key.data_ptr(), table_row.data_ptr(), t,
-                               probe.data_ptr(), m, out.data_ptr(),
-                               _stream(probe))
+        with _on_card(probe):
+            rc = lib.sr_hash_probe(table_key.data_ptr(), table_row.data_ptr(),
+                                   t, probe.data_ptr(), m, out.data_ptr(),
+                                   _stream(probe))
     else:
         _check_smem("hash_probe", max(lay.probe_smem, lay.probe_scatter_smem))
         # the keys by slice; where each probe went, then the answers by
@@ -485,13 +508,14 @@ def hash_probe(table_key: torch.Tensor, table_row: torch.Tensor,
         skey = torch.empty((places,), dtype=torch.int64, device=dev)
         sints = torch.empty((m + places,), dtype=torch.int32, device=dev)
         fill = torch.empty((lay.partitions,), dtype=torch.int32, device=dev)
-        rc = lib.sr_hash_probe_partitioned(
-            table_key.data_ptr(), table_row.data_ptr(), t, probe.data_ptr(),
-            m, out.data_ptr(), lay.slice_log2, lay.halo, lay.probe_cap,
-            skey.data_ptr(), sints.data_ptr(), fill.data_ptr(),
-            _stream(probe))
+        with _on_card(probe):
+            rc = lib.sr_hash_probe_partitioned(
+                table_key.data_ptr(), table_row.data_ptr(), t,
+                probe.data_ptr(), m, out.data_ptr(), lay.slice_log2,
+                lay.halo, lay.probe_cap, skey.data_ptr(), sints.data_ptr(),
+                fill.data_ptr(), _stream(probe))
     _check_launch(lib, rc, "hash_probe")
-    _launched(hash_probe, lay.probe_route)
+    _launched(hash_probe, lay.probe_route, on=probe)
     return out
 
 
@@ -532,10 +556,11 @@ def topn_select(neg: torch.Tensor, k: int):
     # two counts and two lists of blocks, those the 32-bit keys cannot
     # order and those too wide for 64-bit keys (csrc/topn_select.cu)
     wide = torch.empty((2 + 2 * nb,), dtype=torch.int32, device=neg.device)
-    rc = lib.sr_topn_select(neg.data_ptr(), n, k, vals.data_ptr(),
-                            idx.data_ptr(), wide.data_ptr(), _stream(neg))
+    with _on_card(neg):
+        rc = lib.sr_topn_select(neg.data_ptr(), n, k, vals.data_ptr(),
+                                idx.data_ptr(), wide.data_ptr(), _stream(neg))
     _check_launch(lib, rc, "topn_select")
-    _launched(topn_select)
+    _launched(topn_select, on=neg)
     topn_select.last_listed = wide[:2]
     return vals, idx
 
@@ -627,12 +652,13 @@ def probe_searchsorted(sorted_build: torch.Tensor, probe: torch.Tensor):
     index, levels = probe_index(sorted_build)
     offs = (_I64 * len(levels))(*[off for _, _, off in levels])
     out = torch.empty((n,), dtype=torch.int32, device=probe.device)
-    rc = lib.sr_probe_searchsorted(sorted_build.data_ptr(), k,
-                                   probe.data_ptr(), n, out.data_ptr(),
-                                   index.data_ptr(), offs, len(levels),
-                                   levels[-1][1], _stream(probe))
+    with _on_card(probe):
+        rc = lib.sr_probe_searchsorted(sorted_build.data_ptr(), k,
+                                       probe.data_ptr(), n, out.data_ptr(),
+                                       index.data_ptr(), offs, len(levels),
+                                       levels[-1][1], _stream(probe))
     _check_launch(lib, rc, "probe_searchsorted")
-    _launched(probe_searchsorted)
+    _launched(probe_searchsorted, on=probe)
     return out
 
 
@@ -727,11 +753,13 @@ def segment_sum(gid: torch.Tensor, vals: torch.Tensor, num_groups: int,
                           device=vals.device)
     out = torch.empty((num_groups, m), dtype=torch.float32,
                       device=vals.device)
-    rc = lib.sr_segment_sum(gid.data_ptr(), vals.data_ptr(), n, m,
-                            num_groups, ctas, rows, warps,
-                            partial.data_ptr(), out.data_ptr(), _stream(vals))
+    with _on_card(vals):
+        rc = lib.sr_segment_sum(gid.data_ptr(), vals.data_ptr(), n, m,
+                                num_groups, ctas, rows, warps,
+                                partial.data_ptr(), out.data_ptr(),
+                                _stream(vals))
     _check_launch(lib, rc, "segment_sum")
-    _launched(segment_sum)
+    _launched(segment_sum, on=vals)
     return out
 
 

@@ -48,8 +48,9 @@ def dist_aggregate(local_chunks, group_by, aggs, mesh, partial_groups: int,
         merged = all_gather_chunk([p for p, _ in parts], mesh)
         out, ng = hash_aggregate(merged, final_group_by, final_aggs,
                                  final_groups, mode=FINAL)
-        zero = torch.zeros((), dtype=torch.int64, device=merged.device)
-        return out, ng, tuple(zero for _ in parts), partial_ng
+        zeros = tuple(torch.zeros((), dtype=torch.int64, device=p.device)
+                      for p, _ in parts)
+        return out, ng, zeros, partial_ng
     cap = bucket_capacity or max(partial_groups, 16)
     merged, max_bucket = shuffle_chunk([p for p, _ in parts], key_cols, mesh,
                                        cap)
@@ -73,8 +74,11 @@ def broadcast_join(probe_chunks, build_chunks, probe_keys, build_keys, mesh,
     build_n = build_all.num_rows()
     if build_capacity is not None:
         build_all, build_n = compact(build_all, build_capacity)
-    joined = tuple(
-        hash_join_unique(p, build_all, probe_keys, build_keys, join_type,
-                         payload=payload, bit_widths=bit_widths)
-        for p in probe_chunks)
+    # the build side once on each device of the probe's shards
+    with mesh.replicas():
+        joined = tuple(
+            hash_join_unique(p, mesh.to(build_all, dev), probe_keys,
+                             build_keys, join_type, payload=payload,
+                             bit_widths=bit_widths)
+            for p, dev in zip(probe_chunks, mesh.local_devices))
     return joined, build_n

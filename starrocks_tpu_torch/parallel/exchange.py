@@ -15,7 +15,9 @@ with the same row order as the JAX collectives:
   overflow check the host reacts to (the adaptive-dop analog).
 
 Every function takes the per-shard Chunks this process holds (a tuple, in
-shard order) and the Mesh.
+shard order, shard j on the mesh's `local_devices[j]`) and the Mesh. A
+gathered result lands on the home device; each receiver of a HASH or RANGE
+exchange gets its rows on its own device.
 """
 
 from __future__ import annotations
@@ -33,13 +35,15 @@ def _umod(x: torch.Tensor, n: int) -> torch.Tensor:
     return ((shr64(x, 1) % n) * 2 + (x & 1)) % n
 
 
-def _col(xs, fill):
+def _col(xs, fill, devs):
     """One column over the shards: None when every shard has None, else
-    each shard's tensor (a None shard materialized as `fill`)."""
+    each shard's tensor (a None shard materialized as `fill` on its
+    shard's device, `devs`)."""
     if all(x is None for x in xs):
         return None
     like = next(x for x in xs if x is not None)
-    return [torch.full_like(like, fill) if x is None else x for x in xs]
+    return [torch.full(like.shape, fill, dtype=like.dtype, device=d)
+            if x is None else x for x, d in zip(xs, devs)]
 
 
 def all_gather_chunk(chunks, mesh) -> Chunk:
@@ -48,15 +52,15 @@ def all_gather_chunk(chunks, mesh) -> Chunk:
     chunks = tuple(chunks)
     c0 = chunks[0]
     mesh.note_move("all_gather", c0.capacity)
-    coll = mesh.coll
-    data = tuple(coll.all_gather([c.data[i] for c in chunks])
+    devs = mesh.local_devices
+    data = tuple(mesh.all_gather([c.data[i] for c in chunks])
                  for i in range(len(c0.data)))
     valid = []
     for i in range(len(c0.valid)):
-        v = _col([c.valid[i] for c in chunks], True)
-        valid.append(None if v is None else coll.all_gather(v))
-    sel = coll.all_gather([c.sel_mask() for c in chunks])
-    return Chunk(c0.schema, data, tuple(valid), sel, c0.device)
+        v = _col([c.valid[i] for c in chunks], True, devs)
+        valid.append(None if v is None else mesh.all_gather(v))
+    sel = mesh.all_gather([c.sel_mask() for c in chunks])
+    return Chunk(c0.schema, data, tuple(valid), sel, mesh.device)
 
 
 def shuffle_bucket(chunk: Chunk, key_exprs, n_shards: int) -> torch.Tensor:
@@ -118,18 +122,19 @@ def _exchange_by_bucket(chunks, buckets, mesh, bucket_capacity: int):
                             x.dtype).reshape(
                     (n, bucket_capacity) + tuple(x.shape[1:]))
                 for x, d, o in zip(cols, dests, orders)]
-        return mesh.coll.all_to_all(bufs)
+        return mesh.all_to_all(bufs)
 
+    devs = mesh.local_devices
     data = [a2a([c.data[i] for c in chunks], 0) for i in range(len(c0.data))]
     valid = []
     for i in range(len(c0.valid)):
-        v = _col([c.valid[i] for c in chunks], True)
+        v = _col([c.valid[i] for c in chunks], True, devs)
         valid.append(None if v is None else a2a(v, False))
     sel = a2a(oks, False, sorted_already=True)
     out = tuple(
         Chunk(c0.schema, tuple(d[j] for d in data),
               tuple(None if v is None else v[j] for v in valid), sel[j],
-              c0.device)
+              devs[j])
         for j in range(len(sel)))
     return out, tuple(maxes)
 
@@ -158,13 +163,14 @@ def range_partition_chunk(chunks, ranks, mesh, bucket_capacity: int,
         rs.append(r)
     # every shard sees every sample: all derive IDENTICAL splitters (empty
     # shards contribute `big`, a balance issue only)
-    ss = torch.sort(mesh.coll.all_gather(samples)).values
+    ss = torch.sort(mesh.all_gather(samples)).values
     n = mesh.n
     total = n * sample_per_shard
     pick = (torch.arange(1, n, device=ss.device) * total) // n
     splitters = ss[pick].contiguous()
     buckets = []
     for c, r in zip(chunks, rs):
-        b = torch.searchsorted(splitters, r.contiguous(), side="left")
+        b = torch.searchsorted(mesh.to(splitters, r.device), r.contiguous(),
+                               side="left")
         buckets.append(torch.where(c.sel_mask(), b.to(torch.int32), n))
     return _exchange_by_bucket(chunks, buckets, mesh, bucket_capacity)

@@ -6,18 +6,27 @@ BackendSelector). The JAX package runs one SPMD program over a
 jax.sharding.Mesh; this port runs the same program in LOCKSTEP over a tuple
 of per-shard Chunks:
 
+- the mesh holds one device per shard (`Mesh.devices`, the counterpart of
+  the JAX Mesh's device array). A Session on `cuda` spreads its shards
+  over the visible cards in consecutive blocks (`shard_devices`); on one
+  card, on `cuda:<i>` or on the CPU every shard shares one device;
 - a SHARDED value is a tuple of the shards this process holds, one Chunk
-  each, all on the Session's device; a REPLICATED value is one Chunk, held
-  once (the JAX program computes it redundantly on every shard);
+  each, shard s on `devices[s]`; a REPLICATED value is one Chunk on the
+  home device (`Mesh.device`, shard 0's), held once (the JAX program
+  computes it redundantly on every shard). A per-shard op that takes a
+  REPLICATED input reads a copy on its shard's device: `Mesh.to`, one
+  copy per device and value for a program's run (`Mesh.replicas`);
 - the collectives go through one small interface with two implementations:
-  `InProcess` (every shard in this process, on one device: NCCL will not
-  put two ranks on one GPU) and `Gloo` (a
+  `InProcess` (every shard in this process, on its own device: blocks
+  travel between cards as blocking peer copies) and `Gloo` (a
   torch.distributed process group spanning processes, set up by
   `runtime.cluster.init_multihost`; each process holds its slice of the
-  shards and stages device tensors through host memory, the transport gloo
-  runs on).
+  shards on its own card and stages device tensors through host memory,
+  the transport gloo runs on).
 
 Collective inputs are lists of the LOCAL shards' tensors, in shard order.
+Gathered and reduced results land on the home device; an all_to_all
+delivers each receiver's rows on the receiver's device.
 """
 
 from __future__ import annotations
@@ -33,6 +42,51 @@ from ..column.column import Chunk, pad_capacity
 DATA_AXIS = "d"  # the mesh's one axis (the JAX package's name)
 
 
+def shard_devices(n: int, device, count: int) -> tuple:
+    """The device of each of n shards (the JAX Mesh's device array). A
+    `cuda` device without an index spreads the shards over the first k of
+    `count` visible cards, k the largest divisor of n that is at most
+    `count`, in consecutive blocks: shard s on `cuda:(s // (n // k))`. A
+    device with an index (`cuda:1`) or the CPU holds every shard."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or dev.index is not None:
+        return (dev,) * n
+    if count < 1:
+        raise RuntimeError("a cuda mesh needs a visible card; none is")
+    k = max(d for d in range(1, min(n, count) + 1) if n % d == 0)
+    per = n // k
+    return tuple(torch.device("cuda", s // per) for s in range(n))
+
+
+def indexed_device(device) -> torch.device:
+    """`device` with its card's index: a bare `cuda` is the current card
+    (tensors report indexed devices, so placements compare against
+    these)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def device_runs(devices) -> list:
+    """[(device, first, count)]: the runs of equal consecutive devices of a
+    shard sequence (a one-device mesh is one run)."""
+    runs: list = []
+    for i, d in enumerate(devices):
+        if runs and runs[-1][0] == d:
+            runs[-1][2] += 1
+        else:
+            runs.append([d, i, 1])
+    return [tuple(r) for r in runs]
+
+
+def _move(x, device):
+    """A tensor on `device`: itself when it is there, else a blocking copy
+    (a copy between two cards orders itself against both cards' current
+    streams)."""
+    return x if x is None or x.device == device else x.to(device)
+
+
 def _wire(x: torch.Tensor) -> torch.Tensor:
     """bool lanes travel as uint8 (gloo has no bool reductions)."""
     return x.to(torch.uint8) if x.dtype == torch.bool else x
@@ -40,7 +94,9 @@ def _wire(x: torch.Tensor) -> torch.Tensor:
 
 class InProcess:
     """Every shard in this process: the collectives are plain torch ops
-    over the shard tuple."""
+    over the shard tuple, with blocking copies between the shards'
+    devices. `home` is the device a gathered or reduced result lands on,
+    `devs` the local shards' devices."""
 
     world = 1
     rank = 0
@@ -49,19 +105,20 @@ class InProcess:
         self.n = n_shards
         self.local = tuple(range(n_shards))
 
-    def all_gather(self, xs) -> torch.Tensor:
+    def all_gather(self, xs, home) -> torch.Tensor:
         """lax.all_gather(tiled=True): the shards concatenated in order."""
-        return torch.cat(list(xs))
+        return torch.cat([_move(x, home) for x in xs])
 
-    def all_to_all(self, xs) -> list:
+    def all_to_all(self, xs, devs) -> list:
         """lax.all_to_all(split_axis=0, concat_axis=0, tiled=False) over
         [n, C, ...] send buffers: shard j receives block (i, j) from every
-        source i, in order of i, as one [n*C, ...] tensor."""
+        source i, in order of i, as one [n*C, ...] tensor on its device."""
         n = self.n
-        return [torch.cat([xs[i][j] for i in range(n)]) for j in range(n)]
+        return [torch.cat([_move(xs[i][j], devs[j]) for i in range(n)])
+                for j in range(n)]
 
-    def reduce(self, xs, op: str) -> torch.Tensor:
-        return _reduce_stack(torch.stack(list(xs)), op)
+    def reduce(self, xs, op: str, home) -> torch.Tensor:
+        return _reduce_stack(torch.stack([_move(x, home) for x in xs]), op)
 
 
 def _reduce_stack(s: torch.Tensor, op: str) -> torch.Tensor:
@@ -77,8 +134,9 @@ def _reduce_stack(s: torch.Tensor, op: str) -> torch.Tensor:
 class Gloo:
     """A torch.distributed process group over gloo: `world` processes, each
     holding n / world consecutive shards. Every collective copies its
-    device tensors to host memory, runs there and copies the result back
-    (gloo's collectives run on CPU tensors)."""
+    device tensors to host memory, runs there and copies each result to
+    the device of the local shard it belongs to (gloo's collectives run on
+    CPU tensors)."""
 
     def __init__(self, n_shards: int, group=None):
         import torch.distributed as dist
@@ -94,19 +152,18 @@ class Gloo:
         nl = n_shards // self.world
         self.local = tuple(range(self.rank * nl, (self.rank + 1) * nl))
 
-    def all_gather(self, xs) -> torch.Tensor:
-        dev = xs[0].device
-        mine = _wire(torch.cat(list(xs))).cpu()
+    def all_gather(self, xs, home) -> torch.Tensor:
+        mine = _wire(torch.cat([x.cpu() for x in xs]))
         parts = [torch.empty_like(mine) for _ in range(self.world)]
         self._dist.all_gather(parts, mine, group=self.group)
         out = torch.cat(parts)
         if xs[0].dtype == torch.bool:
             out = out.to(torch.bool)
-        return out.to(dev)
+        return out.to(home)
 
-    def all_to_all(self, xs) -> list:
+    def all_to_all(self, xs, devs) -> list:
         nl, w = len(self.local), self.world
-        dev, dtype = xs[0].device, xs[0].dtype
+        dtype = xs[0].dtype
         block = xs[0].shape[1:]  # [C, ...]
         # send[p, i, j]: local source i's block for global shard p*nl + j
         send = torch.stack([_wire(x).cpu().reshape((w, nl) + block)
@@ -119,16 +176,17 @@ class Gloo:
             r = recv[:, :, j].reshape((self.n * block[0],) + block[1:])
             if dtype == torch.bool:
                 r = r.to(torch.bool)
-            out.append(r.to(dev))
+            out.append(r.to(devs[j]))
         return out
 
-    def reduce(self, xs, op: str) -> torch.Tensor:
-        dev, dtype = xs[0].device, xs[0].dtype
-        mine = _wire(_reduce_stack(torch.stack(list(xs)), op)).cpu().clone()
+    def reduce(self, xs, op: str, home) -> torch.Tensor:
+        dtype = xs[0].dtype
+        mine = _wire(_reduce_stack(torch.stack([x.cpu() for x in xs]),
+                                   op)).clone()
         rop = {"sum": self._dist.ReduceOp.SUM, "max": self._dist.ReduceOp.MAX,
                "min": self._dist.ReduceOp.MIN}[op]
         self._dist.all_reduce(mine, op=rop, group=self.group)
-        return mine.to(dtype).to(dev)
+        return mine.to(dtype).to(home)
 
 
 class Dry:
@@ -144,34 +202,53 @@ class Dry:
         self.n = n_shards
         self.local = (0,)
 
-    def all_gather(self, xs) -> torch.Tensor:
+    def all_gather(self, xs, home) -> torch.Tensor:
         return torch.cat(list(xs) * self.n)
 
-    def all_to_all(self, xs) -> list:
+    def all_to_all(self, xs, devs) -> list:
         x = xs[0]
         return [x.reshape((self.n * x.shape[1],) + tuple(x.shape[2:]))]
 
-    def reduce(self, xs, op: str) -> torch.Tensor:
+    def reduce(self, xs, op: str, home) -> torch.Tensor:
         return xs[0]
 
 
 class Mesh:
-    """n shards on one device. `coll` is the collective backend; `local`
-    the global ids of the shards this process holds. `moves` counts each
-    collective's calls and the per-shard capacities it moved (a test hook:
-    the JAX package's tests read the same facts from HLO)."""
+    """n shards, shard s on `devices[s]`. `device` may name one device for
+    every shard or give one per shard; `device` then is the home device,
+    the device of this process's first shard (shard 0 in one process),
+    where REPLICATED values and gathered results live. `coll` is the
+    collective backend; `local` the global ids of the shards this process
+    holds. `moves` counts each collective's calls and the per-shard
+    capacities it moved (a test hook: the JAX package's tests read the
+    same facts from HLO). A card that does not exist raises here."""
 
     def __init__(self, n_shards: int, device, coll=None):
         self.n = int(n_shards)
-        self.device = torch.device(device)
+        if isinstance(device, (tuple, list)):
+            devices = tuple(indexed_device(d) for d in device)
+            if len(devices) != self.n:
+                raise ValueError(f"{len(devices)} devices for {self.n} shards")
+        else:
+            devices = (indexed_device(device),) * self.n
+        for d in set(devices):
+            if d.type == "cuda" and not (
+                    torch.cuda.is_available()
+                    and d.index < torch.cuda.device_count()):
+                raise RuntimeError(f"mesh device {d} is not a visible card")
+        self.devices = devices
         self.coll = coll if coll is not None else InProcess(self.n)
         if self.coll.n != self.n:
             raise ValueError("collective backend sized for another mesh")
         self.local = self.coll.local
+        self.local_devices = tuple(devices[s] for s in self.local)
+        self.device = self.local_devices[0]
         self.moves: dict = {}
         # per-thread observer of the reductions (analysis/trace_check.py's
-        # counter audit of a program's first run)
+        # counter audit of a program's first run), and per-thread copies
+        # of REPLICATED values on other devices (see `replicas`)
         self._obs = threading.local()
+        self._rep = threading.local()
 
     def note_move(self, kind: str, rows: int):
         moved = self.moves.setdefault(kind, [])
@@ -180,6 +257,18 @@ class Mesh:
 
     def reset_moves(self):
         self.moves = {}
+
+    @property
+    def cards(self) -> tuple:
+        """The distinct devices of this process's shards, in shard order."""
+        return tuple(dict.fromkeys(self.local_devices))
+
+    # collectives over a per-shard sequence of this process's tensors
+    def all_gather(self, xs) -> torch.Tensor:
+        return self.coll.all_gather(list(xs), self.device)
+
+    def all_to_all(self, xs) -> list:
+        return self.coll.all_to_all(list(xs), self.local_devices)
 
     # reductions over a per-shard sequence (psum / pmax / pmin)
     def psum(self, xs):
@@ -193,7 +282,7 @@ class Mesh:
 
     def _reduce(self, xs, op: str):
         xs = list(xs)
-        out = self.coll.reduce(xs, op)
+        out = self.coll.reduce(xs, op, self.device)
         fn = getattr(self._obs, "fn", None)
         if fn is not None:
             fn(op, len(xs), len(self.local), out)
@@ -210,6 +299,49 @@ class Mesh:
         finally:
             self._obs.fn = prev
 
+    @contextlib.contextmanager
+    def replicas(self):
+        """A program's run: while it is open, `to` copies each value to
+        each device once on this thread (a REPLICATED build side exists
+        once per card, not once per shard). Nested runs share the
+        outermost's copies."""
+        if getattr(self._rep, "memo", None) is not None:
+            yield
+            return
+        self._rep.memo = {}
+        try:
+            yield
+        finally:
+            self._rep.memo = None
+
+    def to(self, value, device):
+        """`value` (a Chunk or a tensor) on `device`: itself where it
+        already is, else a blocking copy, memoized per tensor and device
+        inside `replicas`. Any other value (None, a number) is itself."""
+        if isinstance(value, torch.Tensor):
+            if value.device == device:
+                return value
+            memo = getattr(self._rep, "memo", None)
+            if memo is None:
+                return value.to(device)
+            key = (id(value), device)
+            hit = memo.get(key)
+            if hit is None:
+                # the source rides along: its id stays unique in the memo
+                hit = memo[key] = (value, value.to(device))
+            return hit[1]
+        if not isinstance(value, Chunk):
+            return value
+        c = value
+        data = tuple(self.to(d, device) for d in c.data)
+        valid = tuple(self.to(v, device) for v in c.valid)
+        sel = self.to(c.sel, device)
+        if (c.device == device and sel is c.sel
+                and all(a is b for a, b in zip(data + valid,
+                                               c.data + c.valid))):
+            return c
+        return Chunk(c.schema, data, valid, sel, device)
+
     def host_max(self, vals: dict) -> dict:
         """Merge {key: int} maxima of this process's shards across
         processes (one collective); identity on a one-process mesh."""
@@ -217,32 +349,46 @@ class Mesh:
             return vals
         keys = sorted(vals)
         t = torch.tensor([int(vals[k]) for k in keys], dtype=torch.int64)
-        t = self.coll.reduce([t], "max")
+        t = self.coll.reduce([t], "max", torch.device("cpu"))
         return dict(zip(keys, t.tolist()))
 
     def __repr__(self):
         return (f"Mesh(n={self.n}, local={self.local}, device={self.device}, "
-                f"{type(self.coll).__name__})")
+                f"cards={self.cards}, {type(self.coll).__name__})")
 
 
 # multi-process state set by runtime.cluster.init_multihost
 _PROCESS = {"local_shards": None}
 
 
-def make_mesh(n_devices: int | None = None, *, device) -> Mesh:
-    """A mesh of n shards on `device`, which the caller names (a Session
-    passes its own). After `cluster.init_multihost` the mesh spans every
-    process of the group (n defaults to processes x local shards);
-    otherwise every shard lives in this process (n is required)."""
+def make_mesh(n_devices: int | None = None, *, device=None,
+              devices=None) -> Mesh:
+    """A mesh of n shards, placed on `device`, which the caller names (a
+    Session passes its own): a bare `cuda` spreads the shards over the
+    visible cards (`shard_devices`), any other device holds them all. Or
+    on `devices`, one per shard, as the JAX Mesh takes any device array
+    (n defaults to their number). After `cluster.init_multihost` the mesh
+    spans every process of the group (n defaults to processes x local
+    shards), and this process's shards share its own card; otherwise
+    every shard lives in this process (n is required)."""
     import torch.distributed as dist
 
+    if device is None and devices is None:
+        raise TypeError("make_mesh needs device= or devices=")
+    if devices is not None:
+        devices = tuple(devices)
+        n_devices = n_devices or len(devices)
     if dist.is_available() and dist.is_initialized():
         per = _PROCESS["local_shards"] or 1
         n = n_devices or per * dist.get_world_size()
-        return Mesh(n, device, Gloo(n))
+        return Mesh(n, devices or device, Gloo(n))
     if not n_devices:
         raise ValueError("an in-process mesh needs its shard count")
-    return Mesh(n_devices, device, InProcess(n_devices))
+    if devices is None:
+        count = (torch.cuda.device_count() if torch.cuda.is_available()
+                 else 0)
+        devices = shard_devices(n_devices, device, count)
+    return Mesh(n_devices, devices, InProcess(n_devices))
 
 
 def mesh_spans_processes(mesh: Mesh) -> bool:
@@ -253,19 +399,32 @@ def mesh_spans_processes(mesh: Mesh) -> bool:
 def shard_host_table(table, mesh: Mesh):
     """Row-shard a HostTable: every shard gets equal capacity
     pad_capacity(ceil(rows / n)), rows in order, the tail padded; the
-    selection mask marks the real rows. Returns this process's shards."""
+    selection mask marks the real rows. Returns this process's shards,
+    each on its own device: one upload per run of shards that share a
+    device, and each shard a view of its run's."""
     n = mesh.n
     rows = table.num_rows
     local_cap = pad_capacity((rows + n - 1) // n)
-    chunk = table.to_chunk(capacity=local_cap * n, device=mesh.device)
+    chunk = table.to_chunk(capacity=local_cap * n, device="cpu")
     sel = chunk.sel_mask()
+    base = mesh.local[0] * local_cap
     out = []
-    for s in mesh.local:
-        lo, hi = s * local_cap, (s + 1) * local_cap
-        out.append(Chunk(
-            chunk.schema, tuple(d[lo:hi] for d in chunk.data),
-            tuple(None if v is None else v[lo:hi] for v in chunk.valid),
-            sel[lo:hi], mesh.device))
+    for dev, j0, cnt in device_runs(mesh.local_devices):
+        lo = base + j0 * local_cap
+        hi = lo + cnt * local_cap
+
+        def up(x):
+            return None if x is None else x[lo:hi].to(dev)
+
+        data = [up(d) for d in chunk.data]
+        valid = [up(v) for v in chunk.valid]
+        run_sel = up(sel)
+        for j in range(cnt):
+            a, b = j * local_cap, (j + 1) * local_cap
+            out.append(Chunk(
+                chunk.schema, tuple(d[a:b] for d in data),
+                tuple(None if v is None else v[a:b] for v in valid),
+                run_sel[a:b], dev))
     return tuple(out)
 
 

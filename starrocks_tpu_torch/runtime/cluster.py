@@ -49,7 +49,10 @@ def init_multihost(coordinator_address: str, num_processes: int,
     """Join the cross-process group over gloo (`coordinator_address` is
     host:port of rank 0's rendezvous) and return the GLOBAL shard ids.
     Each process then holds `local_device_count` shards (default 1) of the
-    meshes parallel/mesh.make_mesh builds."""
+    meshes parallel/mesh.make_mesh builds, all on its own card where the
+    host has cards: process p's current card becomes `cuda:(p % cards)`,
+    so a mesh on a bare `cuda` puts its shards there."""
+    import torch
     import torch.distributed as dist
 
     from ..parallel import mesh
@@ -58,6 +61,8 @@ def init_multihost(coordinator_address: str, num_processes: int,
         "gloo", init_method=f"tcp://{coordinator_address}",
         world_size=num_processes, rank=process_id)
     mesh._PROCESS["local_shards"] = int(local_device_count or 1)
+    if torch.cuda.is_available():
+        torch.cuda.set_device(process_id % torch.cuda.device_count())
     return tuple(range(num_processes * mesh._PROCESS["local_shards"]))
 
 

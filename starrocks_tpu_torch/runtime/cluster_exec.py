@@ -215,9 +215,15 @@ class ClusterWorker:
                 th["shuffle_agg_min_groups"])
         for k, v in payload.get("knobs", {}).items():
             config.set(k, v, force=True)
-        # the coordinator names the device: a worker never picks one
-        self.sess = Session(dist_shards=self.shards,
-                            device=payload["device"])
+        # the coordinator names the device: a worker never picks one. Its
+        # card becomes the process's current one, so a bare `cuda` there
+        # means that card too
+        import torch
+
+        dev = torch.device(payload["device"])
+        if dev.type == "cuda" and dev.index is not None:
+            torch.cuda.set_device(dev)
+        self.sess = Session(dist_shards=self.shards, device=dev)
         for ddl in payload.get("ddl", ()):
             self.sess.sql(ddl)
         for name, data in payload.get("tables", {}).items():
@@ -259,8 +265,9 @@ class ClusterWorker:
         plan, ir, scans_meta = entry
         fid = int(payload["fid"])
         frag = ir.fragments[fid]
-        dev = self.sess.device
-        bnd = tuple(chunk_from_host(b, dev) for b in payload.get("bnd", ()))
+        mesh = self.de.mesh
+        bnd = tuple(chunk_from_host(b, mesh.device, mesh.local_devices)
+                    for b in payload.get("bnd", ()))
 
         def attempt(caps, p):
             inputs = self.de._place(scans_meta)
@@ -414,6 +421,8 @@ class ClusterRuntime:
         self.auto_respawn = auto_respawn
         self._lock = lockdep.lock("ClusterRuntime._lock")
         self._workers: dict = {}  # guarded_by: _lock — id -> _WorkerHandle
+        # id -> the card named in its bootstrap (kept across respawns)
+        self.devices: dict = {}  # guarded_by: _lock
         self._boot_session = None
         self.retries_total = 0  # lifetime re-placements (bench summary)
         self.fragments_total = 0  # lifetime fragments run to completion
@@ -482,7 +491,28 @@ class ClusterRuntime:
                 return int(line.strip().split("=", 1)[1])
         raise RuntimeError("worker did not report its port in time")
 
-    def _bootstrap_payload(self) -> dict:
+    def worker_device(self, worker_id: str) -> str:
+        """The device worker `worker_id` runs on: on a coordinator with a
+        bare `cuda`, the i-th worker spawned gets `cuda:(i % cards)`; a
+        coordinator on one named card or on the CPU gives its own."""
+        import torch
+
+        with self._lock:
+            dev = self.devices.get(worker_id)
+            if dev is not None:
+                return dev
+            own = self._boot_session.device
+            if own.type == "cuda" and own.index is None:
+                count = torch.cuda.device_count()
+                if count < 1:
+                    raise RuntimeError("a cuda coordinator sees no card")
+                dev = f"cuda:{len(self.devices) % count}"
+            else:
+                dev = str(own)
+            self.devices[worker_id] = dev
+            return dev
+
+    def _bootstrap_payload(self, worker_id: str) -> dict:
         from ..sql import distributed
 
         sess = self._boot_session
@@ -497,7 +527,7 @@ class ClusterRuntime:
         for vname in sorted(sess.catalog.views):
             ddl.append(sess._show_create(vname))
         return {
-            "device": sess.device.type,
+            "device": self.worker_device(worker_id),
             "ddl": ddl, "tables": tables, "versions": versions,
             "knobs": {k: config.get(k) for k in _SHIPPED_KNOBS},
             "thresholds": {
@@ -508,7 +538,7 @@ class ClusterRuntime:
         }
 
     def _bootstrap_worker(self, handle: _WorkerHandle):
-        payload = self._bootstrap_payload()
+        payload = self._bootstrap_payload(handle.worker_id)
         reply = self._request(handle, "BOOTSTRAP", payload,
                               timeout_s=max(120.0, self._timeout_s()))
         if not reply.get("ok"):
@@ -740,12 +770,14 @@ class ClusterRuntime:
         members = self.monitor.members()
         with self._lock:
             n = len(self._workers)
+            devices = dict(self.devices)
         return {
             "workers": n,
             "alive": sum(1 for m in members.values()
                          if m["state"] != DEAD),
             "retries_total": self.retries_total,
             "fragments_total": self.fragments_total,
+            "devices": devices,
         }
 
 

@@ -10,12 +10,15 @@ consumers on the device without a host round-trip. `SET dist_fragments =
 false` runs the WHOLE plan as one program (the A/B anchor: the fragments
 keep the op order and the capacity keys, so both give the same rows).
 
-Shares the Session's DeviceCache (so DML invalidation covers the sharded
-placements too) and the Executor's adaptive overflow loop. Each attempt's
-checks come back as device scalars already maxed over the shards and are
-read in ONE device-to-host copy; a mesh spanning processes then merges
-them across processes in one collective. Profile counters of sharded
-stages are summed over the shards inside the program.
+Shard s runs on the mesh's `devices[s]` (parallel/mesh.py: one card,
+several cards, or a test's mixed tuple); REPLICATED values and the result
+live on the home device. Shares the Session's DeviceCache (so DML
+invalidation covers the sharded placements too) and the Executor's
+adaptive overflow loop. Each attempt's checks come back as device
+scalars already maxed over the shards and are read in ONE device-to-host
+copy; a mesh spanning processes then merges them across processes in one
+collective. Profile counters of sharded stages are summed over the shards
+inside the program.
 """
 
 from __future__ import annotations
@@ -47,10 +50,13 @@ def chunk_to_host(v):
             [h(x) for x in v.valid], h(v.sel))
 
 
-def chunk_from_host(h, device):
-    """chunk_to_host's inverse, onto `device`."""
+def chunk_from_host(h, device, shard_devices=None):
+    """chunk_to_host's inverse: one Chunk onto `device`; a shard tuple
+    onto `shard_devices` (shard j on its j-th entry), or all onto
+    `device`."""
     if isinstance(h, tuple) and h and h[0] != "chunk":
-        return tuple(chunk_from_host(c, device) for c in h)
+        devs = shard_devices or (device,) * len(h)
+        return tuple(chunk_from_host(c, d) for c, d in zip(h, devs))
     _, schema, data, valid, sel = h
 
     def d(x):
@@ -60,12 +66,43 @@ def chunk_from_host(h, device):
                  device)
 
 
-class DistExecutor(Executor):
-    """Executes optimized logical plans over an n-shard mesh."""
+def placement_errors(values, mesh) -> list:
+    """Where placed values are not where the mesh puts them: each shard
+    tuple's j-th Chunk (its tensors and its device) on the mesh's j-th
+    local device, each REPLICATED Chunk on the home device. [] when every
+    value is in place (a check for tests and chip_smoke)."""
+    errs = []
 
-    def __init__(self, catalog, mesh: Mesh | None = None,
+    def check(c, want, what):
+        tensors = [t for t in (*c.data, *c.valid, c.sel) if t is not None]
+        got = {t.device for t in tensors}
+        if c.device != want or got - {want}:
+            errs.append(f"{what}: on {sorted(map(str, got | {c.device}))}, "
+                        f"not {want}")
+
+    for i, v in enumerate(values):
+        if isinstance(v, tuple):
+            if len(v) != len(mesh.local_devices):
+                errs.append(f"input {i}: {len(v)} shards on a mesh of "
+                            f"{len(mesh.local_devices)}")
+            for j, (c, d) in enumerate(zip(v, mesh.local_devices)):
+                check(c, d, f"input {i} shard {mesh.local[j]}")
+        else:
+            check(v, mesh.device, f"input {i} (replicated)")
+    return errs
+
+
+class DistExecutor(Executor):
+    """Executes optimized logical plans over an n-shard mesh: `mesh` is a
+    Mesh or a tuple of devices, one per shard (a test places shards
+    where it likes; no entry point does); without it, n_shards on the
+    cache's device (a bare `cuda` spreads them over the visible cards)."""
+
+    def __init__(self, catalog, mesh: Mesh | tuple | None = None,
                  n_shards: int | None = None, device_cache=None):
         super().__init__(catalog, device_cache)
+        if isinstance(mesh, (tuple, list)):
+            mesh = make_mesh(devices=tuple(mesh))
         self.mesh = mesh or make_mesh(n_shards, device=device_cache.device)
         self.n = self.mesh.n
         # fragment IRs per (plan, scan-mode vector); see _fragment_ir
@@ -115,6 +152,14 @@ class DistExecutor(Executor):
         processes) one cross-process max."""
         return self.mesh.host_max(read_checks(checks))
 
+    @property
+    def home_device(self):
+        return self.mesh.device
+
+    def profile_devices(self) -> tuple:
+        """The mesh's cards, home first (`enable_device_profile`)."""
+        return self.mesh.cards
+
     def _place(self, scans_meta):
         return tuple(
             self.cache.chunk_for(self.catalog.get_table(t), a, cols,
@@ -147,7 +192,8 @@ class DistExecutor(Executor):
                 lifecycle.checkpoint("executor::before_dispatch")
 
                 def run():
-                    out, checks = compiled.fn(inputs)
+                    with self.mesh.replicas():
+                        out, checks = compiled.fn(inputs)
                     return out, checks, self._read(checks)
 
                 with p.timer("run"):
@@ -284,11 +330,14 @@ class DistExecutor(Executor):
             merged: dict = {}
 
             def run():
-                for frag in ir.fragments:
-                    bnd = tuple(outputs[d] for d in frag.deps)
-                    outputs[frag.fid], checks = self.run_fragment(
-                        plan, frag, caps, inputs, bnd, scans_meta, p)
-                    merged.update(checks)
+                # REPLICATED values copied to other cards once for the
+                # whole run: the fragments share the copies
+                with self.mesh.replicas():
+                    for frag in ir.fragments:
+                        bnd = tuple(outputs[d] for d in frag.deps)
+                        outputs[frag.fid], checks = self.run_fragment(
+                            plan, frag, caps, inputs, bnd, scans_meta, p)
+                        merged.update(checks)
                 return None, merged, self._read(merged)
 
             def timed_run():
@@ -347,7 +396,7 @@ class DistExecutor(Executor):
                     blob, fp, frag.fid, bnd, tables, profile)
         self._bind_operators(profile, self._dist_node_ord(plan))
         return chunk_from_host(outputs[ir.fragments[-1].fid],
-                               self.cache.device)
+                               self.mesh.device, self.mesh.local_devices)
 
     @staticmethod
     def _scan_mode_dict(scans_meta, plan):

@@ -90,31 +90,48 @@ class ExecError(RuntimeError):
     pass
 
 
-def _device_profile(p: RuntimeProfile, device, run):
+def _device_profile(p: RuntimeProfile, devices, run):
     """`SET enable_device_profile`: run one attempt's program between two
-    CUDA events and with the device's peak-memory gauge reset, and attach
-    the attempt's device milliseconds and peak allocated bytes to its
-    profile. The reference attaches XLA's cost and memory analysis of the
-    compiled program; an eager program has none, so the port records what
-    the card measured instead. On the CPU the facts do not apply and the
-    profile says so."""
-    if device.type != "cuda":
+    CUDA events and with the peak-memory gauges reset, and attach the
+    attempt's device milliseconds and peak allocated bytes to its profile.
+    `devices` are the cards the attempt runs on (a mesh's, home first):
+    each is synchronised before the start and before the end event, so the
+    time covers the work of every card, and each card's peak is reported
+    (`device_memory` keeps the home card's, `device_memory_per_card`
+    every card's). The reference attaches XLA's cost and memory analysis
+    of the compiled program; an eager program has none, so the port
+    records what the cards measured instead. On the CPU the facts do not
+    apply and the profile says so."""
+    cards = [d for d in devices if d.type == "cuda"]
+    if not cards:
         p.set_info("device_profile", "not applicable: cpu tensors")
         return run()
-    torch.cuda.synchronize(device)
-    before = torch.cuda.memory_allocated(device)
-    torch.cuda.reset_peak_memory_stats(device)
+    before = {}
+    # lint: checkpoint-exempt — one synchronize per card of the mesh, around an attempt the lifecycle already checkpoints
+    for d in cards:
+        torch.cuda.synchronize(d)
+        before[d] = torch.cuda.memory_allocated(d)
+        torch.cuda.reset_peak_memory_stats(d)
+    home = cards[0]
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    with torch.cuda.device(home):
+        start.record()
     out = run()
-    end.record()
+    # lint: checkpoint-exempt — one synchronize per card of the mesh, after the attempt's own checkpoints
+    for d in cards[1:]:
+        torch.cuda.synchronize(d)
+    with torch.cuda.device(home):
+        end.record()
     end.synchronize()
     p.set_info("device_time_ms", start.elapsed_time(end))
-    p.set_info("device_memory", {
-        "allocated_before_bytes": int(before),
-        "peak_allocated_bytes": int(torch.cuda.max_memory_allocated(device)),
-    })
+    per = {str(d): {
+        "allocated_before_bytes": int(before[d]),
+        "peak_allocated_bytes": int(torch.cuda.max_memory_allocated(d)),
+    } for d in cards}
+    p.set_info("device_memory", per[str(home)])
+    if len(cards) > 1:
+        p.set_info("device_memory_per_card", per)
     return out
 
 
@@ -301,9 +318,11 @@ class DeviceCache:
         pad_capacity(ceil(rows / n)); ("hash", col) puts the rows whose
         splitmix64 bucket of col is i on shard i (the device shuffle's
         recipe: colocate joins), each shard padded to the largest; the
-        selection mask marks the real rows. "replicated" is one Chunk. The
-        full layout is copied to the device once and every shard is a
-        view of it."""
+        selection mask marks the real rows. Shard s lands on the mesh's
+        `devices[s]`: each run of shards that share a device is copied
+        there once and every shard is a view of its run (a one-device
+        mesh: one copy of the full layout). "replicated" is one Chunk on
+        the mesh's home device. The devices join the cache keys."""
         # scan-load stage boundary: cancellable, failpoint-injectable, and
         # the placed buffers feed the memory accountant below
         fail_point("scan::chunk_to_device")
@@ -319,7 +338,8 @@ class DeviceCache:
             tag = cache_tag or "local"
             cap = pad_capacity(n)
         elif mode == "replicated":
-            tag, cap = "replicated", pad_capacity(n)
+            dev = mesh.device
+            tag, cap = f"replicated@{dev}", pad_capacity(n)
         else:
             from ..parallel.mesh import hash_layout
 
@@ -346,6 +366,13 @@ class DeviceCache:
         # a multi-process mesh materializes only this process's shards
         local = tuple(mesh.local) if n_shards > 1 else (0,)
         lo_row, hi_row = local[0] * shard_cap, (local[-1] + 1) * shard_cap
+        if n_shards > 1:
+            from ..parallel.mesh import device_runs
+
+            runs = device_runs(mesh.local_devices)
+            tag += "@" + ",".join(f"{d}x{c}" for d, _, c in runs)
+        else:
+            runs = [(dev, 0, 1)]
 
         def layout(a, fill):
             """Host layout: padded (range mode) or bucket-slotted (hash
@@ -366,27 +393,41 @@ class DeviceCache:
                     (cap - len(a),) + tail, fill, dtype=a.dtype)])
             return a[lo_row:hi_row]
 
-        def put(a, fill):
-            return torch.from_numpy(
-                np.ascontiguousarray(layout(a, fill))).to(dev)
+        # one cache entry per run of shards on one device
+        rtags = [tag] if len(runs) == 1 else [f"{tag}#{r}"
+                                              for r in range(len(runs))]
 
-        fields, data, valid = [], [], []
+        def put(h, r):
+            """Run r's rows of the host layout `h`, on its device."""
+            d, j0, c = runs[r]
+            h = h[j0 * shard_cap:(j0 + c) * shard_cap]
+            return torch.from_numpy(np.ascontiguousarray(h)).to(d)
+
+        fields = []
+        data = [[] for _ in runs]
+        valid = [[] for _ in runs]
         for c in columns:
-            key = (handle.name, c, tag)
-            entry = None
-            if cacheable:
-                with self._lock:
-                    entry = self._cols.get(key)
-            if entry is None:
-                # the copy to the device runs outside the lock; the first
-                # writer wins
-                v = ht.valids.get(c)
-                entry = (put(ht.arrays[c], 0),
-                         None if v is None else put(v, False))
+            hosts: list = []  # the column's host layouts, made at most once
+            for r, rtag in enumerate(rtags):
+                key = (handle.name, c, rtag)
+                entry = None
                 if cacheable:
                     with self._lock:
-                        entry = self._cols.setdefault(key, entry)
-            d, v = entry
+                        entry = self._cols.get(key)
+                if entry is None:
+                    # the copy to the device runs outside the lock; the
+                    # first writer wins
+                    if not hosts:
+                        v = ht.valids.get(c)
+                        hosts = [layout(ht.arrays[c], 0),
+                                 None if v is None else layout(v, False)]
+                    entry = (put(hosts[0], r),
+                             None if hosts[1] is None else put(hosts[1], r))
+                    if cacheable:
+                        with self._lock:
+                            entry = self._cols.setdefault(key, entry)
+                data[r].append(entry[0])
+                valid[r].append(entry[1])
             f = ht.schema.field(c)
             st = handle.column_stats(c)
             bounds = (
@@ -395,36 +436,42 @@ class DeviceCache:
             )
             fields.append(
                 dataclasses.replace(f, name=f"{alias}.{c}", bounds=bounds))
-            data.append(d)
-            valid.append(v)
-        skey = (handle.name, tag)
-        sentry = None
-        if cacheable:
-            with self._lock:
-                sentry = self._sel.get(skey)
-        if sentry is None or sentry[0] != cap:
-            if placement is None:
-                sel = None if n == cap else (
-                    torch.arange(cap, device=dev) < n)
-            else:
-                sel = put(np.ones(n, dtype=bool), False)
-            sentry = (cap, sel)
+        sels = []
+        live = None
+        for r, rtag in enumerate(rtags):
+            skey = (handle.name, rtag)
+            sentry = None
             if cacheable:
                 with self._lock:
-                    self._sel[skey] = sentry
+                    sentry = self._sel.get(skey)
+            if sentry is None or sentry[0] != cap:
+                if placement is None:
+                    sel = None if n == cap else (
+                        torch.arange(cap, device=dev) < n)
+                else:
+                    if live is None:
+                        live = layout(np.ones(n, dtype=bool), False)
+                    sel = put(live, r)
+                sentry = (cap, sel)
+                if cacheable:
+                    with self._lock:
+                        self._sel[skey] = sentry
+            sels.append(sentry[1])
         schema = Schema(tuple(fields))
         if n_shards == 1:
-            out = Chunk(schema, tuple(data), tuple(valid), sentry[1], dev)
+            out = Chunk(schema, tuple(data[0]), tuple(valid[0]), sels[0], dev)
             lifecycle.account(out, "scan::chunk_to_device")
             return out
 
-        def view(x, j):
-            return None if x is None else x[j * shard_cap:(j + 1) * shard_cap]
-
-        out = tuple(
-            Chunk(schema, tuple(view(d, j) for d in data),
-                  tuple(view(v, j) for v in valid), view(sentry[1], j), dev)
-            for j in range(len(local)))
+        shards = []
+        for r, (d, _, cnt) in enumerate(runs):
+            for j in range(cnt):
+                a, b = j * shard_cap, (j + 1) * shard_cap
+                shards.append(Chunk(
+                    schema, tuple(x[a:b] for x in data[r]),
+                    tuple(None if x is None else x[a:b] for x in valid[r]),
+                    sels[r][a:b], d))
+        out = tuple(shards)
         lifecycle.account(out, "scan::chunk_to_device")
         return out
 
@@ -487,12 +534,14 @@ class _BucketProgs:
 
 def read_checks(checks: dict) -> dict:
     """{key: int} of an attempt's checks with ONE device-to-host copy: the
-    0-d tensors are stacked on the device and copied together."""
+    0-d tensors are stacked on the device and copied together (checks from
+    other cards first join the first check's device)."""
     out = {k: int(v) for k, v in checks.items()
            if not isinstance(v, torch.Tensor)}
     keys = [k for k, v in checks.items() if isinstance(v, torch.Tensor)]
     if keys:
-        stacked = torch.stack([checks[k].reshape(()).to(torch.int64)
+        dev = checks[keys[0]].device
+        stacked = torch.stack([checks[k].reshape(()).to(torch.int64).to(dev)
                                for k in keys])
         out.update(zip(keys, stacked.cpu().tolist()))
     return out
@@ -1313,8 +1362,19 @@ class Executor:
         """`run()` under `SET enable_device_profile` (the attempt's CUDA
         events and peak bytes on its profile), or plainly."""
         if config.get("enable_device_profile"):
-            return _device_profile(p, self.cache.device, run)
+            return _device_profile(p, self.profile_devices(), run)
         return run()
+
+    @property
+    def home_device(self):
+        """Where this executor's results live (a mesh's home card)."""
+        return self.cache.device
+
+    def profile_devices(self) -> tuple:
+        """The devices an attempt runs on, home first."""
+        from ..parallel.mesh import indexed_device
+
+        return (indexed_device(self.cache.device),)
 
     @staticmethod
     def _bind_operators(profile, node_ord):

@@ -29,7 +29,9 @@ scope.
 A Session runs on the card unless the caller asks for the CPU:
 `Session(catalog)` and `Session(data_dir=...)` put their tensors on `cuda`
 and raise where there is none; `device="cpu"` runs every operator (and
-every kernel's plain torch version) on the CPU. A Session built over a
+every kernel's plain torch version) on the CPU. With `dist_shards=n` on
+`cuda`, the shards spread over every visible card; on `cuda:1` they stay
+on that card. A Session built over a
 shared DeviceCache (`cache=`, the serving tier's per-connection sessions)
 runs on that cache's device. With a `data_dir`, tables
 persist in a TabletStore (storage/store.py) and a new Session over the same
@@ -144,8 +146,11 @@ class Session:
         self.store = store
         self.current_user = "root"  # front doors set this per connection
         self.resource_group = None  # SET resource_group = '...'
-        # dist_shards=n: queries run over an n-shard mesh on this device
-        # (runtime/dist_executor.py), sharing this Session's DeviceCache
+        # dist_shards=n: queries run over an n-shard mesh
+        # (runtime/dist_executor.py), sharing this Session's DeviceCache:
+        # on a bare `cuda` its shards spread over the visible cards
+        # (parallel/mesh.shard_devices), on `cuda:<i>` or the CPU they
+        # share that device
         self.dist_shards = dist_shards
         self._dist_executor = None
         self._in_sql = False

@@ -185,36 +185,10 @@ def _hash_col(mode):
 # --- values over the shards ----------------------------------------------
 
 
-def smap(fn, *vals):
-    """fn over the shards: once per shard when any input is a shard tuple
-    (a REPLICATED input joins every shard's call), else once."""
-    n = next((len(v) for v in vals if isinstance(v, tuple)), None)
-    if n is None:
-        return fn(*vals)
-    return tuple(fn(*(v[i] if isinstance(v, tuple) else v for v in vals))
-                 for i in range(n))
-
-
-def smap2(fn, *vals):
-    """smap for an fn returning a pair: (firsts, seconds) in the inputs'
-    placement."""
-    if not any(isinstance(v, tuple) for v in vals):
-        return fn(*vals)
-    outs = smap(fn, *vals)
-    return tuple(o[0] for o in outs), tuple(o[1] for o in outs)
-
-
 def first(v):
     """A shard's chunk, for what every shard shares (schema, dictionaries,
     capacity)."""
     return v[0] if isinstance(v, tuple) else v
-
-
-def smax(v):
-    """An overflow check over the shards: the max (one device scalar)."""
-    if not isinstance(v, tuple):
-        return v
-    return torch.stack([x.reshape(()).to(torch.int64) for x in v]).max()
 
 
 def compile_distributed(
@@ -230,6 +204,36 @@ def compile_distributed(
     the extra `bnd` argument of step instead of emitting them."""
     n_shards = mesh.n
     scan_modes = scan_modes or plan_scan_modes(plan, catalog)
+
+    def smap(fn, *vals):
+        """fn over the shards: once per shard when any input is a shard
+        tuple (a REPLICATED input joins every shard's call, as its copy on
+        that shard's device: one copy per device inside
+        `mesh.replicas`), else once."""
+        n = next((len(v) for v in vals if isinstance(v, tuple)), None)
+        if n is None:
+            return fn(*vals)
+        devs = mesh.local_devices
+        return tuple(fn(*(v[i] if isinstance(v, tuple)
+                          else mesh.to(v, devs[i]) for v in vals))
+                     for i in range(n))
+
+    def smap2(fn, *vals):
+        """smap for an fn returning a pair: (firsts, seconds) in the
+        inputs' placement."""
+        if not any(isinstance(v, tuple) for v in vals):
+            return fn(*vals)
+        outs = smap(fn, *vals)
+        return tuple(o[0] for o in outs), tuple(o[1] for o in outs)
+
+    def smax(v):
+        """An overflow check over the shards: the max (one device scalar
+        on the home device)."""
+        if not isinstance(v, tuple):
+            return v
+        return torch.stack([x.reshape(()).to(torch.int64).to(mesh.device)
+                            for x in v]).max()
+
     scans: list = []
     node_ord: dict = {}
     # deterministic pre-order ordinals: capacity/check keys (shufL_3,
@@ -682,7 +686,7 @@ def compile_distributed(
                 if rf_mesh is not None:
                     mask = rf(lc, rc)
                 else:
-                    mask = smap(lambda a: rf(a, rc), lc)
+                    mask = smap(rf, lc, rc)
                 lc = smap(lambda x, mk: x.and_sel(mk), lc, mask)
                 pruned = smap(lambda a, x: a - x.num_rows(), n0, lc)
                 if _is_dist(lm):
@@ -822,7 +826,9 @@ def compile_distributed(
                 out = smap(lambda x: filter_chunk(x, pred), out)
             return out, out_mode
 
-        chunk, mode = emit(root_node)
+        # REPLICATED inputs of per-shard calls: one copy per device
+        with mesh.replicas():
+            chunk, mode = emit(root_node)
         # the emit closures form a reference cycle through the memo and
         # the boundary values: drop them now, not when the cyclic
         # collector runs

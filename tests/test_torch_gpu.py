@@ -58,7 +58,13 @@ installed:
 - distribution: Session(dist_shards=8) at SF 0.01 on the card against
   the same 8-shard Session on the CPU, with all five kernels launched;
   and the hash build of a 4096-slot table as a fresh process's first
-  launch (its shared-memory opt-in);
+  launch (its shared-memory opt-in); the mixed mesh (cuda:0, cpu) x 4 at
+  SF 0.1 under the kernel strategies and `auto` against the single-shard
+  Session, every placed shard on its device; the default Session's
+  shards on the cards `shard_devices` names; with two or more cards
+  (else skipped, with the reason), the default Session spread over
+  them, each kernel on cuda:1 against its plain version, and a launch on
+  cuda:0 after a hash build on cuda:1;
 - the serving planes: a ServingTier over a card Session with four client
   threads against the CPU's rows, a query killed after its program ran
   returning the card's allocated memory to its value before it, and the
@@ -1247,6 +1253,196 @@ def test_hash_build_of_4096_slots_first_in_a_process(cuda):
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, env=env, cwd=root)
     assert out.returncode == 0 and "ok" in out.stdout, out.stderr[-2000:]
+
+
+# --- the mesh over several devices ---------------------------------------------
+
+MIXED_MESH = ("cuda:0", "cpu") * 4
+
+
+def _mixed_session(cat):
+    """A card Session whose 8-shard executor runs over the mixed mesh
+    (cuda:0, cpu) x 4: every exchange crosses devices, every REPLICATED
+    value is needed on both, and the CPU shards take the plain versions."""
+    from starrocks_tpu_torch.runtime.dist_executor import DistExecutor
+
+    s = Session(cat, device="cuda", dist_shards=8)
+    s._dist_executor = DistExecutor(cat, mesh=MIXED_MESH,
+                                    device_cache=s.cache)
+    return s
+
+
+def _misplaced(s) -> list:
+    """Every input the executor placed for the plans it ran, walked shard
+    by shard against its mesh (placement_errors)."""
+    from starrocks_tpu_torch.runtime.dist_executor import placement_errors
+
+    ex = s._dist_executor
+    errs = []
+    for _ir, scans_meta in list(ex._frag_ir_memo.values()):
+        errs += placement_errors(ex._place(scans_meta), ex.mesh)
+    return errs
+
+
+@pytest.mark.parametrize("strategy", ["kernels", "auto"])
+def test_dist_mixed_mesh_matches_single_shard(cuda, strategy):
+    """DIST_QUERIES at SF 0.1 over the mixed mesh (cuda:0, cpu) x 4, under
+    the kernel strategies and under `auto`, with the rows of the
+    single-shard card Session (S1/S2's f32 cells to 1e-4 under the
+    kernels), every placed shard on its own device after each query, and
+    under the kernels every launch on cuda:0."""
+    import starrocks_tpu_torch.sql.distributed as D
+    from chip_smoke import tables_agree
+    from starrocks_tpu_torch.storage.tpch_queries import DIST_QUERIES
+
+    old = D.SHARD_THRESHOLD_ROWS, D.SHUFFLE_AGG_MIN_GROUPS
+    D.SHARD_THRESHOLD_ROWS, D.SHUFFLE_AGG_MIN_GROUPS = 10_000, 4_000
+    cat = tpch_catalog(sf=0.1)
+    try:
+        _set(AUTO_STRATEGIES)
+        one = Session(cat, device=cuda)
+        want = {q: one.sql(t).table for q, t in DIST_QUERIES.items()}
+        mixed = _mixed_session(cat)
+        _set(KERNEL_STRATEGIES if strategy == "kernels" else AUTO_STRATEGIES)
+        kernels.reset_counts()
+        for q, text in DIST_QUERIES.items():
+            got = mixed.sql(text).table
+            rel = 1e-4 if strategy == "kernels" and q in ("S1", "S2") else 1e-6
+            assert tables_agree(_sorted_table(got), _sorted_table(want[q]),
+                                rel=rel), q
+            assert mixed.last_profile.infos["fragments"] >= 2, q
+            assert _misplaced(mixed) == [], q
+        per_card = kernels.launches_per_card()
+    finally:
+        _set(AUTO_STRATEGIES)
+        D.SHARD_THRESHOLD_ROWS, D.SHUFFLE_AGG_MIN_GROUPS = old
+    cards = {c for v in per_card.values() for c in v}
+    if strategy == "kernels":
+        assert cards == {"cuda:0"}, per_card
+        assert per_card["segment_sum"] and per_card["probe_searchsorted"]
+    else:
+        assert cards == set(), per_card
+
+
+def test_default_dist_session_places_shards_by_the_rule(cuda):
+    """Session(dist_shards=8) on a bare `cuda`: the shards on the cards
+    `shard_devices` names for this machine's count (all on cuda:0 with one
+    card), its placed inputs there; on `cuda:0` by name, every shard on
+    cuda:0."""
+    from starrocks_tpu_torch.parallel.mesh import shard_devices
+
+    import starrocks_tpu_torch.sql.distributed as D
+
+    old = D.SHARD_THRESHOLD_ROWS
+    D.SHARD_THRESHOLD_ROWS = 10_000  # SF 0.01: lineitem and orders shard
+    cat = tpch_catalog(sf=0.01)
+    try:
+        s = Session(cat, dist_shards=8)
+        mesh = s._executor().mesh
+        assert mesh.devices == shard_devices(8, "cuda",
+                                             torch.cuda.device_count())
+        assert mesh.device == torch.device("cuda", 0)
+        assert s.sql(QUERIES[3]).table.num_rows > 0
+        assert _misplaced(s) == []
+        named = Session(cat, device="cuda:0", dist_shards=8)._executor().mesh
+        assert set(named.devices) == {torch.device("cuda", 0)}
+    finally:
+        D.SHARD_THRESHOLD_ROWS = old
+
+
+@pytest.fixture
+def two_cards(cuda):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more cards; this machine has {n}")
+    return n
+
+
+def test_default_dist_session_spreads_over_the_cards(two_cards):
+    """With two or more cards the default 8-shard Session covers k > 1 of
+    them, and Q3 under the kernel strategies launches on each card that
+    holds a shard, with the single-card Session's rows."""
+    import starrocks_tpu_torch.sql.distributed as D
+    from chip_smoke import tables_agree
+
+    old = D.SHARD_THRESHOLD_ROWS
+    D.SHARD_THRESHOLD_ROWS = 10_000
+    cat = tpch_catalog(sf=0.1)
+    try:
+        want = Session(cat, device="cuda:0", dist_shards=8).sql(
+            QUERIES[3]).table
+        s = Session(cat, dist_shards=8)
+        mesh = s._executor().mesh
+        assert len(mesh.cards) > 1, mesh
+        _set(KERNEL_STRATEGIES)
+        kernels.reset_counts()
+        got = s.sql(QUERIES[3]).table
+        per_card = kernels.launches_per_card()["probe_searchsorted"]
+        config.set("enable_device_profile", True)
+        assert tables_agree(_sorted_table(s.sql(QUERIES[3]).table),
+                            _sorted_table(want))
+        tries = [c for c in s.last_profile.children
+                 if c.name.startswith("attempt_")]
+    finally:
+        config.set("enable_device_profile", False)
+        _set(AUTO_STRATEGIES)
+        D.SHARD_THRESHOLD_ROWS = old
+    assert tables_agree(_sorted_table(got), _sorted_table(want))
+    assert _misplaced(s) == []
+    assert set(per_card) == {str(d) for d in mesh.cards}, per_card
+    # the device profile synchronises every card and reports each peak
+    assert tries and all(c.infos["device_time_ms"] > 0 for c in tries)
+    for c in tries:
+        assert set(c.infos["device_memory_per_card"]) == {
+            str(d) for d in mesh.cards}
+
+
+def test_each_kernel_on_the_second_card_equals_plain(two_cards):
+    """Each of the five kernels launched on cuda:1, on tensors of cuda:1:
+    its answer equals its plain version's and its launch counts on
+    cuda:1."""
+    dev = torch.device("cuda", 1)
+    rng = np.random.default_rng(7)
+    keys = torch.from_numpy(rng.permutation(1 << 20)[:50_000].astype(
+        np.int64) * 7919).to(dev)
+    kernels.reset_counts()
+    tkey, trow = kernels.hash_build(keys, 1 << 17)
+    assert tkey.device == dev
+    probe = torch.cat([keys[:20_000], keys[:5_000] + 1])
+    got = kernels.hash_probe(tkey, trow, probe)
+    want = kernels.hash_probe_plain(tkey, trow, probe)
+    assert torch.equal(got, want)
+    assert torch.equal(got[:20_000].long().cpu(), torch.arange(20_000))
+    neg = torch.from_numpy(rng.integers(-1 << 40, 1 << 40, 1 << 16)).to(dev)
+    v, i = kernels.topn_select(neg, 37)
+    pv, pi = kernels.topn_select_plain(neg, 37)
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+    build = torch.sort(keys).values
+    assert torch.equal(kernels.probe_searchsorted(build, probe),
+                       kernels.probe_searchsorted_plain(build, probe))
+    gid = rng.integers(0, 9, 1 << 16).astype(np.int32)  # 8 = dead rows
+    vals = (rng.random((1 << 16, 3)) * 100).astype(np.float32)
+    out = kernels.segment_sum(torch.from_numpy(gid).to(dev),
+                              torch.from_numpy(vals).to(dev), 8, 1024)
+    assert out.device == dev
+    # the kernel's own order of addition, as on cuda:0: bit for bit, and
+    # within 1e-6 * sum |x| of f64 as the plain version is held
+    assert _within_f64(out, gid, vals, 8)
+    assert np.array_equal(out.cpu().numpy(),
+                          segment_sum_order_model(gid, vals, 8))
+    per_card = kernels.launches_per_card()
+    assert all(set(v) == {"cuda:1"} for v in per_card.values()), per_card
+
+
+def test_hash_build_on_card_1_leaves_card_0_launchable(two_cards):
+    """A hash build on cuda:1 sets its shared-memory opt-in on cuda:1
+    under the launch's device guard: a build of the same size on cuda:0
+    after it still launches and answers."""
+    for d in (1, 0):
+        k = torch.arange(2048, dtype=torch.int64, device=f"cuda:{d}") * 7919
+        t, r = kernels.hash_build(k, 4096)
+        row = kernels.hash_probe(t, r, k)
+        assert torch.equal(row.long().cpu(), torch.arange(2048)), d
 
 
 # --- the serving planes on the card ------------------------------------------

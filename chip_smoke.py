@@ -70,7 +70,8 @@ allocated when it started. Phases, each of which must pass:
    CUTS) and the spilled window (W1). Each
    query runs cold under the kernel strategies in a Session of its own
    (S1 warm too: the batched aggregation takes segment_sum from its
-   second run on), then under `auto` in another, cold (CUTS); launch counts set to 0 and peak
+   second run on), then the batched aggregations (SPILL_AUTO) under
+   `auto` in another, cold (CUTS); launch counts set to 0 and peak
    memory reset before each run. Each run keeps its wall, the executor's
    profile node (batches or partitions, resident, spilled and skew keys,
    host-to-device seconds and bytes, host partition seconds, the host
@@ -178,8 +179,9 @@ allocated when it started. Phases, each of which must pass:
    group-bys take the shuffle; no module global is patched) runs
    DIST_QUERIES (Q1, Q3, Q5, Q6, Q10, Q12, Q14, Q18, Q19, S1, S2, N1, the
    PARTITION BY window W2 and the range-exchange sort O1) cold, and those
-   of DIST_WARM warm too, under the kernel strategies, then under
-   `auto`, then Q3 and Q5 cold under the hash kernels; the 8 shards run in lockstep in this process,
+   of DIST_WARM warm too, under the kernel strategies, then those of
+   DIST_WARM cold and warm under `auto` (CUTS), then Q3 and Q5 cold
+   under the hash kernels; the 8 shards run in lockstep in this process,
    spread over the visible cards (parallel/mesh.shard_devices: all on
    cuda:0 with one card); the cards and each shard's card are printed.
    Counts set to 0 and peak memory reset before each
@@ -199,6 +201,28 @@ allocated when it started. Phases, each of which must pass:
    sub-phase at SF 1: ClusterRuntime(n_workers=2, shards=2), worker i on
    cuda:(i % cards) (its card printed), runs Q3 cold and warm, rows
    equal to the in-process path's, at least 3 fragments on the workers.
+8c'. dist_procs (the process mesh: one process per card): P ranks of this
+   script (--mesh-rank), P the largest divisor of 8 that is at most the
+   card count and 4, or 2 sharing one card; each generates the --sf
+   catalog beside the generate phase and waits. Then the single-shard
+   rows of Q3, Q5, Q18, S1 and N1 (under `auto`), the card's memory
+   freed, and the ranks told to go: each joins one process group
+   (runtime.cluster.init_multihost, local_device_count 8 / P, a group
+   timeout of PROCS_GROUP_TIMEOUT_S), whose backend the rule
+   process_backend picks (NCCL with a card per rank, collectives on the
+   device tensors; gloo on one card, staged through host memory), and
+   runs PROCS_RUNS through Session(dist_shards=8) on its own card: Q3,
+   Q5 and Q18 cold and warm and S1 and N1 cold under the kernel
+   strategies, Q3 and Q5 cold under the hash kernels, Q3, Q5 and Q18
+   cold under `auto`, counts set to 0 and peak memory reset before each.
+   Each rank prints its backend, Mesh.devices, its cards and, per query,
+   the wall, launches per kernel and per card, Mesh.moves and its peak.
+   Fails on a rank that exits non-zero or outlives PROCS_DEADLINE_S
+   (killed; a failed rank's peers are killed at once), rows that differ
+   from the single-shard rows, a kernel that does not launch in every
+   rank on that rank's card alone, Mesh.devices other than rank r's card
+   `cuda:(r % cards)` for each of its shards, or a backend other than
+   the rule's. Nothing is retried over gloo.
 8d. serve (the serving planes), in a child process of its own (this
    script with --serve-child) started with the port's lock-order witness
    on (SR_TPU_LOCK_WITNESS=1), so that every other phase runs and is
@@ -311,7 +335,7 @@ allocated when it started. Phases, each of which must pass:
 
 The last lines of output are the `kernels` JSON line (each kernel's
 `launches` over its first path, the functions, spill, ingest, lake,
-dist, serve and tpcds paths) and
+dist, dist_procs (every rank), serve and tpcds paths) and
 then
 {"ok": true, "device": {...}}; the full record goes to DIR/chip_smoke.json.
 `--phases kernels` (a comma list) runs those phases only, after `device`
@@ -440,7 +464,16 @@ CUTS = ["tpch, breadth, functions and ssb: no traced warm runs (earlier "
         "for the warm runs named above",
         "dist_mixed: Q1 and S2 under `auto` only (MIXED_AUTO_ONLY; under "
         "the kernel strategies their CPU shards' one-hot operands took 8.3 "
-        "and 9.5 s on the host; tests/test_torch_gpu.py runs them)"]
+        "and 9.5 s on the host; tests/test_torch_gpu.py runs them)",
+        "spill: under `auto` the batched aggregations only (SPILL_AUTO: Q1, "
+        "Q6, S1, S2, B7): the hybrid and grace joins, the spilled sort and "
+        "window launch no kernel under either strategy set, and their "
+        "`auto` runs took 23.9 s of PR 18's final run; for the dist_procs "
+        "path",
+        "dist: under `auto` Q3, Q5 and Q18 only (DIST_WARM), cold and warm "
+        "(the other 11 cold runs took 5.0 s of PR 18's final run; every "
+        "query still runs under the kernel strategies); for the dist_procs "
+        "path"]
 TOPN_SF = 1.0  # Q2's top-N scale (see phase_hash_topn)
 CPU_SF = 0.1   # the card-vs-CPU phase's scale (the CPU runs it too)
 CPU_SPILL_ROWS = 1 << 17  # its spill queries' batch budget
@@ -1209,10 +1242,10 @@ def phase_spill(rec, cat, sf):
     """The spill path (see the module docstring, phase 6c): SPILL_QUERIES
     over the TPC-H catalog at `sf` with a 2^23-row batch budget, each cold
     and warm under the kernel strategies in a Session of its own, then
-    under `auto` in another (Q12 also under the grace join; the queries in
-    SPILL_SKIPPED not run); rows equal to the same query's rows
-    without the threshold; SPILL_PARTS_LIVE 0 after every query;
-    segment_sum must launch."""
+    those of SPILL_AUTO under `auto` in another (Q12 also under the grace
+    join; the queries in SPILL_SKIPPED not run); rows equal to the same
+    query's rows without the threshold; SPILL_PARTS_LIVE 0 after every
+    query; segment_sum must launch."""
     import gc
     import resource
 
@@ -1263,7 +1296,7 @@ def phase_spill(rec, cat, sf):
 
 def _spill_runs(texts, want, cat, out, failures):
     """The spill path's runs (phase_spill): each query in a Session of its
-    own, under the kernel strategies, then under `auto`."""
+    own, under the kernel strategies, then (SPILL_AUTO) under `auto`."""
     import gc
 
     import torch
@@ -1278,6 +1311,8 @@ def _spill_runs(texts, want, cat, out, failures):
         launches = dict.fromkeys(kernels.WRAPPERS, 0)
         traces = {}
         for q, text in texts.items():
+            if strategy == "auto" and q not in SPILL_AUTO:
+                continue  # (CUTS)
             executor = SPILL_EXECUTORS[SPILL_GRACE.get(q, q)]
             hybrid = "auto"
             if q in SPILL_GRACE:
@@ -1359,6 +1394,11 @@ SPILL_TRACED = ()
 # batched aggregation launches segment_sum from its second run on, at
 # both of the path's shapes
 SPILL_WARM = ("S1",)
+# the queries also run under `auto` (CUTS): the batched aggregations, whose
+# routes differ between the strategy sets; the hybrid and grace joins, the
+# spilled sort and the spilled window launch no kernel under either, so
+# their `auto` runs repeated their kernel-strategy runs' code
+SPILL_AUTO = ("Q1", "Q6", "S1", "S2", "B7")
 
 
 # TPC-DS (the tpcds path): the generator's seed, and the window operator's
@@ -2611,10 +2651,11 @@ def _dist_agree(q, got, want, rel) -> bool:
 def phase_dist(rec, cat, sf):
     """The distributed path (see the module docstring, phase 8c): a fresh
     Session(dist_shards=8) over the TPC-H catalog at `sf`, DIST_QUERIES
-    cold and warm under the kernel strategies then under `auto`, then
-    DIST_HASH cold under the hash kernels; rows equal to the single-shard
-    Session's; all five kernels must launch; the fragment stats must be
-    non-zero. Then the cluster sub-phase."""
+    cold and DIST_WARM warm under the kernel strategies, DIST_WARM cold
+    and warm under `auto`, then DIST_HASH cold under the hash kernels;
+    rows equal to the single-shard Session's; all five kernels must
+    launch; the fragment stats must be non-zero. Then the cluster
+    sub-phase."""
     import gc
 
     import torch
@@ -2648,9 +2689,10 @@ def phase_dist(rec, cat, sf):
     log(f"dist: {DIST_SHARDS} shards on {len(mesh.cards)} of "
         f"{torch.cuda.device_count()} cards {out['cards']}; shard s on "
         f"{out['shard_cards']}")
+    # under `auto` the DIST_WARM queries alone (CUTS)
     runs = [(st, run, q) for st in ("kernels", "auto")
             for run in ("cold", "warm") for q in DIST_QUERIES
-            if run == "cold" or q in DIST_WARM]
+            if (run == "cold" and st == "kernels") or q in DIST_WARM]
     runs += [("hash", "cold", q) for q in DIST_HASH]
     try:
         for strategy, run, q in runs:
@@ -2902,6 +2944,289 @@ def _dist_cluster(failures) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# --- the process mesh: one process per card ----------------------------------
+
+# the dist_procs phase's runs in each rank: (strategy set, run, query)
+PROCS_RUNS = ([("kernels", "cold", q) for q in ("Q3", "Q5", "Q18", "S1", "N1")]
+              + [("kernels", "warm", q) for q in DIST_WARM]
+              + [("hash", "cold", q) for q in DIST_HASH]
+              + [("auto", "cold", q) for q in DIST_WARM])
+PROCS_GROUP_TIMEOUT_S = 120  # each rank's group: set-up and every collective
+PROCS_DEADLINE_S = 300       # a rank still running this long after "go" dies
+
+
+def mesh_procs(cards: int) -> int:
+    """The dist_procs phase's rank count: two ranks sharing one card, or
+    with more cards the largest divisor of DIST_SHARDS that is at most the
+    card count and 4."""
+    if cards < 2:
+        return 2
+    return max(d for d in range(1, min(cards, 4) + 1) if DIST_SHARDS % d == 0)
+
+
+def start_mesh_ranks(args) -> dict:
+    """Start the dist_procs phase's ranks: this script with --mesh-rank,
+    mesh_procs(cards) of them. Each generates its catalog at once (beside
+    the generate phase, so the card's phases never share the host with
+    it), then waits for a line "go <coordinator host:port>" on its stdin
+    before it touches the card."""
+    import tempfile
+
+    import torch
+
+    d = Path(tempfile.mkdtemp(prefix="mesh_ranks_"))
+    n = mesh_procs(torch.cuda.device_count())
+    env = {**os.environ, "NCCL_DEBUG": os.environ.get("NCCL_DEBUG", "WARN")}
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--sf", repr(args.sf),
+         "--seed", str(args.seed), "--mesh-rank",
+         json.dumps({"rank": r, "procs": n, "dir": str(d)})],
+        stdin=subprocess.PIPE, env=env) for r in range(n)]
+    return {"procs": procs, "dir": d}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _wait_ranks(procs, deadline_s: float) -> list:
+    """Wait for the ranks until every one has ended, one has failed or the
+    deadline has passed; then kill those still running (a rank blocked in
+    a collective with a dead peer would hold on until its group's
+    timeout). Returns the indices of the ranks it killed."""
+    end = time.monotonic() + deadline_s
+    while any(p.poll() is None for p in procs):
+        if (time.monotonic() > end
+                or any(p.poll() not in (None, 0) for p in procs)):
+            break
+        time.sleep(0.2)
+    killed = [r for r, p in enumerate(procs) if p.poll() is None]
+    for r in killed:
+        procs[r].kill()
+    for p in procs:
+        p.wait()
+    return killed
+
+
+def phase_dist_procs(rec, cat, ranks: dict):
+    """The process mesh (see the module docstring, phase 8c'): the
+    single-shard rows of the queries of PROCS_RUNS, then the card's memory
+    freed and the ranks told to go; each rank's record checked (its exit,
+    backend, mesh devices, rows, and every kernel launched on its card
+    alone). Nothing retries: a failed rank or NCCL set-up fails the
+    phase."""
+    import gc
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from starrocks_tpu_torch.ops import kernels
+    from starrocks_tpu_torch.runtime.cluster import process_backend
+    from starrocks_tpu_torch.runtime.session import Session
+    from starrocks_tpu_torch.storage.tpch_queries import DIST_QUERIES
+
+    procs, d = ranks["procs"], ranks["dir"]
+    cards = torch.cuda.device_count()
+    n, per = len(procs), DIST_SHARDS // len(procs)
+    backend = process_backend(cards, n)
+    nccl = (str(torch.cuda.nccl.version()) if dist.is_nccl_available()
+            else None)
+    out = {"ranks": n, "shards_per_rank": per, "cards": cards,
+           "backend": backend, "nccl_available": dist.is_nccl_available(),
+           "nccl_version": nccl}
+    log(f"dist_procs: {n} ranks x {per} shards on {cards} card(s), backend "
+        f"by the rule: {backend}; NCCL available "
+        f"{dist.is_nccl_available()}, version {nccl}")
+    set_knobs(strategies("auto"))
+    s1 = Session(cat, device=CARD)
+    t = time.perf_counter()
+    want = {q: s1.sql(DIST_QUERIES[q]).table
+            for q in dict.fromkeys(q for _, _, q in PROCS_RUNS)}
+    out["single_shard_s"] = time.perf_counter() - t
+    del s1
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["parent_allocated_gb"] = torch.cuda.memory_allocated() / 1e9
+    (d / "want.pkl").write_bytes(pickle.dumps(want))
+    coord = f"127.0.0.1:{_free_port()}"
+    t = time.perf_counter()
+    for p in procs:
+        try:
+            p.stdin.write(f"go {coord}\n".encode())
+            p.stdin.close()
+        except OSError:
+            pass  # the rank already ended: its exit code says why
+    killed = _wait_ranks(procs, PROCS_DEADLINE_S)
+    out["wall_s"] = time.perf_counter() - t
+    why = ("past its deadline" if out["wall_s"] > PROCS_DEADLINE_S
+           else "after a peer failed")
+    failures = [f"rank {r} killed {why}" for r in killed]
+    recs = []
+    for r, p in enumerate(procs):
+        f = d / f"rank{r}.json"
+        got = json.loads(f.read_text()) if f.exists() else {}
+        recs.append(got)
+        if p.returncode != 0 or got.get("status") != "ok":
+            failures.append(f"rank {r} exit {p.returncode}: "
+                            f"{got.get('status', 'no record')}")
+    out["rank_records"] = recs
+    want_devs = [f"cuda:{(s // per) % cards}" for s in range(DIST_SHARDS)]
+    launches = dict.fromkeys(kernels.WRAPPERS, 0)
+    for r, got in enumerate(recs):
+        if not got.get("runs"):
+            continue
+        card = f"cuda:{r % cards}"
+        if (got.get("backend"), got.get("coll")) != (
+                backend, backend.capitalize()):
+            failures.append(f"rank {r}: backend {got.get('backend')} "
+                            f"({got.get('coll')}), the rule says {backend}")
+        if got.get("devices") != want_devs:
+            failures.append(f"rank {r}: Mesh.devices {got.get('devices')}, "
+                            f"the rule says {want_devs}")
+        per_card = {k: {} for k in kernels.WRAPPERS}
+        for key, run in got["runs"].items():
+            if not run["rows_equal"]:
+                failures.append(f"rank {r} {key}: rows differ from the "
+                                "single-shard path's")
+            for k, cs in run["launches_per_card"].items():
+                for c, v in cs.items():
+                    per_card[k][c] = per_card[k].get(c, 0) + v
+        for k, cs in per_card.items():
+            launches[k] += sum(cs.values())
+            if set(cs) != {card}:
+                failures.append(f"rank {r}: {k} launched on {cs}, not on "
+                                f"{card} alone")
+    out["launches"] = launches
+    log(f"dist_procs: ranks done in {out['wall_s']:.1f} s, launches "
+        f"{launches}")
+    rec["dist_procs"] = out
+    if failures:
+        raise PhaseError(f"dist_procs: {failures[:12]}")
+
+
+def stop_mesh_ranks(ranks: dict):
+    """Reap ranks that were never told to go (a phase before them failed,
+    or the run ended early): each ends at the end of its stdin, or is
+    killed."""
+    import shutil
+
+    for p in ranks.get("procs", ()):
+        if p.poll() is None:
+            try:
+                p.stdin.close()
+            except OSError:
+                pass
+    if ranks.get("procs"):
+        _wait_ranks(ranks["procs"], 60)
+        shutil.rmtree(ranks["dir"], ignore_errors=True)
+
+
+def _rank_log(msg: str):
+    """One line of a rank's output in one write (the ranks share the
+    parent's stdout)."""
+    sys.stdout.write(msg + "\n")
+    sys.stdout.flush()
+
+
+def mesh_rank(args) -> int:
+    """--mesh-rank JSON ({"rank", "procs", "dir"}): generate the catalog,
+    wait for "go <coordinator>" on stdin (end of input: exit without
+    running), join the process group (runtime.cluster.init_multihost:
+    `procs` processes x DIST_SHARDS / procs shards), run PROCS_RUNS
+    through Session(dist_shards=DIST_SHARDS) on this rank's card, each
+    held to the parent's single-shard rows (`want.pkl`), and write
+    rank<r>.json to the directory."""
+    spec = json.loads(args.mesh_rank)
+    r, d = spec["rank"], Path(spec["dir"])
+    rec = {"rank": r, "status": "ok", "runs": {}}
+    try:
+        from starrocks_tpu_torch.storage.catalog import tpch_catalog
+
+        t = time.perf_counter()
+        cat = tpch_catalog(sf=args.sf, seed=args.seed)
+        rec["gen_s"] = time.perf_counter() - t
+        _rank_log(f"  rank {r}: TPC-H SF {args.sf:g} generated in "
+                  f"{rec['gen_s']:.1f} s")
+        line = sys.stdin.readline().split()
+        if not line or line[0] != "go":
+            return 0
+        _mesh_rank_runs(rec, cat, line[1], r, spec["procs"], d)
+    except Exception as e:  # noqa: BLE001 — reported to the parent
+        traceback.print_exc()
+        rec["status"] = f"FAILED: {type(e).__name__}: {e}"
+    (d / f"rank{r}.json").write_text(json.dumps(rec))
+    return 0 if rec["status"] == "ok" else 1
+
+
+def _mesh_rank_runs(rec, cat, coord: str, r: int, n: int, d: Path):
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from starrocks_tpu_torch.ops import kernels
+    from starrocks_tpu_torch.parallel import mesh as M
+    from starrocks_tpu_torch.runtime.cluster import init_multihost
+    from starrocks_tpu_torch.runtime.session import Session
+    from starrocks_tpu_torch.storage.tpch_queries import DIST_QUERIES
+
+    want = pickle.loads((d / "want.pkl").read_bytes())
+    t = time.perf_counter()
+    init_multihost(coord, num_processes=n, process_id=r,
+                   local_device_count=DIST_SHARDS // n,
+                   timeout_s=PROCS_GROUP_TIMEOUT_S)
+    rec["init_s"] = time.perf_counter() - t
+    s = Session(cat, dist_shards=DIST_SHARDS)
+    mesh = s._executor().mesh
+    rec.update(backend=M._PROCESS["backend"], group=str(dist.get_backend()),
+               card=f"cuda:{torch.cuda.current_device()}",
+               coll=type(mesh.coll).__name__, mesh=repr(mesh),
+               devices=[str(x) for x in mesh.devices],
+               local_cards=[str(x) for x in mesh.cards])
+    _rank_log(f"  rank {r}: joined in {rec['init_s']:.1f} s, backend "
+              f"{rec['backend']} (group {rec['group']}), {rec['mesh']}; "
+              f"shard s on {rec['devices']}")
+    try:
+        for strategy, run, q in PROCS_RUNS:
+            knobs = strategies("auto" if strategy == "auto" else "kernels")
+            if strategy == "hash":
+                knobs = {**knobs, "join_probe_strategy": "pallas"}
+            set_knobs(knobs)
+            kernels.reset_counts()
+            mesh.reset_moves()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            res = s.sql(DIST_QUERIES[q])
+            table = res.table
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            rel = DIST_REL.get(q, 1e-6) if strategy != "auto" else 1e-6
+            got = _snapshot(kernels)
+            ctr = _prof_view(res.profile).get("counters", {})
+            x = rec["runs"][f"{q}@{strategy} {run}"] = {
+                "wall_s": wall, "rows": table.num_rows,
+                "rows_equal": _dist_agree(q, table, want[q], rel),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": {k: v for k, v in got.items() if v},
+                "launches_per_card": kernels.launches_per_card(),
+                "moves": {k: [len(v), sum(v)] for k, v in mesh.moves.items()},
+                "exchange_bytes": ctr.get("exchange_bytes")}
+            _rank_log(f"  rank {r} {q}@procs-{strategy} {run}: "
+                      f"{wall * 1e3:.1f} ms, {table.num_rows} rows, equal "
+                      f"{x['rows_equal']}, peak {x['peak_mem_gb']:.2f} GB, "
+                      f"launches {x['launches']}, moves {x['moves']}")
+    finally:
+        set_knobs(strategies("auto"))
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 # --- the serving planes: the port's front doors under concurrent clients ------
@@ -5181,6 +5506,12 @@ def main(argv=None) -> int:
                          "stdin, run the serve phase alone in this process "
                          "and write its record to JSON (the serve phase "
                          "starts the script so, with the lock witness on)")
+    ap.add_argument("--mesh-rank", default=None, metavar="JSON",
+                    help="one rank of the dist_procs phase ({rank, procs, "
+                         "dir}): generate the catalog, wait for a line 'go "
+                         "<host:port>' on stdin, join the process group and "
+                         "run the phase's queries (the phase starts the "
+                         "script so)")
     ap.add_argument("--kernels", default=None,
                     help="comma list of the kernels phase's checks to run "
                          "(hash, topn_select, probe_searchsorted, "
@@ -5198,16 +5529,21 @@ def main(argv=None) -> int:
 
     if args.serve_child:
         return serve_child(args)
+    if args.mesh_rank:
+        return mesh_rank(args)
     rec = {"args": vars(args), "phases": {}, "cuts": CUTS}
     t_start = time.perf_counter()
     failed = []
     data = {}
 
     serve = {}  # the serve child, started beside the generate phase
+    ranks = {}  # the dist_procs phase's ranks, started there too
 
     def generate():
         if any(name == "serve" for name, _ in phases):
             serve.update(start_serve_child(args))
+        if any(name == "dist_procs" for name, _ in phases):
+            ranks.update(start_mesh_ranks(args))
         t0 = time.perf_counter()
         data["cat"] = tpch_catalog(sf=args.sf, seed=args.seed)
         dt = time.perf_counter() - t0
@@ -5232,6 +5568,7 @@ def main(argv=None) -> int:
         ("ingest", lambda: phase_ingest(rec, data["cat"], args.sf)),
         ("lake", lambda: phase_lake(rec)),
         ("dist", lambda: phase_dist(rec, data["cat"], args.sf)),
+        ("dist_procs", lambda: phase_dist_procs(rec, data["cat"], ranks)),
         ("serve", lambda: run_serve_child(
             rec, serve or start_serve_child(args))),
         ("tpcds", lambda: (data.pop("cat", None), _settle(),
@@ -5243,7 +5580,7 @@ def main(argv=None) -> int:
     if args.phases:
         wanted = {"device", "build", *args.phases.split(",")}
         if wanted & {"tpch", "hash_topn", "topn", "breadth", "functions",
-                     "spill", "store", "ingest", "dist"}:
+                     "spill", "store", "ingest", "dist", "dist_procs"}:
             wanted.add("generate")
         unknown = wanted - {name for name, _ in phases}
         if unknown:
@@ -5253,6 +5590,7 @@ def main(argv=None) -> int:
         run_phases(rec, phases, failed)
     finally:
         stop_serve_child(serve)
+        stop_mesh_ranks(ranks)
     data.clear()
     rec["total_s"] = time.perf_counter() - t_start
     out_dir = Path(args.out)
@@ -5278,6 +5616,7 @@ def main(argv=None) -> int:
             + rec["ingest"]["launches"][name]
             + rec["lake"]["launches"][name]
             + rec["dist"]["launches"][name]
+            + rec["dist_procs"]["launches"][name]
             + rec["serve"]["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

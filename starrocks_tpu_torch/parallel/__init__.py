@@ -3,7 +3,9 @@
 Reference: the fragment/exchange machinery (SURVEY §2.4) — fragments over
 BEs -> one program in lockstep over a tuple of per-shard Chunks (mesh.py);
 bRPC transmit_chunk -> all_to_all / all_gather over the shard tuple
-(exchange.py), in process or over gloo across processes.
+(exchange.py), in process or across processes: staged through host memory
+over gloo, or on the device tensors over NCCL where each process has a
+card of its own.
 """
 
 from .dist_ops import BROADCAST, SHUFFLE, broadcast_join, dist_aggregate

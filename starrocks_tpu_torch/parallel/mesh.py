@@ -16,13 +16,18 @@ of per-shard Chunks:
   computes it redundantly on every shard). A per-shard op that takes a
   REPLICATED input reads a copy on its shard's device: `Mesh.to`, one
   copy per device and value for a program's run (`Mesh.replicas`);
-- the collectives go through one small interface with two implementations:
-  `InProcess` (every shard in this process, on its own device: blocks
-  travel between cards as blocking peer copies) and `Gloo` (a
-  torch.distributed process group spanning processes, set up by
-  `runtime.cluster.init_multihost`; each process holds its slice of the
-  shards on its own card and stages device tensors through host memory,
-  the transport gloo runs on).
+- the collectives go through one small interface with three
+  implementations: `InProcess` (every shard in this process, on its own
+  device: blocks travel between cards as blocking peer copies), and over
+  a torch.distributed process group spanning processes, set up by
+  `runtime.cluster.init_multihost` (each process holds its slice of the
+  shards on its own card, as jax.distributed spans one mesh over
+  processes) either `Gloo`, which stages device tensors through host
+  memory, the transport gloo runs on, or `Nccl`, whose collectives run
+  on the device tensors where they are, over NCCL. `make_mesh` takes
+  `Nccl` when the group has the NCCL side (each process a card of its
+  own), `Gloo` otherwise; `Mesh.devices` then names every process's card
+  (`process_devices`).
 
 Collective inputs are lists of the LOCAL shards' tensors, in shard order.
 Gathered and reduced results land on the home device; an all_to_all
@@ -100,6 +105,7 @@ class InProcess:
 
     world = 1
     rank = 0
+    backend = "in-process"
 
     def __init__(self, n_shards: int):
         self.n = n_shards
@@ -131,12 +137,14 @@ def _reduce_stack(s: torch.Tensor, op: str) -> torch.Tensor:
     raise ValueError(op)
 
 
-class Gloo:
-    """A torch.distributed process group over gloo: `world` processes, each
-    holding n / world consecutive shards. Every collective copies its
-    device tensors to host memory, runs there and copies each result to
-    the device of the local shard it belongs to (gloo's collectives run on
-    CPU tensors)."""
+class _ProcessGroup:
+    """The collectives over a torch.distributed process group: `world`
+    processes, each holding n / world consecutive shards. A collective
+    lays its blocks out on this process's device (an all_to_all's in the
+    [world, local, block] layout of the group's ranks), hands them to the
+    group through `_stage` and moves what comes back to the device it
+    belongs on: gathered and reduced results to the home device, an
+    all_to_all's rows to the receiver's."""
 
     def __init__(self, n_shards: int, group=None):
         import torch.distributed as dist
@@ -152,41 +160,86 @@ class Gloo:
         nl = n_shards // self.world
         self.local = tuple(range(self.rank * nl, (self.rank + 1) * nl))
 
+    @property
+    def backend(self) -> str:
+        """The group's backend as torch.distributed names it ("gloo", or
+        "cpu:gloo,cuda:nccl" for a group with both sides)."""
+        return str(self._dist.get_backend(self.group))
+
+    def _stage(self, x: torch.Tensor) -> torch.Tensor:
+        """`x` where the group's collective reads it."""
+        raise NotImplementedError
+
+    @staticmethod
+    def _like(x: torch.Tensor) -> torch.Tensor:
+        """An output buffer of `x`'s shape, dtype and memory."""
+        return torch.empty(x.shape, dtype=x.dtype, device=x.device,
+                           pin_memory=x.is_pinned())
+
     def all_gather(self, xs, home) -> torch.Tensor:
-        mine = _wire(torch.cat([x.cpu() for x in xs]))
-        parts = [torch.empty_like(mine) for _ in range(self.world)]
+        mine = self._stage(_wire(torch.cat([_move(x, home) for x in xs])))
+        parts = [self._like(mine) for _ in range(self.world)]
         self._dist.all_gather(parts, mine, group=self.group)
-        out = torch.cat(parts)
-        if xs[0].dtype == torch.bool:
-            out = out.to(torch.bool)
-        return out.to(home)
+        out = torch.cat([_move(p, home) for p in parts])
+        return out.to(torch.bool) if xs[0].dtype == torch.bool else out
 
     def all_to_all(self, xs, devs) -> list:
-        nl, w = len(self.local), self.world
+        nl, w, dev = len(self.local), self.world, devs[0]
         dtype = xs[0].dtype
         block = xs[0].shape[1:]  # [C, ...]
         # send[p, i, j]: local source i's block for global shard p*nl + j
-        send = torch.stack([_wire(x).cpu().reshape((w, nl) + block)
-                            for x in xs], 1).contiguous()
-        recv = torch.empty_like(send)
+        send = self._stage(torch.stack(
+            [_wire(_move(x, dev)).reshape((w, nl) + block) for x in xs],
+            1).contiguous())
+        recv = self._like(send)
         self._dist.all_to_all_single(recv, send, group=self.group)
         # recv[q, i, j]: global source q*nl + i's block for local shard j
+        recv = _move(recv, dev)
         out = []
         for j in range(nl):
             r = recv[:, :, j].reshape((self.n * block[0],) + block[1:])
             if dtype == torch.bool:
                 r = r.to(torch.bool)
-            out.append(r.to(devs[j]))
+            out.append(_move(r, devs[j]))
         return out
 
     def reduce(self, xs, op: str, home) -> torch.Tensor:
-        dtype = xs[0].dtype
-        mine = _wire(_reduce_stack(torch.stack([x.cpu() for x in xs]),
-                                   op)).clone()
+        # the local shards' reduction keeps InProcess's dtype (a sum of
+        # bool lanes counts them in int64)
+        local = _reduce_stack(torch.stack([_move(x, home) for x in xs]), op)
+        mine = self._stage(_wire(local))
         rop = {"sum": self._dist.ReduceOp.SUM, "max": self._dist.ReduceOp.MAX,
                "min": self._dist.ReduceOp.MIN}[op]
         self._dist.all_reduce(mine, op=rop, group=self.group)
-        return mine.to(dtype).to(home)
+        return _move(mine, home).to(local.dtype)
+
+
+class Gloo(_ProcessGroup):
+    """The process group's collectives staged through host memory, the
+    transport gloo runs on: a collective's blocks, laid out on this
+    process's card, go to the CPU in one copy into pinned memory (torch
+    caches its pinned blocks, so a repeated exchange reuses them), the
+    group's gloo side moves them, and what comes back returns to the card
+    in one copy. The route where processes share a card, or have none."""
+
+    def _stage(self, x: torch.Tensor) -> torch.Tensor:
+        if x.device.type != "cuda":
+            return x
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        return host.copy_(x)
+
+
+class Nccl(_ProcessGroup):
+    """The process group's collectives on the device tensors where they
+    are: on this process's card over the group's NCCL side, with no host
+    copy (a CPU tensor, as `Mesh.host_max` reduces, takes the group's gloo
+    side). NCCL runs on its own stream; torch makes it wait for the
+    current stream of the input's card and makes that stream wait for the
+    result, so each collective is ordered against the ops that produced
+    its inputs and those that read its outputs."""
+
+    def _stage(self, x: torch.Tensor) -> torch.Tensor:
+        return x
 
 
 class Dry:
@@ -197,6 +250,7 @@ class Dry:
 
     world = 1
     rank = 0
+    backend = "dry"
 
     def __init__(self, n_shards: int):
         self.n = n_shards
@@ -221,7 +275,8 @@ class Mesh:
     collective backend; `local` the global ids of the shards this process
     holds. `moves` counts each collective's calls and the per-shard
     capacities it moved (a test hook: the JAX package's tests read the
-    same facts from HLO). A card that does not exist raises here."""
+    same facts from HLO). A card of this process's shards that does not
+    exist raises here (another process's shards name its own cards)."""
 
     def __init__(self, n_shards: int, device, coll=None):
         self.n = int(n_shards)
@@ -231,17 +286,17 @@ class Mesh:
                 raise ValueError(f"{len(devices)} devices for {self.n} shards")
         else:
             devices = (indexed_device(device),) * self.n
-        for d in set(devices):
-            if d.type == "cuda" and not (
-                    torch.cuda.is_available()
-                    and d.index < torch.cuda.device_count()):
-                raise RuntimeError(f"mesh device {d} is not a visible card")
         self.devices = devices
         self.coll = coll if coll is not None else InProcess(self.n)
         if self.coll.n != self.n:
             raise ValueError("collective backend sized for another mesh")
         self.local = self.coll.local
         self.local_devices = tuple(devices[s] for s in self.local)
+        for d in set(self.local_devices):
+            if d.type == "cuda" and not (
+                    torch.cuda.is_available()
+                    and d.index < torch.cuda.device_count()):
+                raise RuntimeError(f"mesh device {d} is not a visible card")
         self.device = self.local_devices[0]
         self.moves: dict = {}
         # per-thread observer of the reductions (analysis/trace_check.py's
@@ -344,7 +399,9 @@ class Mesh:
 
     def host_max(self, vals: dict) -> dict:
         """Merge {key: int} maxima of this process's shards across
-        processes (one collective); identity on a one-process mesh."""
+        processes (one collective on a CPU tensor: the group's gloo side
+        under either process-group class); identity on a one-process
+        mesh."""
         if self.coll.world == 1 or not vals:
             return vals
         keys = sorted(vals)
@@ -354,11 +411,41 @@ class Mesh:
 
     def __repr__(self):
         return (f"Mesh(n={self.n}, local={self.local}, device={self.device}, "
-                f"cards={self.cards}, {type(self.coll).__name__})")
+                f"cards={self.cards}, {type(self.coll).__name__}, "
+                f"backend={self.coll.backend})")
 
 
-# multi-process state set by runtime.cluster.init_multihost
-_PROCESS = {"local_shards": None}
+# multi-process state set by runtime.cluster.init_multihost: each process's
+# shard count and the backend its devices' collectives take ("nccl" when
+# the group has the NCCL side, "gloo" when it has gloo alone)
+_PROCESS = {"local_shards": None, "backend": None}
+
+
+def process_devices(rank_devices, n: int) -> tuple:
+    """The global device map of a mesh over processes (the JAX mesh's
+    device array, each device with its process_index): rank r of w holds
+    shards [r * n / w, (r + 1) * n / w), all on its own device
+    `rank_devices[r]`."""
+    w = len(rank_devices)
+    if n % w:
+        raise ValueError(f"{n} shards do not divide over {w} processes")
+    return tuple(torch.device(rank_devices[s // (n // w)]) for s in range(n))
+
+
+def _rank_devices(device) -> list:
+    """Each process's device (`device` in this one), in rank order: one
+    gather of a CPU tensor over the group's gloo side, a card as its index
+    and the CPU as -1. Every process of the group must call it."""
+    import torch.distributed as dist
+
+    dev = indexed_device(device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"a process mesh runs on a card or the CPU: {dev}")
+    mine = torch.tensor([dev.index if dev.type == "cuda" else -1])
+    parts = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, mine)
+    return [f"cuda:{i}" if i >= 0 else "cpu"
+            for i in torch.cat(parts).tolist()]
 
 
 def make_mesh(n_devices: int | None = None, *, device=None,
@@ -369,8 +456,12 @@ def make_mesh(n_devices: int | None = None, *, device=None,
     on `devices`, one per shard, as the JAX Mesh takes any device array
     (n defaults to their number). After `cluster.init_multihost` the mesh
     spans every process of the group (n defaults to processes x local
-    shards), and this process's shards share its own card; otherwise
-    every shard lives in this process (n is required)."""
+    shards): this process's shards share its own card, the collectives
+    take `Nccl` where the group has the NCCL side and `Gloo` otherwise,
+    and without `devices` every process's device is gathered
+    (`process_devices`), so every process of the group builds it at the
+    same point; otherwise every shard lives in this process (n is
+    required)."""
     import torch.distributed as dist
 
     if device is None and devices is None:
@@ -381,7 +472,10 @@ def make_mesh(n_devices: int | None = None, *, device=None,
     if dist.is_available() and dist.is_initialized():
         per = _PROCESS["local_shards"] or 1
         n = n_devices or per * dist.get_world_size()
-        return Mesh(n, devices or device, Gloo(n))
+        coll = Nccl(n) if _PROCESS["backend"] == "nccl" else Gloo(n)
+        if devices is None:
+            devices = process_devices(_rank_devices(device), n)
+        return Mesh(n, devices, coll)
     if not n_devices:
         raise ValueError("an in-process mesh needs its shard count")
     if devices is None:

@@ -11,11 +11,14 @@ Reference behavior:
   sink_buffer.h:79).
 
 A port of the JAX package's runtime/cluster.py. The DATA plane across
-processes is the mesh's gloo collectives (parallel/mesh.Gloo: all_to_all /
-all_gather / all_reduce over a torch.distributed process group, device
-tensors staged through host memory), so one distributed program covers one
-process or several. What remains here is the CONTROL plane:
-  * init_multihost(...)    — join the process group the mesh spans;
+processes is the mesh's collectives (all_to_all / all_gather / all_reduce
+over a torch.distributed process group): on the device tensors over NCCL
+where each process has a card of its own (parallel/mesh.Nccl), else staged
+through host memory over gloo (parallel/mesh.Gloo), so one distributed
+program covers one process or several. What remains here is the CONTROL
+plane:
+  * init_multihost(...)    — join the process group the mesh spans, its
+                             backend chosen by process_backend;
   * ClusterMonitor         — coordinator-side heartbeat registry,
                              failure detection, on_failure restart hooks;
   * Heartbeater            — worker-side periodic beat.
@@ -44,25 +47,51 @@ WORKERS_DEAD = metrics.gauge(
     "(feeds the default heartbeat_loss alert rule)")
 
 
+def process_backend(cards: int, procs_on_host: int) -> str:
+    """The backend of a process group's device collectives: "nccl" when
+    the host has cards and each of its `procs_on_host` processes a card of
+    its own, "gloo" otherwise (no card, or processes sharing a card: NCCL
+    refuses two ranks on one device)."""
+    return "nccl" if 0 < cards and procs_on_host <= cards else "gloo"
+
+
 def init_multihost(coordinator_address: str, num_processes: int,
-                   process_id: int, local_device_count: int | None = None):
-    """Join the cross-process group over gloo (`coordinator_address` is
-    host:port of rank 0's rendezvous) and return the GLOBAL shard ids.
-    Each process then holds `local_device_count` shards (default 1) of the
-    meshes parallel/mesh.make_mesh builds, all on its own card where the
-    host has cards: process p's current card becomes `cuda:(p % cards)`,
-    so a mesh on a bare `cuda` puts its shards there."""
+                   process_id: int, local_device_count: int | None = None,
+                   timeout_s: float | None = None):
+    """Join the cross-process group (`coordinator_address` is host:port of
+    rank 0's rendezvous; `timeout_s` bounds its set-up and every
+    collective, torch's default where None) and return the GLOBAL shard
+    ids. Each process then holds `local_device_count` shards (default 1)
+    of the meshes parallel/mesh.make_mesh builds, all on its own card
+    where the host has cards: process p binds `cuda:(p % cards)` before
+    the group exists, so a mesh on a bare `cuda` puts its shards there.
+    The backend follows process_backend (every caller runs its processes
+    on one host): with a card each, one group with a gloo side for CPU
+    tensors and an NCCL side for CUDA tensors; otherwise gloo alone. The
+    choice is recorded for make_mesh; nothing falls back from one to the
+    other."""
+    import datetime
+
     import torch
     import torch.distributed as dist
 
     from ..parallel import mesh
 
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    backend = process_backend(cards, num_processes)
+    kw = {"backend": "gloo"}
+    if cards:
+        card = torch.device("cuda", process_id % cards)
+        torch.cuda.set_device(card)
+        if backend == "nccl":
+            kw = {"backend": "cpu:gloo,cuda:nccl", "device_id": card}
+    if timeout_s is not None:
+        kw["timeout"] = datetime.timedelta(seconds=timeout_s)
     dist.init_process_group(
-        "gloo", init_method=f"tcp://{coordinator_address}",
-        world_size=num_processes, rank=process_id)
-    mesh._PROCESS["local_shards"] = int(local_device_count or 1)
-    if torch.cuda.is_available():
-        torch.cuda.set_device(process_id % torch.cuda.device_count())
+        init_method=f"tcp://{coordinator_address}",
+        world_size=num_processes, rank=process_id, **kw)
+    mesh._PROCESS.update(local_shards=int(local_device_count or 1),
+                         backend=backend)
     return tuple(range(num_processes * mesh._PROCESS["local_shards"]))
 
 

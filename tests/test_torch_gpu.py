@@ -65,6 +65,11 @@ installed:
   (else skipped, with the reason), the default Session spread over
   them, each kernel on cuda:1 against its plain version, and a launch on
   cuda:0 after a hash build on cuda:1;
+- the process mesh (tests/test_torch_process_mesh.py's ranks): two on
+  cuda:0 and cuda:1 over NCCL (skipped with fewer than two cards), one
+  over NCCL on cuda:0, and two sharing cuda:0 over gloo, every collective
+  equal to InProcess with its results on the rank's card, and Q3 at SF
+  0.1 equal to the single-shard rows;
 - the serving planes: a ServingTier over a card Session with four client
   threads against the CPU's rows, a query killed after its program ran
   returning the card's allocated memory to its value before it, and the
@@ -1443,6 +1448,62 @@ def test_hash_build_on_card_1_leaves_card_0_launchable(two_cards):
         t, r = kernels.hash_build(k, 4096)
         row = kernels.hash_probe(t, r, k)
         assert torch.equal(row.long().cpu(), torch.arange(2048)), d
+
+
+# --- the process mesh on the card --------------------------------------------
+
+
+def _process_mesh_on_cards(visible: str, backend: str, cards: list):
+    """len(cards) ranks of tests/test_torch_process_mesh.py's worker with
+    CUDA_VISIBLE_DEVICES=`visible`: each takes `backend`, every collective
+    case it runs equals InProcess with its results on the rank's card
+    (`cards[r]`), the mesh names every shard's card, and Q3 at SF 0.1 over
+    the 8 shards gives the single-shard Session's rows."""
+    import gc
+
+    from chip_smoke import answer_rows, answers_agree
+    from test_torch_process_mesh import CLASSES, query_text, run_ranks
+
+    want = Session(tpch_catalog(sf=0.1), device="cuda:0").sql(
+        query_text("Q3")).rows()
+    gc.collect()
+    torch.cuda.empty_cache()
+    recs, outs, rcs = run_ranks("cuda", 0.1, ["Q3"], procs=len(cards),
+                                env={"CUDA_VISIBLE_DEVICES": visible})
+    assert rcs == [0] * len(cards), "\n".join(o[-3000:] for o in outs)
+    classes = set(CLASSES) if backend == "nccl" else {"Gloo"}
+    for r, rec in enumerate(recs):
+        assert rec["backend"] == backend and rec["device"] == cards[r]
+        assert {k[0] for k in rec["collectives"]} == classes
+        bad = {k: v for k, v in rec["collectives"].items()
+               if v != {"equal": True, "devices": [cards[r]]}}
+        assert not bad, bad
+        per = 8 // len(cards)
+        assert rec["devices"] == [cards[s // per] for s in range(8)]
+        assert rec["coll"] == ("Nccl" if backend == "nccl" else "Gloo")
+        got = sorted(rec["rows"]["Q3"], key=str)
+        assert answers_agree(got, answer_rows(sorted(want, key=str)))
+
+
+def test_process_mesh_over_nccl_on_two_cards(two_cards):
+    """Ranks 0 and 1 on cuda:0 and cuda:1, one group with an NCCL side:
+    the `Nccl` collectives run on the cards (and `Gloo`'s staged ones over
+    the group's gloo side), their results CUDA tensors on each rank's
+    card."""
+    _process_mesh_on_cards("0,1", "nccl", ["cuda:0", "cuda:1"])
+
+
+def test_process_mesh_of_one_rank_over_nccl(cuda):
+    """One rank, its own card: the group has the NCCL side, and every
+    `Nccl` collective runs through NCCL on cuda:0 (a world of one)."""
+    _process_mesh_on_cards("0", "nccl", ["cuda:0"])
+
+
+def test_process_mesh_sharing_one_card_over_gloo(cuda):
+    """Both ranks on cuda:0 (NCCL refuses two ranks on one card): a gloo
+    group, the `Gloo` collectives staged through host memory, their
+    results back on cuda:0."""
+    _process_mesh_on_cards("0", "gloo", ["cuda:0", "cuda:0"])
 
 
 # --- the serving planes on the card ------------------------------------------

@@ -179,8 +179,9 @@ allocated when it started. Phases, each of which must pass:
    group-bys take the shuffle; no module global is patched) runs
    DIST_QUERIES (Q1, Q3, Q5, Q6, Q10, Q12, Q14, Q18, Q19, S1, S2, N1, the
    PARTITION BY window W2 and the range-exchange sort O1) cold, and those
-   of DIST_WARM warm too, under the kernel strategies, then those of
-   DIST_WARM cold and warm under `auto` (CUTS), then Q3 and Q5 cold
+   of DIST_WARM warm too, under the kernel strategies (but those of
+   DIST_AUTO_ONLY), then those of DIST_WARM cold and warm and those of
+   DIST_AUTO_ONLY cold under `auto` (CUTS), then Q3 and Q5 cold
    under the hash kernels; the 8 shards run in lockstep in this process,
    spread over the visible cards (parallel/mesh.shard_devices: all on
    cuda:0 with one card); the cards and each shard's card are printed.
@@ -201,28 +202,50 @@ allocated when it started. Phases, each of which must pass:
    sub-phase at SF 1: ClusterRuntime(n_workers=2, shards=2), worker i on
    cuda:(i % cards) (its card printed), runs Q3 cold and warm, rows
    equal to the in-process path's, at least 3 fragments on the workers.
-8c'. dist_procs (the process mesh: one process per card): P ranks of this
-   script (--mesh-rank), P the largest divisor of 8 that is at most the
-   card count and 4, or 2 sharing one card; each generates the --sf
-   catalog beside the generate phase and waits. Then the single-shard
-   rows of Q3, Q5, Q18, S1 and N1 (under `auto`), the card's memory
-   freed, and the ranks told to go: each joins one process group
-   (runtime.cluster.init_multihost, local_device_count 8 / P, a group
-   timeout of PROCS_GROUP_TIMEOUT_S), whose backend the rule
-   process_backend picks (NCCL with a card per rank, collectives on the
-   device tensors; gloo on one card, staged through host memory), and
-   runs PROCS_RUNS through Session(dist_shards=8) on its own card: Q3,
-   Q5 and Q18 cold and warm and S1 and N1 cold under the kernel
-   strategies, Q3 and Q5 cold under the hash kernels, Q3, Q5 and Q18
-   cold under `auto`, counts set to 0 and peak memory reset before each.
-   Each rank prints its backend, Mesh.devices, its cards and, per query,
-   the wall, launches per kernel and per card, Mesh.moves and its peak.
-   Fails on a rank that exits non-zero or outlives PROCS_DEADLINE_S
-   (killed; a failed rank's peers are killed at once), rows that differ
-   from the single-shard rows, a kernel that does not launch in every
-   rank on that rank's card alone, Mesh.devices other than rank r's card
-   `cuda:(r % cards)` for each of its shards, or a backend other than
-   the rule's. Nothing is retried over gloo.
+8c'. dist_procs (the process mesh: one process per card, on one host or
+   several): the layouts of procs_layouts, in turn. One card: two
+   emulated hosts, each seeing cuda:0, one rank x 4 shards each (NCCL),
+   then, in the same two processes, one host of 2 ranks x 4 shards
+   sharing cuda:0 (gloo, its collectives staged through pinned host
+   memory; PROCS_SHARED_RUNS). Four cards: one host of 4 ranks x 2 shards
+   (the machine itself), then two emulated hosts of two cards each, (a)
+   2 ranks a host x 2 shards and (b) 1 rank a host x 4 shards over its
+   two cards. An emulated host is
+   what a machine of its own looks like to a process: its own
+   CUDA_VISIBLE_DEVICES block (its ranks see cuda:0..k-1), its own host
+   name (init_multihost's `host=`) and NCCL_HOSTID, and NCCL's sockets on
+   loopback with InfiniBand off (EMULATED_HOST_ENV), so that NCCL runs its
+   network transport between hosts. Every layout's ranks (this script
+   with --mesh-rank; a layout that runs in an earlier one's processes
+   starts none) generate the --sf catalog beside the generate phase
+   and wait. Then the single-shard rows of Q3, Q5, Q18, S1 and N1 (under
+   `auto`), the card's memory freed, and each layout's ranks told to go:
+   each joins one process group (runtime.cluster.init_multihost,
+   local_device_count 8 / P, a group timeout of PROCS_GROUP_TIMEOUT_S),
+   whose backend and each rank's cards the rule host_layout gives from
+   every rank's host and visible cards (NCCL when every rank has a card
+   of its own, collectives on the device tensors; gloo otherwise, staged
+   through host memory), and runs its layout's runs through
+   Session(dist_shards=8) on its own cards (PROCS_RUNS: Q3, Q5 and Q18
+   cold and warm and S1 and N1 cold under the kernel strategies, Q3 and
+   Q5 cold under the hash kernels, Q3, Q5 and Q18 cold under `auto`),
+   counts set to 0 and each card's peak memory reset before each, then
+   leaves the group and frees the card's memory. Each rank prints its
+   backend, Mesh.hosts, Mesh.devices, its cards and, per query, the wall,
+   its process's CPU seconds, attempts, scan and run seconds, the
+   allocator's retries, launches per kernel and per card, Mesh.moves and
+   its peak per card; each layout prints the host memory available
+   before and after; its NCCL log (NCCL_DEBUG=INFO, a file a process)
+   gives the transport of every channel, printed by whether it joins two
+   hosts. Fails on a rank that exits non-zero or outlives
+   PROCS_DEADLINE_S (killed; a failed rank's peers are killed at once),
+   rows that differ from the single-shard rows, a backend, cards,
+   Mesh.hosts or Mesh.devices other than the ones each layout writes out
+   (procs_layouts; not derived from the rule under test), a kernel that
+   does not launch in every rank on each of that rank's cards and on no
+   other, or, between emulated hosts over NCCL, a channel over anything
+   but the network (P2P or SHM: the emulation leaked) or no channel seen
+   at all. Nothing is retried, and nothing falls back from NCCL to gloo.
 8d. serve (the serving planes), in a child process of its own (this
    script with --serve-child) started with the port's lock-order witness
    on (SR_TPU_LOCK_WITNESS=1), so that every other phase runs and is
@@ -473,7 +496,22 @@ CUTS = ["tpch, breadth, functions and ssb: no traced warm runs (earlier "
         "dist: under `auto` Q3, Q5 and Q18 only (DIST_WARM), cold and warm "
         "(the other 11 cold runs took 5.0 s of PR 18's final run; every "
         "query still runs under the kernel strategies); for the dist_procs "
-        "path"]
+        "path",
+        "dist: Q1, Q6, Q12, W2 and O1 cold under `auto` only "
+        "(DIST_AUTO_ONLY: under the kernel strategies they launched no "
+        "kernel on this path, and Q1's one-hot operands took 9.2 s of host "
+        "work; their kernel runs took 14.5 s of a final run, PERF.md; the "
+        "gpu "
+        "test test_dist_mixed_mesh_matches_single_shard[kernels] holds all "
+        "14 dist queries under the kernel strategies to the single-shard "
+        "rows at SF 0.1 on the card); for the dist_procs path's second "
+        "one-card layout",
+        "dist_procs: on one card the shared-card gloo layout (2 ranks x 4 "
+        "shards on cuda:0) runs Q3, S1 and N1 cold and Q3 warm under the "
+        "kernel strategies and Q3 cold under the hash kernels "
+        "(PROCS_SHARED_RUNS: every kernel, all_to_all and all_gather; "
+        "earlier runs of Q5 and Q18 over gloo are in PERF.md), in the "
+        "processes of the emulated hosts' layout, whose catalogs it reuses"]
 TOPN_SF = 1.0  # Q2's top-N scale (see phase_hash_topn)
 CPU_SF = 0.1   # the card-vs-CPU phase's scale (the CPU runs it too)
 CPU_SPILL_ROWS = 1 << 17  # its spill queries' batch budget
@@ -1225,6 +1263,16 @@ def _host_rss_gb() -> float:
 
     with open("/proc/self/statm") as f:
         return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e9
+
+
+def _host_available_gb() -> float:
+    """The machine's available host memory now (MemAvailable, Linux
+    /proc/meminfo)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
 
 
 def _sorted_rows(table):
@@ -2612,6 +2660,10 @@ DIST_REL = {"S1": STAT_REL, "S2": STAT_REL}
 # run once more, cold, under the hash kernels (`join_probe_strategy =
 # 'pallas'`): their local joins build and probe the open-addressing table
 DIST_HASH = ("Q3", "Q5")
+# run cold under `auto` alone: under the kernel strategies they launched no
+# kernel on this path (a final run, PERF.md), and Q1's one-hot operands took
+# 9.2 s of host work there (CUTS)
+DIST_AUTO_ONLY = ("Q1", "Q6", "Q12", "W2", "O1")
 # the cluster sub-phase: TPC-H at this scale, Q3 scheduled onto two
 # worker processes of two shards each, on the same card (Q18: CUTS)
 CLUSTER_SF = 1.0
@@ -2689,10 +2741,12 @@ def phase_dist(rec, cat, sf):
     log(f"dist: {DIST_SHARDS} shards on {len(mesh.cards)} of "
         f"{torch.cuda.device_count()} cards {out['cards']}; shard s on "
         f"{out['shard_cards']}")
-    # under `auto` the DIST_WARM queries alone (CUTS)
+    # under `auto` the DIST_WARM queries, and cold those of DIST_AUTO_ONLY
+    # in place of their kernel runs (CUTS)
     runs = [(st, run, q) for st in ("kernels", "auto")
             for run in ("cold", "warm") for q in DIST_QUERIES
-            if (run == "cold" and st == "kernels") or q in DIST_WARM]
+            if q in DIST_WARM or run == "cold" and (
+                (st == "kernels") != (q in DIST_AUTO_ONLY))]
     runs += [("hash", "cold", q) for q in DIST_HASH]
     try:
         for strategy, run, q in runs:
@@ -2946,45 +3000,126 @@ def _dist_cluster(failures) -> dict:
     return out
 
 
-# --- the process mesh: one process per card ----------------------------------
+# --- the process mesh: one process per card, on one host or several ---------
 
 # the dist_procs phase's runs in each rank: (strategy set, run, query)
 PROCS_RUNS = ([("kernels", "cold", q) for q in ("Q3", "Q5", "Q18", "S1", "N1")]
               + [("kernels", "warm", q) for q in DIST_WARM]
               + [("hash", "cold", q) for q in DIST_HASH]
               + [("auto", "cold", q) for q in DIST_WARM])
+# the runs of the one-card layout whose two ranks share the card over gloo
+# (CUTS): every kernel and both collective kinds, in the processes of the
+# layout before it
+PROCS_SHARED_RUNS = [("kernels", "cold", q) for q in ("Q3", "S1", "N1")] + [
+    ("kernels", "warm", "Q3"), ("hash", "cold", "Q3")]
 PROCS_GROUP_TIMEOUT_S = 120  # each rank's group: set-up and every collective
 PROCS_DEADLINE_S = 300       # a rank still running this long after "go" dies
+# an emulated host's ranks: NCCL's sockets on loopback and no InfiniBand,
+# so the path between hosts is NCCL's socket transport, and gloo's side on
+# loopback too; NCCL_HOSTID (the host's name) makes NCCL take the host for
+# a machine of its own
+EMULATED_HOST_ENV = {"NCCL_SOCKET_IFNAME": "lo", "NCCL_IB_DISABLE": "1",
+                     "GLOO_SOCKET_IFNAME": "lo"}
+# every rank's NCCL log (its own file): set-up, environment and transports
+NCCL_LOG_ENV = {"NCCL_DEBUG": "INFO", "NCCL_DEBUG_SUBSYS": "INIT,ENV,NET"}
 
 
-def mesh_procs(cards: int) -> int:
-    """The dist_procs phase's rank count: two ranks sharing one card, or
-    with more cards the largest divisor of DIST_SHARDS that is at most the
-    card count and 4."""
+def _layout(name, hosts, emulated, backend, cards, devices, shard_hosts,
+            runs=PROCS_RUNS, reuse=None) -> dict:
+    """One dist_procs layout: its hosts [(host, visible cards, ranks)] (a
+    host None is this machine), whether they are emulated, its runs, the
+    earlier layout whose processes run it (`reuse`, None: processes of its
+    own), and what its ranks must report, written out: the backend, each
+    rank's cards (as its host numbers them), Mesh.devices and Mesh.hosts
+    over DIST_SHARDS shards (None: this machine's name)."""
+    return {"name": name, "hosts": hosts, "emulated": emulated,
+            "runs": [list(x) for x in runs], "reuse": reuse,
+            "want": {"backend": backend, "cards": [list(c) for c in cards],
+                     "devices": devices, "hosts": shard_hosts}}
+
+
+def procs_layouts(cards: int) -> list:
+    """The dist_procs phase's layouts on a machine of `cards` cards, run in
+    turn. One card: two emulated hosts that each see cuda:0, one rank x 4
+    shards each (NCCL), then in the same two processes one host
+    of 2 ranks x 4 shards sharing cuda:0 (gloo). Two or three cards: two
+    emulated hosts of one card each, one rank each. Four or more:
+    one host of 4 ranks x 2 shards on cards 0-3, then two emulated hosts
+    of two cards each, (a) 2 ranks a host x 2 shards, one process per
+    card, and (b) 1 rank a host x 4 shards over its 2 cards, the JAX pod
+    layout."""
+    two = ["host0"] * 4 + ["host1"] * 4
     if cards < 2:
-        return 2
-    return max(d for d in range(1, min(cards, 4) + 1) if DIST_SHARDS % d == 0)
+        return [_layout("hosts_2x1", [("host0", "0", 1), ("host1", "0", 1)],
+                        True, "nccl", [(0,), (0,)], ["cuda:0"] * 8, two),
+                _layout("one_host_2x4", [(None, "0", 2)], False, "gloo",
+                        [(0,), (0,)], ["cuda:0"] * 8, [None] * 8,
+                        runs=PROCS_SHARED_RUNS, reuse="hosts_2x1")]
+    if cards < 4:
+        return [_layout("hosts_2x1", [("host0", "0", 1), ("host1", "1", 1)],
+                        True, "nccl", [(0,), (0,)], ["cuda:0"] * 8, two)]
+    pairs = ["cuda:0", "cuda:0", "cuda:1", "cuda:1"] * 2
+    return [_layout("one_host_4x2", [(None, "0,1,2,3", 4)], False, "nccl",
+                    [(0,), (1,), (2,), (3,)],
+                    ["cuda:0", "cuda:0", "cuda:1", "cuda:1", "cuda:2",
+                     "cuda:2", "cuda:3", "cuda:3"], [None] * 8),
+            _layout("hosts_2x2_a", [("host0", "0,1", 2), ("host1", "2,3", 2)],
+                    True, "nccl", [(0,), (1,), (0,), (1,)], pairs, two),
+            _layout("hosts_2x1_b", [("host0", "0,1", 1), ("host1", "2,3", 1)],
+                    True, "nccl", [(0, 1), (0, 1)], pairs, two)]
+
+
+def layout_ranks(hosts) -> list:
+    """A layout's ranks in rank order, host by host: (host, visible
+    cards)."""
+    return [(h, vis) for h, vis, k in hosts for _ in range(k)]
 
 
 def start_mesh_ranks(args) -> dict:
-    """Start the dist_procs phase's ranks: this script with --mesh-rank,
-    mesh_procs(cards) of them. Each generates its catalog at once (beside
-    the generate phase, so the card's phases never share the host with
-    it), then waits for a line "go <coordinator host:port>" on its stdin
-    before it touches the card."""
+    """Start the dist_procs phase's ranks, every layout's at once but for a
+    layout that runs in an earlier one's processes: this script with
+    --mesh-rank, each with its host's CUDA_VISIBLE_DEVICES and, on an
+    emulated host, NCCL_HOSTID and EMULATED_HOST_ENV, its NCCL log in a
+    file of its own for each layout. Each generates its catalog at once
+    (beside the generate phase, so the card's phases never share the host
+    with it), then waits for a line "go <coordinator host:port>" on its
+    stdin before each of its layouts."""
     import tempfile
 
     import torch
 
     d = Path(tempfile.mkdtemp(prefix="mesh_ranks_"))
-    n = mesh_procs(torch.cuda.device_count())
-    env = {**os.environ, "NCCL_DEBUG": os.environ.get("NCCL_DEBUG", "WARN")}
-    procs = [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--sf", repr(args.sf),
-         "--seed", str(args.seed), "--mesh-rank",
-         json.dumps({"rank": r, "procs": n, "dir": str(d)})],
-        stdin=subprocess.PIPE, env=env) for r in range(n)]
-    return {"procs": procs, "dir": d}
+    layouts, groups = [], {}
+    for lay in procs_layouts(torch.cuda.device_count()):
+        (d / lay["name"]).mkdir()
+        lay["ranks"] = layout_ranks(lay["hosts"])
+        lay["specs"] = [{"rank": r, "procs": len(lay["ranks"]), "host": h,
+                         "layout": lay["name"], "dir": str(d / lay["name"]),
+                         "runs": lay["runs"]}
+                        for r, (h, _) in enumerate(lay["ranks"])]
+        groups.setdefault(lay["reuse"] or lay["name"], []).append(lay)
+        layouts.append(lay)
+    for group in groups.values():
+        owner = group[0]
+        assert all([v for _, v in g["ranks"]] == [v for _, v in owner["ranks"]]
+                   for g in group), "a reused process keeps its cards"
+        procs = []
+        for r, (host, vis) in enumerate(owner["ranks"]):
+            env = {**os.environ, **NCCL_LOG_ENV, "CUDA_VISIBLE_DEVICES": vis,
+                   "NCCL_DEBUG_FILE": str(d / f"nccl_{owner['name']}_{r}.log")}
+            if owner["emulated"]:
+                env.update(EMULATED_HOST_ENV, NCCL_HOSTID=host)
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--sf",
+                 repr(args.sf), "--seed", str(args.seed), "--mesh-rank",
+                 json.dumps([g["specs"][r] for g in group])],
+                stdin=subprocess.PIPE, env=env))
+        logs = [d / f"nccl_{owner['name']}_{r}.log" for r in range(len(procs))]
+        seen = [0] * len(procs)  # the part of each log read so far
+        for g in group:
+            g.update(procs=procs, last=g is group[-1], nccl_logs=logs,
+                     nccl_seen=seen)
+    return {"layouts": layouts, "dir": d}
 
 
 def _free_port() -> int:
@@ -2995,32 +3130,49 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _wait_ranks(procs, deadline_s: float) -> list:
-    """Wait for the ranks until every one has ended, one has failed or the
-    deadline has passed; then kill those still running (a rank blocked in
-    a collective with a dead peer would hold on until its group's
-    timeout). Returns the indices of the ranks it killed."""
+def _wait_ranks(procs, deadline_s: float, records=None) -> list:
+    """Wait for the ranks until every one is done (its process ended, or,
+    with `records`, its record file there), one has failed or the
+    deadline has passed; then kill those not done (a rank blocked in a
+    collective with a dead peer would hold on until its group's timeout).
+    Returns the indices of the ranks it killed."""
+    def done(r):
+        return (procs[r].poll() is not None
+                or (records is not None and records[r].exists()))
+
     end = time.monotonic() + deadline_s
-    while any(p.poll() is None for p in procs):
+    while not all(done(r) for r in range(len(procs))):
         if (time.monotonic() > end
                 or any(p.poll() not in (None, 0) for p in procs)):
             break
         time.sleep(0.2)
-    killed = [r for r, p in enumerate(procs) if p.poll() is None]
+    killed = [r for r in range(len(procs)) if not done(r)]
     for r in killed:
         procs[r].kill()
-    for p in procs:
-        p.wait()
+        procs[r].wait()
     return killed
+
+
+def nccl_channels(text: str) -> list:
+    """The channels in an NCCL log (NCCL_DEBUG=INFO): [(from rank, to rank,
+    transport)], the transport the first word of the `via` field (NET,
+    P2P, SHM, ...)."""
+    import re
+
+    found = re.findall(r"Channel \d+/\d+ : (\d+)\[\w+\] -> (\d+)\[\w+\]"
+                       r"(?: \[\w+\])? via (\w+)", text)
+    return [(int(a), int(b), t) for a, b, t in found]
 
 
 def phase_dist_procs(rec, cat, ranks: dict):
     """The process mesh (see the module docstring, phase 8c'): the
-    single-shard rows of the queries of PROCS_RUNS, then the card's memory
-    freed and the ranks told to go; each rank's record checked (its exit,
-    backend, mesh devices, rows, and every kernel launched on its card
-    alone). Nothing retries: a failed rank or NCCL set-up fails the
-    phase."""
+    single-shard rows of the queries of every layout's runs, then the
+    card's memory freed and each layout's ranks told to go in turn; each
+    rank's record checked (its exit, backend, cards, mesh hosts and
+    devices against the layout's, rows, and every kernel launched on its
+    own cards alone, on each of them), and on an emulated host the
+    transport of every NCCL channel between hosts. Nothing retries: a
+    failed rank or NCCL set-up fails the phase."""
     import gc
     import pickle
 
@@ -3028,87 +3180,169 @@ def phase_dist_procs(rec, cat, ranks: dict):
     import torch.distributed as dist
 
     from starrocks_tpu_torch.ops import kernels
-    from starrocks_tpu_torch.runtime.cluster import process_backend
     from starrocks_tpu_torch.runtime.session import Session
     from starrocks_tpu_torch.storage.tpch_queries import DIST_QUERIES
 
-    procs, d = ranks["procs"], ranks["dir"]
     cards = torch.cuda.device_count()
-    n, per = len(procs), DIST_SHARDS // len(procs)
-    backend = process_backend(cards, n)
     nccl = (str(torch.cuda.nccl.version()) if dist.is_nccl_available()
             else None)
-    out = {"ranks": n, "shards_per_rank": per, "cards": cards,
-           "backend": backend, "nccl_available": dist.is_nccl_available(),
-           "nccl_version": nccl}
-    log(f"dist_procs: {n} ranks x {per} shards on {cards} card(s), backend "
-        f"by the rule: {backend}; NCCL available "
-        f"{dist.is_nccl_available()}, version {nccl}")
+    out = {"cards": cards, "nccl_available": dist.is_nccl_available(),
+           "nccl_version": nccl, "layouts": {}}
+    log(f"dist_procs: {len(ranks['layouts'])} layout(s) on {cards} "
+        f"card(s); NCCL available {dist.is_nccl_available()}, version "
+        f"{nccl}")
     set_knobs(strategies("auto"))
     s1 = Session(cat, device=CARD)
     t = time.perf_counter()
     want = {q: s1.sql(DIST_QUERIES[q]).table
-            for q in dict.fromkeys(q for _, _, q in PROCS_RUNS)}
+            for q in dict.fromkeys(q for lay in ranks["layouts"]
+                                   for _, _, q in lay["runs"])}
     out["single_shard_s"] = time.perf_counter() - t
     del s1
     gc.collect()
     torch.cuda.empty_cache()
     out["parent_allocated_gb"] = torch.cuda.memory_allocated() / 1e9
-    (d / "want.pkl").write_bytes(pickle.dumps(want))
+    launches = dict.fromkeys(kernels.WRAPPERS, 0)
+    failures = []
+    for lay in ranks["layouts"]:
+        (ranks["dir"] / lay["name"] / "want.pkl").write_bytes(
+            pickle.dumps(want))
+        got = _run_layout(lay, ranks["dir"] / lay["name"], failures)
+        for k, v in got["launches"].items():
+            launches[k] += v
+        out["layouts"][lay["name"]] = got
+    out["launches"] = launches
+    log(f"dist_procs: launches {launches}")
+    rec["dist_procs"] = out
+    if failures:
+        raise PhaseError(f"dist_procs: {failures[:12]}")
+
+
+def _run_layout(lay: dict, d: Path, failures: list) -> dict:
+    """Tell one layout's ranks to go (the end of their input after their
+    last layout), wait for them, and check their records and NCCL logs
+    against the layout's written-out expectations (failures appended);
+    returns the layout's record."""
+    import platform
+
+    from starrocks_tpu_torch.ops import kernels
+
+    name, procs, want = lay["name"], lay["procs"], lay["want"]
+    n, per = len(procs), DIST_SHARDS // len(procs)
+    this = platform.node()
+    hosts = [h or this for h in want["hosts"]]
+    shape = " + ".join(f"{h or 'this host'} (cards {vis}, {k} rank(s))"
+                       for h, vis, k in lay["hosts"])
+    log(f"dist_procs {name}: {n} ranks x {per} shards on {shape}"
+        f"{' in the processes of ' + lay['reuse'] if lay['reuse'] else ''}"
+        f"; backend expected: {want['backend']}; rank cards "
+        f"{want['cards']}; {len(lay['runs'])} runs")
+    out = {"ranks": n, "shards_per_rank": per, "hosts": lay["hosts"],
+           "emulated": lay["emulated"], "reuse": lay["reuse"],
+           "backend": want["backend"], "runs": lay["runs"],
+           "host_available_gb": [_host_available_gb()]}
     coord = f"127.0.0.1:{_free_port()}"
+    records = [d / f"rank{r}.json" for r in range(n)]
     t = time.perf_counter()
     for p in procs:
         try:
             p.stdin.write(f"go {coord}\n".encode())
-            p.stdin.close()
+            p.stdin.flush()
+            if lay["last"]:
+                p.stdin.close()
         except OSError:
             pass  # the rank already ended: its exit code says why
-    killed = _wait_ranks(procs, PROCS_DEADLINE_S)
+    killed = _wait_ranks(procs, PROCS_DEADLINE_S,
+                         None if lay["last"] else records)
     out["wall_s"] = time.perf_counter() - t
+    out["host_available_gb"].append(_host_available_gb())
     why = ("past its deadline" if out["wall_s"] > PROCS_DEADLINE_S
            else "after a peer failed")
-    failures = [f"rank {r} killed {why}" for r in killed]
+    failures += [f"{name} rank {r} killed {why}" for r in killed]
     recs = []
     for r, p in enumerate(procs):
-        f = d / f"rank{r}.json"
-        got = json.loads(f.read_text()) if f.exists() else {}
+        got = (json.loads(records[r].read_text()) if records[r].exists()
+               else {})
         recs.append(got)
-        if p.returncode != 0 or got.get("status") != "ok":
-            failures.append(f"rank {r} exit {p.returncode}: "
+        if p.poll() not in (None, 0) or got.get("status") != "ok":
+            failures.append(f"{name} rank {r} exit {p.poll()}: "
                             f"{got.get('status', 'no record')}")
     out["rank_records"] = recs
-    want_devs = [f"cuda:{(s // per) % cards}" for s in range(DIST_SHARDS)]
     launches = dict.fromkeys(kernels.WRAPPERS, 0)
+    backend = want["backend"]
     for r, got in enumerate(recs):
         if not got.get("runs"):
             continue
-        card = f"cuda:{r % cards}"
+        mine = sorted(set(want["devices"][r * per:(r + 1) * per]))
         if (got.get("backend"), got.get("coll")) != (
                 backend, backend.capitalize()):
-            failures.append(f"rank {r}: backend {got.get('backend')} "
-                            f"({got.get('coll')}), the rule says {backend}")
-        if got.get("devices") != want_devs:
-            failures.append(f"rank {r}: Mesh.devices {got.get('devices')}, "
-                            f"the rule says {want_devs}")
+            failures.append(f"{name} rank {r}: backend {got.get('backend')} "
+                            f"({got.get('coll')}), expected {backend}")
+        for key, exp in (("hosts", hosts), ("devices", want["devices"]),
+                         ("cards", want["cards"][r])):
+            if got.get(key) != exp:
+                failures.append(f"{name} rank {r}: {key} {got.get(key)}, "
+                                f"expected {exp}")
         per_card = {k: {} for k in kernels.WRAPPERS}
         for key, run in got["runs"].items():
             if not run["rows_equal"]:
-                failures.append(f"rank {r} {key}: rows differ from the "
-                                "single-shard path's")
+                failures.append(f"{name} rank {r} {key}: rows differ from "
+                                "the single-shard path's")
             for k, cs in run["launches_per_card"].items():
                 for c, v in cs.items():
                     per_card[k][c] = per_card[k].get(c, 0) + v
         for k, cs in per_card.items():
             launches[k] += sum(cs.values())
-            if set(cs) != {card}:
-                failures.append(f"rank {r}: {k} launched on {cs}, not on "
-                                f"{card} alone")
+            if sorted(cs) != mine:
+                failures.append(f"{name} rank {r}: {k} launched on {cs}, "
+                                f"not on each of {mine} alone")
     out["launches"] = launches
-    log(f"dist_procs: ranks done in {out['wall_s']:.1f} s, launches "
-        f"{launches}")
-    rec["dist_procs"] = out
-    if failures:
-        raise PhaseError(f"dist_procs: {failures[:12]}")
+    out["nccl"] = _nccl_report(lay, [h or this for h, _ in lay["ranks"]],
+                               failures)
+    log(f"dist_procs {name}: ranks done in {out['wall_s']:.1f} s (host "
+        f"memory available before and after: {out['host_available_gb']} "
+        "GB); NCCL "
+        f"transports between hosts {out['nccl']['between_hosts']}, within "
+        f"a host {out['nccl']['within_host']}; NCCL_HOSTID honoured "
+        f"{out['nccl']['hostid_lines']} of {n}, nNodes "
+        f"{out['nccl']['nodes']}; launches {launches}")
+    return out
+
+
+def _nccl_report(lay: dict, rank_hosts: list, failures: list) -> dict:
+    """Read the layout's NCCL logs (a log of processes that ran an earlier
+    layout holds that one's lines first: only the part after them is
+    read): the transport of each channel, counted by whether its two
+    ranks are on one host, the ranks whose log says NCCL_HOSTID was set,
+    and the node counts NCCL reported. Between emulated hosts every
+    channel must take the network transport (P2P or SHM there means the
+    emulation leaked), and one at least must have been seen where the
+    group has NCCL."""
+    import re
+
+    between: dict = {}
+    within: dict = {}
+    hostid = 0
+    nodes = set()
+    seen = lay["nccl_seen"]
+    for r, f in enumerate(lay["nccl_logs"]):
+        text = f.read_text(errors="replace") if f.exists() else ""
+        text, seen[r] = text[seen[r]:], len(text)
+        hostid += "NCCL_HOSTID" in text
+        nodes.update(int(x) for x in re.findall(r"nNodes (\d+)", text))
+        for a, b, via in nccl_channels(text):
+            side = within if rank_hosts[a] == rank_hosts[b] else between
+            side[via] = side.get(via, 0) + 1
+    if lay["emulated"] and lay["want"]["backend"] == "nccl":
+        leaked = {k: v for k, v in between.items() if k != "NET"}
+        if leaked:
+            failures.append(f"{lay['name']}: NCCL channels between emulated "
+                            f"hosts over {leaked}: the emulation leaked")
+        if not between:
+            failures.append(f"{lay['name']}: no NCCL channel between hosts "
+                            "in the ranks' logs")
+    return {"between_hosts": between, "within_host": within,
+            "hostid_lines": hostid, "nodes": sorted(nodes)}
 
 
 def stop_mesh_ranks(ranks: dict):
@@ -3117,14 +3351,16 @@ def stop_mesh_ranks(ranks: dict):
     killed."""
     import shutil
 
-    for p in ranks.get("procs", ()):
+    procs = list({id(p): p for lay in ranks.get("layouts", ())
+                  for p in lay["procs"]}.values())
+    for p in procs:
         if p.poll() is None:
             try:
                 p.stdin.close()
             except OSError:
                 pass
-    if ranks.get("procs"):
-        _wait_ranks(ranks["procs"], 60)
+    if procs:
+        _wait_ranks(procs, 60)
         shutil.rmtree(ranks["dir"], ignore_errors=True)
 
 
@@ -3136,37 +3372,55 @@ def _rank_log(msg: str):
 
 
 def mesh_rank(args) -> int:
-    """--mesh-rank JSON ({"rank", "procs", "dir"}): generate the catalog,
-    wait for "go <coordinator>" on stdin (end of input: exit without
-    running), join the process group (runtime.cluster.init_multihost:
-    `procs` processes x DIST_SHARDS / procs shards), run PROCS_RUNS
-    through Session(dist_shards=DIST_SHARDS) on this rank's card, each
-    held to the parent's single-shard rows (`want.pkl`), and write
-    rank<r>.json to the directory."""
-    spec = json.loads(args.mesh_rank)
-    r, d = spec["rank"], Path(spec["dir"])
-    rec = {"rank": r, "status": "ok", "runs": {}}
-    try:
-        from starrocks_tpu_torch.storage.catalog import tpch_catalog
+    """--mesh-rank JSON (a list of {"rank", "procs", "host", "layout",
+    "dir", "runs"}, one for each layout this process runs, in turn):
+    generate the catalog; then for each layout wait for "go <coordinator>"
+    on stdin (end of input: exit without running), join the process group
+    (runtime.cluster.init_multihost: `procs` processes x DIST_SHARDS /
+    procs shards, host `host`, None for this machine's name), run `runs`
+    through Session(dist_shards=DIST_SHARDS) on this rank's cards, each
+    held to the parent's single-shard rows (`want.pkl`), leave the group,
+    free the card's memory and write rank<r>.json to the layout's
+    directory."""
+    import gc
 
-        t = time.perf_counter()
-        cat = tpch_catalog(sf=args.sf, seed=args.seed)
-        rec["gen_s"] = time.perf_counter() - t
-        _rank_log(f"  rank {r}: TPC-H SF {args.sf:g} generated in "
-                  f"{rec['gen_s']:.1f} s")
-        line = sys.stdin.readline().split()
-        if not line or line[0] != "go":
-            return 0
-        _mesh_rank_runs(rec, cat, line[1], r, spec["procs"], d)
-    except Exception as e:  # noqa: BLE001 — reported to the parent
-        traceback.print_exc()
-        rec["status"] = f"FAILED: {type(e).__name__}: {e}"
-    (d / f"rank{r}.json").write_text(json.dumps(rec))
-    return 0 if rec["status"] == "ok" else 1
+    import torch
+
+    specs = json.loads(args.mesh_rank)
+    cat = None
+    for spec in specs:
+        r, d = spec["rank"], Path(spec["dir"])
+        tag = f"{spec['layout']} rank {r}"
+        rec = {"rank": r, "host": spec["host"], "status": "ok", "runs": {}}
+        try:
+            if cat is None:
+                from starrocks_tpu_torch.storage.catalog import tpch_catalog
+
+                t = time.perf_counter()
+                cat = tpch_catalog(sf=args.sf, seed=args.seed)
+                rec["gen_s"] = time.perf_counter() - t
+                _rank_log(f"  {tag}: TPC-H SF {args.sf:g} generated in "
+                          f"{rec['gen_s']:.1f} s")
+            line = sys.stdin.readline().split()
+            if not line or line[0] != "go":
+                return 0
+            _mesh_rank_runs(rec, cat, line[1], spec, tag)
+        except Exception as e:  # noqa: BLE001 — reported to the parent
+            traceback.print_exc()
+            rec["status"] = f"FAILED: {type(e).__name__}: {e}"
+        gc.collect()
+        torch.cuda.empty_cache()
+        tmp = d / f"rank{r}.json.tmp"
+        tmp.write_text(json.dumps(rec))
+        tmp.replace(d / f"rank{r}.json")
+        if rec["status"] != "ok":
+            return 1
+    return 0
 
 
-def _mesh_rank_runs(rec, cat, coord: str, r: int, n: int, d: Path):
+def _mesh_rank_runs(rec, cat, coord: str, spec: dict, tag: str):
     import pickle
+    import resource
 
     import torch
     import torch.distributed as dist
@@ -3177,54 +3431,81 @@ def _mesh_rank_runs(rec, cat, coord: str, r: int, n: int, d: Path):
     from starrocks_tpu_torch.runtime.session import Session
     from starrocks_tpu_torch.storage.tpch_queries import DIST_QUERIES
 
-    want = pickle.loads((d / "want.pkl").read_bytes())
+    n = spec["procs"]
+    want = pickle.loads((Path(spec["dir"]) / "want.pkl").read_bytes())
     t = time.perf_counter()
-    init_multihost(coord, num_processes=n, process_id=r,
+    init_multihost(coord, num_processes=n, process_id=spec["rank"],
                    local_device_count=DIST_SHARDS // n,
-                   timeout_s=PROCS_GROUP_TIMEOUT_S)
+                   timeout_s=PROCS_GROUP_TIMEOUT_S, host=spec["host"])
     rec["init_s"] = time.perf_counter() - t
     s = Session(cat, dist_shards=DIST_SHARDS)
     mesh = s._executor().mesh
     rec.update(backend=M._PROCESS["backend"], group=str(dist.get_backend()),
                card=f"cuda:{torch.cuda.current_device()}",
+               cards=list(M._PROCESS["cards"]),
                coll=type(mesh.coll).__name__, mesh=repr(mesh),
                devices=[str(x) for x in mesh.devices],
+               hosts=list(mesh.hosts),
                local_cards=[str(x) for x in mesh.cards])
-    _rank_log(f"  rank {r}: joined in {rec['init_s']:.1f} s, backend "
+    _rank_log(f"  {tag}: joined in {rec['init_s']:.1f} s, backend "
               f"{rec['backend']} (group {rec['group']}), {rec['mesh']}; "
-              f"shard s on {rec['devices']}")
+              f"shard s on {rec['devices']} of hosts {rec['hosts']}")
+
+    def retries():
+        return sum(torch.cuda.memory_stats(c).get("num_alloc_retries", 0)
+                   for c in mesh.cards)
+
     try:
-        for strategy, run, q in PROCS_RUNS:
+        for strategy, run, q in spec["runs"]:
             knobs = strategies("auto" if strategy == "auto" else "kernels")
             if strategy == "hash":
                 knobs = {**knobs, "join_probe_strategy": "pallas"}
             set_knobs(knobs)
             kernels.reset_counts()
             mesh.reset_moves()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t = time.perf_counter()
+            for c in mesh.cards:
+                torch.cuda.synchronize(c)
+                torch.cuda.reset_peak_memory_stats(c)
+            retried = retries()
+            t, cpu = time.perf_counter(), time.process_time()
             res = s.sql(DIST_QUERIES[q])
             table = res.table
-            torch.cuda.synchronize()
+            for c in mesh.cards:
+                torch.cuda.synchronize(c)
             wall = time.perf_counter() - t
+            cpu = time.process_time() - cpu
             rel = DIST_REL.get(q, 1e-6) if strategy != "auto" else 1e-6
             got = _snapshot(kernels)
-            ctr = _prof_view(res.profile).get("counters", {})
+            prof = _prof_view(res.profile)
+            attempts = prof.get("attempts", ())
+            peaks = {str(c): torch.cuda.max_memory_allocated(c) / 1e9
+                     for c in mesh.cards}
             x = rec["runs"][f"{q}@{strategy} {run}"] = {
-                "wall_s": wall, "rows": table.num_rows,
+                "wall_s": wall, "cpu_s": cpu, "rows": table.num_rows,
                 "rows_equal": _dist_agree(q, table, want[q], rel),
-                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "attempts": len(attempts),
+                "scan_s": sum(a["scan_s"] for a in attempts),
+                "run_s": sum(a["run_s"] for a in attempts),
+                "optimize_s": prof.get("optimize_s"),
+                "alloc_retries": retries() - retried,
+                "peak_mem_gb": max(peaks.values()),
+                "peak_mem_gb_per_card": peaks,
                 "launches": {k: v for k, v in got.items() if v},
                 "launches_per_card": kernels.launches_per_card(),
                 "moves": {k: [len(v), sum(v)] for k, v in mesh.moves.items()},
-                "exchange_bytes": ctr.get("exchange_bytes")}
-            _rank_log(f"  rank {r} {q}@procs-{strategy} {run}: "
-                      f"{wall * 1e3:.1f} ms, {table.num_rows} rows, equal "
-                      f"{x['rows_equal']}, peak {x['peak_mem_gb']:.2f} GB, "
-                      f"launches {x['launches']}, moves {x['moves']}")
+                "exchange_bytes": prof.get("counters", {}).get(
+                    "exchange_bytes")}
+            _rank_log(f"  {tag} {q}@procs-{strategy} {run}: "
+                      f"{wall * 1e3:.1f} ms ({cpu:.1f} CPU s, "
+                      f"{x['attempts']} attempt(s), scan {x['scan_s']:.2f} s,"
+                      f" run {x['run_s']:.2f} s, {x['alloc_retries']} "
+                      f"allocator retries), {table.num_rows} rows, equal "
+                      f"{x['rows_equal']}, peak {peaks} GB, launches "
+                      f"{x['launches']}, moves {x['moves']}")
     finally:
         set_knobs(strategies("auto"))
+    rec["host_peak_gb"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
     dist.barrier()
     dist.destroy_process_group()
 
@@ -5508,7 +5789,8 @@ def main(argv=None) -> int:
                          "starts the script so, with the lock witness on)")
     ap.add_argument("--mesh-rank", default=None, metavar="JSON",
                     help="one rank of the dist_procs phase ({rank, procs, "
-                         "dir}): generate the catalog, wait for a line 'go "
+                         "host, layout, dir}): generate the catalog, wait "
+                         "for a line 'go "
                          "<host:port>' on stdin, join the process group and "
                          "run the phase's queries (the phase starts the "
                          "script so)")

@@ -19,15 +19,22 @@ of per-shard Chunks:
 - the collectives go through one small interface with three
   implementations: `InProcess` (every shard in this process, on its own
   device: blocks travel between cards as blocking peer copies), and over
-  a torch.distributed process group spanning processes, set up by
-  `runtime.cluster.init_multihost` (each process holds its slice of the
-  shards on its own card, as jax.distributed spans one mesh over
-  processes) either `Gloo`, which stages device tensors through host
-  memory, the transport gloo runs on, or `Nccl`, whose collectives run
-  on the device tensors where they are, over NCCL. `make_mesh` takes
-  `Nccl` when the group has the NCCL side (each process a card of its
-  own), `Gloo` otherwise; `Mesh.devices` then names every process's card
-  (`process_devices`).
+  a torch.distributed process group spanning processes on one host or
+  several, set up by `runtime.cluster.init_multihost` (as jax.distributed
+  spans one mesh over a pod's hosts, each process holding its host's
+  chips) either `Gloo`, which stages device tensors through host memory,
+  the transport gloo runs on, or `Nccl`, whose collectives run on the
+  device tensors where they are, over NCCL (between the cards of a host
+  and over the network between hosts, as NCCL picks). `make_mesh` takes
+  `Nccl` when the group has the NCCL side (every rank a card of its own),
+  `Gloo` otherwise;
+- a rank of a process mesh holds the cards `runtime.cluster.host_layout`
+  gives it (a block of its host's cards, or a card it shares) and spreads
+  its shards over them as an in-process mesh does (`process_devices`);
+  its collectives go through its first card, the card of its NCCL rank.
+  `Mesh.devices` names every shard's card as its host numbers it and
+  `Mesh.hosts` its host, so a shard on another host's cuda:0 is told
+  apart from this host's.
 
 Collective inputs are lists of the LOCAL shards' tensors, in shard order.
 Gathered and reduced results land on the home device; an all_to_all
@@ -37,6 +44,7 @@ delivers each receiver's rows on the receiver's device.
 from __future__ import annotations
 
 import contextlib
+import platform
 import threading
 
 import numpy as np
@@ -49,18 +57,23 @@ DATA_AXIS = "d"  # the mesh's one axis (the JAX package's name)
 
 def shard_devices(n: int, device, count: int) -> tuple:
     """The device of each of n shards (the JAX Mesh's device array). A
-    `cuda` device without an index spreads the shards over the first k of
-    `count` visible cards, k the largest divisor of n that is at most
-    `count`, in consecutive blocks: shard s on `cuda:(s // (n // k))`. A
-    device with an index (`cuda:1`) or the CPU holds every shard."""
+    `cuda` device without an index spreads the shards over the visible
+    cards (`spread`, over cuda:0 .. cuda:(count - 1)). A device with an
+    index (`cuda:1`) or the CPU holds every shard."""
     dev = torch.device(device)
     if dev.type != "cuda" or dev.index is not None:
         return (dev,) * n
     if count < 1:
         raise RuntimeError("a cuda mesh needs a visible card; none is")
-    k = max(d for d in range(1, min(n, count) + 1) if n % d == 0)
-    per = n // k
-    return tuple(torch.device("cuda", s // per) for s in range(n))
+    return spread(n, [torch.device("cuda", i) for i in range(count)])
+
+
+def spread(n: int, cards) -> tuple:
+    """n shards over the first k of `cards`, k the largest divisor of n
+    that is at most their number, in consecutive blocks: shard s on
+    `cards[s // (n // k)]`."""
+    k = max(d for d in range(1, min(n, len(cards)) + 1) if n % d == 0)
+    return tuple(torch.device(cards[s // (n // k)]) for s in range(n))
 
 
 def indexed_device(device) -> torch.device:
@@ -276,9 +289,11 @@ class Mesh:
     holds. `moves` counts each collective's calls and the per-shard
     capacities it moved (a test hook: the JAX package's tests read the
     same facts from HLO). A card of this process's shards that does not
-    exist raises here (another process's shards name its own cards)."""
+    exist raises here (another process's shards name its own cards).
+    `hosts` names each shard's host (default: this process's host for
+    every shard), the process_index of the JAX Mesh's devices."""
 
-    def __init__(self, n_shards: int, device, coll=None):
+    def __init__(self, n_shards: int, device, coll=None, hosts=None):
         self.n = int(n_shards)
         if isinstance(device, (tuple, list)):
             devices = tuple(indexed_device(d) for d in device)
@@ -287,6 +302,10 @@ class Mesh:
         else:
             devices = (indexed_device(device),) * self.n
         self.devices = devices
+        self.hosts = tuple(hosts) if hosts is not None else (
+            this_host(),) * self.n
+        if len(self.hosts) != self.n:
+            raise ValueError(f"{len(self.hosts)} hosts for {self.n} shards")
         self.coll = coll if coll is not None else InProcess(self.n)
         if self.coll.n != self.n:
             raise ValueError("collective backend sized for another mesh")
@@ -412,40 +431,61 @@ class Mesh:
     def __repr__(self):
         return (f"Mesh(n={self.n}, local={self.local}, device={self.device}, "
                 f"cards={self.cards}, {type(self.coll).__name__}, "
-                f"backend={self.coll.backend})")
+                f"backend={self.coll.backend}, "
+                f"hosts={tuple(dict.fromkeys(self.hosts))})")
 
 
 # multi-process state set by runtime.cluster.init_multihost: each process's
-# shard count and the backend its devices' collectives take ("nccl" when
-# the group has the NCCL side, "gloo" when it has gloo alone)
-_PROCESS = {"local_shards": None, "backend": None}
+# shard count, the backend its devices' collectives take ("nccl" when the
+# group has the NCCL side, "gloo" when it has gloo alone), its host and the
+# cards of its host it holds (host_layout)
+_PROCESS = {"local_shards": None, "backend": None, "host": None,
+            "cards": None}
+
+
+def this_host() -> str:
+    """This process's host: the name it joined its process group under,
+    else the machine's (`platform.node()`, the host name)."""
+    return _PROCESS["host"] or platform.node()
 
 
 def process_devices(rank_devices, n: int) -> tuple:
     """The global device map of a mesh over processes (the JAX mesh's
     device array, each device with its process_index): rank r of w holds
-    shards [r * n / w, (r + 1) * n / w), all on its own device
-    `rank_devices[r]`."""
+    shards [r * n / w, (r + 1) * n / w), spread (`spread`) over its own
+    devices `rank_devices[r]`, one device or a sequence of them (the
+    cards of its host it holds, as its host numbers them)."""
     w = len(rank_devices)
     if n % w:
         raise ValueError(f"{n} shards do not divide over {w} processes")
-    return tuple(torch.device(rank_devices[s // (n // w)]) for s in range(n))
+    out: list = []
+    for devs in rank_devices:
+        if isinstance(devs, (str, torch.device)):
+            devs = (devs,)
+        out += spread(n // w, devs)
+    return tuple(out)
 
 
 def _rank_devices(device) -> list:
-    """Each process's device (`device` in this one), in rank order: one
-    gather of a CPU tensor over the group's gloo side, a card as its index
-    and the CPU as -1. Every process of the group must call it."""
+    """Each process's (host, devices), in rank order: one gather of
+    objects over the group's gloo side. In each process a bare `cuda` is
+    the cards init_multihost gave the rank (its current card where it was
+    given none), any other device itself, and None no device (the caller
+    names every shard's). Every process of the group must call it."""
     import torch.distributed as dist
 
-    dev = indexed_device(device)
-    if dev.type not in ("cuda", "cpu"):
+    dev = torch.device(device) if device is not None else None
+    if dev is None:
+        devs = ()
+    elif dev.type not in ("cuda", "cpu"):
         raise ValueError(f"a process mesh runs on a card or the CPU: {dev}")
-    mine = torch.tensor([dev.index if dev.type == "cuda" else -1])
-    parts = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, mine)
-    return [f"cuda:{i}" if i >= 0 else "cpu"
-            for i in torch.cat(parts).tolist()]
+    elif dev.type == "cuda" and dev.index is None and _PROCESS["cards"]:
+        devs = tuple(f"cuda:{c}" for c in _PROCESS["cards"])
+    else:
+        devs = (str(indexed_device(dev)),)
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, (this_host(), devs))
+    return out
 
 
 def make_mesh(n_devices: int | None = None, *, device=None,
@@ -455,13 +495,14 @@ def make_mesh(n_devices: int | None = None, *, device=None,
     visible cards (`shard_devices`), any other device holds them all. Or
     on `devices`, one per shard, as the JAX Mesh takes any device array
     (n defaults to their number). After `cluster.init_multihost` the mesh
-    spans every process of the group (n defaults to processes x local
-    shards): this process's shards share its own card, the collectives
-    take `Nccl` where the group has the NCCL side and `Gloo` otherwise,
-    and without `devices` every process's device is gathered
-    (`process_devices`), so every process of the group builds it at the
-    same point; otherwise every shard lives in this process (n is
-    required)."""
+    spans every process of the group, on one host or several (n defaults
+    to processes x local shards): this process's shards spread over the
+    cards host_layout gave it (on a bare `cuda`), the collectives take
+    `Nccl` where the group has the NCCL side and `Gloo` otherwise, and
+    every process's host (and without `devices` its devices,
+    `process_devices`) is gathered, so every process of the group builds
+    it at the same point. Otherwise every shard lives in this process (n
+    is required)."""
     import torch.distributed as dist
 
     if device is None and devices is None:
@@ -470,12 +511,16 @@ def make_mesh(n_devices: int | None = None, *, device=None,
         devices = tuple(devices)
         n_devices = n_devices or len(devices)
     if dist.is_available() and dist.is_initialized():
+        w = dist.get_world_size()
         per = _PROCESS["local_shards"] or 1
-        n = n_devices or per * dist.get_world_size()
+        n = n_devices or per * w
         coll = Nccl(n) if _PROCESS["backend"] == "nccl" else Gloo(n)
+        ranks = _rank_devices(device if devices is None else None)
+        hosts = [h for h, _ in ranks]
         if devices is None:
-            devices = process_devices(_rank_devices(device), n)
-        return Mesh(n, devices, coll)
+            devices = process_devices([d for _, d in ranks], n)
+        return Mesh(n, devices, coll,
+                    hosts=[hosts[s // (n // w)] for s in range(n)])
     if not n_devices:
         raise ValueError("an in-process mesh needs its shard count")
     if devices is None:

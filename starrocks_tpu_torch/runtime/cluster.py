@@ -13,12 +13,18 @@ Reference behavior:
 A port of the JAX package's runtime/cluster.py. The DATA plane across
 processes is the mesh's collectives (all_to_all / all_gather / all_reduce
 over a torch.distributed process group): on the device tensors over NCCL
-where each process has a card of its own (parallel/mesh.Nccl), else staged
+where every rank has a card of its own (parallel/mesh.Nccl), else staged
 through host memory over gloo (parallel/mesh.Gloo), so one distributed
-program covers one process or several. What remains here is the CONTROL
-plane:
-  * init_multihost(...)    — join the process group the mesh spans, its
-                             backend chosen by process_backend;
+program covers one process or several, on one host or several, as
+jax.distributed spans one mesh over a pod's hosts (in-host hops over
+NVLink or PCIe, cross-host hops over the network, picked by NCCL, not by
+engine code). What remains here is the CONTROL plane:
+  * host_layout(table)     — each rank's local rank and cards, and the
+                             group's backend, from every rank's host and
+                             visible cards (process_backend: one host);
+  * init_multihost(...)    — publish this rank's host and cards, read
+                             every rank's, bind this rank's first card and
+                             join the process group the mesh spans;
   * ClusterMonitor         — coordinator-side heartbeat registry,
                              failure detection, on_failure restart hooks;
   * Heartbeater            — worker-side periodic beat.
@@ -33,7 +39,7 @@ import http.server
 import json
 import threading
 import time
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 from .. import lockdep
 from .metrics import metrics
@@ -48,50 +54,166 @@ WORKERS_DEAD = metrics.gauge(
 
 
 def process_backend(cards: int, procs_on_host: int) -> str:
-    """The backend of a process group's device collectives: "nccl" when
-    the host has cards and each of its `procs_on_host` processes a card of
-    its own, "gloo" otherwise (no card, or processes sharing a card: NCCL
-    refuses two ranks on one device)."""
-    return "nccl" if 0 < cards and procs_on_host <= cards else "gloo"
+    """The backend of a process group's device collectives when every rank
+    runs on one host (host_layout's answer for that host alone): "nccl"
+    when the host has cards and each of its `procs_on_host` processes a
+    card of its own, "gloo" otherwise (no card, or processes sharing a
+    card: NCCL refuses two ranks on one device)."""
+    return host_layout([("", cards)] * procs_on_host)[0]
+
+
+class RankPlace(NamedTuple):
+    """One rank's place in a process mesh over hosts: its host, its index
+    among that host's ranks (in global rank order) and the cards of its
+    host it holds (indices among the cards its host makes visible; none:
+    the rank runs on the CPU)."""
+    host: str
+    local_rank: int
+    cards: tuple
+
+
+def host_layout(table) -> tuple:
+    """The layout of a process mesh over hosts. `table` is every rank's
+    (host, visible cards), in rank order; returns (the group's backend,
+    [RankPlace of each rank]). A host's ranks are ordered by global rank
+    (they need not be consecutive). With p ranks on a host of c >= p
+    cards, local rank i holds the c // p cards from card i * (c // p) on;
+    with p > c it shares card i % c; with no card it runs on the CPU. The
+    backend is "nccl" only when every host has cards and no two ranks
+    share one, "gloo" otherwise: every rank computes the same answer from
+    the same table."""
+    by_host: dict = {}
+    for r, (host, _) in enumerate(table):
+        by_host.setdefault(host, []).append(r)
+    places = [None] * len(table)
+    nccl = True
+    for host, ranks in by_host.items():
+        counts = sorted({int(table[r][1]) for r in ranks})
+        if len(counts) > 1:
+            raise ValueError(f"the ranks of host {host!r} see {counts} "
+                             "cards: one host, one card count")
+        c, p = counts[0], len(ranks)
+        nccl = nccl and 0 < c and p <= c
+        for i, r in enumerate(ranks):
+            if not c:
+                cards = ()
+            elif p <= c:
+                cards = tuple(range(i * (c // p), (i + 1) * (c // p)))
+            else:
+                cards = (i % c,)
+            places[r] = RankPlace(host, i, cards)
+    return ("nccl" if nccl else "gloo"), places
+
+
+class RanksMissing(RuntimeError):
+    """The process mesh's rendezvous ended before every rank was heard
+    from; `missing` names those ranks."""
+
+    def __init__(self, missing, coordinator_address: str, timeout_s: float):
+        self.missing = list(missing)
+        super().__init__(
+            f"process mesh at {coordinator_address}: ranks {self.missing} "
+            f"not heard from within {timeout_s:g} s")
+
+
+def _await_ranks(table, keys, timeout_s: float, coordinator_address: str):
+    """Wait for every key of the rendezvous table, in rank order, within
+    one deadline; raise RanksMissing naming the first rank not heard from
+    and every later one not there either. Waiting in order names them
+    even when the coordinator's store goes away (a peer gave up first):
+    the ranks before are known to be there."""
+    import datetime
+
+    import torch.distributed as dist
+
+    end = time.monotonic() + timeout_s
+    # lint: checkpoint-exempt — process start-up, not query context; one deadline bounds every wait
+    for i, k in enumerate(keys):
+        left = max(end - time.monotonic(), 1e-3)
+        try:
+            table.wait([k], datetime.timedelta(seconds=left))
+        except dist.DistError as e:
+            missing = [int(k)] + [int(x) for x in keys[i + 1:]
+                                  if not _published(table, x)]
+            raise RanksMissing(missing, coordinator_address,
+                               timeout_s) from e
+
+
+def _published(table, key: str) -> bool:
+    """Whether the key is in the table; False where the store is gone."""
+    import torch.distributed as dist
+
+    try:
+        return table.check([key])
+    except dist.DistError:
+        return False
 
 
 def init_multihost(coordinator_address: str, num_processes: int,
                    process_id: int, local_device_count: int | None = None,
-                   timeout_s: float | None = None):
-    """Join the cross-process group (`coordinator_address` is host:port of
-    rank 0's rendezvous; `timeout_s` bounds its set-up and every
-    collective, torch's default where None) and return the GLOBAL shard
-    ids. Each process then holds `local_device_count` shards (default 1)
-    of the meshes parallel/mesh.make_mesh builds, all on its own card
-    where the host has cards: process p binds `cuda:(p % cards)` before
-    the group exists, so a mesh on a bare `cuda` puts its shards there.
-    The backend follows process_backend (every caller runs its processes
-    on one host): with a card each, one group with a gloo side for CPU
-    tensors and an NCCL side for CUDA tensors; otherwise gloo alone. The
-    choice is recorded for make_mesh; nothing falls back from one to the
+                   timeout_s: float | None = None, host: str | None = None):
+    """Join the cross-process group and return the GLOBAL shard ids.
+    `coordinator_address` is host:port of the store rank 0 serves;
+    `timeout_s` bounds the rendezvous and every collective (torch's
+    default where None); `host` names this rank's host (default the
+    machine's host name, `platform.node()`; a launcher or an emulated host
+    names it).
+
+    First each rank publishes (host, visible cards) in the store and reads
+    every rank's (the rendezvous: a rank not heard from within the
+    timeout raises RanksMissing naming it; a rank that cannot reach rank
+    0's store gives up within about half of it: torch's client is given a
+    quarter, and retries once after a backoff).
+    host_layout then gives this rank its cards and the group its backend;
+    the rank binds its first card, and only then the group is created on
+    the same store: with NCCL one group `cpu:gloo,cuda:nccl` (its NCCL side
+    on that card), otherwise gloo alone. Each rank then holds
+    `local_device_count` shards (default 1) of the meshes
+    parallel/mesh.make_mesh builds, spread over its cards. The layout is
+    recorded for make_mesh; nothing falls back from one backend to the
     other."""
     import datetime
+    import platform
 
     import torch
     import torch.distributed as dist
 
     from ..parallel import mesh
 
+    host = host or platform.node()
     cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    backend = process_backend(cards, num_processes)
+    wait = (datetime.timedelta(seconds=timeout_s) if timeout_s is not None
+            else dist.constants.default_pg_timeout)
+    addr, port = coordinator_address.rsplit(":", 1)
+    try:
+        store = dist.TCPStore(addr, int(port), num_processes,
+                              process_id == 0, timeout=wait / 4,
+                              wait_for_workers=False)
+    except dist.DistError as e:
+        if process_id == 0:
+            raise
+        raise RanksMissing([0], coordinator_address,
+                           wait.total_seconds()) from e
+    store.set_timeout(wait)
+    table = dist.PrefixStore("host_layout", store)
+    table.set(str(process_id), json.dumps([host, cards]))
+    keys = [str(r) for r in range(num_processes)]
+    _await_ranks(table, keys, wait.total_seconds(), coordinator_address)
+    backend, places = host_layout(
+        [tuple(json.loads(table.get(k))) for k in keys])
+    mine = places[process_id]
     kw = {"backend": "gloo"}
-    if cards:
-        card = torch.device("cuda", process_id % cards)
+    if mine.cards:
+        card = torch.device("cuda", mine.cards[0])
         torch.cuda.set_device(card)
         if backend == "nccl":
             kw = {"backend": "cpu:gloo,cuda:nccl", "device_id": card}
     if timeout_s is not None:
-        kw["timeout"] = datetime.timedelta(seconds=timeout_s)
-    dist.init_process_group(
-        init_method=f"tcp://{coordinator_address}",
-        world_size=num_processes, rank=process_id, **kw)
+        kw["timeout"] = wait
+    dist.init_process_group(store=store, world_size=num_processes,
+                            rank=process_id, **kw)
     mesh._PROCESS.update(local_shards=int(local_device_count or 1),
-                         backend=backend)
+                         backend=backend, host=host, cards=mine.cards)
     return tuple(range(num_processes * mesh._PROCESS["local_shards"]))
 
 

@@ -69,7 +69,12 @@ installed:
   cuda:0 and cuda:1 over NCCL (skipped with fewer than two cards), one
   over NCCL on cuda:0, and two sharing cuda:0 over gloo, every collective
   equal to InProcess with its results on the rank's card, and Q3 at SF
-  0.1 equal to the single-shard rows;
+  0.1 equal to the single-shard rows; over emulated hosts (their own
+  CUDA_VISIBLE_DEVICES, host names and NCCL_HOSTID): two hosts on one
+  card over NCCL, two hosts on two cards (skipped with fewer than two),
+  and one rank a host holding two cards, every kernel Q3 launches on both
+  (skipped with fewer than four), with Mesh.hosts and Mesh.devices as
+  runtime.cluster.host_layout says;
 - the serving planes: a ServingTier over a card Session with four client
   threads against the CPU's rows, a query killed after its program ran
   returning the card's allocated memory to its value before it, and the
@@ -1504,6 +1509,94 @@ def test_process_mesh_sharing_one_card_over_gloo(cuda):
     group, the `Gloo` collectives staged through host memory, their
     results back on cuda:0."""
     _process_mesh_on_cards("0", "gloo", ["cuda:0", "cuda:0"])
+
+
+# --- the process mesh over emulated hosts -----------------------------------
+
+
+@pytest.fixture
+def four_cards(cuda):
+    n = torch.cuda.device_count()
+    if n < 4:
+        pytest.skip(f"needs four or more cards; this machine has {n}")
+    return n
+
+
+def _emulated_hosts(visible: list, ranks_per_host: int, backend: str,
+                    cards: list, devices: list, knobs=None) -> list:
+    """Two or more emulated hosts, as chip_smoke's dist_procs phase starts
+    them: host h is named host<h>, sees the cards `visible[h]` (its own
+    CUDA_VISIBLE_DEVICES) and sets NCCL_HOSTID host<h>, with NCCL's sockets
+    on loopback (chip_smoke.EMULATED_HOST_ENV); `ranks_per_host` ranks of
+    tests/test_torch_process_mesh.py's worker each. Every rank takes
+    `backend` and its cards `cards[r]` (as its host numbers them), every
+    collective case equals InProcess with its results on the rank's first
+    card, Mesh.devices is `devices` and Mesh.hosts each shard's rank's
+    host, and Q3 at SF 0.1 gives the single-shard rows. Returns the
+    records."""
+    import gc
+
+    from chip_smoke import EMULATED_HOST_ENV, answer_rows, answers_agree
+    from test_torch_process_mesh import CLASSES, query_text, run_ranks
+
+    ranks = [(f"host{h}", vis) for h, vis in enumerate(visible)
+             for _ in range(ranks_per_host)]
+    envs = [{**EMULATED_HOST_ENV, "CUDA_VISIBLE_DEVICES": vis,
+             "NCCL_HOSTID": h} for h, vis in ranks]
+    per = len(devices) // len(ranks)
+    hosts = [h for h, _ in ranks for _ in range(per)]
+    want = Session(tpch_catalog(sf=0.1), device="cuda:0").sql(
+        query_text("Q3")).rows()
+    gc.collect()
+    torch.cuda.empty_cache()
+    recs, outs, rcs = run_ranks("cuda", 0.1, ["Q3"], procs=len(ranks),
+                                hosts=[h for h, _ in ranks], envs=envs,
+                                knobs=knobs)
+    assert rcs == [0] * len(ranks), "\n".join(o[-3000:] for o in outs)
+    classes = set(CLASSES) if backend == "nccl" else {"Gloo"}
+    for r, rec in enumerate(recs):
+        first = f"cuda:{cards[r][0]}"
+        assert rec["backend"] == backend and rec["device"] == first
+        assert tuple(rec["cards"]) == cards[r]
+        assert {k[0] for k in rec["collectives"]} == classes
+        bad = {k: v for k, v in rec["collectives"].items()
+               if v != {"equal": True, "devices": [first]}}
+        assert not bad, bad
+        assert rec["devices"] == devices
+        assert rec["hosts"] == hosts
+        assert rec["coll"] == ("Nccl" if backend == "nccl" else "Gloo")
+        got = sorted(rec["rows"]["Q3"], key=str)
+        assert answers_agree(got, answer_rows(sorted(want, key=str)))
+    return recs
+
+
+def test_process_mesh_over_two_emulated_hosts_on_one_card(cuda):
+    """Two emulated hosts that each see cuda:0, one rank x 4 shards each:
+    a card a rank on each host, so the rule says NCCL, which runs its
+    network transport between the hosts (on one physical card)."""
+    _emulated_hosts(["0", "0"], 1, "nccl", [(0,), (0,)], ["cuda:0"] * 8)
+
+
+def test_process_mesh_over_two_emulated_hosts_on_two_cards(two_cards):
+    """Host 0 sees card 0, host 1 card 1, a rank each: the cross-host
+    collectives of `Nccl` and `Gloo` equal InProcess; each host numbers
+    its card cuda:0."""
+    _emulated_hosts(["0", "1"], 1, "nccl", [(0,), (0,)], ["cuda:0"] * 8)
+
+
+def test_one_rank_per_host_holds_two_cards(four_cards):
+    """The JAX pod layout: one rank a host holding its host's two cards,
+    4 shards over them (cuda:0, cuda:0, cuda:1, cuda:1 on each host);
+    Q3 under the kernel strategies launches each kernel it runs on both
+    of a rank's cards."""
+    recs = _emulated_hosts(["0,1", "2,3"], 1, "nccl", [(0, 1), (0, 1)],
+                           ["cuda:0", "cuda:0", "cuda:1", "cuda:1"] * 2,
+                           knobs=KERNEL_STRATEGIES)
+    for rec in recs:
+        per_card = {k: v for k, v in rec["launches_per_card"].items() if v}
+        assert "probe_searchsorted" in per_card, per_card
+        assert all(set(v) == {"cuda:0", "cuda:1"}
+                   for v in per_card.values()), per_card
 
 
 # --- the serving planes on the card ------------------------------------------

@@ -19,10 +19,13 @@ processes. On the CPU:
 
 The file is its own worker: `python tests/test_torch_process_mesh.py
 SPEC` runs one rank (SPEC a JSON object: rank, procs, coord, device, sf,
-queries, thresholds, out) and pickles its record to `out`; `run_ranks`
-starts the ranks and reads their records. tests/test_torch_gpu.py runs
-the same ranks on the card, over NCCL with a card each and over gloo
-sharing one card.
+queries, thresholds, out, and optionally host and knobs, the SET values
+its queries run under) and pickles its record to `out`; `run_ranks`
+starts the ranks, each with its own host name and environment where
+asked (tests/test_torch_hosts.py's emulated hosts), and reads their
+records. tests/test_torch_gpu.py runs the same ranks on the card, over
+NCCL with a card each, over gloo sharing one card, and as emulated
+hosts.
 """
 
 import json
@@ -72,23 +75,29 @@ def _free_port() -> int:
 
 
 def run_ranks(device: str, sf: float, queries, procs: int = 2, env=None,
-              timeout: float = RANK_TIMEOUT_S):
+              timeout: float = RANK_TIMEOUT_S, hosts=None, envs=None,
+              knobs=None):
     """Start `procs` ranks of this file's worker and wait for them (a rank
     past `timeout` is killed): (records, outputs, exit codes); a record is
-    None where the rank wrote none."""
+    None where the rank wrote none. `env` is every rank's environment on
+    top of this process's; `hosts` and `envs` give rank r its host name
+    (init_multihost's `host=`) and its own environment on top of that;
+    `knobs` the SET values the queries run under (default: `auto`)."""
     coord = f"127.0.0.1:{_free_port()}"
     with tempfile.TemporaryDirectory(prefix="process_mesh_") as d:
         specs = [{"rank": r, "procs": procs, "coord": coord,
                   "device": device, "sf": sf, "queries": list(queries),
-                  "thresholds": THRESHOLDS, "out": str(Path(d) / f"{r}.pkl")}
+                  "thresholds": THRESHOLDS, "out": str(Path(d) / f"{r}.pkl"),
+                  "host": hosts[r] if hosts else None, "knobs": knobs or {}}
                  for r in range(procs)]
         path = os.pathsep.join(
             [str(ROOT), *filter(None, [os.environ.get("PYTHONPATH")])])
         procs_ = [subprocess.Popen(
             [sys.executable, __file__, json.dumps(spec)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            env={**os.environ, **(env or {}), "PYTHONPATH": path})
-            for spec in specs]
+            env={**os.environ, **(env or {}), **(envs[r] if envs else {}),
+                 "PYTHONPATH": path})
+            for r, spec in enumerate(specs)]
         outs, rcs = [], []
         for p in procs_:
             try:
@@ -152,22 +161,25 @@ def rank_main(spec: dict):
     import torch.distributed as dist
 
     import starrocks_tpu_torch.sql.distributed as D
+    from starrocks_tpu_torch.ops import kernels
     from starrocks_tpu_torch.parallel import mesh as M
     from starrocks_tpu_torch.runtime.cluster import init_multihost
+    from starrocks_tpu_torch.runtime.config import config
     from starrocks_tpu_torch.runtime.session import Session
     from starrocks_tpu_torch.storage.catalog import tpch_catalog
 
     torch.set_num_threads(1)
     procs, rank = spec["procs"], spec["rank"]
     init_multihost(spec["coord"], num_processes=procs, process_id=rank,
-                   local_device_count=8 // procs, timeout_s=120)
+                   local_device_count=8 // procs, timeout_s=120,
+                   host=spec.get("host"))
     dev = M.indexed_device(spec["device"])
     backend = M._PROCESS["backend"]
     # the NCCL class needs the group's NCCL side for tensors on a card
     classes = [c for c in CLASSES
                if c == "Gloo" or dev.type == "cpu" or backend == "nccl"]
     rec = {"backend": backend, "device": str(dev), "collectives": {},
-           "rows": {}, "exchanges": {}}
+           "rows": {}, "exchanges": {}, "cards": M._PROCESS["cards"]}
     for nl in LOCAL_SHARDS:
         for name in classes:
             coll = getattr(M, name)(nl * procs)
@@ -177,6 +189,9 @@ def rank_main(spec: dict):
                         collective_case(coll, op, dtype, dev, 10 * i + j)
     for k, v in spec["thresholds"].items():
         setattr(D, k, v)
+    for k, v in spec.get("knobs", {}).items():
+        config.set(k, v)
+    kernels.reset_counts()
     s = Session(tpch_catalog(sf=spec["sf"]), device=spec["device"],
                 dist_shards=8)
     for q in spec["queries"]:
@@ -187,7 +202,9 @@ def rank_main(spec: dict):
              for ev in ir.events})
     mesh = s._executor().mesh
     rec.update(mesh=repr(mesh), devices=[str(d) for d in mesh.devices],
-               local=list(mesh.local), coll=type(mesh.coll).__name__)
+               hosts=list(mesh.hosts), local=list(mesh.local),
+               coll=type(mesh.coll).__name__,
+               launches_per_card=kernels.launches_per_card())
     dist.barrier()
     dist.destroy_process_group()
     Path(spec["out"]).write_bytes(pickle.dumps(rec))
